@@ -17,11 +17,17 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the current CUDA
-    card and raises when there is none."""
+    card and raises when there is none. A CUDA device without an index
+    gets the current card's, so it compares equal to where tensors
+    put on it live."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run "
                 "on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -4,9 +4,11 @@ Neighbors live in a dense ``[num_dst, fanout]`` table with a validity
 mask (``FanoutBlock``), so aggregation is a masked reduction over the
 fanout axis. :func:`fanout_agg` is the one primitive: on a CUDA tensor
 it launches the hand-written kernel ``csrc/fanout_agg.cu`` (gather,
-masked sum and the mean's division fused, each valid row read once);
-on a CPU tensor it runs :func:`fanout_agg_plain`, the same function in
-plain torch, which is also what the kernel is held against on the card.
+masked sum and the mean's division fused, each valid row read once),
+and its backward the scatter-add kernel ``csrc/scatter_add_rows.cu``;
+on a CPU tensor both run their plain torch versions
+(:func:`fanout_agg_plain`, ``scatter_add_rows_plain``), which are also
+what the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.ops import _build
+from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
 
 _SOURCE = "fanout_agg.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -25,13 +29,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def fanout_agg_plain(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                      mean: bool) -> torch.Tensor:
     """Plain-torch reference: masked gather and sum of ``h[nbr]`` over
-    the fanout axis in float32, divided by ``max(count, 1)`` when
+    the fanout axis in float32 (float64 for a float64 ``h``, so
+    ``gradcheck`` can run on it), divided by ``max(count, 1)`` when
     ``mean``, returned in ``h``'s dtype."""
+    acc = torch.promote_types(h.dtype, torch.float32)
     valid = (mask > 0).unsqueeze(-1)
-    rows = h[nbr.long()].float()
-    out = torch.where(valid, rows, torch.zeros((), device=h.device)).sum(1)
+    rows = h[nbr.long()].to(acc)
+    out = torch.where(valid, rows,
+                      torch.zeros((), dtype=acc, device=h.device)).sum(1)
     if mean:
-        out = out / valid.sum(1).clamp_min(1).float()
+        out = out / valid.sum(1).clamp_min(1).to(acc)
     return out.to(h.dtype)
 
 
@@ -45,34 +52,8 @@ def _launcher():
     return fn
 
 
-def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
+def _aggregate(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                mean: bool) -> torch.Tensor:
-    """``out[i] = sum_{k: mask[i,k] > 0} h[nbr[i,k]]``, divided by
-    ``max(count_i, 1)`` when ``mean``; fp32 accumulation, ``h``'s dtype
-    out, 0 for a row with no valid slot.
-
-    h    [N, D] float32 or bfloat16, contiguous.
-    nbr  [ND, F] int32; every valid slot indexes a row of ``h``.
-    mask [ND, F] uint8.
-
-    On a CUDA tensor this launches the kernel (counted in
-    ``fanout_agg.launches``) or raises; on a CPU tensor it runs
-    :func:`fanout_agg_plain`. The kernel has no backward yet: no
-    gradient flows through the CUDA path (inference only).
-    """
-    if h.dim() != 2 or nbr.dim() != 2 or mask.shape != nbr.shape:
-        raise ValueError(
-            f"fanout_agg takes h [N, D] and nbr/mask [ND, F] of one "
-            f"shape; got h {tuple(h.shape)}, nbr {tuple(nbr.shape)}, "
-            f"mask {tuple(mask.shape)}")
-    if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
-    if nbr.dtype != torch.int32 or mask.dtype != torch.uint8:
-        raise TypeError(f"nbr must be int32 and mask uint8, got "
-                        f"{nbr.dtype} and {mask.dtype}")
-    if not (h.device == nbr.device == mask.device):
-        raise ValueError(f"h, nbr and mask must share a device; got "
-                         f"{h.device}, {nbr.device}, {mask.device}")
     if h.device.type == "cpu":
         return fanout_agg_plain(h, nbr, mask, mean)
     if h.device.type != "cuda":
@@ -95,6 +76,61 @@ def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                            f"{err}")
     fanout_agg.launches += 1
     return out
+
+
+class _FanoutAgg(torch.autograd.Function):
+    """Forward: the masked aggregation. Backward: its transpose, the
+    scatter-add of the cotangent (divided by each row's valid count for
+    the mean) into a zero-filled float32 table, cast to ``h``'s dtype;
+    skipped when ``h`` needs no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, nbr, mask, mean):
+        ctx.save_for_backward(nbr, mask)
+        ctx.mean = mean
+        ctx.num_rows = h.shape[0]
+        return _aggregate(h, nbr, mask, mean)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        nbr, mask = ctx.saved_tensors
+        dh = scatter_add_rows(grad.contiguous(), nbr, mask, ctx.num_rows,
+                              ctx.mean)
+        return dh.to(grad.dtype), None, None, None
+
+
+def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
+               mean: bool) -> torch.Tensor:
+    """``out[i] = sum_{k: mask[i,k] > 0} h[nbr[i,k]]``, divided by
+    ``max(count_i, 1)`` when ``mean``; fp32 accumulation, ``h``'s dtype
+    out, 0 for a row with no valid slot. Differentiable in ``h``.
+
+    h    [N, D] float32 or bfloat16, contiguous.
+    nbr  [ND, F] int32; every valid slot indexes a row of ``h``.
+    mask [ND, F] uint8.
+
+    On a CUDA tensor this launches the kernel (counted in
+    ``fanout_agg.launches``) or raises, and its backward launches
+    ``scatter_add_rows``; on a CPU tensor both run their plain torch
+    versions. Either way the result carries the same ``grad_fn``.
+    """
+    if h.dim() != 2 or nbr.dim() != 2 or mask.shape != nbr.shape:
+        raise ValueError(
+            f"fanout_agg takes h [N, D] and nbr/mask [ND, F] of one "
+            f"shape; got h {tuple(h.shape)}, nbr {tuple(nbr.shape)}, "
+            f"mask {tuple(mask.shape)}")
+    if h.dtype not in _DTYPE_CODE:
+        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
+    if nbr.dtype != torch.int32 or mask.dtype != torch.uint8:
+        raise TypeError(f"nbr must be int32 and mask uint8, got "
+                        f"{nbr.dtype} and {mask.dtype}")
+    if not (h.device == nbr.device == mask.device):
+        raise ValueError(f"h, nbr and mask must share a device; got "
+                         f"{h.device}, {nbr.device}, {mask.device}")
+    return _FanoutAgg.apply(h, nbr, mask, mean)
 
 
 fanout_agg.launches = 0

@@ -46,7 +46,10 @@ def seed_logits(model: torch.nn.Module, params: Dict[str, torch.Tensor],
 
 def build_predict_fn(model: torch.nn.Module):
     """The request-time program ``(params, blocks, h) -> [seed_cap, C]
-    logits``, run under ``torch.inference_mode``."""
+    logits``, run under ``torch.inference_mode`` with the model in
+    ``eval()`` mode (no dropout), as the JAX engine applies it with
+    ``train=False``."""
+    model.eval()
 
     def predict(params, blocks, h):
         with torch.inference_mode():

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dgl_operator_tpu_torch import resolve_device
+from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
 from dgl_operator_tpu_torch.serve.engine import ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, dgl_operator_tpu_torch, "
             "dgl_operator_tpu_torch.serve.engine, "
             "dgl_operator_tpu_torch.serve.batcher, "
+            "dgl_operator_tpu_torch.runtime.loop, "
+            "dgl_operator_tpu_torch.ops.gather, "
+            "dgl_operator_tpu_torch.ops.spmm, "
             "dgl_operator_tpu_torch.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -62,4 +66,6 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(None, "no-such-book.json", params={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SampledTrainer(None, None, TrainConfig())
     assert resolve_device("cpu") == torch.device("cpu")

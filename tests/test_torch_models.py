@@ -1,9 +1,11 @@
 """Port layers and model vs flax, and serving exports across packages.
 
 Flax params come from ``model.init`` (biases perturbed so they count),
-go through ``state_dict_from_flax``, and the port's forward must match
-flax's to 1e-4 on the same padded blocks and input rows. Exports
-written by either package's ``export_for_serving`` load in the other.
+go through ``state_dict_from_flax``, and the port's forward, its
+parameter gradients (dropout 0) and its full-graph ``sage_inference``
+must match flax's to 1e-4 on the same inputs. Dropout is seeded by a
+``torch.Generator``. Exports written by either package's
+``export_for_serving`` load in the other.
 """
 
 import jax
@@ -13,15 +15,19 @@ import pytest
 import torch
 
 from dgl_operator_tpu.graph.blocks import FanoutBlock as JaxFanoutBlock
+from dgl_operator_tpu.graph import datasets as jax_datasets
 from dgl_operator_tpu.models.sage import DistSAGE as JaxDistSAGE
+from dgl_operator_tpu.models.sage import \
+    sage_inference as jax_sage_inference
 from dgl_operator_tpu.nn.conv import FanoutSAGEConv as JaxFanoutSAGEConv
 from dgl_operator_tpu.runtime import checkpoint as jax_ckpt
 from dgl_operator_tpu_torch.graph import datasets
 from dgl_operator_tpu_torch.graph.blocks import (build_fanout_blocks,
                                                  pad_minibatch)
-from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+from dgl_operator_tpu_torch.models.sage import (DistSAGE, sage_inference,
                                                 state_dict_from_flax,
                                                 state_dict_to_flax)
+from dgl_operator_tpu_torch.models.sage import dropout as sage_dropout
 from dgl_operator_tpu_torch.nn.conv import FanoutSAGEConv
 from dgl_operator_tpu_torch.runtime import checkpoint
 
@@ -87,6 +93,7 @@ def test_dist_sage_matches_flax(batch, aggregator):
                                   train=False))
     port = DistSAGE(IN, HIDDEN, OUT, aggregator=aggregator, device="cpu")
     port.load_state_dict(state_dict_from_flax(params))
+    port.eval()     # flax ran with train=False: no dropout
     with torch.inference_mode():
         got = port(mb.blocks, torch.from_numpy(h)).numpy()
     assert got.shape == want.shape == (BATCH, OUT)
@@ -154,3 +161,93 @@ def test_port_export_loads_in_jax(tmp_path):
     sd = state_dict_from_flax(back)
     for k, v in port.state_dict().items():
         assert torch.equal(sd[k], v), k
+
+
+# -- training: gradients, dropout, full-graph inference ----------------
+
+@pytest.mark.parametrize("aggregator", ["mean", "sum", "pool"])
+def test_dist_sage_grads_match_flax(batch, aggregator):
+    """Every parameter's gradient of a masked cross-entropy equals
+    ``jax.grad`` through the flax model (dropout 0). The first layer's
+    input needs no gradient, so only the second layer's aggregation
+    runs its backward, and its input gets the gradients of both the
+    prefix slice and the aggregation."""
+    mb, h = batch
+    model = JaxDistSAGE(hidden_feats=HIDDEN, out_feats=OUT,
+                        aggregator=aggregator, dropout=0.0)
+    jblocks = _jax_blocks(mb)
+    params = _perturbed(model.init(jax.random.PRNGKey(0), jblocks,
+                                   jnp.asarray(h)), 4)
+    labels = np.random.default_rng(0).integers(0, OUT, size=BATCH)
+
+    def jax_loss(p):
+        logits = model.apply(p, jblocks, jnp.asarray(h), train=True)
+        logp = jax.nn.log_softmax(logits)
+        return -logp[jnp.arange(BATCH), labels].mean()
+
+    want = state_dict_from_flax(jax.device_get(jax.grad(jax_loss)(params)))
+    port = DistSAGE(IN, HIDDEN, OUT, aggregator=aggregator, dropout=0.0,
+                    device="cpu")
+    port.load_state_dict(state_dict_from_flax(params))
+    logits = port(mb.blocks, torch.from_numpy(h))
+    torch.nn.functional.cross_entropy(
+        logits, torch.from_numpy(labels)).backward()
+    got = dict(port.named_parameters())
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].grad.numpy(), w.numpy(),
+                                   err_msg=name, **TOL)
+
+
+def test_dropout_is_seeded_train_only_and_keep_scaled(batch):
+    mb, h = batch
+    x = torch.from_numpy(h)
+    port = DistSAGE(IN, HIDDEN, OUT, dropout=0.5, device="cpu")
+
+    def run(seed):
+        return port(mb.blocks, x,
+                    generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = run(1), run(1), run(2)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    port.eval()
+    plain = port(mb.blocks, x, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(plain, port(mb.blocks, x))
+    assert not torch.equal(plain, a)
+    # kept elements are scaled by 1 / (1 - p), the rest are zero
+    y = torch.rand(2000) + 0.5
+    out = sage_dropout(y, 0.25, torch.Generator().manual_seed(0))
+    kept = out != 0
+    torch.testing.assert_close(out[kept], y[kept] / 0.75)
+    assert 0.7 < float(kept.float().mean()) < 0.8
+    with pytest.raises(ValueError):
+        DistSAGE(IN, HIDDEN, OUT, dropout=1.0, device="cpu")
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "sum"])
+def test_sage_inference_matches_jax(aggregator):
+    ds = datasets.synthetic_node_clf(150, 700, IN, OUT, seed=8)
+    jg = jax_datasets.synthetic_node_clf(150, 700, IN, OUT, seed=8).graph
+    model = JaxDistSAGE(hidden_feats=HIDDEN, out_feats=OUT,
+                        aggregator=aggregator, dropout=0.0)
+    blk = JaxFanoutBlock(jnp.zeros((2, 3), jnp.int32),
+                         jnp.ones((2, 3), jnp.float32), 4)
+    params = _perturbed(model.init(jax.random.PRNGKey(3), [blk, blk],
+                                   jnp.ones((4, IN))), 5)
+    x = ds.graph.ndata["feat"]
+    want = jax_sage_inference(params, jg.to_device(), jnp.asarray(x), 2,
+                              aggregator)
+    port = DistSAGE(IN, HIDDEN, OUT, aggregator=aggregator, device="cpu")
+    port.load_state_dict(state_dict_from_flax(params))
+    with torch.no_grad():
+        got = sage_inference(port, ds.graph, torch.from_numpy(x))
+    assert got.shape == (150, OUT) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_sage_inference_pool_is_not_ported():
+    ds = datasets.synthetic_node_clf(50, 200, IN, OUT, seed=1)
+    port = DistSAGE(IN, HIDDEN, OUT, aggregator="pool", device="cpu")
+    with pytest.raises(NotImplementedError):
+        sage_inference(port, ds.graph,
+                       torch.from_numpy(ds.graph.ndata["feat"]))
