@@ -16,18 +16,19 @@
 // runs with F = 1, no mask and no division: every index counts,
 // padded id 0 included, as the segment_sum does.
 //
-// Bound: HBM bytes. A call must write the zero fill (N x D x 4), read
-// g (ND x D x sizeof(T)) and idx and mask (ND x F x (sizeof(index) +
-// 1)), and read and write each distinct target row once (2 x unique x
-// D x 4). The ND x F x D adds are far below the card's fp32 rate.
+// Bound: HBM bytes. The function must write dst once (N x D x 4) and
+// read g (ND x D x sizeof(T)) and idx and mask (ND x F x (sizeof(index)
+// + 1)); the ND x F x D adds are far below the card's fp32 rate. This
+// design (a zero fill, then atomics) moves more: each distinct target
+// row is read and written once more by the atomics (2 x unique x D x 4).
 //
 // Design: one warp per row of g, 8 rows per 256-thread block. A lane
 // loads its VW columns of the row once, scales them in registers, and
 // adds them into each valid slot's target row with one vector fp32
-// atomic (atomicAdd on float4 / float2, which sm_90 has; scalar
-// atomics on toolkits that lack the vector form). Masked slots and
-// rows with no valid slot cost nothing beyond their mask read. The
-// order in which atomics land varies from run to run, so the fp32 sum
+// atomic (atomicAdd on float4 / float2, which sm_90 has from CUDA
+// 12.1). Masked slots and rows with no valid slot cost nothing beyond
+// their mask read. The order in which atomics land varies from run to
+// run, so the fp32 sum
 // is not bit-reproducible; a deterministic variant (a host-built
 // transpose, then a segmented sum) is an open item.
 
@@ -35,12 +36,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#if defined(__CUDACC_VER_MAJOR__) && \
-    (__CUDACC_VER_MAJOR__ > 12 ||    \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
-#define SCATTER_VECTOR_ATOMICS 1
-#else
-#define SCATTER_VECTOR_ATOMICS 0
+#if __CUDACC_VER_MAJOR__ < 12 || \
+    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ < 1)
+#error "scatter_add_rows.cu needs CUDA 12.1 or later (float4/float2 atomicAdd)"
 #endif
 
 namespace {
@@ -69,22 +67,12 @@ __device__ __forceinline__ void atomic_add_vec<1>(float* p, const float* v) {
 
 template <>
 __device__ __forceinline__ void atomic_add_vec<2>(float* p, const float* v) {
-#if SCATTER_VECTOR_ATOMICS
   atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-#else
-  atomicAdd(p, v[0]);
-  atomicAdd(p + 1, v[1]);
-#endif
 }
 
 template <>
 __device__ __forceinline__ void atomic_add_vec<4>(float* p, const float* v) {
-#if SCATTER_VECTOR_ATOMICS
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-#else
-#pragma unroll
-  for (int j = 0; j < 4; ++j) atomicAdd(p + j, v[j]);
-#endif
 }
 
 template <typename T, typename I, int VW>
@@ -191,10 +179,4 @@ extern "C" int scatter_add_rows_launch(const void* g, const void* idx,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// 1 when this build adds with float4/float2 atomics, 0 when it fell
-// back to scalar atomics (a toolkit older than CUDA 12.1).
-extern "C" int scatter_add_rows_vector_atomics() {
-  return SCATTER_VECTOR_ATOMICS;
 }

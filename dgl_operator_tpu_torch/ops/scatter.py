@@ -54,12 +54,6 @@ def _launcher():
     return fn
 
 
-def vector_atomics() -> bool:
-    """Whether the built kernel adds with float4/float2 atomics (CUDA
-    12.1 and later) rather than scalar ones."""
-    return bool(_build.load(_SOURCE).scatter_add_rows_vector_atomics())
-
-
 def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
                      mask: Optional[torch.Tensor], num_rows: int,
                      mean: bool) -> torch.Tensor:

@@ -54,7 +54,7 @@ class TrainConfig:
     fanouts: Sequence[int] = (10, 25)  # train_dist.py:311
     eval_every: int = 5                # epochs; 0 disables evaluation
     log_every: int = 20                # steps between train_step events
-    # the dropout rate the run trains with; it must equal the model's
+    # the dropout rate the run trains with; the trainer sets the model's
     dropout: float = 0.5
     seed: int = 0
     ckpt_dir: Optional[str] = None
@@ -89,6 +89,9 @@ class TrainConfig:
                              f"{self.cap_policy!r}")
         if self.num_samplers < 0 or self.prefetch < 0:
             raise ValueError("num_samplers and prefetch must be >= 0")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got "
+                             f"{self.dropout}")
 
 
 def _eval_due(cfg: TrainConfig, epoch: int) -> bool:
@@ -115,7 +118,8 @@ class SampledTrainer:
 
     ``device`` is where the model, features and labels live (the
     current CUDA card when None; ``"cpu"`` on request). The model must
-    already be on it, and its dropout rate must equal ``cfg.dropout``.
+    already be on it; the trainer sets its dropout rate to
+    ``cfg.dropout``.
     """
 
     def __init__(self, model, g: Graph, cfg: TrainConfig,
@@ -127,9 +131,7 @@ class SampledTrainer:
             raise ValueError(f"the model's parameters are on "
                              f"{sorted(map(str, param_devices))}, the "
                              f"trainer's device is {self.device}")
-        if model.dropout != cfg.dropout:
-            raise ValueError(f"the model's dropout {model.dropout} differs "
-                             f"from TrainConfig.dropout {cfg.dropout}")
+        model.dropout = float(cfg.dropout)
         self.model = model
         self.g = g
         self.cfg = cfg

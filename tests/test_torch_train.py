@@ -195,11 +195,14 @@ def test_jax_only_fields_are_not_fields(field):
 
 
 def test_trainer_checks_model_device_and_dropout(port_graph):
+    """The trainer trains at ``cfg.dropout`` whatever the model was built
+    with, refuses a rate outside [0, 1) and a model on another device."""
     cfg = TrainConfig(**_cfg_kw(0))
+    model = DistSAGE(FEAT, HIDDEN, CLASSES, dropout=0.5, device="cpu")
+    SampledTrainer(model, port_graph, cfg, device="cpu")
+    assert model.dropout == cfg.dropout == 0.0
     with pytest.raises(ValueError, match="dropout"):
-        SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, dropout=0.5,
-                                device="cpu"), port_graph, cfg,
-                       device="cpu")
+        TrainConfig(**dict(_cfg_kw(0), dropout=1.0))
     with pytest.raises(ValueError, match="parameters are on"):
         SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, dropout=0.0,
                                 device="cpu"), port_graph, cfg,
