@@ -20,7 +20,12 @@ Each phase prints JSON lines:
    PyTorch call that computes the same function (a yardstick the port
    never calls), each with the L2 cache flushed before every launch,
    beside the least time the card's HBM allows for the bytes the call
-   must move.
+   must move. ``fanout_agg`` lines name the launch the kernel chose
+   (TMA bulk copies or registers); ``scatter_add_rows`` lines, which
+   sum over a host-built ``scatter_plan``, show that two launches give
+   the same bits and whether they equal the CPU's ``index_add_``
+   (``bitwise_equal_to_cpu``), including a hub target named by every
+   row.
 5. ``serve``   — the graph split in 2 parts, the model written as a
    serving export, a ``ServeEngine`` on the card answering
    ``--requests`` requests of 1 to 64 seeds through the
@@ -29,7 +34,8 @@ Each phase prints JSON lines:
 6. ``train``   — one epoch of ``SampledTrainer.train`` over the first
    40,000 training ids (40 steps of 1000 seeds, dropout 0.5,
    evaluation at its end): losses, kernel launches per step, step
-   times and the device time of one step's forward, backward and Adam.
+   times, the host time of a batch's sampling and of its scatter plans,
+   and the device time of one step's forward, backward and Adam.
 7. ``train_cpu`` — the same seeded weights with dropout 0 stepped on the
    card and on the CPU over the first 5 batches: step-1 loss and
    gradients and step-5 loss must agree.
@@ -60,6 +66,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_FLUSH_BYTES = 256 << 20      # > the 50 MB L2
+# a spin kernel (~0.5 ms) that keeps the card busy while the host runs a
+# wrapper's Python and enqueues its launch, so that timing events
+# bracket device work only
+SPIN_CYCLES = 1_000_000
 FEAT, HIDDEN, CLASSES = 100, 256, 47
 FANOUTS = (10, 25)
 BATCH = 64             # serving: seeds per forward
@@ -86,14 +96,22 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_cold_ms(torch, fn, flush, iters: int) -> float:
+def time_cold_ms(torch, fn, flush, iters: int, clean: bool = False
+                 ) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, with the L2
-    cache evicted (a write of ``flush``) before each, by CUDA events."""
+    cache evicted before each, by CUDA events; a spin kernel after the
+    flush covers the host's time in ``fn``. The flush writes ``flush``,
+    which leaves the L2 full of dirty lines that ``fn``'s own traffic
+    must write back to HBM; ``clean`` reads it instead."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -113,7 +131,7 @@ def time_warm_ms(torch, fn, iters: int) -> float:
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -155,23 +173,23 @@ def gather_bound(idx, d: int, itemsize: int):
 def scatter_bound(idx, mask, n: int, d: int, itemsize: int):
     """A scatter-add must write the [n, d] float32 output once and read
     g, idx and mask once; it adds (and divides) each valid slot's row.
-    The kernel's zero fill then atomics also read and write each
-    distinct target row once more: the design's cost, not the
-    function's, so it is not in the bound (returned apart, last)."""
+    The kernel reads the plan, the same table transposed, instead of
+    idx and mask (its bytes are reported apart)."""
     nd, f = idx.shape
     valid = (mask > 0) if mask is not None else idx >= 0
     uniq = int(idx[valid].unique().numel()) if nd else 0
     nbytes = (n * d * 4 + nd * d * itemsize
               + nd * f * (idx.element_size() + (mask is not None)))
-    return (*bound_ms(nbytes, int(valid.sum()) * d + nd * d), uniq, nbytes,
-            2 * uniq * d * 4)
+    return (*bound_ms(nbytes, int(valid.sum()) * d + nd * d), uniq, nbytes)
 
 
 def time_record(torch, flush, iters: int, kernel, plain, library):
-    """Cold (L2 flushed) and warm kernel times, the plain version's and
-    the library yardstick's cold times, in ms."""
+    """Cold (L2 flushed by a write, as the earlier runs timed; and by a
+    read), and warm kernel times, the plain version's and the library
+    yardstick's cold times, in ms."""
     return dict(
         ms=time_cold_ms(torch, kernel, flush, iters),
+        clean_ms=time_cold_ms(torch, kernel, flush, iters, clean=True),
         warm_ms=time_warm_ms(torch, kernel, iters),
         plain_ms=time_cold_ms(torch, plain, flush, iters),
         library_ms=time_cold_ms(torch, library, flush, iters))
@@ -198,7 +216,8 @@ def fanout_records(torch, fanout, cases, flush, iters: int, card: str):
         nd, f = nbr.shape
         rec = {"phase": "kernel", "kernel": "fanout_agg", "shape": name,
                "n": n, "nd": nd, "f": f, "d": d,
-               "dtype": str(h.dtype).replace("torch.", ""), "card": card}
+               "dtype": str(h.dtype).replace("torch.", ""), "card": card,
+               "launch": fanout.launch_config(h, nd, f)}
         worst = 0.0
         for mean in (False, True):
             before = fanout.fanout_agg.launches
@@ -284,39 +303,62 @@ def gather_records(torch, gather, cases, flush, iters: int, card: str):
 
 
 def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
-    """``scatter_add_rows`` against its plain version on each case (the
-    backward of an aggregation, or of a gather when ``mask`` is None),
-    with the backward of ``F.embedding_bag`` (or ``index_add_`` for the
-    gather's) as the yardstick."""
+    """``scatter_add_rows`` over its plan against its plain version on
+    each case (the backward of an aggregation, or of a gather when
+    ``mask`` is None): two launches must give the same bits, and the
+    line says whether they equal the CPU's sequential ``index_add_``.
+    The backward of ``F.embedding_bag`` (or ``index_add_`` for the
+    gather's) is the yardstick."""
     import torch.nn.functional as F
 
     records = []
-    for name, g, idx, mask, n, mean in cases:
+    for name, g, idx, mask, n, mean, plan in cases:
         nd, f = idx.shape
         d = g.shape[1]
+        plan_ms = None       # the sampler's plan: built in its thread
+        if plan is None:     # built here, from the host copy of the table
+            t0 = time.perf_counter()
+            plan = scatter.scatter_plan(
+                idx.cpu().numpy(),
+                None if mask is None else mask.cpu().numpy(), n)
+            plan_ms = (time.perf_counter() - t0) * 1e3
+        plan = plan.to("cuda")
         rec = {"phase": "kernel", "kernel": "scatter_add_rows",
                "shape": name, "n": n, "nd": nd, "f": f, "d": d,
                "mean": mean, "masked": mask is not None,
-               "dtype": str(g.dtype).replace("torch.", ""), "card": card}
+               "dtype": str(g.dtype).replace("torch.", ""), "card": card,
+               "plan_bytes": plan.nbytes(), "plan_host_ms": plan_ms,
+               "long_targets": plan.long_rows.numel(),
+               "pieces": plan.num_chunks}
         before = scatter.scatter_add_rows.launches
-        got = scatter.scatter_add_rows(g, idx, mask, n, mean)
+        got = scatter.scatter_add_rows(g, idx, mask, n, mean, plan=plan)
+        again = scatter.scatter_add_rows(g, idx, mask, n, mean, plan=plan)
         torch.cuda.synchronize()
-        check(scatter.scatter_add_rows.launches == before + (1 if nd else 0),
-              f"{name}: one scatter launch with rows, none without")
+        check(scatter.scatter_add_rows.launches
+              == before + (2 if n * d else 0),
+              f"{name}: one scatter launch a call with output rows")
+        check(torch.equal(got, again),
+              f"{name}: two launches give different bits")
         want = scatter.scatter_add_rows_plain(g, idx, mask, n, mean)
         check(got.shape == (n, d) and got.dtype == torch.float32,
               f"{name}: scatter shape and dtype")
         err, scale = err_of(got, want)
-        # the same fp32 terms, added by atomics in another order
+        # long targets add their pieces' partial sums, not one entry
+        # at a time as index_add_ does
         tol = 1e-5 * scale
         check(err <= tol, f"{name} {rec['dtype']}: max abs err {err} > "
               f"{tol}")
         if mask is not None and not (mask > 0).any():
             check(not got.any(), f"{name}: all-masked rows add nothing")
-        rec.update(max_abs_err=err, tol_scale=scale)
+        cpu = scatter.scatter_add_rows_plain(
+            g.cpu(), idx.cpu(), None if mask is None else mask.cpu(), n,
+            mean)
+        rec.update(max_abs_err=err, tol_scale=scale,
+                   deterministic=True,
+                   bitwise_equal_to_cpu=bool(torch.equal(got.cpu(), cpu)))
         if nd:
-            b_ms, b_by, uniq, nbytes, rmw = scatter_bound(
-                idx, mask, n, d, g.element_size())
+            b_ms, b_by, uniq, nbytes = scatter_bound(idx, mask, n, d,
+                                                     g.element_size())
             if mask is None:
                 flat = idx[:, 0].long()
 
@@ -340,13 +382,14 @@ def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
             rec.update(
                 **time_record(
                     torch, flush, iters,
-                    lambda: scatter.scatter_add_rows(g, idx, mask, n, mean),
+                    lambda: scatter.scatter_add_rows(g, idx, mask, n, mean,
+                                                     plan=plan),
                     lambda: scatter.scatter_add_rows_plain(g, idx, mask, n,
                                                            mean),
                     library),
                 library_max_abs_err=err_of(lib, want)[0],
                 bound_ms=b_ms, bound_by=b_by, unique_rows=uniq,
-                bytes=nbytes, atomic_rmw_bytes=rmw)
+                bytes=nbytes)
         records.append(rec)
         emit(**rec)
     return records
@@ -412,17 +455,27 @@ def kernel_phase(torch, args, ops, trainer, mb, card: str):
     records += gather_records(torch, gather, gather_cases, flush,
                               args.iters, card)
     g1 = randn(BATCH_TRAIN, HIDDEN)
+    # every dst row of block 1 names source row 7 (in its first slot)
+    hub_nbr, hub_mask = nbr1.clone(), mask1.clone()
+    hub_nbr[:, 0], hub_mask[:, 0] = 7, 1
+    plan1 = mb.blocks[1].plan       # attached by the trainer's sampler
     scatter_cases = [
-        # name, g, idx, mask, rows of dst, mean
-        ("train_block1_bwd", g1, nbr1, mask1, caps[1], True),
-        ("train_block1_bwd", g1.bfloat16(), nbr1, mask1, caps[1], True),
+        # name, g, idx, mask, rows of dst, mean, plan (None: built here)
+        ("train_block1_bwd", g1, nbr1, mask1, caps[1], True, plan1),
+        ("train_block1_bwd", g1.bfloat16(), nbr1, mask1, caps[1], True,
+         plan1),
+        ("train_block1_hub", g1, hub_nbr, hub_mask, caps[1], True, None),
+        # every slot masked: the kernel only writes dst, its floor here
+        ("train_block1_none", g1, nbr1, torch.zeros_like(mask1), caps[1],
+         True, None),
         ("train_block0_bwd", randn(caps[1], FEAT), nbr0, mask0, caps[2],
-         True),
+         True, None),
         ("train_feats_bwd", randn(caps[2], FEAT), inputs.view(-1, 1), None,
-         feats.shape[0], False),
+         feats.shape[0], False, None),
         ("all_masked", randn(256, 128), *rand_block(4096, 256, 10, "none"),
-         4096, True),
-        ("no_rows", randn(0, FEAT), *rand_block(4096, 0, 10), 4096, True),
+         4096, True, None),
+        ("no_rows", randn(0, FEAT), *rand_block(4096, 0, 10), 4096, True,
+         None),
     ]
     records += scatter_records(torch, scatter, scatter_cases, flush,
                                args.iters, card)
@@ -578,18 +631,26 @@ def setup_phase(torch, args, card: str):
 
 
 def step_device_ms(torch, trainer, mbs):
-    """Per batch: the host time of sampling and of shipping it to the
+    """Per batch: the host time of sampling (its scatter plans
+    included), of building those plans alone, and of shipping it to the
     card, then the device time of its step's forward (gather, model,
     loss), backward and Adam update by CUDA events. A spin kernel first
     keeps the card busy while the host enqueues the step, so the events
     bracket device work and not the host's launch cost."""
     import numpy as np
 
+    from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+
     rows = []
     for seeds, step_seed in mbs:
         t = time.perf_counter()
         mb = trainer.sample(seeds, step_seed)
         sample_ms = (time.perf_counter() - t) * 1e3
+        # the part of the sampling that builds the blocks' plans, again
+        t = time.perf_counter()
+        for b in mb.blocks[1:]:
+            scatter_plan(b.nbr, b.mask, b.num_src)
+        plan_ms = (time.perf_counter() - t) * 1e3
         torch.cuda.synchronize()
         t = time.perf_counter()
         batch = trainer.ship(mb)
@@ -606,14 +667,16 @@ def step_device_ms(torch, trainer, mbs):
         trainer.optimizer.step()
         ev[3].record()
         torch.cuda.synchronize()
-        rows.append([sample_ms, h2d_ms] + [ev[k].elapsed_time(ev[k + 1])
-                                           for k in range(3)])
+        rows.append([sample_ms, plan_ms, h2d_ms]
+                    + [ev[k].elapsed_time(ev[k + 1]) for k in range(3)])
     # the first batch pays one-time costs (Adam's state allocation)
     mean = np.mean(rows[1:], axis=0)
+    plan_bytes = sum(b.plan.nbytes() for b in mb.blocks[1:])
     nbytes = (sum(b.nbr.nbytes + b.mask.nbytes for b in mb.blocks)
-              + mb.input_nodes.nbytes + mb.seeds.nbytes)
-    return dict(sample_ms=mean[0], h2d_ms=mean[1], h2d_bytes=int(nbytes),
-                forward_ms=mean[2], backward_ms=mean[3], adam_ms=mean[4])
+              + plan_bytes + mb.input_nodes.nbytes + mb.seeds.nbytes)
+    return dict(sample_ms=mean[0], plan_ms=mean[1], h2d_ms=mean[2],
+                h2d_bytes=int(nbytes), plan_bytes=int(plan_bytes),
+                forward_ms=mean[3], backward_ms=mean[4], adam_ms=mean[5])
 
 
 def train_phase(torch, args, wrappers, trainer, card: str):

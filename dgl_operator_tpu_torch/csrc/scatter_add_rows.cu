@@ -1,4 +1,4 @@
-// Masked, scaled row scatter-add into a zero-filled fp32 table, for
+// Masked, scaled row scatter-add as a deterministic segmented sum, for
 // sm_90a: the backward of both hand-written forward kernels.
 //
 // Replaces: dgl_operator_tpu/ops/pallas_gather.py::_fanout_sum_bwd (the
@@ -8,174 +8,399 @@
 // that kernel, and ::_gather_rows_bwd (the VJP of gather_rows_pallas,
 // a segment_sum of the cotangent).
 //
-// Computes, after zero-filling dst [N, D] float32,
-//   dst[idx[i, k], :] += g[i, :] / (mean ? max(cnt_i, 1) : 1)
-// for every slot with mask[i, k] != 0 (every slot when there is no
-// mask), cnt_i being the row's count of valid slots. g is float32 or
-// bfloat16; idx is int32 or int64. As the backward of gather_rows it
-// runs with F = 1, no mask and no division: every index counts,
-// padded id 0 included, as the segment_sum does.
+// Computes, into dst [R, D] float32 (every row written, zeros for a
+// target with no entry),
+//   dst[t, :] = sum over the entries e of t, in the plan's order, of
+//               g[src[e], :] / (mean ? max(cnt[src[e]], 1) : 1)
+// in fp32. The plan (ops/scatter.py::scatter_plan, built on the host)
+// is the transpose of the [ND, F] index table over its valid slots:
+// target t's entries are src[offsets[t] .. offsets[t+1]), sorted by
+// source row i, then slot k. g is float32 or bfloat16.
 //
-// Bound: HBM bytes. The function must write dst once (N x D x 4) and
-// read g (ND x D x sizeof(T)) and idx and mask (ND x F x (sizeof(index)
-// + 1)); the ND x F x D adds are far below the card's fp32 rate. This
-// design (a zero fill, then atomics) moves more: each distinct target
-// row is read and written once more by the atomics (2 x unique x D x 4).
+// Bound: HBM bytes. The function must write dst once (R x D x 4) and
+// read g (ND x D x sizeof(T)) and the index table; the adds and
+// divisions are far below the card's fp32 rate. This design moves
+// those bytes and the plan (about (R + 2 x nnz) x 4 bytes): g's rows
+// are read once per entry, mostly from L2.
 //
-// Design: one warp per row of g, 8 rows per 256-thread block. A lane
-// loads its VW columns of the row once, scales them in registers, and
-// adds them into each valid slot's target row with one vector fp32
-// atomic (atomicAdd on float4 / float2, which sm_90 has from CUDA
-// 12.1). Masked slots and rows with no valid slot cost nothing beyond
-// their mask read. The order in which atomics land varies from run to
-// run, so the fp32 sum
-// is not bit-reproducible; a deterministic variant (a host-built
-// transpose, then a segmented sum) is an open item.
+// Design: a warp writes `tile` consecutive target rows. It loads their
+// offsets in one coalesced load and walks their entries as one stream
+// in target order: lane e loads entry e's source row and divisor, and
+// the warp issues kLoads / G rows' loads (a lane holding G x VW
+// columns) before adding them, so loads run ahead across target
+// boundaries while each target adds its entries one at a time. The
+// mean's division goes through the divisor's reciprocal and one FMA
+// correction (div_by_count): the IEEE quotient without the IEEE
+// division's branch, which kept the divisions of a batch from
+// overlapping. Each row is written once with vector stores, zeros for a
+// target with no entry: no zero fill and no float atomics, so the sum
+// does not depend on timing. A target with up to kChunk entries adds
+// them in exactly the order of a sequential index_add_ (bit-equal to
+// the CPU). A longer one (a hub named by many dst rows, or the
+// gather's padded id 0) is cut into kChunk-entry pieces, each summed by
+// its own warp into a partial row; the warp that finishes a target's
+// last piece (an integer counter in the plan says which) adds the
+// partials in piece order and writes the row, then sets the counter
+// back to 0. Piece warps come first in the grid, so the long sums
+// start first. What holds it back: a target of up to kChunk entries is
+// one warp's sequential chain of load rounds, and a warp's offsets,
+// entries and rows are three dependent trips before its first store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#if __CUDACC_VER_MAJOR__ < 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ < 1)
-#error "scatter_add_rows.cu needs CUDA 12.1 or later (float4/float2 atomicAdd)"
-#endif
-
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kChunk = 32;     // = ops/scatter.py CHUNK, one entry a lane
+// targets a warp writes: enough that the grid holds about kWarpsPerSm
+// warps an SM in all (2 at R = 19,200 on 132 SMs, 10 at 118,720),
+// at most one a lane
+constexpr int kWarpsPerSm = 96;
+// a lane holds G groups of VW columns per pass and loads kLoads / G
+// rows ahead of their adds (G = 2 when one group does not span D)
+constexpr int kLoads = 8;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// VW consecutive elements moved as one aligned load
+// x / den rounded to nearest, for den a positive integer below 2^24 and
+// 1 / den rounded to nearest in rcp: the product, then one exact FMA
+// residual and correction (Markstein), which yields the IEEE quotient
+// whenever it is a normal number. Branch-free, unlike the IEEE
+// division, so the divisions of several entries interleave.
+__device__ __forceinline__ float div_by_count(float x, float den,
+                                              float rcp) {
+  const float q = __fmul_rn(x, rcp);
+  return __fmaf_rn(__fmaf_rn(-q, den, x), rcp, q);
+}
+
+// VW consecutive elements moved as one aligned load or store
 template <typename T, int VW>
 struct alignas(sizeof(T) * VW) Pack {
   T v[VW];
 };
 
+// a partial row written by another warp of this launch: read from L2
 template <int VW>
-__device__ __forceinline__ void atomic_add_vec(float* p, const float* v);
-
-template <>
-__device__ __forceinline__ void atomic_add_vec<1>(float* p, const float* v) {
-  atomicAdd(p, v[0]);
-}
-
-template <>
-__device__ __forceinline__ void atomic_add_vec<2>(float* p, const float* v) {
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-}
-
-template <>
-__device__ __forceinline__ void atomic_add_vec<4>(float* p, const float* v) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-}
-
-template <typename T, typename I, int VW>
-__global__ void __launch_bounds__(kWarp* kRowsPerBlock)
-    scatter_add_rows_kernel(const T* __restrict__ g, const I* __restrict__ idx,
-                            const uint8_t* __restrict__ mask,
-                            float* __restrict__ dst, int64_t nd, int64_t f,
-                            int64_t d, bool mean) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= nd) return;
-  const int lane = threadIdx.x % kWarp;
-  const I* irow = idx + row * f;
-  const uint8_t* mrow = mask == nullptr ? nullptr : mask + row * f;
-  int64_t cnt = f;
-  if (mrow != nullptr) {
-    cnt = 0;
-    for (int64_t k = 0; k < f; ++k) cnt += mrow[k] != 0;
+__device__ __forceinline__ Pack<float, VW> load_cg(const float* p) {
+  Pack<float, VW> r;
+  if constexpr (VW == 4) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+    r.v[0] = x.x, r.v[1] = x.y, r.v[2] = x.z, r.v[3] = x.w;
+  } else if constexpr (VW == 2) {
+    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+    r.v[0] = x.x, r.v[1] = x.y;
+  } else {
+    r.v[0] = __ldcg(p);
   }
-  if (cnt == 0) return;
-  const float denom = mean ? static_cast<float>(cnt) : 1.0f;
-  const T* grow = g + row * d;
-  for (int64_t c = static_cast<int64_t>(lane) * VW; c < d;
-       c += static_cast<int64_t>(kWarp) * VW) {
-    const Pack<T, VW> p = *reinterpret_cast<const Pack<T, VW>*>(grow + c);
-    float v[VW];
+  return r;
+}
+
+// out = the in-order sum of partial rows [p0, p1)
+template <int VW>
+__device__ __forceinline__ void add_partials(const float* partial,
+                                             int p0, int p1, int64_t d,
+                                             float* __restrict__ out,
+                                             int lane) {
+  for (int64_t base = 0; base < d; base += kWarp * VW) {
+    const int64_t c = base + static_cast<int64_t>(lane) * VW;
+    if (c >= d) break;
+    float acc[VW];
 #pragma unroll
-    for (int j = 0; j < VW; ++j) v[j] = to_float(p.v[j]) / denom;
-    for (int64_t k = 0; k < f; ++k) {
-      if (mrow != nullptr && mrow[k] == 0) continue;
-      atomic_add_vec<VW>(dst + static_cast<int64_t>(irow[k]) * d + c, v);
+    for (int j = 0; j < VW; ++j) acc[j] = 0.0f;
+    for (int r0 = p0; r0 < p1; r0 += kLoads) {
+      Pack<float, VW> p[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (r0 + u < p1)
+          p[u] = load_cg<VW>(partial + static_cast<int64_t>(r0 + u) * d + c);
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (r0 + u < p1)
+#pragma unroll
+          for (int j = 0; j < VW; ++j)
+            acc[j] = __fadd_rn(acc[j], p[u].v[j]);
+    }
+    Pack<float, VW> o;
+#pragma unroll
+    for (int j = 0; j < VW; ++j) o.v[j] = acc[j];
+    *reinterpret_cast<Pack<float, VW>*>(out + c) = o;
+  }
+}
+
+// Rows out, out + d, ... get, for targets j .. k-1 of a batch, the
+// in-order fp32 sums of their entries among src[lo .. lo + n) (n <=
+// kChunk), 0 for a target with none; target m's entries end where lane
+// m's `hi` says. Lane e holds entry e's source row and divisor, and the
+// warp issues kLoads / G rows' loads (a lane holding G x VW columns)
+// before adding them, so loads run ahead across target boundaries
+// while each target still adds its entries one at a time.
+template <typename T, int VW, int G, bool kMean>
+__device__ __forceinline__ void sum_batch(
+    const T* __restrict__ g, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ cnt, int lo, int n, int j, int k, int hi,
+    float* __restrict__ out, int64_t d, int lane) {
+  int my_src = 0;
+  float my_den = 1.0f, my_rcp = 1.0f;
+  if (lane < n) {
+    my_src = src[lo + lane];
+    if (kMean) {
+      my_den = static_cast<float>(max(cnt[my_src], 1));
+      my_rcp = __frcp_rn(my_den);
     }
   }
+  for (int64_t base = 0; base < d; base += kWarp * VW * G) {
+    int64_t col[G];
+    bool on[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      col[q] = base + static_cast<int64_t>(q * kWarp + lane) * VW;
+      on[q] = col[q] < d;
+    }
+    float acc[G][VW];
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[q][v] = 0.0f;
+    // write target m's sum and start the next one from 0
+    auto flush = [&](int m) {
+      float* row = out + (m - j) * d;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        if (on[q]) {
+          Pack<float, VW> o;
+#pragma unroll
+          for (int v = 0; v < VW; ++v) o.v[v] = acc[q][v];
+          *reinterpret_cast<Pack<float, VW>*>(row + col[q]) = o;
+        }
+#pragma unroll
+        for (int v = 0; v < VW; ++v) acc[q][v] = 0.0f;
+      }
+    };
+    int m = j;
+    int m_end = __shfl_sync(kFull, hi, m) - lo;
+    for (int e0 = 0; e0 < n; e0 += kLoads / G) {
+      Pack<T, VW> p[kLoads / G][G];
+#pragma unroll
+      for (int u = 0; u < kLoads / G; ++u) {
+        const int e = e0 + u;   // uniform across the warp
+        const int64_t i = __shfl_sync(kFull, my_src, e % kWarp);
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          if (e < n && on[q])
+            p[u][q] =
+                *reinterpret_cast<const Pack<T, VW>*>(g + i * d + col[q]);
+      }
+      // the divisors after the loads, so cnt's load overlaps the rows'
+#pragma unroll
+      for (int u = 0; u < kLoads / G; ++u) {
+        const int e = e0 + u;
+        const float den = __shfl_sync(kFull, my_den, e % kWarp);
+        const float rcp = __shfl_sync(kFull, my_rcp, e % kWarp);
+        if (e < n) {
+          while (e >= m_end) {   // targets ending before entry e
+            flush(m);
+            ++m;
+            m_end = __shfl_sync(kFull, hi, m) - lo;
+          }
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            if (on[q])
+#pragma unroll
+              for (int v = 0; v < VW; ++v) {
+                const float x = to_float(p[u][q].v[v]);
+                acc[q][v] = __fadd_rn(acc[q][v],
+                                      kMean ? div_by_count(x, den, rcp) : x);
+              }
+        }
+      }
+    }
+    for (; m < k; ++m) flush(m);   // the last target and empty ones
+  }
 }
 
-template <typename T, typename I>
-cudaError_t launch_typed(const void* g, const void* idx, const void* mask,
-                         void* dst, int64_t nd, int64_t f, int64_t d,
-                         bool mean, cudaStream_t stream) {
-  const dim3 block(kWarp * kRowsPerBlock);
-  const dim3 grid(static_cast<unsigned>((nd + kRowsPerBlock - 1) /
-                                        kRowsPerBlock));
+// Writes targets [t0, t0 + tile) that have at most kChunk entries, in
+// batches of consecutive such targets with at most kChunk entries
+// together.
+template <typename T, int VW, int G, bool kMean>
+__device__ __forceinline__ void walk_tile(
+    const T* __restrict__ g, const int32_t* __restrict__ offsets,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ cnt,
+    float* __restrict__ dst, int64_t t0, int tile, int64_t num_rows,
+    int64_t d, int lane) {
+  const int nt =
+      num_rows - t0 < tile ? static_cast<int>(num_rows - t0) : tile;
+  int lo = 0, hi = 0;
+  if (lane < nt) {
+    lo = offsets[t0 + lane];
+    hi = offsets[t0 + lane + 1];
+  }
+  const unsigned long_bits =
+      __ballot_sync(kFull, lane < nt && hi - lo > kChunk);
+  int j = 0;
+  while (j < nt) {
+    const unsigned later_long = long_bits & (kFull << j);
+    const int first_long = later_long ? __ffs(later_long) - 1 : nt;
+    if (first_long == j) {   // written by its last piece's warp
+      ++j;
+      continue;
+    }
+    const int lo_j = __shfl_sync(kFull, lo, j);
+    const int k = j + __popc(__ballot_sync(
+                          kFull, lane >= j && lane < first_long &&
+                                     hi - lo_j <= kChunk));
+    const int n = __shfl_sync(kFull, hi, k - 1) - lo_j;
+    sum_batch<T, VW, G, kMean>(g, src, cnt, lo_j, n, j, k, hi,
+                               dst + (t0 + j) * d, d, lane);
+    j = k;
+  }
+}
+
+template <typename T, int VW, int G, bool kMean>
+__global__ void __launch_bounds__(kWarp* kWarpsPerBlock, 2)
+    segment_sum_kernel(const T* __restrict__ g,
+                       const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ src,
+                       const int32_t* __restrict__ cnt,
+                       const int32_t* __restrict__ chunks,
+                       const int32_t* __restrict__ long_rows,
+                       const int32_t* __restrict__ long_part,
+                       int32_t* counters, float* partial,
+                       float* __restrict__ dst, int64_t num_rows,
+                       int64_t n_chunks, int tile, int64_t d) {
+  const int64_t w =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (w < n_chunks) {
+    // one piece of a long target
+    const int begin = chunks[3 * w], end = chunks[3 * w + 1];
+    const int q = chunks[3 * w + 2];
+    sum_batch<T, VW, G, kMean>(g, src, cnt, begin, end - begin, 0, 1, end,
+                               partial + w * d, d, lane);
+    // publish the partial, then count it; the last piece's warp adds
+    // all of the target's partials in piece order
+    __threadfence();
+    __syncwarp();
+    const int p0 = long_part[q], p1 = long_part[q + 1];
+    int last = 0;
+    if (lane == 0) last = atomicAdd(&counters[q], 1) == p1 - p0 - 1;
+    if (!__shfl_sync(kFull, last, 0)) return;
+    __threadfence();
+    add_partials<VW>(partial, p0, p1, d,
+                     dst + static_cast<int64_t>(long_rows[q]) * d, lane);
+    if (lane == 0) counters[q] = 0;   // ready for the plan's next launch
+    return;
+  }
+  const int64_t t0 = (w - n_chunks) * tile;
+  if (t0 < num_rows)
+    walk_tile<T, VW, G, kMean>(g, offsets, src, cnt, dst, t0, tile,
+                               num_rows, d, lane);
+}
+
+template <typename T, int VW, int G>
+cudaError_t launch_groups(const void* g, const int32_t* const* plan,
+                          void* partial, void* dst, int64_t num_rows,
+                          int64_t n_chunks, int64_t d, bool mean,
+                          cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t per = static_cast<int64_t>(kWarpsPerSm) * sms;
+  const int tile = static_cast<int>(
+      num_rows > per * kWarp ? kWarp : (num_rows + per - 1) / per);
+  const int64_t warps = (num_rows + tile - 1) / tile + n_chunks;
+  const dim3 block(kWarp * kWarpsPerBlock);
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const T* gp = static_cast<const T*>(g);
-  const I* ip = static_cast<const I*>(idx);
-  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  int32_t* counters = const_cast<int32_t*>(plan[6]);
+  float* pp = static_cast<float*>(partial);
   float* dp = static_cast<float*>(dst);
-  // a vector of VW columns needs D % VW == 0 and VW-aligned rows of g
-  // (VW x sizeof(T) bytes) and of dst (VW x 4 bytes)
-  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
-  const uintptr_t da = reinterpret_cast<uintptr_t>(dst);
-  if (d % 4 == 0 && ga % (4 * sizeof(T)) == 0 && da % 16 == 0) {
-    scatter_add_rows_kernel<T, I, 4>
-        <<<grid, block, 0, stream>>>(gp, ip, mp, dp, nd, f, d, mean);
-  } else if (d % 2 == 0 && ga % (2 * sizeof(T)) == 0 && da % 8 == 0) {
-    scatter_add_rows_kernel<T, I, 2>
-        <<<grid, block, 0, stream>>>(gp, ip, mp, dp, nd, f, d, mean);
+  if (mean) {
+    segment_sum_kernel<T, VW, G, true><<<grid, block, 0, stream>>>(
+        gp, plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], counters,
+        pp, dp, num_rows, n_chunks, tile, d);
   } else {
-    scatter_add_rows_kernel<T, I, 1>
-        <<<grid, block, 0, stream>>>(gp, ip, mp, dp, nd, f, d, mean);
+    segment_sum_kernel<T, VW, G, false><<<grid, block, 0, stream>>>(
+        gp, plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], counters,
+        pp, dp, num_rows, n_chunks, tile, d);
   }
   return cudaGetLastError();
 }
 
+template <typename T, int VW>
+cudaError_t launch_vec(const void* g, const int32_t* const* plan,
+                       void* partial, void* dst, int64_t num_rows,
+                       int64_t n_chunks, int64_t d, bool mean,
+                       cudaStream_t stream) {
+  if (d > kWarp * VW)
+    return launch_groups<T, VW, 2>(g, plan, partial, dst, num_rows,
+                                   n_chunks, d, mean, stream);
+  return launch_groups<T, VW, 1>(g, plan, partial, dst, num_rows, n_chunks,
+                                 d, mean, stream);
+}
+
 template <typename T>
-cudaError_t launch_index(const void* g, const void* idx, const void* mask,
-                         void* dst, int64_t nd, int64_t f, int64_t d,
-                         int64_t idx_bytes, bool mean, cudaStream_t stream) {
-  if (idx_bytes == 4) {
-    return launch_typed<T, int32_t>(g, idx, mask, dst, nd, f, d, mean, stream);
+cudaError_t launch_typed(const void* g, const int32_t* const* plan,
+                         void* partial, void* dst, int64_t num_rows,
+                         int64_t n_chunks, int64_t d, bool mean,
+                         cudaStream_t stream) {
+  // a vector of VW columns needs D % VW == 0 and VW-aligned rows of g
+  // (VW x sizeof(T) bytes) and of dst and partial (VW x 4 bytes)
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t fa = reinterpret_cast<uintptr_t>(dst) |
+                       reinterpret_cast<uintptr_t>(partial);
+  if (d % 4 == 0 && ga % (4 * sizeof(T)) == 0 && fa % 16 == 0) {
+    return launch_vec<T, 4>(g, plan, partial, dst, num_rows, n_chunks, d,
+                            mean, stream);
   }
-  if (idx_bytes == 8) {
-    return launch_typed<T, int64_t>(g, idx, mask, dst, nd, f, d, mean, stream);
+  if (d % 2 == 0 && ga % (2 * sizeof(T)) == 0 && fa % 8 == 0) {
+    return launch_vec<T, 2>(g, plan, partial, dst, num_rows, n_chunks, d,
+                            mean, stream);
   }
-  return cudaErrorInvalidValue;
+  return launch_vec<T, 1>(g, plan, partial, dst, num_rows, n_chunks, d,
+                          mean, stream);
 }
 
 }  // namespace
 
-// Zero-fills dst [n, d] float32, then scatters. dtype (of g): 0 =
-// float32, 1 = bfloat16; idx_bytes: 4 (int32) or 8 (int64); mask may
-// be null (every slot valid). Runs on `stream` and does not
-// synchronise; returns the first CUDA error of the fill or the launch
-// (0 = ok).
-extern "C" int scatter_add_rows_launch(const void* g, const void* idx,
-                                       const void* mask, void* dst,
-                                       int64_t nd, int64_t f, int64_t d,
-                                       int64_t n, int64_t dtype,
-                                       int64_t idx_bytes, int64_t mean,
-                                       void* stream) {
+// The plan's arrays, in ops/scatter.py ScatterPlan.FIELDS order:
+// offsets, src, cnt, chunks, long_rows, long_part, counters (int32).
+// partial is [n_chunks, d] float32 scratch (unread when n_chunks is
+// 0). dtype (of g): 0 = float32, 1 = bfloat16. Writes every row of
+// dst [num_rows, d] float32; runs on `stream` and does not
+// synchronise; returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int scatter_add_rows_launch(
+    const void* g, const void* offsets, const void* src, const void* cnt,
+    const void* chunks, const void* long_rows, const void* long_part,
+    void* counters, void* partial, void* dst, int64_t num_rows,
+    int64_t n_chunks, int64_t d, int64_t dtype, int64_t mean,
+    void* stream) {
+  if (num_rows <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
+  const int32_t* plan[7] = {
+      static_cast<const int32_t*>(offsets),
+      static_cast<const int32_t*>(src),
+      static_cast<const int32_t*>(cnt),
+      static_cast<const int32_t*>(chunks),
+      static_cast<const int32_t*>(long_rows),
+      static_cast<const int32_t*>(long_part),
+      static_cast<const int32_t*>(counters)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0 && d > 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        dst, 0, static_cast<size_t>(n) * static_cast<size_t>(d) * 4, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (nd <= 0 || f <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_index<float>(
-          g, idx, mask, dst, nd, f, d, idx_bytes, mean != 0, s));
+      return static_cast<int>(launch_typed<float>(
+          g, plan, partial, dst, num_rows, n_chunks, d, mean != 0, s));
     case 1:
-      return static_cast<int>(launch_index<__nv_bfloat16>(
-          g, idx, mask, dst, nd, f, d, idx_bytes, mean != 0, s));
+      return static_cast<int>(launch_typed<__nv_bfloat16>(
+          g, plan, partial, dst, num_rows, n_chunks, d, mean != 0, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

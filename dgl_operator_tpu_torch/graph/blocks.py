@@ -27,15 +27,20 @@ class FanoutBlock:
              sampler, ``uint8`` after ``pad_minibatch``. Compare ``> 0``;
              never do arithmetic on the raw mask.
     num_src  number of source nodes (seed prefix + sampled).
+    plan     optional ``ops.scatter.ScatterPlan`` of ``nbr`` over
+             ``num_src`` rows: the transpose that the aggregation's
+             backward sums over on the card (``SampledTrainer`` attaches
+             one to the blocks whose source rows need a gradient).
 
-    ``nbr`` and ``mask`` are numpy arrays on the host or tensors after
-    :meth:`to`.
+    ``nbr``, ``mask`` and the plan are numpy arrays on the host or
+    tensors after :meth:`to`.
     """
 
-    def __init__(self, nbr, mask, num_src: int):
+    def __init__(self, nbr, mask, num_src: int, plan=None):
         self.nbr = nbr
         self.mask = mask
         self.num_src = int(num_src)
+        self.plan = plan
 
     @property
     def num_dst(self) -> int:
@@ -47,13 +52,16 @@ class FanoutBlock:
 
     def to(self, device) -> "FanoutBlock":
         """The block as tensors on ``device``: ``nbr`` int32 and ``mask``
-        uint8, the encodings the aggregation kernel reads."""
+        uint8, the encodings the aggregation kernel reads, and the plan
+        when there is one."""
         nbr = torch.as_tensor(self.nbr).to(device=device, dtype=torch.int32)
         mask = torch.as_tensor(self.mask)
         if mask.dtype != torch.uint8:
             mask = (mask > 0).to(torch.uint8)
         return FanoutBlock(nbr.contiguous(), mask.to(device).contiguous(),
-                           self.num_src)
+                           self.num_src,
+                           None if self.plan is None
+                           else self.plan.to(device))
 
 
 class MiniBatch:

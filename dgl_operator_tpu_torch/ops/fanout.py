@@ -3,24 +3,28 @@
 Neighbors live in a dense ``[num_dst, fanout]`` table with a validity
 mask (``FanoutBlock``), so aggregation is a masked reduction over the
 fanout axis. :func:`fanout_agg` is the one primitive: on a CUDA tensor
-it launches the hand-written kernel ``csrc/fanout_agg.cu`` (gather,
-masked sum and the mean's division fused, each valid row read once),
-and its backward the scatter-add kernel ``csrc/scatter_add_rows.cu``;
-on a CPU tensor both run their plain torch versions
-(:func:`fanout_agg_plain`, ``scatter_add_rows_plain``), which are also
-what the kernels are held against on the card.
+it launches the hand-written kernel ``csrc/fanout_agg.cu`` (rows of
+512 bytes or more copied into shared memory by TMA bulk copies,
+narrower ones loaded into registers; masked sum and the mean's
+division fused), and its backward the segmented-sum kernel
+``csrc/scatter_add_rows.cu`` over the block's ``plan`` (the transpose
+of ``nbr``, built on the host by ``scatter_plan``); on a CPU tensor
+both run their plain torch versions (:func:`fanout_agg_plain`,
+``scatter_add_rows_plain``), which are also what the kernels are held
+against on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.ops import _build
-from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
+from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
 
 _SOURCE = "fanout_agg.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,6 +56,29 @@ def _launcher():
     return fn
 
 
+def launch_config(h: torch.Tensor, nd: int, f: int) -> dict:
+    """The launch the kernel picks for ``h`` (on the card) and an
+    ``[nd, f]`` table: ``path`` "bulk" (TMA bulk copies into a ring of
+    ``stages`` shared-memory stages per warp, for rows of 512 bytes or
+    more) or "registers", warps per block, dynamic shared bytes per
+    block, resident blocks, and the columns a lane moves at once."""
+    lib = _build.load(_SOURCE)
+    fn = lib.fanout_agg_config
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    cfg = (ctypes.c_int64 * 6)()
+    with torch.cuda.device(h.device):
+        err = fn(h.data_ptr(), nd, f, h.shape[1], _DTYPE_CODE[h.dtype],
+                 cfg)
+    if err != 0:
+        raise RuntimeError(f"fanout_agg_config failed: CUDA error {err}")
+    return {"path": "bulk" if cfg[0] else "registers", "warps": cfg[1],
+            "smem_bytes": cfg[2], "blocks": cfg[3], "stage_bytes": cfg[4],
+            "stages": 2 if cfg[0] else 0, "lane_columns": cfg[5]}
+
+
 def _aggregate(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                mean: bool) -> torch.Tensor:
     if h.device.type == "cpu":
@@ -81,13 +108,14 @@ def _aggregate(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
 class _FanoutAgg(torch.autograd.Function):
     """Forward: the masked aggregation. Backward: its transpose, the
     scatter-add of the cotangent (divided by each row's valid count for
-    the mean) into a zero-filled float32 table, cast to ``h``'s dtype;
+    the mean) over ``plan`` into a float32 table, cast to ``h``'s dtype;
     skipped when ``h`` needs no gradient."""
 
     @staticmethod
-    def forward(ctx, h, nbr, mask, mean):
+    def forward(ctx, h, nbr, mask, mean, plan):
         ctx.save_for_backward(nbr, mask)
         ctx.mean = mean
+        ctx.plan = plan
         ctx.num_rows = h.shape[0]
         return _aggregate(h, nbr, mask, mean)
 
@@ -95,15 +123,16 @@ class _FanoutAgg(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         nbr, mask = ctx.saved_tensors
         dh = scatter_add_rows(grad.contiguous(), nbr, mask, ctx.num_rows,
-                              ctx.mean)
-        return dh.to(grad.dtype), None, None, None
+                              ctx.mean, plan=ctx.plan)
+        return dh.to(grad.dtype), None, None, None, None
 
 
 def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
-               mean: bool) -> torch.Tensor:
+               mean: bool, plan: Optional[ScatterPlan] = None
+               ) -> torch.Tensor:
     """``out[i] = sum_{k: mask[i,k] > 0} h[nbr[i,k]]``, divided by
     ``max(count_i, 1)`` when ``mean``; fp32 accumulation, ``h``'s dtype
     out, 0 for a row with no valid slot. Differentiable in ``h``.
@@ -111,6 +140,8 @@ def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
     h    [N, D] float32 or bfloat16, contiguous.
     nbr  [ND, F] int32; every valid slot indexes a row of ``h``.
     mask [ND, F] uint8.
+    plan ``scatter_plan(nbr, mask, N)``, read only by the backward on
+         the card (which raises without it).
 
     On a CUDA tensor this launches the kernel (counted in
     ``fanout_agg.launches``) or raises, and its backward launches
@@ -130,34 +161,28 @@ def fanout_agg(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
     if not (h.device == nbr.device == mask.device):
         raise ValueError(f"h, nbr and mask must share a device; got "
                          f"{h.device}, {nbr.device}, {mask.device}")
-    return _FanoutAgg.apply(h, nbr, mask, mean)
+    return _FanoutAgg.apply(h, nbr, mask, mean, plan)
 
 
 fanout_agg.launches = 0
 
 
-def _block_tensors(block: FanoutBlock, h_src: torch.Tensor):
-    """The block's ``nbr``/``mask`` as int32/uint8 tensors on ``h_src``'s
-    device (no copy for a block already shipped there)."""
-    shipped = block.to(h_src.device)
-    return shipped.nbr, shipped.mask
-
-
 def fanout_sum(block: FanoutBlock, h_src: torch.Tensor) -> torch.Tensor:
-    nbr, mask = _block_tensors(block, h_src)
-    return fanout_agg(h_src.contiguous(), nbr, mask, mean=False)
+    b = block.to(h_src.device)   # no copy for a block shipped there
+    return fanout_agg(h_src.contiguous(), b.nbr, b.mask, False, b.plan)
 
 
 def fanout_mean(block: FanoutBlock, h_src: torch.Tensor) -> torch.Tensor:
-    nbr, mask = _block_tensors(block, h_src)
-    return fanout_agg(h_src.contiguous(), nbr, mask, mean=True)
+    b = block.to(h_src.device)
+    return fanout_agg(h_src.contiguous(), b.nbr, b.mask, True, b.plan)
 
 
 def fanout_max(block: FanoutBlock, h_src: torch.Tensor) -> torch.Tensor:
     """Masked max over the fanout axis; a row with no valid slot gives 0
     (the zero-in-degree convention). Plain torch: its JAX counterpart
     is XLA, not a hand-written kernel."""
-    nbr, mask = _block_tensors(block, h_src)
+    b = block.to(h_src.device)
+    nbr, mask = b.nbr, b.mask
     valid = (mask > 0).unsqueeze(-1)
     x = torch.where(valid, h_src[nbr.long()],
                     torch.tensor(float("-inf"), dtype=h_src.dtype,

@@ -2,7 +2,8 @@
 
 :func:`gather_rows` is ``table[idx]`` with a gradient: on a CUDA tensor
 it launches the hand-written kernel ``csrc/gather_rows.cu`` and its
-backward the scatter-add kernel (``ops/scatter.py``); on a CPU tensor
+backward the segmented-sum kernel (``ops/scatter.py``, over the plan
+``scatter_plan(idx[:, None], None, N)``); on a CPU tensor
 both run their plain torch versions (:func:`gather_rows_plain`,
 ``scatter_add_rows_plain``), which are also what the kernels are held
 against on the card. Unlike the JAX package's Pallas gather, it takes
@@ -12,12 +13,13 @@ every row width.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from dgl_operator_tpu_torch.ops import _build
-from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
+from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
 
 _SOURCE = "gather_rows.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,13 +68,14 @@ def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     """Forward: the row gather. Backward: the transpose, a scatter-add
-    of the cotangent into a zero-filled float32 table (every index
+    of the cotangent over ``plan`` into a float32 table (every index
     counts, repeated and padded ones included), cast to the table's
     dtype."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, plan):
         ctx.save_for_backward(idx)
+        ctx.plan = plan
         ctx.num_rows = table.shape[0]
         return _gather(table, idx)
 
@@ -80,18 +83,21 @@ class _GatherRows(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (idx,) = ctx.saved_tensors
         dt = scatter_add_rows(grad.contiguous(), idx.view(-1, 1), None,
-                              ctx.num_rows, mean=False)
-        return dt.to(grad.dtype), None
+                              ctx.num_rows, mean=False, plan=ctx.plan)
+        return dt.to(grad.dtype), None, None
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """``out[i] = table[idx[i]]``, differentiable in ``table``.
 
     table [N, D] float32 or bfloat16, contiguous.
     idx   [M] int32 or int64; every entry indexes a row of ``table``.
+    plan  ``scatter_plan(idx[:, None], None, N)``, read only by the
+          backward on the card (which raises without it).
 
     On a CUDA tensor this launches the kernel (counted in
     ``gather_rows.launches``) or raises; on a CPU tensor it runs
@@ -109,7 +115,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device != idx.device:
         raise ValueError(f"table and idx must share a device; got "
                          f"{table.device} and {idx.device}")
-    return _GatherRows.apply(table, idx)
+    return _GatherRows.apply(table, idx, plan)
 
 
 gather_rows.launches = 0

@@ -4,12 +4,16 @@
 over the valid slots of a ``[ND, F]`` index table into a zero-filled
 ``[num_rows, D]`` table. It is the transpose of both forward kernels:
 of ``fanout_agg`` (``denom_i`` is the row's valid count for the mean,
-1 for the sum) and of ``gather_rows`` (F = 1, no mask). On a CUDA
-tensor it launches the hand-written kernel ``csrc/scatter_add_rows.cu``
-(fp32 atomics; the order of the adds, and so the last bits of the sum,
-vary from run to run); on a CPU tensor it runs
-:func:`scatter_add_rows_plain`, which is also what the kernel is held
-against on the card.
+1 for the sum) and of ``gather_rows`` (F = 1, no mask).
+
+On a CUDA tensor it launches the hand-written kernel
+``csrc/scatter_add_rows.cu``: a segmented sum over a transpose of the
+index table that the host builds once per batch (:func:`scatter_plan`).
+Each target row adds its entries in a fixed order and is written once,
+so the result does not change from launch to launch. On a CPU tensor
+it runs :func:`scatter_add_rows_plain`, which is also what the kernel
+is held against on the card; :func:`segment_sum_plain` is the same sum
+taken over the plan, in the order the kernel takes it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.ops import _build
@@ -24,6 +29,115 @@ from dgl_operator_tpu_torch.ops import _build
 _SOURCE = "scatter_add_rows.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX_DTYPES = (torch.int32, torch.int64)
+# a target of up to CHUNK entries is summed by one warp in entry order;
+# a longer one is cut into pieces of CHUNK entries, summed apart and
+# added in piece order (kChunk in the .cu)
+CHUNK = 32
+
+
+class ScatterPlan:
+    """The transpose of one ``[ND, F]`` index table, built on the host
+    by :func:`scatter_plan`; every array is int32.
+
+    offsets   [num_rows + 1]  target ``t``'s entries are
+              ``src[offsets[t]:offsets[t + 1]]``.
+    src       [nnz]  the source row ``i`` of every valid slot, sorted by
+              target, then ``i``, then slot ``k``.
+    cnt       [ND]   each source row's valid count (the mean's divisor
+              before ``max(., 1)``).
+    chunks    [n_chunks, 3]  ``(begin, end, q)``: the CHUNK-entry pieces
+              of the targets with more than CHUNK entries, in target and
+              entry order; ``q`` indexes ``long_rows``.
+    long_rows [n_long]  those targets.
+    long_part [n_long + 1]  target ``q``'s pieces are chunks
+              ``long_part[q]:long_part[q + 1]``.
+    counters  [n_long]  zeros: each launch counts the finished pieces
+              of a long target here and sets the count back to 0, so a
+              plan serves one launch at a time.
+
+    The arrays are numpy on the host and tensors after :meth:`to`.
+    """
+
+    FIELDS = ("offsets", "src", "cnt", "chunks", "long_rows", "long_part",
+              "counters")
+
+    def __init__(self, offsets, src, cnt, chunks, long_rows, long_part,
+                 counters):
+        self.offsets = offsets
+        self.src = src
+        self.cnt = cnt
+        self.chunks = chunks
+        self.long_rows = long_rows
+        self.long_part = long_part
+        self.counters = counters
+
+    @property
+    def num_rows(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def num_chunks(self) -> int:
+        return self.chunks.shape[0]
+
+    def nbytes(self) -> int:
+        return sum(int(getattr(self, k).nbytes) for k in self.FIELDS)
+
+    def to(self, device) -> "ScatterPlan":
+        """The plan as int32 tensors on ``device``: a host plan goes in
+        one copy of its arrays packed together; a plan already on
+        ``device`` is returned as it is, one on another device moved
+        field by field."""
+        arrays = [getattr(self, k) for k in self.FIELDS]
+        if isinstance(arrays[0], torch.Tensor):
+            if arrays[0].device == torch.device(device):
+                return self
+            return ScatterPlan(*(a.to(device) for a in arrays))
+        flat = [np.asarray(a, np.int32).reshape(-1) for a in arrays]
+        packed = torch.from_numpy(np.concatenate(flat)).to(device)
+        out, at = [], 0
+        for a, f in zip(arrays, flat):
+            out.append(packed[at:at + f.size].view(np.shape(a)))
+            at += f.size
+        return ScatterPlan(*out)
+
+
+def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:
+    """The transpose of ``idx`` ``[ND, F]`` over its valid slots
+    (``mask > 0``; every slot when ``mask`` is None) into ``num_rows``
+    targets, as numpy int32 arrays (:class:`ScatterPlan`)."""
+    idx = np.asarray(idx)
+    if idx.ndim != 2:
+        raise ValueError(f"idx must be [ND, F], got shape {idx.shape}")
+    nd, f = idx.shape
+    valid = (np.ones((nd, f), bool) if mask is None
+             else np.asarray(mask).reshape(nd, f) > 0)
+    slots = np.flatnonzero(valid)               # (i, k) order
+    tgt = idx.reshape(-1)[slots].astype(np.int64)
+    if tgt.size and (tgt.min() < 0 or tgt.max() >= num_rows):
+        raise ValueError(f"a valid slot names a row outside [0, "
+                         f"{num_rows})")
+    if max(tgt.size, num_rows) >= 2 ** 31:
+        raise ValueError("scatter_plan takes fewer than 2^31 entries "
+                         "and rows")
+    order = np.argsort(tgt, kind="stable")
+    counts = np.bincount(tgt, minlength=num_rows)
+    offsets = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    long_rows = np.flatnonzero(counts > CHUNK)
+    pieces = -(-counts[long_rows] // CHUNK)
+    long_part = np.zeros(len(long_rows) + 1, np.int64)
+    np.cumsum(pieces, out=long_part[1:])
+    q = np.repeat(np.arange(len(long_rows)), pieces)
+    begin = (offsets[long_rows][q]
+             + CHUNK * (np.arange(len(q)) - long_part[:-1][q]))
+    end = np.minimum(begin + CHUNK, offsets[long_rows + 1][q])
+    i32 = np.int32
+    return ScatterPlan(
+        offsets.astype(i32), (slots[order] // f).astype(i32),
+        valid.sum(1).astype(i32),
+        np.stack([begin, end, q], 1).astype(i32).reshape(-1, 3),
+        long_rows.astype(i32), long_part.astype(i32),
+        np.zeros(len(long_rows), i32))
 
 
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -44,11 +158,31 @@ def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx[valid].long(), src)
 
 
+def segment_sum_plain(g: torch.Tensor, plan: ScatterPlan,
+                      mean: bool) -> torch.Tensor:
+    """Plain-torch segmented sum over a plan: target ``t`` adds
+    ``g[i] / denom_i`` for its entries one at a time in the plan's
+    order, in float32 — the order of the sequential ``index_add_`` in
+    :func:`scatter_add_rows_plain`, which it equals bit for bit."""
+    plan = plan.to(g.device)
+    rows = g.float()
+    if mean:
+        rows = rows / plan.cnt.clamp_min(1).to(rows)[:, None]
+    start = plan.offsets[:-1].long()
+    length = plan.offsets[1:].long() - start
+    out = torch.zeros(plan.num_rows, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    for r in range(int(length.max()) if plan.num_rows else 0):
+        sel = (length > r).nonzero().squeeze(1)
+        out[sel] += rows[plan.src[start[sel] + r].long()]
+    return out
+
+
 def _launcher():
     lib = _build.load(_SOURCE)
     fn = lib.scatter_add_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -56,7 +190,8 @@ def _launcher():
 
 def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
                      mask: Optional[torch.Tensor], num_rows: int,
-                     mean: bool) -> torch.Tensor:
+                     mean: bool, plan: Optional[ScatterPlan] = None
+                     ) -> torch.Tensor:
     """``dst[idx[i, k]] += g[i] / (max(cnt_i, 1) if mean else 1)`` for
     every slot with ``mask[i, k] > 0`` (every slot when ``mask`` is
     None), into a zero-filled float32 ``[num_rows, D]`` that is
@@ -65,10 +200,13 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     g    [ND, D] float32 or bfloat16, contiguous.
     idx  [ND, F] int32 or int64; every valid slot indexes a row of dst.
     mask [ND, F] uint8, or None.
+    plan ``scatter_plan(idx, mask, num_rows)``, on the host or on g's
+         device.
 
-    On a CUDA tensor this zero-fills and launches the kernel (counted in
-    ``scatter_add_rows.launches``) or raises; on a CPU tensor it runs
-    :func:`scatter_add_rows_plain`.
+    On a CUDA tensor this launches the kernel (counted in
+    ``scatter_add_rows.launches``) over ``plan``, and raises without
+    one; on a CPU tensor it runs :func:`scatter_add_rows_plain` and
+    does not read ``plan``.
     """
     if g.dim() != 2 or idx.dim() != 2 or idx.shape[0] != g.shape[0] or (
             mask is not None and mask.shape != idx.shape):
@@ -94,27 +232,41 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     if g.device.type != "cuda":
         raise ValueError(f"scatter_add_rows runs on cuda or cpu, not "
                          f"{g.device}")
-    if not (g.is_contiguous() and idx.is_contiguous() and (
-            mask is None or mask.is_contiguous())):
-        raise ValueError("g, idx and mask must be contiguous")
-    nd, f = idx.shape
-    out = torch.empty((num_rows, g.shape[1]), dtype=torch.float32,
-                      device=g.device)
+    if plan is None:
+        raise ValueError(
+            "scatter_add_rows on a CUDA tensor needs the index table's "
+            "scatter_plan(idx, mask, num_rows); attach it to the "
+            "FanoutBlock (block.plan) or pass it to gather_rows")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    plan = plan.to(g.device)
+    if not all(t.dtype == torch.int32 and t.is_contiguous()
+               for t in (getattr(plan, k) for k in ScatterPlan.FIELDS)):
+        raise TypeError("the plan's arrays must be contiguous int32")
+    if plan.num_rows != num_rows or plan.cnt.shape[0] != g.shape[0]:
+        raise ValueError(f"the plan is for {plan.num_rows} rows and "
+                         f"{plan.cnt.shape[0]} source rows, not "
+                         f"{num_rows} and {g.shape[0]}")
+    d = g.shape[1]
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=g.device)
+    if num_rows == 0 or d == 0:
+        return out
+    partial = torch.empty((plan.num_chunks, d), dtype=torch.float32,
+                          device=g.device)
     launch = _launcher()
     with torch.cuda.device(g.device):
         # read here, not cached: autograd calls a backward on its own
         # thread, with the forward's stream made current
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = launch(g.data_ptr(), idx.data_ptr(),
-                     None if mask is None else mask.data_ptr(),
-                     out.data_ptr(), nd, f, g.shape[1], num_rows,
-                     _DTYPE_CODE[g.dtype], idx.element_size(), int(mean),
+        err = launch(g.data_ptr(), *(getattr(plan, k).data_ptr()
+                                     for k in ScatterPlan.FIELDS),
+                     partial.data_ptr(), out.data_ptr(), num_rows,
+                     plan.num_chunks, d, _DTYPE_CODE[g.dtype], int(mean),
                      stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA "
                            f"error {err}")
-    if nd and f and g.shape[1]:     # else only the zero fill ran
-        scatter_add_rows.launches += 1
+    scatter_add_rows.launches += 1
     return out
 
 

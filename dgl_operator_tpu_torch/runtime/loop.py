@@ -7,7 +7,8 @@ samples and pads each batch on the host (on a thread pipeline when
 ``prefetch > 0``), and takes one step per batch on the card: the input
 rows are gathered by the hand-written ``gather_rows`` kernel, the model
 aggregates with ``fanout_agg`` and its backward with
-``scatter_add_rows``, and ``torch.optim.Adam`` updates the weights.
+``scatter_add_rows`` (over the transpose plans the sampler attaches to
+the blocks), and ``torch.optim.Adam`` updates the weights.
 Evaluation runs ``sage_inference`` over the full graph.
 
 What the JAX trainer also carries and this one does not yet: the device
@@ -36,6 +37,7 @@ from dgl_operator_tpu_torch.models.sage import (sage_inference,
                                                 state_dict_from_flax)
 from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.ops.gather import gather_rows
+from dgl_operator_tpu_torch.ops.scatter import scatter_plan
 from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 
 _ROADMAP = "ROADMAP.md Queue 1"
@@ -158,11 +160,17 @@ class SampledTrainer:
     # -- batches --------------------------------------------------------
     def sample(self, seeds: np.ndarray, step_seed: int) -> MiniBatch:
         """The padded host minibatch of ``seeds``; a function of
-        ``(seeds, step_seed)`` alone."""
+        ``(seeds, step_seed)`` alone. Every block but the first carries
+        the transpose plan its aggregation's backward sums over; the
+        first one's source rows are the input features, which need no
+        gradient."""
         mb = build_fanout_blocks(self.csc, seeds, self.cfg.fanouts,
                                  seed=step_seed, src_caps=self.caps[1:])
-        return pad_minibatch(mb, self.cfg.batch_size, self.cfg.fanouts,
-                             self.g.num_nodes, caps=self.caps)
+        mb = pad_minibatch(mb, self.cfg.batch_size, self.cfg.fanouts,
+                           self.g.num_nodes, caps=self.caps)
+        for blk in mb.blocks[1:]:
+            blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
+        return mb
 
     def sample_pipeline(self, batches: Sequence[Tuple[np.ndarray, int]],
                         depth: Optional[int] = None) -> Iterator[MiniBatch]:

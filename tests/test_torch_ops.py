@@ -8,9 +8,11 @@ rows ``pad_minibatch`` appends. ``gather_rows`` must equal the JAX
 Pallas gather (interpreter mode) and its reference; the gradients of
 ``gather_rows`` and ``fanout_agg`` (the scatter-add backward) must
 equal ``jax.grad`` through the JAX ops to 1e-5; ``gspmm`` must equal
-the JAX ``gspmm``. The CUDA kernels run only on a card: the tests
-marked ``cuda`` hold them against their plain versions there and skip
-here.
+the JAX ``gspmm``. ``scatter_plan`` (the host-built transpose the
+backward kernel sums over) must equal a brute-force loop, and the
+plain segmented sum over it must equal the plain scatter-add bit for
+bit. The CUDA kernels run only on a card: the tests marked ``cuda``
+hold them against their plain versions there and skip here.
 """
 
 import jax
@@ -351,6 +353,151 @@ def test_cpu_paths_count_no_launch():
             scatter.scatter_add_rows.launches) == before
 
 
+# -- the scatter plan ---------------------------------------------------
+
+def _plan_case(kind):
+    """idx [ND, F], mask or None, num_rows: masked slots and padded rows,
+    targets with no entry, a hub named by every row (longer than
+    CHUNK), and F = 1 with repeated ids and no mask."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "fanout1_repeats":
+        return rng.integers(0, 7, size=(90, 1)), None, 12
+    nd, f, n = 60, 5, 40
+    idx = rng.integers(0, n - 10, size=(nd, f)).astype(np.int32)
+    mask = (rng.random((nd, f)) < 0.7).astype(np.uint8)
+    mask[-4:] = 0
+    idx[-4:] = 0                      # padded rows, as pad_minibatch pads
+    if kind == "hub":
+        idx[:, 2] = 33
+        mask[:, 2] = 1                # 60 entries > CHUNK
+    return idx, mask, n
+
+
+def _brute_plan(idx, mask, n):
+    nd, f = idx.shape
+    valid = np.ones((nd, f), bool) if mask is None else mask > 0
+    entries = [[] for _ in range(n)]
+    for i in range(nd):
+        for k in range(f):
+            if valid[i, k]:
+                entries[idx[i, k]].append(i)
+    offsets = np.cumsum([0] + [len(e) for e in entries])
+    chunks, long_rows, long_part = [], [], [0]
+    for t, e in enumerate(entries):
+        if len(e) > scatter.CHUNK:
+            for b in range(0, len(e), scatter.CHUNK):
+                chunks.append((offsets[t] + b,
+                               offsets[t] + min(b + scatter.CHUNK, len(e)),
+                               len(long_rows)))
+            long_rows.append(t)
+            long_part.append(len(chunks))
+    return dict(offsets=offsets, src=[i for e in entries for i in e],
+                cnt=valid.sum(1), chunks=np.reshape(chunks, (-1, 3)),
+                long_rows=long_rows, long_part=long_part,
+                counters=np.zeros(len(long_rows)))
+
+
+@pytest.mark.parametrize("kind", ["masked_padded", "hub",
+                                  "fanout1_repeats"])
+def test_scatter_plan_matches_brute_force(kind):
+    idx, mask, n = _plan_case(kind)
+    plan = scatter.scatter_plan(idx, mask, n)
+    want = _brute_plan(idx, mask, n)
+    for name in scatter.ScatterPlan.FIELDS:
+        got = getattr(plan, name)
+        assert got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, np.asarray(want[name]).reshape(
+            got.shape), err_msg=name)
+    assert (np.diff(plan.offsets) == 0).any()       # empty targets
+    assert len(plan.long_rows) == (kind == "hub")
+
+
+def test_scatter_plan_refuses_out_of_range_targets():
+    with pytest.raises(ValueError, match="outside"):
+        scatter.scatter_plan(np.array([[0, 5]]), None, 5)
+    # a masked slot may hold anything
+    scatter.scatter_plan(np.array([[0, 5]]), np.array([[1, 0]]), 5)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("kind", ["masked_padded", "hub",
+                                  "fanout1_repeats"])
+def test_segment_sum_over_plan_is_bit_equal_to_plain(kind, mean):
+    """Each target adds its entries one at a time in the plan's order:
+    the order of the sequential ``index_add_``, so float32 sums agree
+    to the bit."""
+    idx, mask, n = _plan_case(kind)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(len(idx), 24)).astype(np.float32))
+    plan = scatter.scatter_plan(idx, mask, n)
+    got = scatter.segment_sum_plain(g, plan, mean)
+    want = scatter.scatter_add_rows_plain(
+        g, torch.from_numpy(idx),
+        None if mask is None else torch.from_numpy(mask), n, mean)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_plan_ships_packed_and_cpu_scatter_ignores_it():
+    idx, mask, n = _plan_case("hub")
+    plan = scatter.scatter_plan(idx, mask, n)
+    shipped = plan.to("cpu")
+    assert shipped.to("cpu").offsets is shipped.offsets   # no copy
+    for name in scatter.ScatterPlan.FIELDS:
+        np.testing.assert_array_equal(getattr(shipped, name).numpy(),
+                                      getattr(plan, name))
+    assert shipped.num_rows == n
+    assert shipped.num_chunks == -(-len(idx) // scatter.CHUNK)
+    assert shipped.nbytes() == plan.nbytes()
+    g = torch.randn(len(idx), 8)
+    ti, tm = torch.from_numpy(idx), torch.from_numpy(mask)
+    other = scatter.scatter_plan(np.zeros_like(idx), None, n)
+    assert torch.equal(
+        scatter.scatter_add_rows(g, ti, tm, n, True, plan=other),
+        scatter.scatter_add_rows_plain(g, ti, tm, n, True))
+
+
+def test_fanout_block_to_ships_the_plan():
+    idx, mask, n = _plan_case("masked_padded")
+    plan = scatter.scatter_plan(idx, mask, n)
+    blk = FanoutBlock(idx, mask, n, plan=plan).to("cpu")
+    assert isinstance(blk.plan.src, torch.Tensor)
+    np.testing.assert_array_equal(blk.plan.src.numpy(), plan.src)
+    assert FanoutBlock(idx, mask, n).to("cpu").plan is None
+    # a block's forward hands its plan to the backward
+    h = torch.randn(n, 6, requires_grad=True)
+    fanout.fanout_mean(blk, h).sum().backward()
+    want = scatter.segment_sum_plain(torch.ones(len(idx), 6), plan, True)
+    assert torch.equal(h.grad, want)
+
+
+def test_sampled_batches_carry_plans_on_inner_blocks():
+    """The trainer's sampler attaches a plan to every block but the
+    first (whose source rows, the input features, need no gradient)."""
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    g = datasets.synthetic_node_clf(num_nodes=300, num_edges=1500,
+                                    feat_dim=8, num_classes=3,
+                                    seed=2).graph
+    tr = SampledTrainer(DistSAGE(8, 8, 3, num_layers=3, device="cpu"), g,
+                        TrainConfig(batch_size=16, fanouts=(3, 4, 5)),
+                        device="cpu")
+    mb = tr.sample(tr.train_ids[:16], 0)
+    assert mb.blocks[0].plan is None
+    for blk in mb.blocks[1:]:
+        want = scatter.scatter_plan(blk.nbr, blk.mask, blk.num_src)
+        for name in scatter.ScatterPlan.FIELDS:
+            np.testing.assert_array_equal(getattr(blk.plan, name),
+                                          getattr(want, name))
+    shipped = tr.ship(mb)[0]
+    assert shipped[0].plan is None
+    assert all(isinstance(b.plan.offsets, torch.Tensor)
+               for b in shipped[1:])
+
+
 # -- gspmm --------------------------------------------------------------
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
@@ -412,13 +559,63 @@ def test_scatter_kernel_matches_plain_on_card(n, nd, f, d, dtype):
                         dtype=torch.int32)
     mask = (torch.rand(nd, f, device="cuda", generator=g) < 0.7).to(
         torch.uint8)
+    plan = scatter.scatter_plan(nbr.cpu().numpy(), mask.cpu().numpy(), n)
     for mean in (False, True):
-        got = scatter.scatter_add_rows(grad, nbr, mask, n, mean)
+        before = scatter.scatter_add_rows.launches
+        got = scatter.scatter_add_rows(grad, nbr, mask, n, mean, plan=plan)
         want = scatter.scatter_add_rows_plain(grad, nbr, mask, n, mean)
         torch.cuda.synchronize()
-        # fp32 atomics land in another order than index_add_'s
+        assert scatter.scatter_add_rows.launches == before + 1
+        # targets of more than CHUNK entries add partial sums of their
+        # pieces, not one entry at a time as index_add_ does
         tol = 1e-5 * max(1.0, float(want.abs().max()) if nd else 0.0)
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [False, True])
+def test_scatter_kernel_is_deterministic_on_card(hub):
+    """Two launches give the same bits; with no target above CHUNK
+    entries, the CPU's sequential index_add_ does too. A hub target
+    named by every row is cut into pieces: still deterministic, within
+    the tolerance of the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(4)
+    nd, f, d, n = 1000, 25, 256, 19200
+    nbr = rng.integers(0, n, size=(nd, f)).astype(np.int32)
+    mask = (rng.random((nd, f)) < 0.8).astype(np.uint8)
+    if hub:
+        nbr[:, 0], mask[:, 0] = 7, 1
+    g = rng.normal(size=(nd, d)).astype(np.float32)
+    plan = scatter.scatter_plan(nbr, mask, n)
+    assert len(plan.long_rows) == int(hub)
+    gc, nc, mc = (torch.from_numpy(a).cuda() for a in (g, nbr, mask))
+    dev_plan = plan.to("cuda")
+    first = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
+    second = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
+    want = scatter.scatter_add_rows_plain(*(torch.from_numpy(a) for a in
+                                            (g, nbr, mask)), n, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    if hub:
+        torch.testing.assert_close(first.cpu(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert torch.equal(first.cpu()[:7], want[:7])
+    else:
+        assert torch.equal(first.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_needs_a_plan_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.randn(4, 8, device="cuda")
+    idx = torch.zeros(4, 2, dtype=torch.int32, device="cuda")
+    before = scatter.scatter_add_rows.launches
+    with pytest.raises(ValueError, match="scatter_plan"):
+        scatter.scatter_add_rows(g, idx, None, 3, mean=False)
+    assert scatter.scatter_add_rows.launches == before
 
 
 @pytest.mark.cuda
@@ -428,7 +625,8 @@ def test_fanout_gradient_flows_on_card():
     h, nbr, mask = _case(9, 300, 64, 40, 10)
     hc = torch.from_numpy(h).cuda().requires_grad_()
     hp = torch.from_numpy(h).requires_grad_()
-    tb = FanoutBlock(nbr, mask, 300)
+    tb = FanoutBlock(nbr, mask, 300,
+                     plan=scatter.scatter_plan(nbr, mask, 300))
     w = torch.randn(43, 64)
     before = scatter.scatter_add_rows.launches
     out = fanout.fanout_mean(tb, hc)
