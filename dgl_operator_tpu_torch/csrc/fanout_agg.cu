@@ -58,6 +58,10 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace {
 
@@ -340,19 +344,59 @@ struct Config {
   int64_t smem, blocks, stage_bytes;
 };
 
+// What a launch asks of the runtime besides the launch, read once per
+// device (SMs, opt-in shared memory) and per (device, kernel, shared
+// bytes) (resident blocks per SM; a bulk kernel is first allowed the
+// device's whole opt-in shared memory), then kept for later launches.
+std::mutex g_mu;
+std::map<int, std::pair<int, int>> g_device;   // dev -> (sms, optin)
+std::map<std::tuple<int, const void*, int64_t>, int> g_resident;
+
+cudaError_t device_info(int* dev, int* sms, int* optin) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_device.find(*dev);
+  if (it == g_device.end()) {
+    int s = 0, o = 0;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &o, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) return err;
+    it = g_device.emplace(*dev, std::make_pair(s, o)).first;
+  }
+  *sms = it->second.first;
+  *optin = it->second.second;
+  return cudaSuccess;
+}
+
 template <typename K>
-cudaError_t resident_blocks(K kernel, int warps, int64_t smem, int64_t nd,
-                            int64_t* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, warps * kWarp, static_cast<size_t>(smem));
+cudaError_t resident_blocks(K kernel, int dev, int sms, int optin, int warps,
+                            int64_t smem, int64_t nd, int64_t* blocks) {
+  const auto key =
+      std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    auto it = g_resident.find(key);
+    if (it == g_resident.end()) {
+      cudaError_t err = cudaSuccess;
+      // above 48 KB only once the kernel is allowed that much
+      if (smem > 0)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, warps * kWarp, static_cast<size_t>(smem));
+      if (err != cudaSuccess) return err;
+      it = g_resident.emplace(key, per_sm).first;
+    }
+    per_sm = it->second;
+  }
   *blocks = std::min<int64_t>((nd + warps - 1) / warps,
                               static_cast<int64_t>(std::max(per_sm, 1)) * sms);
-  return err;
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -362,11 +406,8 @@ cudaError_t configure(const void* h, const void* out, int64_t nd, int64_t f,
   const int64_t row_bytes = d * static_cast<int64_t>(sizeof(T));
   const int64_t stage = f * row_bytes;
   const int64_t per_warp = kStages * stage;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int dev = 0, sms = 0, optin = 0;
+  const cudaError_t err = device_info(&dev, &sms, &optin);
   if (err != cudaSuccess) return err;
   if (row_bytes >= kBulkMinRowBytes && row_bytes % 16 == 0 &&
       reinterpret_cast<uintptr_t>(h) % 16 == 0 && stage > 0 &&
@@ -374,30 +415,25 @@ cudaError_t configure(const void* h, const void* out, int64_t nd, int64_t f,
     const int warps = static_cast<int>(
         std::min<int64_t>(kMaxWarps, (optin - kBarBytes) / per_warp));
     const int64_t smem = kBarBytes + warps * per_warp;
-    // above 48 KB only once the kernel is allowed that much
-    err = cudaFuncSetAttribute(fanout_agg_bulk<T, kVec>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
     *cfg = Config{1, warps, kVec, smem, 0, stage};
-    if (err != cudaSuccess) return err;
-    return resident_blocks(fanout_agg_bulk<T, kVec>, warps, smem, nd,
-                           &cfg->blocks);
+    return resident_blocks(fanout_agg_bulk<T, kVec>, dev, sms, optin, warps,
+                           smem, nd, &cfg->blocks);
   }
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out);
   *cfg = Config{0, kRowsPerBlock, 1, 0, 0, 0};
   if (d % kVec == 0 && addr % 16 == 0) {
     cfg->vw = kVec;
-    return resident_blocks(fanout_agg_regs<T, kVec>, kRowsPerBlock, 0, nd,
-                           &cfg->blocks);
+    return resident_blocks(fanout_agg_regs<T, kVec>, dev, sms, optin,
+                           kRowsPerBlock, 0, nd, &cfg->blocks);
   }
   if (kVec > 4 && d % 4 == 0 && addr % (4 * sizeof(T)) == 0) {
     cfg->vw = 4;
-    return resident_blocks(fanout_agg_regs<T, 4>, kRowsPerBlock, 0, nd,
-                           &cfg->blocks);
+    return resident_blocks(fanout_agg_regs<T, 4>, dev, sms, optin,
+                           kRowsPerBlock, 0, nd, &cfg->blocks);
   }
-  return resident_blocks(fanout_agg_regs<T, 1>, kRowsPerBlock, 0, nd,
-                         &cfg->blocks);
+  return resident_blocks(fanout_agg_regs<T, 1>, dev, sms, optin,
+                         kRowsPerBlock, 0, nd, &cfg->blocks);
 }
 
 template <typename T>
@@ -434,7 +470,8 @@ cudaError_t launch_typed(const void* h, const void* nbr, const void* mask,
 
 // dtype: 0 = float32, 1 = bfloat16. Launches on `stream` and does not
 // synchronise; returns the first CUDA error of configuring or
-// launching (0 = ok).
+// launching (0 = ok). The device and occupancy queries behind a launch's
+// configuration are made once and kept.
 extern "C" int fanout_agg_launch(const void* h, const void* nbr,
                                  const void* mask, void* out, int64_t nd,
                                  int64_t f, int64_t d, int64_t dtype,
@@ -451,20 +488,4 @@ extern "C" int fanout_agg_launch(const void* h, const void* nbr,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The launch fanout_agg_launch picks for these arguments and an output
-// as aligned as h, into cfg[0..5]: path (1 bulk copies, 0 registers),
-// warps per block, dynamic shared bytes per block, blocks, shared
-// bytes per stage, columns a lane moves at once.
-extern "C" int fanout_agg_config(const void* h, int64_t nd, int64_t f,
-                                 int64_t d, int64_t dtype, int64_t* cfg) {
-  Config c{};
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) err = configure<float>(h, h, nd, f, d, &c);
-  if (dtype == 1) err = configure<__nv_bfloat16>(h, h, nd, f, d, &c);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cfg[0] = c.path, cfg[1] = c.warps, cfg[2] = c.smem, cfg[3] = c.blocks;
-  cfg[4] = c.stage_bytes, cfg[5] = c.vw;
-  return 0;
 }

@@ -38,13 +38,14 @@
 // them in exactly the order of a sequential index_add_ (bit-equal to
 // the CPU). A longer one (a hub named by many dst rows, or the
 // gather's padded id 0) is cut into kChunk-entry pieces, each summed by
-// its own warp into a partial row; the warp that finishes a target's
-// last piece (an integer counter in the plan says which) adds the
-// partials in piece order and writes the row, then sets the counter
-// back to 0. Piece warps come first in the grid, so the long sums
-// start first. What holds it back: a target of up to kChunk entries is
-// one warp's sequential chain of load rounds, and a warp's offsets,
-// entries and rows are three dependent trips before its first store.
+// its own warp into a partial row; a second launch on the same stream
+// (a programmatic dependent launch, which hides the gap between the
+// two) then adds each such target's partials in a fixed order, a block
+// a target, and writes its row. The plan is read only, so launches may
+// share it. Piece warps come first in the grid, so the long sums start
+// first. What holds it back: a target of up to kChunk entries is one
+// warp's sequential chain of load rounds, and a warp's offsets, entries
+// and rows are three dependent trips before its first store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,54 +87,6 @@ struct alignas(sizeof(T) * VW) Pack {
   T v[VW];
 };
 
-// a partial row written by another warp of this launch: read from L2
-template <int VW>
-__device__ __forceinline__ Pack<float, VW> load_cg(const float* p) {
-  Pack<float, VW> r;
-  if constexpr (VW == 4) {
-    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
-    r.v[0] = x.x, r.v[1] = x.y, r.v[2] = x.z, r.v[3] = x.w;
-  } else if constexpr (VW == 2) {
-    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
-    r.v[0] = x.x, r.v[1] = x.y;
-  } else {
-    r.v[0] = __ldcg(p);
-  }
-  return r;
-}
-
-// out = the in-order sum of partial rows [p0, p1)
-template <int VW>
-__device__ __forceinline__ void add_partials(const float* partial,
-                                             int p0, int p1, int64_t d,
-                                             float* __restrict__ out,
-                                             int lane) {
-  for (int64_t base = 0; base < d; base += kWarp * VW) {
-    const int64_t c = base + static_cast<int64_t>(lane) * VW;
-    if (c >= d) break;
-    float acc[VW];
-#pragma unroll
-    for (int j = 0; j < VW; ++j) acc[j] = 0.0f;
-    for (int r0 = p0; r0 < p1; r0 += kLoads) {
-      Pack<float, VW> p[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u)
-        if (r0 + u < p1)
-          p[u] = load_cg<VW>(partial + static_cast<int64_t>(r0 + u) * d + c);
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u)
-        if (r0 + u < p1)
-#pragma unroll
-          for (int j = 0; j < VW; ++j)
-            acc[j] = __fadd_rn(acc[j], p[u].v[j]);
-    }
-    Pack<float, VW> o;
-#pragma unroll
-    for (int j = 0; j < VW; ++j) o.v[j] = acc[j];
-    *reinterpret_cast<Pack<float, VW>*>(out + c) = o;
-  }
-}
-
 // Rows out, out + d, ... get, for targets j .. k-1 of a batch, the
 // in-order fp32 sums of their entries among src[lo .. lo + n) (n <=
 // kChunk), 0 for a target with none; target m's entries end where lane
@@ -141,16 +94,16 @@ __device__ __forceinline__ void add_partials(const float* partial,
 // warp issues kLoads / G rows' loads (a lane holding G x VW columns)
 // before adding them, so loads run ahead across target boundaries
 // while each target still adds its entries one at a time.
-template <typename T, int VW, int G, bool kMean>
+template <typename T, int VW, int G>
 __device__ __forceinline__ void sum_batch(
     const T* __restrict__ g, const int32_t* __restrict__ src,
-    const int32_t* __restrict__ cnt, int lo, int n, int j, int k, int hi,
-    float* __restrict__ out, int64_t d, int lane) {
+    const int32_t* __restrict__ cnt, bool mean, int lo, int n, int j, int k,
+    int hi, float* __restrict__ out, int64_t d, int lane) {
   int my_src = 0;
   float my_den = 1.0f, my_rcp = 1.0f;
   if (lane < n) {
     my_src = src[lo + lane];
-    if (kMean) {
+    if (mean) {
       my_den = static_cast<float>(max(cnt[my_src], 1));
       my_rcp = __frcp_rn(my_den);
     }
@@ -216,7 +169,7 @@ __device__ __forceinline__ void sum_batch(
               for (int v = 0; v < VW; ++v) {
                 const float x = to_float(p[u][q].v[v]);
                 acc[q][v] = __fadd_rn(acc[q][v],
-                                      kMean ? div_by_count(x, den, rcp) : x);
+                                      mean ? div_by_count(x, den, rcp) : x);
               }
         }
       }
@@ -228,12 +181,12 @@ __device__ __forceinline__ void sum_batch(
 // Writes targets [t0, t0 + tile) that have at most kChunk entries, in
 // batches of consecutive such targets with at most kChunk entries
 // together.
-template <typename T, int VW, int G, bool kMean>
+template <typename T, int VW, int G>
 __device__ __forceinline__ void walk_tile(
     const T* __restrict__ g, const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ src, const int32_t* __restrict__ cnt,
-    float* __restrict__ dst, int64_t t0, int tile, int64_t num_rows,
-    int64_t d, int lane) {
+    bool mean, float* __restrict__ dst, int64_t t0, int tile,
+    int64_t num_rows, int64_t d, int lane) {
   const int nt =
       num_rows - t0 < tile ? static_cast<int>(num_rows - t0) : tile;
   int lo = 0, hi = 0;
@@ -247,7 +200,7 @@ __device__ __forceinline__ void walk_tile(
   while (j < nt) {
     const unsigned later_long = long_bits & (kFull << j);
     const int first_long = later_long ? __ffs(later_long) - 1 : nt;
-    if (first_long == j) {   // written by its last piece's warp
+    if (first_long == j) {   // written by add_partials_kernel
       ++j;
       continue;
     }
@@ -256,57 +209,109 @@ __device__ __forceinline__ void walk_tile(
                           kFull, lane >= j && lane < first_long &&
                                      hi - lo_j <= kChunk));
     const int n = __shfl_sync(kFull, hi, k - 1) - lo_j;
-    sum_batch<T, VW, G, kMean>(g, src, cnt, lo_j, n, j, k, hi,
-                               dst + (t0 + j) * d, d, lane);
+    sum_batch<T, VW, G>(g, src, cnt, mean, lo_j, n, j, k, hi,
+                        dst + (t0 + j) * d, d, lane);
     j = k;
   }
 }
 
-template <typename T, int VW, int G, bool kMean>
+// Warps [0, n_chunks) sum one piece of a long target each into its
+// partial row; the rest write the short targets, `tile` a warp.
+template <typename T, int VW, int G>
 __global__ void __launch_bounds__(kWarp* kWarpsPerBlock, 2)
     segment_sum_kernel(const T* __restrict__ g,
                        const int32_t* __restrict__ offsets,
                        const int32_t* __restrict__ src,
                        const int32_t* __restrict__ cnt,
                        const int32_t* __restrict__ chunks,
-                       const int32_t* __restrict__ long_rows,
-                       const int32_t* __restrict__ long_part,
-                       int32_t* counters, float* partial,
-                       float* __restrict__ dst, int64_t num_rows,
-                       int64_t n_chunks, int tile, int64_t d) {
+                       float* __restrict__ partial, float* __restrict__ dst,
+                       int64_t num_rows, int64_t n_chunks, int tile,
+                       int64_t d, bool mean) {
+  // let the dependent launch (add_partials_kernel) be placed early
+  asm volatile("griddepcontrol.launch_dependents;");
   const int64_t w =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (w < n_chunks) {
-    // one piece of a long target
-    const int begin = chunks[3 * w], end = chunks[3 * w + 1];
-    const int q = chunks[3 * w + 2];
-    sum_batch<T, VW, G, kMean>(g, src, cnt, begin, end - begin, 0, 1, end,
-                               partial + w * d, d, lane);
-    // publish the partial, then count it; the last piece's warp adds
-    // all of the target's partials in piece order
-    __threadfence();
-    __syncwarp();
-    const int p0 = long_part[q], p1 = long_part[q + 1];
-    int last = 0;
-    if (lane == 0) last = atomicAdd(&counters[q], 1) == p1 - p0 - 1;
-    if (!__shfl_sync(kFull, last, 0)) return;
-    __threadfence();
-    add_partials<VW>(partial, p0, p1, d,
-                     dst + static_cast<int64_t>(long_rows[q]) * d, lane);
-    if (lane == 0) counters[q] = 0;   // ready for the plan's next launch
+    const int begin = chunks[2 * w], end = chunks[2 * w + 1];
+    sum_batch<T, VW, G>(g, src, cnt, mean, begin, end - begin, 0, 1, end,
+                        partial + w * d, d, lane);
     return;
   }
   const int64_t t0 = (w - n_chunks) * tile;
   if (t0 < num_rows)
-    walk_tile<T, VW, G, kMean>(g, offsets, src, cnt, dst, t0, tile,
-                               num_rows, d, lane);
+    walk_tile<T, VW, G>(g, offsets, src, cnt, mean, dst, t0, tile,
+                        num_rows, d, lane);
 }
 
+// One block a long target q: dst row long_rows[q] = the sum of its
+// partial rows long_part[q] .. long_part[q + 1), which the previous
+// launch on this stream wrote, in a fixed order: warp w adds, in piece
+// order, its contiguous share of the pieces, then warp 0 adds the
+// warps' sums in warp order. Launched as a programmatic dependent of
+// that launch, so it is resident before it ends and waits for its
+// writes (griddepcontrol.wait) only where it reads them.
+template <int VW>
+__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
+    add_partials_kernel(const float* __restrict__ partial,
+                        const int32_t* __restrict__ long_rows,
+                        const int32_t* __restrict__ long_part,
+                        float* __restrict__ dst, int64_t d) {
+  __shared__ Pack<float, VW> sums[kWarpsPerBlock][kWarp];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  // the plan is not written by the sum: read it before the wait
+  const int p0 = long_part[blockIdx.x], p1 = long_part[blockIdx.x + 1];
+  const int share = (p1 - p0 + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int r_begin = min(p1, p0 + warp * share);
+  const int r_end = min(p1, r_begin + share);
+  float* out = dst + static_cast<int64_t>(long_rows[blockIdx.x]) * d;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int64_t base = 0; base < d; base += kWarp * VW) {
+    const int64_t c = base + static_cast<int64_t>(lane) * VW;
+    const bool on = c < d;
+    Pack<float, VW> acc;
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc.v[j] = 0.0f;
+    for (int r0 = r_begin; r0 < r_end; r0 += kLoads) {
+      Pack<float, VW> p[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (r0 + u < r_end && on)
+          p[u] = *reinterpret_cast<const Pack<float, VW>*>(
+              partial + static_cast<int64_t>(r0 + u) * d + c);
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (r0 + u < r_end && on)
+#pragma unroll
+          for (int j = 0; j < VW; ++j)
+            acc.v[j] = __fadd_rn(acc.v[j], p[u].v[j]);
+    }
+    sums[warp][lane] = acc;
+    __syncthreads();
+    if (warp == 0 && on) {
+      Pack<float, VW> o;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) o.v[j] = 0.0f;
+      for (int w = 0; w < kWarpsPerBlock; ++w)
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          o.v[j] = __fadd_rn(o.v[j], sums[w][lane].v[j]);
+      *reinterpret_cast<Pack<float, VW>*>(out + c) = o;
+    }
+    __syncthreads();
+  }
+}
+
+// The plan's arrays, in ops/scatter.py ScatterPlan.FIELDS order.
+struct Plan {
+  const int32_t *offsets, *src, *cnt, *chunks, *long_rows, *long_part;
+};
+
 template <typename T, int VW, int G>
-cudaError_t launch_groups(const void* g, const int32_t* const* plan,
-                          void* partial, void* dst, int64_t num_rows,
-                          int64_t n_chunks, int64_t d, bool mean,
+cudaError_t launch_groups(const T* g, const Plan& plan, float* partial,
+                          float* dst, int64_t num_rows, int64_t n_chunks,
+                          int64_t n_long, int64_t d, bool mean,
                           cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -318,40 +323,50 @@ cudaError_t launch_groups(const void* g, const int32_t* const* plan,
       num_rows > per * kWarp ? kWarp : (num_rows + per - 1) / per);
   const int64_t warps = (num_rows + tile - 1) / tile + n_chunks;
   const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const T* gp = static_cast<const T*>(g);
-  int32_t* counters = const_cast<int32_t*>(plan[6]);
-  float* pp = static_cast<float*>(partial);
-  float* dp = static_cast<float*>(dst);
-  if (mean) {
-    segment_sum_kernel<T, VW, G, true><<<grid, block, 0, stream>>>(
-        gp, plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], counters,
-        pp, dp, num_rows, n_chunks, tile, d);
-  } else {
-    segment_sum_kernel<T, VW, G, false><<<grid, block, 0, stream>>>(
-        gp, plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], counters,
-        pp, dp, num_rows, n_chunks, tile, d);
-  }
-  return cudaGetLastError();
+  segment_sum_kernel<T, VW, G>
+      <<<static_cast<unsigned>((warps + kWarpsPerBlock - 1) /
+                               kWarpsPerBlock),
+         block, 0, stream>>>(g, plan.offsets, plan.src, plan.cnt,
+                             plan.chunks, partial, dst, num_rows, n_chunks,
+                             tile, d, mean);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_long == 0) return err;
+  // a programmatic dependent launch: its blocks are placed once every
+  // block of the sum has started, and wait (griddepcontrol.wait) for
+  // the sum's writes, so the gap between the launches is hidden
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_long));
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, add_partials_kernel<VW>,
+                            static_cast<const float*>(partial),
+                            plan.long_rows, plan.long_part, dst, d);
 }
 
 template <typename T, int VW>
-cudaError_t launch_vec(const void* g, const int32_t* const* plan,
-                       void* partial, void* dst, int64_t num_rows,
-                       int64_t n_chunks, int64_t d, bool mean,
+cudaError_t launch_vec(const void* g, const Plan& plan, void* partial,
+                       void* dst, int64_t num_rows, int64_t n_chunks,
+                       int64_t n_long, int64_t d, bool mean,
                        cudaStream_t stream) {
+  const T* gp = static_cast<const T*>(g);
+  float* pp = static_cast<float*>(partial);
+  float* dp = static_cast<float*>(dst);
   if (d > kWarp * VW)
-    return launch_groups<T, VW, 2>(g, plan, partial, dst, num_rows,
-                                   n_chunks, d, mean, stream);
-  return launch_groups<T, VW, 1>(g, plan, partial, dst, num_rows, n_chunks,
-                                 d, mean, stream);
+    return launch_groups<T, VW, 2>(gp, plan, pp, dp, num_rows, n_chunks,
+                                   n_long, d, mean, stream);
+  return launch_groups<T, VW, 1>(gp, plan, pp, dp, num_rows, n_chunks,
+                                 n_long, d, mean, stream);
 }
 
 template <typename T>
-cudaError_t launch_typed(const void* g, const int32_t* const* plan,
-                         void* partial, void* dst, int64_t num_rows,
-                         int64_t n_chunks, int64_t d, bool mean,
+cudaError_t launch_typed(const void* g, const Plan& plan, void* partial,
+                         void* dst, int64_t num_rows, int64_t n_chunks,
+                         int64_t n_long, int64_t d, bool mean,
                          cudaStream_t stream) {
   // a vector of VW columns needs D % VW == 0 and VW-aligned rows of g
   // (VW x sizeof(T) bytes) and of dst and partial (VW x 4 bytes)
@@ -359,48 +374,49 @@ cudaError_t launch_typed(const void* g, const int32_t* const* plan,
   const uintptr_t fa = reinterpret_cast<uintptr_t>(dst) |
                        reinterpret_cast<uintptr_t>(partial);
   if (d % 4 == 0 && ga % (4 * sizeof(T)) == 0 && fa % 16 == 0) {
-    return launch_vec<T, 4>(g, plan, partial, dst, num_rows, n_chunks, d,
-                            mean, stream);
+    return launch_vec<T, 4>(g, plan, partial, dst, num_rows, n_chunks,
+                            n_long, d, mean, stream);
   }
   if (d % 2 == 0 && ga % (2 * sizeof(T)) == 0 && fa % 8 == 0) {
-    return launch_vec<T, 2>(g, plan, partial, dst, num_rows, n_chunks, d,
-                            mean, stream);
+    return launch_vec<T, 2>(g, plan, partial, dst, num_rows, n_chunks,
+                            n_long, d, mean, stream);
   }
-  return launch_vec<T, 1>(g, plan, partial, dst, num_rows, n_chunks, d,
-                          mean, stream);
+  return launch_vec<T, 1>(g, plan, partial, dst, num_rows, n_chunks, n_long,
+                          d, mean, stream);
 }
 
 }  // namespace
 
 // The plan's arrays, in ops/scatter.py ScatterPlan.FIELDS order:
-// offsets, src, cnt, chunks, long_rows, long_part, counters (int32).
+// offsets, src, cnt, chunks, long_rows, long_part (int32, read only).
 // partial is [n_chunks, d] float32 scratch (unread when n_chunks is
-// 0). dtype (of g): 0 = float32, 1 = bfloat16. Writes every row of
-// dst [num_rows, d] float32; runs on `stream` and does not
-// synchronise; returns cudaGetLastError() after the launch (0 = ok).
+// 0); n_long is the length of long_rows. dtype (of g): 0 = float32,
+// 1 = bfloat16. Writes every row of dst [num_rows, d] float32 in one
+// launch, or two when the plan has long targets; runs on `stream` and
+// does not synchronise; returns cudaGetLastError() after the launches
+// (0 = ok).
 extern "C" int scatter_add_rows_launch(
     const void* g, const void* offsets, const void* src, const void* cnt,
     const void* chunks, const void* long_rows, const void* long_part,
-    void* counters, void* partial, void* dst, int64_t num_rows,
-    int64_t n_chunks, int64_t d, int64_t dtype, int64_t mean,
-    void* stream) {
+    void* partial, void* dst, int64_t num_rows, int64_t n_chunks,
+    int64_t n_long, int64_t d, int64_t dtype, int64_t mean, void* stream) {
   if (num_rows <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
-  const int32_t* plan[7] = {
-      static_cast<const int32_t*>(offsets),
-      static_cast<const int32_t*>(src),
-      static_cast<const int32_t*>(cnt),
-      static_cast<const int32_t*>(chunks),
-      static_cast<const int32_t*>(long_rows),
-      static_cast<const int32_t*>(long_part),
-      static_cast<const int32_t*>(counters)};
+  const Plan plan{static_cast<const int32_t*>(offsets),
+                  static_cast<const int32_t*>(src),
+                  static_cast<const int32_t*>(cnt),
+                  static_cast<const int32_t*>(chunks),
+                  static_cast<const int32_t*>(long_rows),
+                  static_cast<const int32_t*>(long_part)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return static_cast<int>(launch_typed<float>(
-          g, plan, partial, dst, num_rows, n_chunks, d, mean != 0, s));
+          g, plan, partial, dst, num_rows, n_chunks, n_long, d, mean != 0,
+          s));
     case 1:
       return static_cast<int>(launch_typed<__nv_bfloat16>(
-          g, plan, partial, dst, num_rows, n_chunks, d, mean != 0, s));
+          g, plan, partial, dst, num_rows, n_chunks, n_long, d, mean != 0,
+          s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -56,29 +56,6 @@ def _launcher():
     return fn
 
 
-def launch_config(h: torch.Tensor, nd: int, f: int) -> dict:
-    """The launch the kernel picks for ``h`` (on the card) and an
-    ``[nd, f]`` table: ``path`` "bulk" (TMA bulk copies into a ring of
-    ``stages`` shared-memory stages per warp, for rows of 512 bytes or
-    more) or "registers", warps per block, dynamic shared bytes per
-    block, resident blocks, and the columns a lane moves at once."""
-    lib = _build.load(_SOURCE)
-    fn = lib.fanout_agg_config
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    cfg = (ctypes.c_int64 * 6)()
-    with torch.cuda.device(h.device):
-        err = fn(h.data_ptr(), nd, f, h.shape[1], _DTYPE_CODE[h.dtype],
-                 cfg)
-    if err != 0:
-        raise RuntimeError(f"fanout_agg_config failed: CUDA error {err}")
-    return {"path": "bulk" if cfg[0] else "registers", "warps": cfg[1],
-            "smem_bytes": cfg[2], "blocks": cfg[3], "stage_bytes": cfg[4],
-            "stages": 2 if cfg[0] else 0, "lane_columns": cfg[5]}
-
-
 def _aggregate(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                mean: bool) -> torch.Tensor:
     if h.device.type == "cpu":

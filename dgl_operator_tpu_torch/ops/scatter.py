@@ -12,8 +12,7 @@ index table that the host builds once per batch (:func:`scatter_plan`).
 Each target row adds its entries in a fixed order and is written once,
 so the result does not change from launch to launch. On a CPU tensor
 it runs :func:`scatter_add_rows_plain`, which is also what the kernel
-is held against on the card; :func:`segment_sum_plain` is the same sum
-taken over the plan, in the order the kernel takes it.
+is held against on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX_DTYPES = (torch.int32, torch.int64)
 # a target of up to CHUNK entries is summed by one warp in entry order;
 # a longer one is cut into pieces of CHUNK entries, summed apart and
-# added in piece order (kChunk in the .cu)
+# added in a fixed order (kChunk in the .cu)
 CHUNK = 32
 
 
@@ -45,31 +44,26 @@ class ScatterPlan:
               target, then ``i``, then slot ``k``.
     cnt       [ND]   each source row's valid count (the mean's divisor
               before ``max(., 1)``).
-    chunks    [n_chunks, 3]  ``(begin, end, q)``: the CHUNK-entry pieces
+    chunks    [n_chunks, 2]  ``(begin, end)``: the CHUNK-entry pieces
               of the targets with more than CHUNK entries, in target and
-              entry order; ``q`` indexes ``long_rows``.
+              entry order.
     long_rows [n_long]  those targets.
     long_part [n_long + 1]  target ``q``'s pieces are chunks
               ``long_part[q]:long_part[q + 1]``.
-    counters  [n_long]  zeros: each launch counts the finished pieces
-              of a long target here and sets the count back to 0, so a
-              plan serves one launch at a time.
 
-    The arrays are numpy on the host and tensors after :meth:`to`.
+    The arrays are numpy on the host and tensors after :meth:`to`. The
+    kernel only reads them, so launches may share a plan.
     """
 
-    FIELDS = ("offsets", "src", "cnt", "chunks", "long_rows", "long_part",
-              "counters")
+    FIELDS = ("offsets", "src", "cnt", "chunks", "long_rows", "long_part")
 
-    def __init__(self, offsets, src, cnt, chunks, long_rows, long_part,
-                 counters):
+    def __init__(self, offsets, src, cnt, chunks, long_rows, long_part):
         self.offsets = offsets
         self.src = src
         self.cnt = cnt
         self.chunks = chunks
         self.long_rows = long_rows
         self.long_part = long_part
-        self.counters = counters
 
     @property
     def num_rows(self) -> int:
@@ -85,13 +79,16 @@ class ScatterPlan:
     def to(self, device) -> "ScatterPlan":
         """The plan as int32 tensors on ``device``: a host plan goes in
         one copy of its arrays packed together; a plan already on
-        ``device`` is returned as it is, one on another device moved
-        field by field."""
+        ``device`` is returned as it is."""
         arrays = [getattr(self, k) for k in self.FIELDS]
         if isinstance(arrays[0], torch.Tensor):
-            if arrays[0].device == torch.device(device):
-                return self
-            return ScatterPlan(*(a.to(device) for a in arrays))
+            want = torch.device(device)
+            have = arrays[0].device
+            if have.type != want.type or want.index not in (None,
+                                                            have.index):
+                raise ValueError(f"a plan on {have} is not moved to "
+                                 f"{want}; ship the host plan")
+            return self
         flat = [np.asarray(a, np.int32).reshape(-1) for a in arrays]
         packed = torch.from_numpy(np.concatenate(flat)).to(device)
         out, at = [], 0
@@ -135,9 +132,8 @@ def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:
     return ScatterPlan(
         offsets.astype(i32), (slots[order] // f).astype(i32),
         valid.sum(1).astype(i32),
-        np.stack([begin, end, q], 1).astype(i32).reshape(-1, 3),
-        long_rows.astype(i32), long_part.astype(i32),
-        np.zeros(len(long_rows), i32))
+        np.stack([begin, end], 1).astype(i32).reshape(-1, 2),
+        long_rows.astype(i32), long_part.astype(i32))
 
 
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -158,31 +154,11 @@ def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx[valid].long(), src)
 
 
-def segment_sum_plain(g: torch.Tensor, plan: ScatterPlan,
-                      mean: bool) -> torch.Tensor:
-    """Plain-torch segmented sum over a plan: target ``t`` adds
-    ``g[i] / denom_i`` for its entries one at a time in the plan's
-    order, in float32 — the order of the sequential ``index_add_`` in
-    :func:`scatter_add_rows_plain`, which it equals bit for bit."""
-    plan = plan.to(g.device)
-    rows = g.float()
-    if mean:
-        rows = rows / plan.cnt.clamp_min(1).to(rows)[:, None]
-    start = plan.offsets[:-1].long()
-    length = plan.offsets[1:].long() - start
-    out = torch.zeros(plan.num_rows, g.shape[1], dtype=torch.float32,
-                      device=g.device)
-    for r in range(int(length.max()) if plan.num_rows else 0):
-        sel = (length > r).nonzero().squeeze(1)
-        out[sel] += rows[plan.src[start[sel] + r].long()]
-    return out
-
-
 def _launcher():
     lib = _build.load(_SOURCE)
     fn = lib.scatter_add_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -203,10 +179,11 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     plan ``scatter_plan(idx, mask, num_rows)``, on the host or on g's
          device.
 
-    On a CUDA tensor this launches the kernel (counted in
-    ``scatter_add_rows.launches``) over ``plan``, and raises without
-    one; on a CPU tensor it runs :func:`scatter_add_rows_plain` and
-    does not read ``plan``.
+    On a CUDA tensor this launches the kernel over ``plan`` (counted
+    once a call in ``scatter_add_rows.launches``; a plan with long
+    targets adds their partial sums in a second launch), and raises
+    without one; on a CPU tensor it runs :func:`scatter_add_rows_plain`
+    and does not read ``plan``.
     """
     if g.dim() != 2 or idx.dim() != 2 or idx.shape[0] != g.shape[0] or (
             mask is not None and mask.shape != idx.shape):
@@ -261,8 +238,8 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
         err = launch(g.data_ptr(), *(getattr(plan, k).data_ptr()
                                      for k in ScatterPlan.FIELDS),
                      partial.data_ptr(), out.data_ptr(), num_rows,
-                     plan.num_chunks, d, _DTYPE_CODE[g.dtype], int(mean),
-                     stream)
+                     plan.num_chunks, plan.long_rows.shape[0], d,
+                     _DTYPE_CODE[g.dtype], int(mean), stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA "
                            f"error {err}")

@@ -387,14 +387,29 @@ def _brute_plan(idx, mask, n):
         if len(e) > scatter.CHUNK:
             for b in range(0, len(e), scatter.CHUNK):
                 chunks.append((offsets[t] + b,
-                               offsets[t] + min(b + scatter.CHUNK, len(e)),
-                               len(long_rows)))
+                               offsets[t] + min(b + scatter.CHUNK, len(e))))
             long_rows.append(t)
             long_part.append(len(chunks))
     return dict(offsets=offsets, src=[i for e in entries for i in e],
-                cnt=valid.sum(1), chunks=np.reshape(chunks, (-1, 3)),
-                long_rows=long_rows, long_part=long_part,
-                counters=np.zeros(len(long_rows)))
+                cnt=valid.sum(1), chunks=np.reshape(chunks, (-1, 2)),
+                long_rows=long_rows, long_part=long_part)
+
+
+def _segment_sum_plain(g, plan, mean):
+    """Plain-torch segmented sum over a host plan: target ``t`` adds
+    ``g[i] / denom_i`` for its entries one at a time in the plan's
+    order, in float32."""
+    plan = plan.to("cpu")
+    rows = g.float()
+    if mean:
+        rows = rows / plan.cnt.clamp_min(1).to(rows)[:, None]
+    start = plan.offsets[:-1].long()
+    length = plan.offsets[1:].long() - start
+    out = torch.zeros(plan.num_rows, g.shape[1])
+    for r in range(int(length.max()) if plan.num_rows else 0):
+        sel = (length > r).nonzero().squeeze(1)
+        out[sel] += rows[plan.src[start[sel] + r].long()]
+    return out
 
 
 @pytest.mark.parametrize("kind", ["masked_padded", "hub",
@@ -430,7 +445,7 @@ def test_segment_sum_over_plan_is_bit_equal_to_plain(kind, mean):
     g = torch.from_numpy(np.random.default_rng(7).normal(
         size=(len(idx), 24)).astype(np.float32))
     plan = scatter.scatter_plan(idx, mask, n)
-    got = scatter.segment_sum_plain(g, plan, mean)
+    got = _segment_sum_plain(g, plan, mean)
     want = scatter.scatter_add_rows_plain(
         g, torch.from_numpy(idx),
         None if mask is None else torch.from_numpy(mask), n, mean)
@@ -449,6 +464,8 @@ def test_plan_ships_packed_and_cpu_scatter_ignores_it():
     assert shipped.num_rows == n
     assert shipped.num_chunks == -(-len(idx) // scatter.CHUNK)
     assert shipped.nbytes() == plan.nbytes()
+    with pytest.raises(ValueError, match="ship the host plan"):
+        shipped.to("meta")
     g = torch.randn(len(idx), 8)
     ti, tm = torch.from_numpy(idx), torch.from_numpy(mask)
     other = scatter.scatter_plan(np.zeros_like(idx), None, n)
@@ -467,7 +484,7 @@ def test_fanout_block_to_ships_the_plan():
     # a block's forward hands its plan to the backward
     h = torch.randn(n, 6, requires_grad=True)
     fanout.fanout_mean(blk, h).sum().backward()
-    want = scatter.segment_sum_plain(torch.ones(len(idx), 6), plan, True)
+    want = _segment_sum_plain(torch.ones(len(idx), 6), plan, True)
     assert torch.equal(h.grad, want)
 
 
@@ -575,10 +592,11 @@ def test_scatter_kernel_matches_plain_on_card(n, nd, f, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hub", [False, True])
 def test_scatter_kernel_is_deterministic_on_card(hub):
-    """Two launches give the same bits; with no target above CHUNK
-    entries, the CPU's sequential index_add_ does too. A hub target
-    named by every row is cut into pieces: still deterministic, within
-    the tolerance of the CPU."""
+    """Two launches give the same bits, and so do two that share the
+    plan on two streams at once; with no target above CHUNK entries,
+    the CPU's sequential index_add_ does too. A hub target named by
+    every row is cut into pieces: still deterministic, within the
+    tolerance of the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(4)
@@ -594,10 +612,16 @@ def test_scatter_kernel_is_deterministic_on_card(hub):
     dev_plan = plan.to("cuda")
     first = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
     second = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
+    fourth = scatter.scatter_add_rows(gc, nc, mc, n, True, plan=dev_plan)
     want = scatter.scatter_add_rows_plain(*(torch.from_numpy(a) for a in
                                             (g, nbr, mask)), n, True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+    assert torch.equal(first, third) and torch.equal(first, fourth)
     if hub:
         torch.testing.assert_close(first.cpu(), want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
