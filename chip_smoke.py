@@ -4,16 +4,28 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
 
-1. ``device``  — the card's name, the count of cards and the nvidia-smi
-   name and power limit; TF32 is switched off for the whole run.
+1. ``device``  — the card's name, the count of cards, the nvidia-smi
+   name and power limit, and the host CPU's name and core count; TF32
+   is switched off for the whole run.
 2. ``build``   — every ``dgl_operator_tpu_torch/csrc/*.cu`` built by
-   nvcc for sm_90a (in parallel), with ptxas' register and spill lines.
+   nvcc for sm_90a, with ptxas' register and spill lines, and the host
+   graph core ``native/graphcore.cc`` built by the host C++ compiler,
+   with its warnings (all in parallel).
 3. ``setup``   — a synthetic ogbn-products graph (cut to ``--scale``),
    a full-width DistSAGE (100 -> 256 -> 47, fanouts 10 and 25, seeded
    random weights) and its ``SampledTrainer`` (batch 1000, calibrated
    caps), and one sampled training batch whose shapes the kernel phase
    uses.
-4. ``kernel``  — one line per kernel and shape: each hand-written
+4. ``graph``   — the graph core against its plain numpy versions on
+   that graph: ``build_csr`` identical; ``sample_fanout`` on one
+   training batch's two frontiers identical on every seed of degree at
+   most the fanout, distinct in-edges of the seed on every other row;
+   ``compact_frontier`` identical uncapped and, capped, keeping the
+   frontier prefix and sorted new ids with every kept slot resolving
+   to its sampled id. Host times of each call and of one batch (library
+   and plain), and batches per second of ``sample_pipeline`` with 1, 2
+   and 4 sampler threads.
+5. ``kernel``  — one line per kernel and shape: each hand-written
    kernel (``fanout_agg``, ``gather_rows``, ``scatter_add_rows``)
    against its plain torch version on the card (max abs error and
    tolerance), and the times of the kernel, the plain version and one
@@ -26,17 +38,18 @@ Each phase prints JSON lines:
    the same bits and whether they equal the CPU's ``index_add_``
    (``bitwise_equal_to_cpu``), including a hub target named by every
    row.
-5. ``serve``   — the graph split in 2 parts, the model written as a
-   serving export, a ``ServeEngine`` on the card answering
-   ``--requests`` requests of 1 to 64 seeds through the
+6. ``serve``   — the graph split in 2 parts by the port's multilevel
+   partitioner (its seconds, edge cut, part sizes and halo rows), the
+   model written as a serving export, a ``ServeEngine`` on the card
+   answering ``--requests`` requests of 1 to 64 seeds through the
    ``MicroBatcher``, and the same fixed request run on the CPU engine
    for comparison.
-6. ``train``   — one epoch of ``SampledTrainer.train`` over the first
+7. ``train``   — one epoch of ``SampledTrainer.train`` over the first
    40,000 training ids (40 steps of 1000 seeds, dropout 0.5,
    evaluation at its end): losses, kernel launches per step, step
    times, the host time of a batch's sampling and of its scatter plans,
    and the device time of one step's forward, backward and Adam.
-7. ``train_cpu`` — the same seeded weights with dropout 0 stepped on the
+8. ``train_cpu`` — the same seeded weights with dropout 0 stepped on the
    card and on the CPU over the first 5 batches: step-1 loss and
    gradients and step-5 loss must agree.
 
@@ -51,8 +64,10 @@ before that last line is printed; without a CUDA card the script exits
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -94,6 +109,40 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``; where that
+    reads "unknown" (as in some virtual machines), its vendor, family, model
+    and stepping instead."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break           # the first processor's block
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
+    if "vendor_id" in fields:
+        return (f"{fields['vendor_id']} family {fields.get('cpu family')} "
+                f"model {fields.get('model')} stepping "
+                f"{fields.get('stepping')} (model name {name or 'absent'})")
+    return platform.processor() or platform.machine()
+
+
+def host_ms(fn, repeats: int) -> float:
+    """Median host wall time of ``fn`` over ``repeats`` calls, in ms."""
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(sorted(times)[len(times) // 2])
 
 
 def time_cold_ms(torch, fn, flush, iters: int, clean: bool = False
@@ -491,10 +540,149 @@ def kernel_phase(torch, args, ops, trainer, mb, card: str):
     return records
 
 
+def check_sampled_rows(g, csc, frontier, fan, nbr, nbr_eid, what):
+    """Rows of seeds of degree above ``fan`` hold ``fan`` distinct
+    in-edges of their seed (by edge id) and those edges' sources."""
+    import numpy as np
+
+    indptr = csc[0]
+    big = (indptr[1:] - indptr[:-1])[frontier] > fan
+    eid = nbr_eid[big].astype(np.int64)
+    check(bool((eid >= 0).all()), f"{what}: every slot of a row above "
+          "the fanout is filled")
+    check(bool((g.dst[eid] == frontier[big][:, None]).all()),
+          f"{what}: each pick is an in-edge of its seed")
+    check(bool((g.src[eid] == nbr[big]).all()),
+          f"{what}: each pick names its edge's source")
+    srt = np.sort(eid, axis=1)
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+          f"{what}: picks are distinct")
+    return int(big.sum())
+
+
+def check_compaction(frontier, nbr, cap, out, what):
+    """The compaction contract: the frontier prefix, sorted new ids, at
+    most ``cap`` ids, and every kept slot resolving to its sampled id."""
+    import numpy as np
+
+    src, pos, mask = out
+    nf = len(frontier)
+    check(np.array_equal(src[:nf], frontier), f"{what}: frontier prefix")
+    check(bool((np.diff(src[nf:]) > 0).all()), f"{what}: new ids sorted")
+    check(cap is None or len(src) <= max(cap, nf), f"{what}: within cap")
+    kept = mask > 0
+    check(bool((src[pos[kept]] == nbr[kept]).all()),
+          f"{what}: every kept slot resolves to its sampled id")
+    check(bool((pos[~kept] == 0).all() and (nbr[kept] >= 0).all()),
+          f"{what}: dropped and empty slots are masked")
+
+
+def graph_phase(args, g, trainer, card: str, host: str):
+    """The graph core against its plain versions at the training
+    batch's shapes, with host times, and the sampler pipeline's
+    throughput by thread count."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph import _native
+    from dgl_operator_tpu_torch.graph.blocks import build_fanout_blocks
+
+    rec = {"phase": "graph", "card": card, "host_cpu": host,
+           "nodes": g.num_nodes, "edges": g.num_edges}
+    csc = _native.build_csr(g.dst, g.src, g.num_nodes)
+    plain_csc = _native.build_csr_plain(g.dst, g.src, g.num_nodes)
+    check(all(np.array_equal(a, b) and a.dtype == b.dtype
+              for a, b in zip(csc, plain_csc)), "build_csr: identical")
+    check(all(np.array_equal(a, b) for a, b in zip(csc, trainer.csc)),
+          "build_csr: the trainer's CSC")
+    rec["build_csr_ms"] = host_ms(
+        lambda: _native.build_csr(g.dst, g.src, g.num_nodes), 3)
+    rec["build_csr_plain_ms"] = host_ms(
+        lambda: _native.build_csr_plain(g.dst, g.src, g.num_nodes), 3)
+    indptr, indices, eids = csc
+    seeds = np.asarray(trainer.train_ids[:BATCH_TRAIN], np.int64)
+    frontier = seeds
+    layers = []
+    for layer, fan in enumerate(reversed(FANOUTS)):
+        seed = 3 + 1315423911 * (layer + 1)
+        what = f"layer {layer} ({len(frontier)} x {fan})"
+        nat = _native.sample_fanout(indptr, indices, eids, frontier, fan,
+                                    seed)
+        pla = _native.sample_fanout_plain(indptr, indices, eids, frontier,
+                                          fan, seed)
+        small = (indptr[1:] - indptr[:-1])[frontier] <= fan
+        check(np.array_equal(nat[0][small], pla[0][small]) and
+              np.array_equal(nat[1][small], pla[1][small]),
+              f"{what}: rows of degree <= fanout identical")
+        above = check_sampled_rows(g, csc, frontier, fan, *nat,
+                                   f"{what} library")
+        check_sampled_rows(g, csc, frontier, fan, *pla, f"{what} plain")
+        nbr = nat[0]
+        full = _native.compact_frontier(frontier, nbr, None, seed)
+        full_plain = _native.compact_frontier_plain(frontier, nbr, None,
+                                                    seed)
+        check(all(np.array_equal(a, b) and a.dtype == b.dtype
+                  for a, b in zip(full, full_plain)),
+              f"{what}: uncapped compaction identical")
+        cap = len(frontier) + (len(full[0]) - len(frontier)) // 2
+        capped = _native.compact_frontier(frontier, nbr, cap, seed)
+        check_compaction(frontier, nbr, cap, capped, f"{what} capped")
+        check_compaction(frontier, nbr, cap,
+                         _native.compact_frontier_plain(frontier, nbr, cap,
+                                                        seed),
+                         f"{what} capped plain")
+        check(len(capped[0]) == cap, f"{what}: capped to {cap}")
+        layers.append(dict(
+            rows=len(frontier), fanout=fan, rows_above_fanout=above,
+            new_ids=len(full[0]) - len(frontier), cap_tested=cap,
+            sample_ms=host_ms(lambda: _native.sample_fanout(
+                indptr, indices, eids, frontier, fan, seed), 5),
+            sample_plain_ms=host_ms(lambda: _native.sample_fanout_plain(
+                indptr, indices, eids, frontier, fan, seed), 3),
+            compact_ms=host_ms(lambda: _native.compact_frontier(
+                frontier, nbr, None, seed), 5),
+            compact_plain_ms=host_ms(lambda: _native.compact_frontier_plain(
+                frontier, nbr, None, seed), 3)))
+        frontier = full[0]
+    rec["layers"] = layers
+    caps = trainer.caps[1:]
+
+    def batch(plain):
+        return build_fanout_blocks(csc, seeds, FANOUTS, seed=3,
+                                   src_caps=caps, plain=plain)
+    rec["blocks_ms"] = host_ms(lambda: batch(False), 5)
+    rec["blocks_plain_ms"] = host_ms(lambda: batch(True), 3)
+    rec["blocks_speedup"] = rec["blocks_plain_ms"] / rec["blocks_ms"]
+    # the trainer's whole batch: sampling, padding and the scatter plans
+    rec["trainer_sample_ms"] = host_ms(lambda: trainer.sample(seeds, 3), 5)
+    rng = np.random.default_rng(args.seed + 3)
+    batches = [(rng.choice(trainer.train_ids, BATCH_TRAIN, replace=False),
+                100 + i) for i in range(8)]
+    cfg = trainer.cfg
+    streams, per_s = [], {}
+    try:
+        for threads in (1, 2, 4):
+            trainer.cfg = dataclasses.replace(cfg, num_samplers=threads)
+            t = time.perf_counter()
+            out = list(trainer.sample_pipeline(batches, depth=4))
+            per_s[threads] = len(out) / (time.perf_counter() - t)
+            streams.append(out)
+    finally:
+        trainer.cfg = cfg
+    for other in streams[1:]:
+        check(all(np.array_equal(a.input_nodes, b.input_nodes) and
+                  all(np.array_equal(x.nbr, y.nbr)
+                      for x, y in zip(a.blocks, b.blocks))
+                  for a, b in zip(streams[0], other)),
+              "sample_pipeline: one stream whatever the thread count")
+    rec["pipeline_batches_per_s"] = per_s
+    emit(**rec)
+
+
 def serve_phase(torch, args, wrappers, g, card: str):
     import numpy as np
 
-    from dgl_operator_tpu_torch.graph.partition import partition_graph
+    from dgl_operator_tpu_torch.graph.partition import (edge_cut,
+                                                         partition_graph)
     from dgl_operator_tpu_torch.models.sage import (DistSAGE,
                                                     state_dict_to_flax)
     from dgl_operator_tpu_torch.obs import get_obs
@@ -505,10 +693,25 @@ def serve_phase(torch, args, wrappers, g, card: str):
     shutil.rmtree(work, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        parts = np.random.default_rng(args.seed).permutation(
-            g.num_nodes) % 2
+        # the port's own partitioner: multilevel, 2 parts, seed 0
         cfg_json = partition_graph(g, "ogbn-products", 2,
-                                   os.path.join(work, "book"), parts=parts)
+                                   os.path.join(work, "book"))
+        partition_s = time.perf_counter() - t0
+        with open(cfg_json) as f:
+            book = json.load(f)
+        node_map = np.load(os.path.join(work, "book", "node_map.npy"))
+        sizes = [book[f"part-{p}"]["num_inner_nodes"] for p in range(2)]
+        halo_rows = [book[f"part-{p}"]["num_local_nodes"] - sizes[p]
+                     for p in range(2)]
+        cut = edge_cut(g, node_map)
+        check(book["part_method"] == "multilevel-native",
+              f"book from the multilevel partitioner: {book['part_method']}")
+        check(sum(sizes) == g.num_nodes and min(sizes) > 0 and
+              sizes == np.bincount(node_map, minlength=2).tolist(),
+              f"parts {sizes} cover the {g.num_nodes} nodes")
+        check(max(sizes) <= 1.1 * g.num_nodes / 2 + 1,
+              f"parts {sizes} within the 1.1 balance slack")
+        check(cut < 0.5, f"edge cut {cut} below a random split's 0.5")
         setup_s = time.perf_counter() - t0
         model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda",
                          generator=torch.Generator().manual_seed(args.seed))
@@ -580,7 +783,10 @@ def serve_phase(torch, args, wrappers, g, card: str):
                                         if s["name"] == name]))
                    for name in ("engine_fanout", "forward_dispatch")}
         emit(phase="serve", card=card, nodes=g.num_nodes, edges=g.num_edges,
-             parts=2, setup_s=setup_s, warmup_s=eng.warmup_seconds,
+             parts=2, partition_s=partition_s, edge_cut=cut,
+             part_sizes=sizes, halo_rows=halo_rows,
+             part_method=book["part_method"],
+             setup_s=setup_s, warmup_s=eng.warmup_seconds,
              load_s=eng.load_seconds, caps=eng.caps,
              requests=len(requests),
              seeds=int(sum(len(r) for r in requests)),
@@ -835,7 +1041,9 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
+    host = host_cpu()
     emit(phase="device", kind=kind, count=count, nvidia_smi=smi,
+         host_cpu=host, cpu_count=os.cpu_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], tf32=False)
 
@@ -846,15 +1054,23 @@ def main(argv=None) -> int:
     check(sources == sorted(f"{w.__name__}.cu" for w in wrappers),
           f"one source per kernel: {sources}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        host_build = pool.submit(_build.build_host, "graphcore.cc")
         builds = list(pool.map(_build.build, sources))
+        core = host_build.result()
     for src, b in zip(sources, builds):
         emit(phase="build", source=src, seconds=b.seconds,
              wall_s=time.perf_counter() - t0,
              ptxas=[ln.strip() for ln in b.log.splitlines()
                     if "registers" in ln or "spill" in ln])
+    emit(phase="build", source="native/graphcore.cc",
+         compiler=_build.host_cxx(), flags=list(_build.HOST_CXXFLAGS),
+         seconds=core.seconds, wall_s=time.perf_counter() - t0,
+         warnings=[ln.strip() for ln in core.log.splitlines()
+                   if "warning" in ln])
 
     g, trainer, mb = setup_phase(torch, args, smi)
+    graph_phase(args, g, trainer, smi, host)
     records = kernel_phase(torch, args, ops, trainer, mb, smi)
     served = serve_phase(torch, args, wrappers, g, smi)
     trained = train_phase(torch, args, wrappers, trainer, smi)

@@ -167,24 +167,37 @@ def build_fanout_blocks(csc: Tuple[np.ndarray, np.ndarray, np.ndarray],
                         fanouts: Sequence[int],
                         seed: int = 0,
                         src_caps: Optional[Sequence[int]] = None,
+                        plain: bool = False,
                         ) -> MiniBatch:
     """Multi-layer fixed-fanout sampling outward from ``seeds``; the dst
-    nodes of each block are a prefix of its src nodes.
+    nodes of each block are a prefix of its src nodes. Each layer is
+    one call of the graph core's ``sample_fanout`` and one of its
+    ``compact_frontier``.
 
     ``src_caps`` (innermost-out) bounds each layer's unique frontier:
     overflow *new* neighbors are dropped at random (deterministic in
     ``seed``) and their fanout slots masked invalid.
+
+    ``plain`` samples with the numpy plain versions instead (another
+    random stream where a degree exceeds its fanout or a cap
+    respills), to hold the library against; the main path never sets
+    it.
     """
+    if plain:
+        sample, compact = (_native.sample_fanout_plain,
+                           _native.compact_frontier_plain)
+    else:
+        sample, compact = _native.sample_fanout, _native.compact_frontier
     indptr, indices, eids = csc
     seeds = np.asarray(seeds, dtype=np.int64)
     frontier = seeds  # global ids, current dst set
     per_layer = []
     for l, fan in enumerate(reversed(list(fanouts))):
-        nbr, _ = _native.sample_fanout(indptr, indices, eids, frontier,
-                                       int(fan), seed + 1315423911 * (l + 1))
+        nbr, _ = sample(indptr, indices, eids, frontier, int(fan),
+                        seed + 1315423911 * (l + 1))
         cap = None if src_caps is None else int(src_caps[l])
-        src_nodes, pos, valid_f = _native.compact_frontier(
-            frontier, nbr, cap, seed + 2654435761 * (l + 1))
+        src_nodes, pos, valid_f = compact(frontier, nbr, cap,
+                                          seed + 2654435761 * (l + 1))
         per_layer.append((pos, valid_f, len(src_nodes)))
         frontier = src_nodes
     blocks = [FanoutBlock(pos, mask, num_src)

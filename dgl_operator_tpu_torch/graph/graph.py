@@ -1,9 +1,10 @@
 """Host-side graph container.
 
-The host owns the irregular data structure (numpy COO with a lazily built
-CSC index). The card sees the dense ``[num_dst, fanout]`` neighbor
-tables of sampled blocks (``graph/blocks.py``) and, for full-graph
-inference, the CSC as a sparse adjacency (:meth:`Graph.adjacency`).
+The host owns the irregular data structure (numpy COO with lazily built
+CSR and CSC indexes, counted by the C++ graph core). The card sees the
+dense ``[num_dst, fanout]`` neighbor tables of sampled blocks
+(``graph/blocks.py``) and, for full-graph inference, the CSC as a
+sparse adjacency (:meth:`Graph.adjacency`).
 ``ndata`` / ``edata`` are DGL-style dicts of numpy arrays.
 """
 
@@ -19,7 +20,7 @@ from dgl_operator_tpu_torch.graph import _native
 
 
 class Graph:
-    """A directed graph in COO form with a lazily-built CSC index.
+    """A directed graph in COO form with lazily-built CSR/CSC indexes.
 
     Parameters
     ----------
@@ -39,6 +40,7 @@ class Graph:
         self.num_nodes = int(num_nodes)
         self.ndata: Dict[str, np.ndarray] = {}
         self.edata: Dict[str, np.ndarray] = {}
+        self._csr: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         self._csc: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         self._adj: Dict[torch.device, torch.Tensor] = {}
 
@@ -49,12 +51,27 @@ class Graph:
     def __repr__(self) -> str:  # pragma: no cover
         return f"Graph(num_nodes={self.num_nodes}, num_edges={self.num_edges})"
 
+    def csr(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Outgoing adjacency (rows are sources) as (indptr, indices,
+        eids); eids map positions back to edge ids."""
+        if self._csr is None:
+            self._csr = _native.build_csr(self.src, self.dst, self.num_nodes)
+        return self._csr
+
     def csc(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Incoming adjacency (rows are destinations) as (indptr,
         indices, eids); eids map positions back to edge ids."""
         if self._csc is None:
             self._csc = _native.build_csr(self.dst, self.src, self.num_nodes)
         return self._csc
+
+    def in_degrees(self) -> np.ndarray:
+        indptr, _, _ = self.csc()
+        return (indptr[1:] - indptr[:-1]).astype(np.int32)
+
+    def out_degrees(self) -> np.ndarray:
+        indptr, _, _ = self.csr()
+        return (indptr[1:] - indptr[:-1]).astype(np.int32)
 
     def adjacency(self, device) -> torch.Tensor:
         """The in-edge adjacency as a sparse CSR ``[num_nodes,

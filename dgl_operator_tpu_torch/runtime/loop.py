@@ -3,8 +3,10 @@
 The counterpart of ``dgl_operator_tpu/runtime/loop.py::SampledTrainer``
 (the reference's ``train_dist.py`` run loop): each epoch permutes the
 training ids with one seeded numpy stream, cuts them into batches,
-samples and pads each batch on the host (on a thread pipeline when
-``prefetch > 0``), and takes one step per batch on the card: the input
+samples each batch on the host through the C++ graph core and pads it
+(on a thread pipeline when ``prefetch > 0``; the graph core releases
+the interpreter lock, so sampler threads overlap), and takes one step
+per batch on the card: the input
 rows are gathered by the hand-written ``gather_rows`` kernel, the model
 aggregates with ``fanout_agg`` and its backward with
 ``scatter_add_rows`` (over the transpose plans the sampler attaches to
@@ -77,7 +79,7 @@ class TrainConfig:
         if self.sampler != "host":
             raise NotImplementedError(
                 f"sampler={self.sampler!r}: only the host sampler is "
-                f"ported (the device sampler is {_ROADMAP} item 7)")
+                f"ported (the device sampler is {_ROADMAP} item 6)")
         if self.steps_per_call != 1:
             raise NotImplementedError(
                 f"steps_per_call={self.steps_per_call}: only 1 is ported "

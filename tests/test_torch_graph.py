@@ -2,9 +2,12 @@
 
 Datasets, CSR construction, fanout sampling, padding, caps and the
 hot-halo cache must give identical arrays for the same seeds. The JAX
-side runs its numpy sampler (``_native._LIB = False``): its C++ sampler
-draws from another random stream, which the port does not carry.
-Partition books written by either package read identically in both.
+bridge runs a build of its own C++ graph core
+(``test_torch_native.use_jax_graphcore``), which the port's library
+must match; the port's plain numpy versions (``build_fanout_blocks(...,
+plain=True)``) must match the JAX package's numpy fallbacks
+(``_native._LIB = False``). Partition books written by either package
+read identically in both.
 """
 
 import json
@@ -20,13 +23,14 @@ from dgl_operator_tpu.parallel import halo as jax_halo
 from dgl_operator_tpu_torch.graph import _native, blocks, datasets, partition
 from dgl_operator_tpu_torch.graph.featstore import PagedFeatureStore
 from dgl_operator_tpu_torch.parallel import halo
+from test_torch_native import use_jax_graphcore
 
 FANOUTS = (3, 5)
 
 
 @pytest.fixture(autouse=True)
-def jax_numpy_sampler(monkeypatch):
-    monkeypatch.setattr(jax_native, "_LIB", False)
+def jax_library(monkeypatch, tmp_path_factory):
+    use_jax_graphcore(monkeypatch, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -63,9 +67,46 @@ def test_build_csr_matches_jax(graphs):
     a, b = graphs
     for x, y in zip(a.graph.csc(), b.graph.csc()):
         np.testing.assert_array_equal(x, y)
+    for x, y in zip(a.graph.csr(), b.graph.csr()):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.graph.in_degrees(), b.graph.in_degrees())
+    np.testing.assert_array_equal(a.graph.out_degrees(),
+                                  b.graph.out_degrees())
+    assert b.graph.in_degrees().dtype == np.int32
     for x, y in zip(jax_native.build_csr(a.graph.src, a.graph.dst, 300),
                     _native.build_csr(b.graph.src, b.graph.dst, 300)):
         np.testing.assert_array_equal(x, y)
+
+
+def test_plain_versions_match_jax_numpy_fallbacks(graphs, monkeypatch):
+    a, b = graphs
+    monkeypatch.setattr(jax_native, "_LIB", False)
+    src, dst = b.graph.src, b.graph.dst
+    for x, y in zip(jax_native.build_csr(src, dst, 300),
+                    _native.build_csr_plain(src, dst, 300)):
+        np.testing.assert_array_equal(x, y)
+    indptr, indices, eids = b.graph.csc()
+    seeds = np.arange(0, 300, 7, dtype=np.int64)
+    for x, y in zip(jax_native.sample_fanout(indptr, indices, eids, seeds,
+                                             4, 3),
+                    _native.sample_fanout_plain(indptr, indices, eids,
+                                                seeds, 4, 3)):
+        np.testing.assert_array_equal(x, y)
+    nbr, _ = _native.sample_fanout_plain(indptr, indices, eids, seeds, 4, 3)
+    for cap in (None, len(seeds) + 20):
+        for x, y in zip(jax_native.compact_frontier(seeds, nbr, cap, 8),
+                        _native.compact_frontier_plain(seeds, nbr, cap, 8)):
+            np.testing.assert_array_equal(x, y)
+    w, vw = np.ones(len(src), np.float32), np.ones(300, np.float32)
+    for x, y in zip(jax_native.hem_coarsen(src, dst, w, vw, 300, 2),
+                    _native.hem_coarsen_plain(src, dst, w, vw, 300, 2)):
+        np.testing.assert_array_equal(x, y)
+    parts = (np.arange(300) % 3).astype(np.int32)
+    np.testing.assert_array_equal(
+        jax_native.refine_boundary(src, dst, w, vw, 300, 3, 110.0, 3, parts,
+                                   seed=4),
+        _native.refine_boundary_plain(src, dst, w, vw, 300, 3, 110.0, 3,
+                                      parts, seed=4))
 
 
 def _assert_minibatches_equal(a, b):
@@ -79,15 +120,22 @@ def _assert_minibatches_equal(a, b):
         assert np.asarray(x.mask).dtype == np.asarray(y.mask).dtype
 
 
+@pytest.mark.parametrize("plain", [False, True])
 @pytest.mark.parametrize("src_caps", [None, (40, 120)])
 @pytest.mark.parametrize("sample_seed", [0, 17])
-def test_build_fanout_blocks_matches_jax(graphs, src_caps, sample_seed):
+def test_build_fanout_blocks_matches_jax(graphs, src_caps, sample_seed,
+                                         plain, monkeypatch):
+    """The port's library stream against the JAX library's; its plain
+    stream against the JAX numpy fallbacks'."""
     a, b = graphs
+    if plain:
+        monkeypatch.setattr(jax_native, "_LIB", False)
     seeds = np.arange(0, 300, 23, dtype=np.int64)
     ma = jax_blocks.build_fanout_blocks(a.graph.csc(), seeds, FANOUTS,
                                         seed=sample_seed, src_caps=src_caps)
     mb = blocks.build_fanout_blocks(b.graph.csc(), seeds, FANOUTS,
-                                    seed=sample_seed, src_caps=src_caps)
+                                    seed=sample_seed, src_caps=src_caps,
+                                    plain=plain)
     _assert_minibatches_equal(ma, mb)
     caps = jax_blocks.fanout_caps(16, FANOUTS, 300)
     assert caps == blocks.fanout_caps(16, FANOUTS, 300)
@@ -178,12 +226,18 @@ def test_port_book_reads_in_jax(graphs, tmp_path):
 
 
 def test_partition_graph_refuses_what_is_not_ported(graphs, tmp_path):
+    """Computing the assignment is ported (``parts=None`` writes a
+    multilevel book); out-of-core and quantized storage are not."""
     _, b = graphs
-    with pytest.raises(NotImplementedError):
-        partition.partition_graph(b.graph, "g", 2, str(tmp_path))
+    cfg = partition.partition_graph(b.graph, "g", 2, str(tmp_path / "ml"))
+    with open(cfg) as f:
+        assert json.load(f)["part_method"] == "multilevel-native"
+    assert sorted(set(np.load(tmp_path / "ml" / "node_map.npy"))) == [0, 1]
     with pytest.raises(NotImplementedError):
         partition.partition_graph(b.graph, "g", 2, str(tmp_path),
                                   parts=_parts(300, 2), feat_dtype="int8")
+    with pytest.raises(NotImplementedError):
+        partition.partition_graph(b.graph, "g", 2, str(tmp_path), ooc=True)
     with pytest.raises(ValueError, match="parts values"):
         partition.partition_graph(b.graph, "g", 2, str(tmp_path),
                                   parts=_parts(300, 3))

@@ -1,9 +1,13 @@
 """The port stands alone: no module of ``dgl_operator_tpu_torch`` and
 not ``chip_smoke.py`` imports JAX, its libraries or the JAX package,
-and no entry point runs on the CPU unless asked to."""
+or names a file of the JAX package to compile or load (the port builds
+its own graph core and kernels from its own sources), and no entry
+point runs on the CPU unless asked to."""
 
 import ast
+import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -11,11 +15,19 @@ import pytest
 import torch
 
 from dgl_operator_tpu_torch import resolve_device
+from dgl_operator_tpu_torch.graph import _native
+from dgl_operator_tpu_torch.ops import _build
 from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
 from dgl_operator_tpu_torch.serve.engine import ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "dgl_operator_tpu_torch")
+JAX_TREE = os.path.join(REPO, "dgl_operator_tpu") + os.sep
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dgl_operator_tpu")
+# the JAX package's name as a path component, not the port's
+JAX_PATH = re.compile(r"dgl_operator_tpu(?!_torch)\b")
+# what chip_smoke.py may name: the TPU kernel each CUDA kernel replaces
+REPLACES_LABEL = re.compile(r"^dgl_operator_tpu/ops/pallas_gather\.py(:\d+)?$")
 
 
 def _port_sources():
@@ -43,6 +55,92 @@ def test_port_sources_import_nothing_of_jax():
            for p in sources for name in _imported_roots(p)
            if name.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def _string_constants(path):
+    """Every string literal of ``path`` but its docstrings."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+def test_port_sources_name_no_jax_file_to_build_or_load():
+    bad = [(os.path.relpath(p, REPO), text)
+           for p in _port_sources() for text in _string_constants(p)
+           if JAX_PATH.search(text) and not (
+               p.endswith("chip_smoke.py") and REPLACES_LABEL.match(text))]
+    assert bad == []
+    natives = []
+    for root, _, files in os.walk(PORT):
+        natives += [os.path.join(root, f) for f in files
+                    if f.endswith((".cc", ".cu", ".h", ".cuh"))]
+    assert os.path.join(PORT, "native", "graphcore.cc") in natives
+    for path in natives:
+        with open(path) as f:
+            includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+        assert not [ln for ln in includes if JAX_PATH.search(ln)], path
+
+
+def test_graph_core_is_built_from_the_port_source(tmp_path, monkeypatch):
+    """A fresh build compiles ``native/graphcore.cc`` of the port into
+    the build directory and loads that library, nothing else."""
+    commands, loaded = [], []
+    real_run, real_cdll = subprocess.run, ctypes.CDLL
+
+    def run(cmd, *a, **kw):
+        commands.append(list(cmd))
+        return real_run(cmd, *a, **kw)
+
+    def cdll(path, *a, **kw):
+        loaded.append(path)
+        return real_cdll(path, *a, **kw)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    _native.library()
+    assert len(commands) == 1 and len(loaded) == 1
+    cmd = commands[0]
+    assert cmd[-1] == os.path.join(PORT, "native", "graphcore.cc")
+    assert not [a for a in cmd if a.startswith(JAX_TREE)]
+    assert os.path.dirname(loaded[0]) == str(tmp_path)
+    for d in (_build.CSRC, _build.NATIVE):
+        assert d.startswith(PORT + os.sep)
+
+
+def test_port_run_maps_no_file_of_the_jax_package():
+    """Sampling and partitioning through the port map its own graph
+    core and no file of the JAX package (its gitignored build output
+    included)."""
+    code = (
+        "import numpy as np\n"
+        "from dgl_operator_tpu_torch.graph import blocks, datasets, "
+        "partition\n"
+        "g = datasets.synthetic_node_clf(200, 900, 4, 3, seed=1).graph\n"
+        "blocks.build_fanout_blocks(g.csc(), np.arange(8), (3, 4))\n"
+        "partition.multilevel_partition(g, 2)\n"
+        "maps = open('/proc/self/maps').read().split('\\n')\n"
+        "print('\\n'.join(sorted({ln.split()[-1] for ln in maps\n"
+        "                          if ln.endswith('.so')})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    mapped = proc.stdout.split()
+    assert [p for p in mapped if "graphcore" in p
+            and p.startswith(os.path.join(PORT, "_build") + os.sep)]
+    assert not [p for p in mapped if p.startswith(JAX_TREE)]
 
 
 def test_importing_the_port_loads_no_jax():

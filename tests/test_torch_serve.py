@@ -4,8 +4,10 @@ One 4-part book written by the JAX partitioner, one set of flax params
 exported by the JAX package. The JAX ``ServeEngine`` and the port's
 ``ServeEngine(device="cpu")`` are fed the same ids and sample seeds and
 must agree: identical predictions, logits within 1e-4, and the same
-halo cache-hit / owner-fetch counts. The JAX side samples with its
-numpy sampler, the one the port carries.
+halo cache-hit / owner-fetch counts. Both sample with their C++ graph
+cores (the JAX bridge on a build of its own source,
+``test_torch_native.use_jax_graphcore``), and the book is the JAX
+package's multilevel partition.
 """
 
 import jax
@@ -14,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from dgl_operator_tpu.graph import _native as jax_native
 from dgl_operator_tpu.graph import datasets as jax_datasets
 from dgl_operator_tpu.graph.blocks import FanoutBlock as JaxFanoutBlock
 from dgl_operator_tpu.graph.partition import partition_graph
@@ -25,6 +26,7 @@ from dgl_operator_tpu.serve.engine import ServeEngine as JaxServeEngine
 from dgl_operator_tpu_torch.models.sage import DistSAGE, state_dict_to_flax
 from dgl_operator_tpu_torch.serve.batcher import MicroBatcher, Overloaded
 from dgl_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine
+from test_torch_native import use_jax_graphcore
 
 pytestmark = pytest.mark.serve
 
@@ -36,14 +38,14 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(autouse=True)
-def jax_numpy_sampler(monkeypatch):
-    monkeypatch.setattr(jax_native, "_LIB", False)
+def jax_library(monkeypatch, tmp_path_factory):
+    use_jax_graphcore(monkeypatch, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "_LIB", False)
+        use_jax_graphcore(mp, tmp_path_factory)
         ds = jax_datasets.synthetic_node_clf(num_nodes=500, num_edges=2500,
                                              feat_dim=FEAT,
                                              num_classes=CLASSES, seed=3)

@@ -6,8 +6,9 @@ port's trainer starts from those params (``train(init_params=...)``)
 and draws the same permutation and batch stream, so with dropout 0 the
 two must agree: the same caps, per-epoch losses within rtol 1e-3,
 final params within 1e-3 and evaluation accuracies within one node's
-share. The JAX side samples with its numpy sampler (the one the port
-carries) and without the tuned-manifest overlay.
+share. Both sample with their C++ graph cores (the JAX bridge on a
+build of its own source, ``test_torch_native.use_jax_graphcore``), and
+the JAX side runs without the tuned-manifest overlay.
 """
 
 import jax
@@ -16,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from dgl_operator_tpu.graph import _native as jax_native
 from dgl_operator_tpu.graph import datasets as jax_datasets
 from dgl_operator_tpu.models.sage import DistSAGE as JaxDistSAGE
 from dgl_operator_tpu.runtime import SampledTrainer as JaxSampledTrainer
@@ -27,6 +27,7 @@ from dgl_operator_tpu_torch.models.sage import (DistSAGE,
                                                 state_dict_to_flax)
 from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
                                                  TrainConfig, masked_loss)
+from test_torch_native import use_jax_graphcore
 
 FEAT, HIDDEN, CLASSES = 12, 16, 4
 FANOUTS = (3, 4)
@@ -43,8 +44,8 @@ def _graph_args():
 
 
 @pytest.fixture(autouse=True)
-def jax_numpy_sampler(monkeypatch):
-    monkeypatch.setattr(jax_native, "_LIB", False)
+def jax_library(monkeypatch, tmp_path_factory):
+    use_jax_graphcore(monkeypatch, tmp_path_factory)
     monkeypatch.delenv("TPU_OPERATOR_TUNED_MANIFEST", raising=False)
 
 
