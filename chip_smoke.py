@@ -52,10 +52,30 @@ Each phase prints JSON lines:
 8. ``train_cpu`` — the same seeded weights with dropout 0 stepped on the
    card and on the CPU over the first 5 batches: step-1 loss and
    gradients and step-5 loss must agree.
+9. ``resume`` — ``SampledTrainer`` with dropout 0 over an epoch of 10
+   steps: a run with checkpoints every 5 steps is cut after 5, and a
+   fresh trainer resumes it; its parameters and losses must equal an
+   uninterrupted run's bit for bit (cuBLAS with a fixed workspace,
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
+10. ``dist``  — ``DistTrainer`` at full width over the serving phase's
+   2-part assignment, each part's train split cut to 20,000 ids (20
+   steps an epoch): the first 3 steps on the card and on the CPU from
+   the same weights (``dist_cpu``: loss within 1e-5 relative, each
+   gradient within 1e-4 of its largest entry); an epoch in the
+   replicated layout and one in the owner layout (hot-halo cache of
+   0.25 of the halo, the rest exchanged each step), whose losses must
+   equal the replicated ones, each with its kernel launches per step,
+   step times, host stall and dispatch, device time per step by CUDA
+   events, bytes shipped and halo rows exchanged; ``evaluate`` on the
+   card against the CPU's single-graph ``sage_inference`` of the same
+   weights; ``kernel`` lines at the path's shapes (the exchange's
+   gather over every slot's store among them); and a ``resume`` line as
+   in phase 9, cut after 10 of the 20 steps.
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
-launches during the serving and training phases, worst error, and the
-times of its calls in one training step), the nvidia-smi line, and
+launches during the serving, training and dist phases, worst error,
+and the times of its calls in one training step), the nvidia-smi line,
+and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -92,6 +112,11 @@ BATCH_TRAIN = 1000     # training: seeds per step
 TRAIN_IDS = 40_000     # the train phase's epoch: 40 steps (a depth cut)
 LR = 0.003
 CPU_STEPS = 5          # steps of the card-against-CPU comparison
+SAMPLED_RESUME_AT = 5  # SampledTrainer resume: cut after 5 of 10 steps
+# the dist phase's epoch: each part's first 20,000 train ids, 20 steps
+# (a depth cut); its resume check cuts the run after 10 of them
+DIST_IDS_PER_PART = 20_000
+DIST_CPU_STEPS = 3     # dist steps of the card-against-CPU comparison
 
 
 def emit(**record) -> None:
@@ -678,7 +703,10 @@ def graph_phase(args, g, trainer, card: str, host: str):
     emit(**rec)
 
 
-def serve_phase(torch, args, wrappers, g, card: str):
+def serve_phase(torch, args, wrappers, g, work: str, card: str):
+    """The port's partitioner splits ``g`` in 2 parts (its book under
+    ``work``), and a ``ServeEngine`` on the card answers requests from
+    it. Returns the launches of the served requests and the node map."""
     import numpy as np
 
     from dgl_operator_tpu_torch.graph.partition import (edge_cut,
@@ -689,118 +717,113 @@ def serve_phase(torch, args, wrappers, g, card: str):
     from dgl_operator_tpu_torch.runtime.checkpoint import export_for_serving
     from dgl_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine
 
-    work = os.path.join(REPO, "_chip_smoke_work")
-    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    # the port's own partitioner: multilevel, 2 parts, seed 0
+    cfg_json = partition_graph(g, "ogbn-products", 2,
+                               os.path.join(work, "book"))
+    partition_s = time.perf_counter() - t0
+    with open(cfg_json) as f:
+        book = json.load(f)
+    node_map = np.load(os.path.join(work, "book", "node_map.npy"))
+    sizes = [book[f"part-{p}"]["num_inner_nodes"] for p in range(2)]
+    halo_rows = [book[f"part-{p}"]["num_local_nodes"] - sizes[p]
+                 for p in range(2)]
+    cut = edge_cut(g, node_map)
+    check(book["part_method"] == "multilevel-native",
+          f"book from the multilevel partitioner: {book['part_method']}")
+    check(sum(sizes) == g.num_nodes and min(sizes) > 0 and
+          sizes == np.bincount(node_map, minlength=2).tolist(),
+          f"parts {sizes} cover the {g.num_nodes} nodes")
+    check(max(sizes) <= 1.1 * g.num_nodes / 2 + 1,
+          f"parts {sizes} within the 1.1 balance slack")
+    check(cut < 0.5, f"edge cut {cut} below a random split's 0.5")
+    setup_s = time.perf_counter() - t0
+    model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda",
+                     generator=torch.Generator().manual_seed(args.seed))
+    export = export_for_serving(os.path.join(work, "export") + os.sep,
+                                state_dict_to_flax(model.state_dict()))
+    cfg = ServeConfig(fanouts=FANOUTS, batch_size=BATCH,
+                      halo_cache_frac=0.25, cap_policy="worst")
+    eng = ServeEngine(model, cfg_json, params_path=export, cfg=cfg,
+                      device="cuda")
+    check(eng.ready, "engine warm")
+    metrics = get_obs().metrics
+    hits = metrics.counter("serve_halo_cache_hits_total")
+    remote = metrics.counter("serve_halo_remote_rows_total")
+    h0, r0 = hits.value(), remote.value()
+    rng = np.random.default_rng(args.seed + 1)
+    requests = [rng.choice(g.num_nodes, size=int(rng.integers(1, 65)),
+                           replace=False) for _ in range(args.requests)]
+    lat_ms = []
+    # the main path: every kernel count starts at 0 here
+    reset_counts(wrappers)
+    forwards0 = eng.forward_calls
+    served_from = time.perf_counter()
+    batcher = eng.make_batcher()
     try:
-        t0 = time.perf_counter()
-        # the port's own partitioner: multilevel, 2 parts, seed 0
-        cfg_json = partition_graph(g, "ogbn-products", 2,
-                                   os.path.join(work, "book"))
-        partition_s = time.perf_counter() - t0
-        with open(cfg_json) as f:
-            book = json.load(f)
-        node_map = np.load(os.path.join(work, "book", "node_map.npy"))
-        sizes = [book[f"part-{p}"]["num_inner_nodes"] for p in range(2)]
-        halo_rows = [book[f"part-{p}"]["num_local_nodes"] - sizes[p]
-                     for p in range(2)]
-        cut = edge_cut(g, node_map)
-        check(book["part_method"] == "multilevel-native",
-              f"book from the multilevel partitioner: {book['part_method']}")
-        check(sum(sizes) == g.num_nodes and min(sizes) > 0 and
-              sizes == np.bincount(node_map, minlength=2).tolist(),
-              f"parts {sizes} cover the {g.num_nodes} nodes")
-        check(max(sizes) <= 1.1 * g.num_nodes / 2 + 1,
-              f"parts {sizes} within the 1.1 balance slack")
-        check(cut < 0.5, f"edge cut {cut} below a random split's 0.5")
-        setup_s = time.perf_counter() - t0
-        model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda",
-                         generator=torch.Generator().manual_seed(args.seed))
-        export = export_for_serving(os.path.join(work, "export") + os.sep,
-                                    state_dict_to_flax(model.state_dict()))
-        cfg = ServeConfig(fanouts=FANOUTS, batch_size=BATCH,
-                          halo_cache_frac=0.25, cap_policy="worst")
-        eng = ServeEngine(model, cfg_json, params_path=export, cfg=cfg,
-                          device="cuda")
-        check(eng.ready, "engine warm")
-        metrics = get_obs().metrics
-        hits = metrics.counter("serve_halo_cache_hits_total")
-        remote = metrics.counter("serve_halo_remote_rows_total")
-        h0, r0 = hits.value(), remote.value()
-        rng = np.random.default_rng(args.seed + 1)
-        requests = [rng.choice(g.num_nodes, size=int(rng.integers(1, 65)),
-                               replace=False) for _ in range(args.requests)]
-        lat_ms = []
-        # the main path: every kernel count starts at 0 here
-        reset_counts(wrappers)
-        forwards0 = eng.forward_calls
-        served_from = time.perf_counter()
-        batcher = eng.make_batcher()
-        try:
-            for ids in requests:
-                t = time.perf_counter()
-                pred = batcher.submit(ids).result(timeout=120)
-                lat_ms.append((time.perf_counter() - t) * 1e3)
-                check(pred.shape == ids.shape and pred.min() >= 0
-                      and pred.max() < CLASSES,
-                      "predictions are classes in [0, 47)")
-        finally:
-            batcher.stop()
-        served_to = time.perf_counter()
-        launches = read_counts(wrappers)
-        forwards = eng.forward_calls - forwards0
-        check(forwards >= len(requests) > 0,
-              "at least one forward per request")
-        check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
-                           "scatter_add_rows": 0},
-              f"2 fanout_agg launches per forward and no other: "
-              f"{launches} launches, {forwards} forwards")
-        check(eng.nonfinite_logits == 0, "finite logits")
-        d_hits, d_remote = hits.value() - h0, remote.value() - r0
-        check(d_hits > 0 and d_remote > 0,
-              "halo cache hits and owner fetches counted")
-        # one fixed request and sample seed, on the card and on the CPU
-        fixed = np.sort(rng.choice(g.num_nodes, size=BATCH, replace=False))
-        lg_gpu = eng.predict_logits(fixed, sample_seed=7)
-        cpu_model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cpu")
-        eng_cpu = ServeEngine(cpu_model, cfg_json, params_path=export,
-                              cfg=cfg, device="cpu", warm=False)
-        lg_cpu = eng_cpu.predict_logits(fixed, sample_seed=7)
-        check(bool(np.isfinite(lg_gpu).all()) and lg_gpu.shape ==
-              (BATCH, CLASSES), "fixed request: finite [64, 47] logits")
-        cpu_err = float(np.abs(lg_gpu - lg_cpu).max())
-        cpu_tol = 1e-4 * max(1.0, float(np.abs(lg_cpu).max()))
-        check(cpu_err <= cpu_tol,
-              f"card vs CPU logits: max abs err {cpu_err} > {cpu_tol}")
-        check(bool((lg_gpu.argmax(-1) == lg_cpu.argmax(-1)).all()),
-              "card vs CPU predictions")
-        lat = np.asarray(lat_ms)
-        # the engine's spans over the served window: host sample+gather
-        # per part chunk, and ship+forward+fetch (ends in a device sync)
-        spans = [s for s in get_obs().spans
-                 if served_from <= s["t0"] <= served_to]
-        span_ms = {name: float(np.mean([(s["t1"] - s["t0"]) * 1e3
-                                        for s in spans
-                                        if s["name"] == name]))
-                   for name in ("engine_fanout", "forward_dispatch")}
-        emit(phase="serve", card=card, nodes=g.num_nodes, edges=g.num_edges,
-             parts=2, partition_s=partition_s, edge_cut=cut,
-             part_sizes=sizes, halo_rows=halo_rows,
-             part_method=book["part_method"],
-             setup_s=setup_s, warmup_s=eng.warmup_seconds,
-             load_s=eng.load_seconds, caps=eng.caps,
-             requests=len(requests),
-             seeds=int(sum(len(r) for r in requests)),
-             forwards=forwards, launches=launches,
-             halo_cache_hits=d_hits, halo_remote_rows=d_remote,
-             p50_ms=float(np.percentile(lat, 50)),
-             p99_ms=float(np.percentile(lat, 99)),
-             sample_gather_ms_mean=span_ms["engine_fanout"],
-             forward_dispatch_ms_mean=span_ms["forward_dispatch"],
-             max_wait_ms=cfg.max_wait_ms,
-             cpu_max_abs_err=cpu_err, cpu_tol=cpu_tol)
-        return launches
+        for ids in requests:
+            t = time.perf_counter()
+            pred = batcher.submit(ids).result(timeout=120)
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+            check(pred.shape == ids.shape and pred.min() >= 0
+                  and pred.max() < CLASSES,
+                  "predictions are classes in [0, 47)")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        batcher.stop()
+    served_to = time.perf_counter()
+    launches = read_counts(wrappers)
+    forwards = eng.forward_calls - forwards0
+    check(forwards >= len(requests) > 0,
+          "at least one forward per request")
+    check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
+                       "scatter_add_rows": 0},
+          f"2 fanout_agg launches per forward and no other: "
+          f"{launches} launches, {forwards} forwards")
+    check(eng.nonfinite_logits == 0, "finite logits")
+    d_hits, d_remote = hits.value() - h0, remote.value() - r0
+    check(d_hits > 0 and d_remote > 0,
+          "halo cache hits and owner fetches counted")
+    # one fixed request and sample seed, on the card and on the CPU
+    fixed = np.sort(rng.choice(g.num_nodes, size=BATCH, replace=False))
+    lg_gpu = eng.predict_logits(fixed, sample_seed=7)
+    cpu_model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cpu")
+    eng_cpu = ServeEngine(cpu_model, cfg_json, params_path=export,
+                          cfg=cfg, device="cpu", warm=False)
+    lg_cpu = eng_cpu.predict_logits(fixed, sample_seed=7)
+    check(bool(np.isfinite(lg_gpu).all()) and lg_gpu.shape ==
+          (BATCH, CLASSES), "fixed request: finite [64, 47] logits")
+    cpu_err = float(np.abs(lg_gpu - lg_cpu).max())
+    cpu_tol = 1e-4 * max(1.0, float(np.abs(lg_cpu).max()))
+    check(cpu_err <= cpu_tol,
+          f"card vs CPU logits: max abs err {cpu_err} > {cpu_tol}")
+    check(bool((lg_gpu.argmax(-1) == lg_cpu.argmax(-1)).all()),
+          "card vs CPU predictions")
+    lat = np.asarray(lat_ms)
+    # the engine's spans over the served window: host sample+gather
+    # per part chunk, and ship+forward+fetch (ends in a device sync)
+    spans = [s for s in get_obs().spans
+             if served_from <= s["t0"] <= served_to]
+    span_ms = {name: float(np.mean([(s["t1"] - s["t0"]) * 1e3
+                                    for s in spans
+                                    if s["name"] == name]))
+               for name in ("engine_fanout", "forward_dispatch")}
+    emit(phase="serve", card=card, nodes=g.num_nodes, edges=g.num_edges,
+         parts=2, partition_s=partition_s, edge_cut=cut,
+         part_sizes=sizes, halo_rows=halo_rows,
+         part_method=book["part_method"],
+         setup_s=setup_s, warmup_s=eng.warmup_seconds,
+         load_s=eng.load_seconds, caps=eng.caps,
+         requests=len(requests),
+         seeds=int(sum(len(r) for r in requests)),
+         forwards=forwards, launches=launches,
+         halo_cache_hits=d_hits, halo_remote_rows=d_remote,
+         p50_ms=float(np.percentile(lat, 50)),
+         p99_ms=float(np.percentile(lat, 99)),
+         sample_gather_ms_mean=span_ms["engine_fanout"],
+         forward_dispatch_ms_mean=span_ms["forward_dispatch"],
+         max_wait_ms=cfg.max_wait_ms,
+         cpu_max_abs_err=cpu_err, cpu_tol=cpu_tol)
+    return launches, node_map
 
 
 def reset_counts(wrappers) -> None:
@@ -1000,6 +1023,366 @@ def train_cpu_phase(torch, args, g, trainer, card: str):
          card_s=gs, cpu_s=cs)
 
 
+class Killed(RuntimeError):
+    """The end of a run that a resume check cuts short."""
+
+
+def resume_check(torch, name, make, w0, want, kill_at: int, ckpt_dir: str,
+                 card: str) -> None:
+    """``make(**fields)`` builds a fresh trainer whose ``TrainConfig``
+    takes ``fields``. A run from the weights ``w0`` (a flax params
+    tree) that checkpoints every ``kill_at`` steps dies as it begins
+    step ``kill_at + 1``; a fresh trainer resumes it from the newest
+    checkpoint and must end on the uninterrupted run's parameters and
+    losses (``want``) bit for bit."""
+    from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                           train_state)
+
+    want_params, want_losses = want
+    first = make(ckpt_dir=ckpt_dir, ckpt_every=kill_at)
+    step, taken = first.train_step, []
+
+    def dying_step(batch):
+        if len(taken) == kill_at:
+            raise Killed(f"{name}: killed after {kill_at} steps")
+        taken.append(1)
+        return step(batch)
+
+    first.train_step = dying_step
+    try:
+        first.train(init_params=w0)
+        cut = False
+    except Killed:
+        cut = True
+    check(cut, f"{name}: the first run was not cut")
+    saved = CheckpointManager(ckpt_dir).latest_step()
+    check(saved == kill_at, f"{name}: newest checkpoint at step {saved}, "
+          f"expected {kill_at}")
+    resumed = make(ckpt_dir=ckpt_dir)
+    t0 = time.perf_counter()
+    out = resumed.train()
+    train_s = time.perf_counter() - t0
+    losses = [x for rec in out["history"] for x in rec["losses"]]
+    check(out["step"] == len(want_losses),
+          f"{name}: resumed run ends at step {out['step']}, the "
+          f"uninterrupted one at {len(want_losses)}")
+    check(losses == want_losses[kill_at:],
+          f"{name}: resumed losses {losses} differ from the uninterrupted "
+          f"run's {want_losses[kill_at:]}")
+    diff = {k: float((v.float() - want_params[k].float()).abs().max())
+            for k, v in out["params"].items()}
+    check(out["params"].keys() == want_params.keys() and all(
+        torch.equal(v, want_params[k]) for k, v in out["params"].items()),
+        f"{name}: resumed parameters differ from the uninterrupted run's: "
+        f"max abs diff {diff}")
+    # one synchronous save of the resumed trainer's state
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(ckpt_dir, "timed")).save(
+        out["step"], train_state(resumed.model, resumed.optimizer))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="resume", trainer=name, card=card, killed_at=kill_at,
+         checkpoint_step=saved, resumed_steps=len(losses),
+         final_step=out["step"], bit_exact=True, max_abs_diff=diff,
+         resumed_train_s=train_s, sync_save_ms=save_ms,
+         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+
+def sampled_resume_phase(torch, args, g, trainer, work: str,
+                         card: str) -> None:
+    """``SampledTrainer`` resume on the card (dropout 0): an epoch of
+    ``2 * SAMPLED_RESUME_AT`` steps over the train phase's first ids,
+    uninterrupted and cut at ``SAMPLED_RESUME_AT`` then resumed."""
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    ids = trainer.train_ids[:2 * SAMPLED_RESUME_AT * BATCH_TRAIN]
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 2)).state_dict())
+
+    def make(**fields):
+        cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                          dropout=0.0, num_epochs=1, eval_every=0,
+                          seed=args.seed, **fields)
+        return SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, dropout=0.0,
+                                       device="cuda"), g, cfg, train_ids=ids)
+
+    full = make().train(init_params=w0)
+    want = ({k: v.clone() for k, v in full["params"].items()},
+            full["history"][0]["losses"])
+    resume_check(torch, "SampledTrainer", make, w0, want, SAMPLED_RESUME_AT,
+                 os.path.join(work, "ckpt_sampled"), card)
+
+
+def dist_device_ms(torch, tr, batches):
+    """Per host batch of ``tr`` (a ``DistTrainer``): the host time of
+    shipping it to the card, then the device time of its step (the
+    exchange, every slot's forward and backward, Adam) by CUDA events,
+    with a spin kernel first so that the events bracket device work."""
+    import numpy as np
+
+    rows = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slots, serve = tr.ship(batch)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        tr.device_step(slots, serve)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rows.append([h2d_ms, ev[0].elapsed_time(ev[1])])
+    mean = np.mean(rows, axis=0)
+    return dict(h2d_ms=float(mean[0]), device_ms=float(mean[1]))
+
+
+def dist_kernel_records(torch, args, ops, rep, own, card: str):
+    """Each kernel against its plain version at the dist path's shapes:
+    slot 0 of one batch in each layout, and the owner layout's
+    exchange over every slot's store."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.parallel.halo import exchange_index
+
+    fanout, gather, scatter = ops
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+    rng = np.random.default_rng(args.seed + 5)
+    perm = [rng.permutation(t) for t in rep.train_ids]
+    host, _ = rep._sample_all(perm, 0, 20_000)
+    rslots, _ = rep.ship(host)
+    oslots, serve = own.ship(own._sample_all(perm, 0, 20_000)[0])
+    b0, b1 = rslots[0]["blocks"]
+    inputs = rslots[0]["inputs"]
+    records = gather_records(torch, gather, [
+        ("dist_slot_inputs", rep.feats[0], inputs),
+        ("dist_owner_local", own.feats[0], oslots[0]["exch_loc"]),
+        ("dist_exchange", own._flat, exchange_index(serve,
+                                                    own._rows_per_slot)),
+    ], flush, args.iters, card)
+    h1 = torch.randn(b1.num_src, HIDDEN, device="cuda", generator=gen)
+    records += fanout_records(torch, fanout, [
+        ("dist_block0", gather.gather_rows(rep.feats[0], inputs), b0.nbr,
+         b0.mask),
+        ("dist_block1", h1, b1.nbr, b1.mask),
+    ], flush, args.iters, card)
+    g1 = torch.randn(BATCH_TRAIN, HIDDEN, device="cuda", generator=gen)
+    records += scatter_records(torch, scatter, [
+        ("dist_block1_bwd", g1, b1.nbr, b1.mask, b1.num_src, True,
+         host["mbs"][0].blocks[1].plan),
+    ], flush, args.iters, card)
+    return records
+
+
+def dist_run_record(torch, tr, out, launches, probe, wall_s: float):
+    """The numbers of one ``DistTrainer.train`` run on the card."""
+    import numpy as np
+
+    P = tr.num_parts
+    rec = out["history"][0]
+    steps = out["step"]
+    step_ms = np.asarray(rec["step_s"]) * 1e3
+    dev = dist_device_ms(torch, tr, probe)
+    return dict(
+        layout=tr.cfg.feats_layout, parts=P, steps=steps,
+        seeds=int(steps * P * BATCH_TRAIN), caps=tr.caps, n_pad=tr.n_pad,
+        c_pad=tr.c_pad, h_pad=tr.h_pad, cache_rows=tr.cache_rows,
+        pair_cap=tr.pair_cap,
+        halo_rows_per_step=rec.get("halo_rows_per_step", 0.0),
+        exchange_bytes_per_step=tr.exchange_bytes_per_step,
+        h2d_bytes_per_step=rec["h2d_bytes_per_step"],
+        launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        loss_first5=float(np.mean(rec["losses"][:5])),
+        loss_last5=float(np.mean(rec["losses"][-5:])),
+        losses=rec["losses"],
+        step_ms_mean=float(step_ms.mean()),
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        **{f"{k}_ms_per_step": rec.get(k, 0.0) * 1e3 / steps
+           for k in ("sample", "stall", "dispatch")},
+        seeds_per_sec=rec["seeds_per_sec"], epoch_s=rec["time"],
+        train_call_s=wall_s, eval_s=rec["eval_s"],
+        val_acc=rec["val_acc"], test_acc=rec["test_acc"],
+        **{f"probe_{k}": v for k, v in dev.items()},
+        device_busy_share=dev["device_ms"] / float(step_ms.mean()))
+
+
+def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
+               card: str):
+    """``DistTrainer`` on the card over the serving phase's 2-part
+    assignment, with each part's train split cut to its first
+    ``DIST_IDS_PER_PART`` ids (20 steps an epoch): 3 steps against the
+    CPU, an epoch in the replicated layout, an epoch in the owner layout
+    (same weights and stream: same losses), ``evaluate`` against the
+    CPU's single-graph inference, the kernels at the path's shapes and
+    resume. Returns the launches of the two epochs."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.graph.partition import partition_graph
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE, sage_inference,
+                                                    state_dict_from_flax,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import TrainConfig
+
+    t0 = time.perf_counter()
+    train = np.asarray(g.ndata["train_mask"], bool)
+    mask = np.zeros(g.num_nodes, bool)
+    for p in range(2):
+        mask[np.nonzero(train & (node_map == p))[0][:DIST_IDS_PER_PART]] = 1
+    cut = Graph(g.src, g.dst, g.num_nodes)
+    cut.ndata = {**g.ndata, "train_mask": mask}
+    book = partition_graph(cut, "ogbn-products", 2,
+                           os.path.join(work, "dist_book"), parts=node_map)
+    book_s = time.perf_counter() - t0
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 3)).state_dict())
+
+    def make(layout="replicated", device="cuda", **fields):
+        cfg = TrainConfig(**{**dict(
+            num_epochs=1, batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+            eval_every=1, seed=args.seed, cap_policy="auto",
+            feats_layout=layout, halo_cache_frac=0.25), **fields})
+        return DistTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device=device),
+                           book, cfg, device=device)
+
+    t0 = time.perf_counter()
+    rep = make()
+    rep_s = time.perf_counter() - t0
+    P = rep.num_parts
+    check(rep.steps_per_epoch == DIST_IDS_PER_PART // BATCH_TRAIN,
+          f"{rep.steps_per_epoch} steps an epoch from "
+          f"{[len(t) for t in rep.train_ids]} train ids")
+
+    # the first steps of the training stream, on the card and on the CPU
+    rng = np.random.default_rng(args.seed)
+    perm = [rng.permutation(t) for t in rep.train_ids]
+    batches = [rep._sample_all(perm, b, b)[0] for b in range(DIST_CPU_STEPS)]
+    cpu = make(device="cpu")
+    steps_of = {}
+    for tr in (rep, cpu):
+        tr.model.load_state_dict(state_dict_from_flax(w0))
+        t0 = time.perf_counter()
+        rows = []
+        for batch in batches:
+            loss, _ = tr.train_step(batch)
+            rows.append((float(loss), {
+                n: q.grad.detach().cpu().clone()
+                for n, q in tr.model.named_parameters()}))
+        steps_of[tr.device.type] = (rows, time.perf_counter() - t0)
+    (card_rows, card_s), (cpu_rows, cpu_s) = steps_of["cuda"], steps_of["cpu"]
+    loss_rel, grad_rel = [], []
+    for i, ((gl, gg), (cl, cg)) in enumerate(zip(card_rows, cpu_rows)):
+        rel = abs(gl - cl) / abs(cl)
+        check(rel <= 1e-5, f"dist step {i + 1} loss card {gl} vs CPU {cl}: "
+              f"relative {rel} > 1e-5")
+        loss_rel.append(rel)
+        worst = 0.0
+        for name, want in cg.items():
+            err = float((gg[name] - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= 1e-4 * scale, f"dist step {i + 1} grad {name}: "
+                  f"max abs err {err} > 1e-4 * {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        grad_rel.append(worst)
+    emit(phase="dist_cpu", card=card, steps=DIST_CPU_STEPS,
+         card_losses=[r[0] for r in card_rows],
+         cpu_losses=[r[0] for r in cpu_rows], loss_rel_err=loss_rel,
+         grad_rel_err=grad_rel, card_s=card_s, cpu_s=cpu_s)
+
+    # the main path, replicated: every kernel count starts at 0 here
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out_rep = rep.train(init_params=w0)
+    rep_wall = time.perf_counter() - t0
+    launches_rep = read_counts(wrappers)
+    steps = out_rep["step"]
+    losses = out_rep["history"][0]["losses"]
+    want = ({k: v.clone() for k, v in out_rep["params"].items()}, losses)
+    check(steps == rep.steps_per_epoch == len(losses),
+          f"{steps} steps, {len(losses)} losses")
+    check(launches_rep == {"fanout_agg": 2 * P * steps,
+                           "gather_rows": P * steps,
+                           "scatter_add_rows": P * steps},
+          f"per step and slot 1 gather_rows, 2 fanout_agg, 1 "
+          f"scatter_add_rows: {launches_rep} launches in {steps} steps")
+    check(bool(np.isfinite(losses).all()), "finite dist losses")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"dist loss decreases: {losses}")
+
+    # evaluate on the card against the CPU's single-graph inference
+    cpu_model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in want[0].items()})
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pred = sage_inference(cpu_model, g, torch.from_numpy(
+            g.ndata["feat"])).argmax(-1).numpy()
+    single_s = time.perf_counter() - t0
+    rec = out_rep["history"][0]
+    eval_cmp = {}
+    for key, name in (("val_acc", "val_mask"), ("test_acc", "test_mask")):
+        m = np.asarray(g.ndata[name], bool)
+        n = int(m.sum())
+        single = float((pred[m] == g.ndata["label"][m]).mean())
+        nodes = abs(rec[key] - single) * n
+        slack = max(2, n // 10_000)
+        check(nodes <= slack + 1e-6, f"evaluate {key} {rec[key]} on the card "
+              f"vs {single} single-graph on the CPU: {nodes} nodes apart > "
+              f"{slack}")
+        eval_cmp[key] = dict(card=rec[key], cpu_single_graph=single,
+                             nodes_apart=round(nodes), slack_nodes=slack)
+    probe = [rep._sample_all(perm, b, 10_000 + b)[0] for b in range(4)]
+    rep_rec = dist_run_record(torch, rep, out_rep, launches_rep, probe,
+                              rep_wall)
+    emit(phase="dist", card=card, book_s=book_s, trainer_s=rep_s,
+         **rep_rec, eval_vs_single_graph=eval_cmp, single_graph_cpu_s=single_s)
+
+    # the main path, owner layout: every kernel count starts at 0 here
+    t0 = time.perf_counter()
+    own = make("owner")
+    own_s = time.perf_counter() - t0
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out_own = own.train(init_params=w0)
+    own_wall = time.perf_counter() - t0
+    launches_own = read_counts(wrappers)
+    own_losses = out_own["history"][0]["losses"]
+    check(out_own["step"] == steps, f"owner layout: {out_own['step']} steps")
+    check(launches_own == {"fanout_agg": 2 * P * steps,
+                           "gather_rows": (P + 1) * steps,
+                           "scatter_add_rows": P * steps},
+          f"per step 1 exchange gather_rows, and per slot 1 gather_rows, 2 "
+          f"fanout_agg, 1 scatter_add_rows: {launches_own} launches in "
+          f"{steps} steps")
+    check(bool(np.isfinite(own_losses).all()), "finite owner losses")
+    loss_rel = float(np.max(np.abs(np.subtract(own_losses, losses))
+                            / np.abs(losses)))
+    check(loss_rel <= 1e-6, f"owner losses {own_losses} vs replicated "
+          f"{losses}: relative {loss_rel} > 1e-6")
+    param_diff = max(float((v - want[0][k]).abs().max())
+                     for k, v in out_own["params"].items())
+    probe = [own._sample_all(perm, b, 10_000 + b)[0] for b in range(4)]
+    emit(phase="dist", card=card, trainer_s=own_s,
+         **dist_run_record(torch, own, out_own, launches_own, probe,
+                           own_wall),
+         loss_rel_to_replicated=loss_rel,
+         param_max_abs_diff_to_replicated=param_diff)
+
+    records = dist_kernel_records(torch, args, ops, rep, own, card)
+    resume_check(torch, "DistTrainer",
+                 lambda **fields: make(eval_every=0, **fields), w0, want,
+                 steps // 2, os.path.join(work, "ckpt_dist"), card)
+    return ({k: launches_rep[k] + launches_own[k] for k in launches_rep},
+            records)
+
+
 def kernel_entry(records, name, main_shapes, launches, replaces):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one training step."""
@@ -1029,6 +1412,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    # a fixed cuBLAS workspace: the resume checks compare two runs of
+    # the same GEMM shapes bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1072,24 +1458,33 @@ def main(argv=None) -> int:
     g, trainer, mb = setup_phase(torch, args, smi)
     graph_phase(args, g, trainer, smi, host)
     records = kernel_phase(torch, args, ops, trainer, mb, smi)
-    served = serve_phase(torch, args, wrappers, g, smi)
-    trained = train_phase(torch, args, wrappers, trainer, smi)
-    train_cpu_phase(torch, args, g, trainer, smi)
+    work = os.path.join(REPO, "_chip_smoke_work")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        served, node_map = serve_phase(torch, args, wrappers, g, work, smi)
+        trained = train_phase(torch, args, wrappers, trainer, smi)
+        train_cpu_phase(torch, args, g, trainer, smi)
+        sampled_resume_phase(torch, args, g, trainer, work, smi)
+        dist, dist_records = dist_phase(torch, args, ops, wrappers, g,
+                                        node_map, work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    records += dist_records
+
+    def launches(name):
+        return served[name] + trained[name] + dist[name]
 
     pg = "dgl_operator_tpu/ops/pallas_gather.py"
     emit(kernels=[
         kernel_entry(records, "fanout_agg",
                      {("train_block0", "float32"),
                       ("train_block1", "float32")},
-                     served["fanout_agg"] + trained["fanout_agg"],
-                     f"{pg}:221"),
+                     launches("fanout_agg"), f"{pg}:221"),
         kernel_entry(records, "gather_rows", {("train_feats", "float32")},
-                     served["gather_rows"] + trained["gather_rows"],
-                     f"{pg}:120"),
+                     launches("gather_rows"), f"{pg}:120"),
         kernel_entry(records, "scatter_add_rows",
                      {("train_block1_bwd", "float32")},
-                     served["scatter_add_rows"]
-                     + trained["scatter_add_rows"], f"{pg}:234"),
+                     launches("scatter_add_rows"), f"{pg}:234"),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})

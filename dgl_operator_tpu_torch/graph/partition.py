@@ -690,6 +690,12 @@ class GraphPartition:
     def num_inner(self) -> int:
         return int(self.inner_node.sum())
 
+    def node_split(self, mask_name: str) -> np.ndarray:
+        """Local ids of the core nodes with ``mask_name`` set: the
+        partition's seed set (``dgl.distributed.node_split``)."""
+        sel = np.asarray(self.graph.ndata[mask_name], bool) & self.inner_node
+        return np.nonzero(sel)[0].astype(np.int64)
+
     def _build_halo_manifest(self) -> None:
         """Reconstruct the halo ownership manifest from the node map
         (books written before the ``halo_manifest`` key)."""

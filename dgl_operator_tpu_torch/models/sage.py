@@ -90,17 +90,25 @@ def sage_inference(model: DistSAGE, g: Graph, x: torch.Tensor
     layers, no dropout. ``x`` is ``[num_nodes, in_feats]`` on the
     model's device; returns float32 logits for every node. The mean
     and sum aggregators are ported; pool raises."""
+    h = x.float()
+    for i in range(len(model.layers)):
+        h = sage_layer(model, i, g, h)
+    return h
+
+
+def sage_layer(model: DistSAGE, i: int, g: Graph, h: torch.Tensor
+               ) -> torch.Tensor:
+    """Layer ``i`` of layer-wise inference over every in-edge of ``g``:
+    ``self(h) + neigh(gspmm(h))``, ReLU after every layer but the last.
+    Exact for a node whose in-edges are all in ``g`` (a partition's core
+    node)."""
     if model.aggregator not in ("mean", "sum"):
         raise NotImplementedError(
-            f"sage_inference with the {model.aggregator!r} aggregator is "
-            "not ported (it needs gspmm's max reduce)")
-    h = x.float()
-    for i, layer in enumerate(model.layers):
-        agg = gspmm(g, "copy_u", model.aggregator, h)
-        h = layer.self(h) + layer.neigh(agg)
-        if i < len(model.layers) - 1:
-            h = torch.relu(h)
-    return h
+            f"layer-wise inference with the {model.aggregator!r} "
+            "aggregator is not ported (it needs gspmm's max reduce)")
+    layer = model.layers[i]
+    out = layer.self(h) + layer.neigh(gspmm(g, "copy_u", model.aggregator, h))
+    return torch.relu(out) if i < len(model.layers) - 1 else out
 
 
 def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:

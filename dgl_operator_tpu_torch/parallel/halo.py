@@ -1,9 +1,12 @@
-"""Owner-sharded halo features: the degree-ranked hot-halo cache.
+"""Owner-sharded halo features: the degree-ranked hot-halo cache and
+the exchange of halo rows between slots.
 
 Each partition stores its core feature rows once; a halo row is read
 from the part that owns it, unless it is among the hottest halo rows
-that every part keeps resident. Exchanging rows between cards over
-``torch.distributed`` comes with the distributed trainer.
+that every part keeps resident. :func:`alltoall_serve_rows` is the one
+place rows cross between slots: here every slot lives on one device
+and the exchange is one row gather; across cards its body becomes a
+``torch.distributed.all_to_all_single``.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from dgl_operator_tpu_torch.ops.gather import gather_rows
 
 # default fraction of a partition's halo rows kept resident as the hot
 # cache: sampling draws a halo node with probability proportional to
@@ -46,3 +52,59 @@ def build_halo_cache(src: np.ndarray, num_nodes: int, num_inner: int,
             [idx, np.repeat(idx[:1], cache_rows - len(idx))])
     slot_of[idx[::-1]] = np.arange(cache_rows - 1, -1, -1)
     return idx.astype(np.int64), slot_of
+
+
+def alltoall_serve_rows(store: torch.Tensor, serve: torch.Tensor,
+                        rows_per_slot: int) -> torch.Tensor:
+    """The compacted halo exchange of one step, every slot on one
+    device: ``recv[r, o, j] = store[o, serve[o, r, j]]``, a zero row
+    where ``serve[o, r, j]`` is -1.
+
+    store : ``[P * rows_per_slot + 1, D]`` every slot's store, slot-major,
+            then one zero row.
+    serve : ``[P, P, pair_cap]`` integer; ``serve[o, r]`` are the rows of
+            owner ``o`` that requester ``r`` asked for, in its request
+            order (the transposed request tables).
+
+    Returns ``recv`` ``[P, P, pair_cap, D]`` from one ``gather_rows``
+    launch over the flattened store."""
+    P, P2, cap = serve.shape
+    if P2 != P or store.shape[0] != P * rows_per_slot + 1:
+        raise ValueError(f"serve must be [P, P, cap] over a store of "
+                         f"P * {rows_per_slot} + 1 rows; got serve "
+                         f"{tuple(serve.shape)}, store "
+                         f"{tuple(store.shape)}")
+    recv = gather_rows(store, exchange_index(serve, rows_per_slot))
+    return recv.view(P, P, cap, store.shape[1])
+
+
+def exchange_index(serve: torch.Tensor, rows_per_slot: int) -> torch.Tensor:
+    """The flat store row of every ``recv[r, o, j]`` of
+    :func:`alltoall_serve_rows`, flattened in ``recv``'s order:
+    ``o * rows_per_slot + serve[o, r, j]``, or the zero row after every
+    slot's rows where the request is -1."""
+    P = serve.shape[0]
+    base = torch.arange(P, device=serve.device,
+                        dtype=torch.int64).view(P, 1, 1) * rows_per_slot
+    idx = torch.where(serve >= 0, serve.long() + base, P * rows_per_slot)
+    return idx.transpose(0, 1).reshape(-1)
+
+
+def exchange_bytes_per_step(num_slots: int, rows: int, feat_dim: int,
+                            itemsize: int = 4) -> int:
+    """Analytic per-slot bytes of one ring exchange (the device
+    sampler's form, not ported): the request all-gather (owner and
+    local, int32 each, from every slot) plus the ring that returns the
+    row payload."""
+    request = num_slots * rows * 2 * 4
+    payload = num_slots * rows * feat_dim * itemsize
+    return request + payload
+
+
+def alltoall_bytes_per_step(num_slots: int, pair_cap: int,
+                            feat_dim: int, itemsize: int = 4) -> int:
+    """Analytic per-slot bytes of one compacted exchange
+    (:func:`alltoall_serve_rows`): the request rows out (int32) plus
+    the payload back — each requested row crosses once, so the bill
+    scales with the calibrated pair cap, not the input width."""
+    return num_slots * pair_cap * (4 + feat_dim * itemsize)

@@ -1,0 +1,463 @@
+"""Partition-parallel GraphSAGE training — ``DistTrainer``.
+
+The counterpart of ``dgl_operator_tpu/runtime/dist.py::DistTrainer``
+(the reference's ``train_dist.py``): every partition of a book is one
+slot with its own feature shard and its own sampler stream, each step
+takes one padded minibatch per slot, and one Adam step applies the mean
+of the slots' gradients (``parallel/dp.py``). This is the JAX trainer's
+single-process form: every slot is resident on one device (the card
+unless ``device="cpu"`` is asked for), and a slot's step runs through
+the same kernels as ``SampledTrainer``'s: ``gather_rows`` for its input
+rows, two ``fanout_agg`` and one ``scatter_add_rows`` backward.
+
+Feature layouts (``TrainConfig.feats_layout``):
+
+- ``"replicated"``: slot ``i`` stores its partition's core and halo rows
+  (``[P, n_pad, D]``).
+- ``"owner"``: slot ``i`` stores its core rows and a degree-ranked hot
+  cache of ``halo_cache_frac`` of the halo (``[P, c_pad + H, D]``); the
+  sampler thread translates each batch's input ids into local rows and
+  per-owner requests for the cache misses, and one
+  ``parallel/halo.py::alltoall_serve_rows`` a step answers them.
+
+The loss runs the model in inference mode (no dropout), as the JAX
+trainer's ``seed_loss`` does. Checkpoints and resume follow
+``SampledTrainer`` (``runtime/loop.py::run_epochs``). Not ported: the
+sentry, live, chaos and preemption planes, the device sampler, the
+overlap pipeline (``pipeline_mode``, ``pipeline_depth``) and the state
+sharding knobs (``ROADMAP.md`` Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
+from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
+                                                 build_fanout_blocks,
+                                                 calibrate_caps, fanout_caps)
+from dgl_operator_tpu_torch.graph.partition import GraphPartition
+from dgl_operator_tpu_torch.models.sage import (sage_layer,
+                                                state_dict_from_flax)
+from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+from dgl_operator_tpu_torch.parallel.dp import slot_mean_step
+from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
+                                                  alltoall_serve_rows,
+                                                  build_halo_cache)
+from dgl_operator_tpu_torch.runtime import forward
+from dgl_operator_tpu_torch.runtime.checkpoint import train_state
+from dgl_operator_tpu_torch.runtime.loop import (TrainConfig,
+                                                 open_checkpoints,
+                                                 run_epochs)
+from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
+
+
+class DistTrainer:
+    """Partition-parallel trainer over the ``num_parts`` slots of the
+    book ``part_cfg``, all on ``device``. The model must already be
+    there; it trains without dropout."""
+
+    def __init__(self, model, part_cfg: str, cfg: TrainConfig,
+                 device: DeviceLike = None, feat_key: str = "feat",
+                 label_key: str = "label"):
+        self.device = resolve_device(device)
+        param_devices = {p.device for p in model.parameters()}
+        if param_devices != {self.device}:
+            raise ValueError(f"the model's parameters are on "
+                             f"{sorted(map(str, param_devices))}, the "
+                             f"trainer's device is {self.device}")
+        self.model = model
+        self.cfg = cfg
+        self.feat_key = feat_key
+        self.label_key = label_key
+        self._owner_layout = cfg.feats_layout == "owner"
+        first = GraphPartition(part_cfg, 0)
+        meta = first.meta
+        P = self.num_parts = int(meta["num_parts"])
+        self.parts: List[GraphPartition] = [first] + [
+            GraphPartition(part_cfg, p) for p in range(1, P)]
+        for p in self.parts:
+            p.check_float_features(feat_key)
+        self.cscs = [p.graph.csc() for p in self.parts]
+        self.num_nodes = int(meta["num_nodes"])
+        # static shapes common to every slot, from the book's metadata
+        info = [meta[f"part-{p}"] for p in range(P)]
+        self.n_pad = max(m["num_local_nodes"] for m in info)
+        self.c_pad = max(m["num_inner_nodes"] for m in info)
+        self.h_pad = max(1, max(m["num_local_nodes"] - m["num_inner_nodes"]
+                                for m in info))
+        feat_dim = self.parts[0].graph.ndata[feat_key].shape[1]
+        labels = np.zeros((P, self.n_pad), np.int64)
+        for i, p in enumerate(self.parts):
+            labels[i, :p.graph.num_nodes] = p.graph.ndata[label_key]
+        self.labels = torch.from_numpy(labels).to(self.device)
+        self._n_inner = np.asarray([p.num_inner for p in self.parts])
+        if self._owner_layout:
+            # each slot's core rows, then H hot-cache rows; one spare
+            # zero row after every slot answers a -1 exchange request
+            H = self.cache_rows = int(round(cfg.halo_cache_frac * self.h_pad))
+            R = self._rows_per_slot = self.c_pad + H
+            flat = np.zeros((P * R + 1, feat_dim), np.float32)
+            store = flat[:-1].reshape(P, R, feat_dim)
+            owner_m = np.full((P, self.h_pad), -1, np.int32)
+            local_m = np.zeros((P, self.h_pad), np.int32)
+            self._cache_slot: List[np.ndarray] = []
+            for i, p in enumerate(self.parts):
+                ni = p.num_inner
+                feat = p.graph.ndata[feat_key]
+                store[i, :ni] = feat[:ni]
+                nh = p.graph.num_nodes - ni
+                owner_m[i, :nh] = p.halo_owner_part
+                local_m[i, :nh] = p.halo_owner_local
+                cache_idx, slot_of = build_halo_cache(
+                    p.graph.src, p.graph.num_nodes, ni, H)
+                if len(cache_idx):
+                    store[i, self.c_pad:] = feat[ni + cache_idx]
+                self._cache_slot.append(slot_of)
+            self._host_halo = (owner_m, local_m)
+            self._flat = torch.from_numpy(flat).to(self.device)
+            self.feats = self._flat[:-1].view(P, R, feat_dim)
+        else:
+            self.cache_rows = 0
+            feats = np.zeros((P, self.n_pad, feat_dim), np.float32)
+            for i, p in enumerate(self.parts):
+                feats[i, :p.graph.num_nodes] = p.graph.ndata[feat_key]
+            self.feats = torch.from_numpy(feats).to(self.device)
+        self.train_ids = [p.node_split("train_mask") for p in self.parts]
+        # every slot takes a step together: the shortest partition sets
+        # the epoch
+        self.steps_per_epoch = max(
+            min(len(t) for t in self.train_ids) // cfg.batch_size, 1)
+        if cfg.cap_policy == "auto":
+            caps = np.zeros(len(cfg.fanouts) + 1, np.int64)
+            for csc, ids in zip(self.cscs, self.train_ids):
+                caps = np.maximum(caps, calibrate_caps(
+                    csc, ids, cfg.batch_size, cfg.fanouts, self.n_pad,
+                    margin=cfg.cap_margin, seed=cfg.seed))
+            self.caps = [int(c) for c in caps]
+        else:
+            self.caps = fanout_caps(cfg.batch_size, cfg.fanouts, self.n_pad)
+        if self._owner_layout:
+            self.pair_cap = self._calibrate_exchange_cap()
+            self.exchange_bytes_per_step = alltoall_bytes_per_step(
+                P, self.pair_cap, feat_dim)
+        else:
+            self.pair_cap = 0
+            self.exchange_bytes_per_step = 0
+        self.timer = PhaseTimer()
+        self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        self._eval_ctx = None
+        self._predict_fn = None
+
+    # -- the halo exchange's request tables ------------------------------
+    def _calibrate_exchange_cap(self, n_probe: int = 8) -> int:
+        """Static per-(slot, owner) request cap: probe batches measure
+        the largest count of uncached halo rows one slot asks of one
+        owner; the cap is that times ``max(cap_margin, 1.25)`` rounded
+        up to 64, and never above the rows that exist (the uncached
+        rows of a pair, at most the input cap). A later batch above it
+        raises in the sampler."""
+        cfg = self.cfg
+        owner_m, _ = self._host_halo
+        hard = 0
+        for i in range(self.num_parts):
+            nh = len(self._cache_slot[i])
+            uncached = (owner_m[i, :nh] >= 0) & (self._cache_slot[i] < 0)
+            if uncached.any():
+                hard = max(hard, int(
+                    np.bincount(owner_m[i, :nh][uncached]).max()))
+        hard = min(hard, int(self.caps[-1]))
+        measured = 0
+        rng = np.random.default_rng(cfg.seed + 811)
+        for i in range(self.num_parts):
+            ids = self.train_ids[i]
+            if len(ids) == 0:
+                continue
+            ni = int(self._n_inner[i])
+            for probe in range(n_probe):
+                seeds = rng.choice(ids, size=min(cfg.batch_size, len(ids)),
+                                   replace=False)
+                mb = build_fanout_blocks(
+                    self.cscs[i], seeds, cfg.fanouts,
+                    seed=cfg.seed * 131071 + probe, src_caps=self.caps[1:])
+                inp = mb.input_nodes
+                halo = inp[inp >= ni] - ni
+                halo = halo[self._cache_slot[i][halo] < 0]
+                if len(halo):
+                    counts = np.bincount(owner_m[i][halo],
+                                         minlength=self.num_parts)
+                    measured = max(measured, int(counts.max()))
+        # a wider floor than the fanout margin: a pair's share of a
+        # batch varies more than the frontier's size
+        margin = max(float(cfg.cap_margin), 1.25)
+        cap = max(-(-int(measured * margin) // 64) * 64, 64)
+        return min(cap, max(hard, 1))
+
+    def _exchange_requests(self, i: int, input_ids: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Slot ``i``'s padded input ids as ``(loc, req, pos)``: the
+        local store row of every position (core rows and cache hits;
+        a miss takes row 0, which its answer overwrites), then per owner
+        ``[P, pair_cap]`` the owner-local rows of the cache misses
+        (``-1`` pads) and the positions their answers land at (pads
+        ``len(input_ids)``, past the buffer)."""
+        cap = self.pair_cap
+        owner_m, local_m = self._host_halo
+        ni = int(self._n_inner[i])
+        loc = np.where(input_ids < ni, input_ids, 0).astype(np.int32)
+        req = np.full((self.num_parts, cap), -1, np.int32)
+        pos = np.full((self.num_parts, cap), len(input_ids), np.int32)
+        hsel = np.nonzero(input_ids >= ni)[0]
+        if len(hsel):
+            hidx = input_ids[hsel] - ni
+            slot = self._cache_slot[i][hidx]
+            hit = slot >= 0
+            loc[hsel[hit]] = self.c_pad + slot[hit]
+            hsel, hidx = hsel[~hit], hidx[~hit]
+            owners = owner_m[i, hidx]
+            rows = local_m[i, hidx]
+            for o in np.unique(owners):
+                m = owners == o
+                k = int(m.sum())
+                if k > cap:
+                    raise ValueError(
+                        f"halo-exchange pair cap {cap} exceeded: partition "
+                        f"{i} requests {k} rows from part {o} in one "
+                        "batch; raise cap_margin (exchange caps are "
+                        "calibrated like fanout caps)")
+                req[o, :k] = rows[m]
+                pos[o, :k] = hsel[m]
+        return loc, req, pos
+
+    # -- batches --------------------------------------------------------
+    def _sample_all(self, perm: List[np.ndarray], batch_idx: int,
+                    step_seed: int) -> Tuple[Dict, int]:
+        """One padded minibatch per slot for batch ``batch_idx`` of the
+        epoch's permutations ``perm``, each slot on its own stream
+        ``part_sample_seed(step_seed, slot)``, with the transpose plans
+        of ``blocks[1:]`` (the backward on the card sums over them) and,
+        in the owner layout, the exchange tables. Returns the host
+        batch and its seed count."""
+        cfg = self.cfg
+        B = cfg.batch_size
+        mbs, n_seeds = [], 0
+        for i, ids in enumerate(perm):
+            seeds = ids[batch_idx * B:(batch_idx + 1) * B]
+            if len(seeds) == 0 and len(ids):
+                seeds = ids[:1]     # a short partition repeats a seed
+            # a partition without train seeds gives a batch of padding:
+            # zero loss, zero gradients, still one slot of the mean
+            mb = forward.sample_padded(
+                self.cscs[i], seeds, cfg.fanouts, self.caps, self.n_pad, B,
+                forward.part_sample_seed(step_seed, i))
+            for blk in mb.blocks[1:]:
+                blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
+            mbs.append(mb)
+            n_seeds += len(seeds)
+        batch = {"mbs": mbs}
+        if self._owner_layout:
+            exch = [self._exchange_requests(i, mb.input_nodes)
+                    for i, mb in enumerate(mbs)]
+            batch["exch_loc"] = np.stack([e[0] for e in exch])
+            batch["exch_pos"] = np.stack([e[2] for e in exch])
+            # the serve view is the request stack transposed: owner o
+            # serves requester r exactly r's request list to o
+            batch["exch_serve"] = np.ascontiguousarray(
+                np.stack([e[1] for e in exch]).transpose(1, 0, 2))
+        return batch, n_seeds
+
+    def ship(self, batch: Dict) -> Tuple[List[Dict], Optional[torch.Tensor]]:
+        """The host batch on the trainer's device: per slot its blocks,
+        seeds and input ids (replicated) or exchange positions (owner),
+        and the owner layout's serve table. Each array is stacked over
+        the slots and copied once."""
+        dev = self.device
+        mbs = batch["mbs"]
+
+        def put(arr):
+            self._counts["h2d_bytes"] += arr.nbytes
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+        layers = []
+        for l in range(len(mbs[0].blocks)):
+            nbr = put(np.stack([mb.blocks[l].nbr for mb in mbs]))
+            mask = put(np.stack([mb.blocks[l].mask for mb in mbs]))
+            layers.append((nbr, mask))
+        seeds = put(np.stack([mb.seeds for mb in mbs]))
+        if self._owner_layout:
+            per_slot = {"exch_loc": put(batch["exch_loc"]),
+                        "exch_pos": put(batch["exch_pos"])}
+            serve = put(batch["exch_serve"])
+            self._counts["halo_rows"] += int((batch["exch_serve"] >= 0).sum())
+        else:
+            per_slot = {"inputs": put(np.stack([mb.input_nodes
+                                                for mb in mbs]))}
+            serve = None
+        slots = []
+        for i, mb in enumerate(mbs):
+            blocks = []
+            for (nbr, mask), blk in zip(layers, mb.blocks):
+                plan = None
+                if blk.plan is not None:
+                    self._counts["h2d_bytes"] += blk.plan.nbytes()
+                    plan = blk.plan.to(dev)
+                blocks.append(FanoutBlock(nbr[i], mask[i], blk.num_src,
+                                          plan))
+            slots.append({"blocks": blocks, "seeds": seeds[i],
+                          **{k: v[i] for k, v in per_slot.items()}})
+        return slots, serve
+
+    # -- step -----------------------------------------------------------
+    def train_step(self, batch: Dict) -> Tuple[torch.Tensor, None]:
+        """One step on a host batch: :meth:`ship` it, then
+        :meth:`device_step`. Returns the mean slot loss as a device
+        scalar (no sync) and None (no accuracy is taken)."""
+        return self.device_step(*self.ship(batch)), None
+
+    def device_step(self, slots: List[Dict],
+                    serve: Optional[torch.Tensor]) -> torch.Tensor:
+        """The step's device work on a shipped batch: the exchange
+        (owner layout), every slot's loss and backward, and one Adam
+        step on the mean gradient; returns the mean slot loss."""
+        if serve is not None:
+            recv = alltoall_serve_rows(self._flat, serve,
+                                       self._rows_per_slot)
+            for i, sb in enumerate(slots):
+                sb["recv"] = recv[i]
+
+        def loss_of(i):
+            sb = slots[i]
+            h = forward.gather_input_rows(self.feats[i], sb,
+                                          self._owner_layout)
+            return forward.seed_loss(self.model, sb["blocks"], h,
+                                     sb["seeds"], self.labels[i])
+
+        return slot_mean_step(self.optimizer, loss_of, self.num_parts)
+
+    def _epoch_stats(self, steps: int) -> Dict:
+        out = {"h2d_bytes_per_step": self._counts["h2d_bytes"] / steps}
+        if self._owner_layout:
+            out["halo_rows_per_step"] = self._counts["halo_rows"] / steps
+            out["exchange_mib"] = (self.exchange_bytes_per_step * steps
+                                   / 2**20)
+        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        return out
+
+    # -- epoch loop -----------------------------------------------------
+    def train(self, init_params=None) -> Dict:
+        """Train ``cfg.num_epochs`` epochs of ``steps_per_epoch`` steps
+        from the model's weights, or from ``init_params`` (a flax-layout
+        params tree), with a fresh Adam — or, with ``cfg.ckpt_dir`` and
+        ``resume="auto"``, from the newest good checkpoint there.
+        Returns ``{"params", "opt_state", "history", "step"}`` as
+        ``SampledTrainer.train`` does; each record's ``loss`` is its
+        last step's mean slot loss."""
+        cfg = self.cfg
+        if init_params is not None:
+            self.model.load_state_dict(state_dict_from_flax(init_params))
+        self.optimizer = torch.optim.Adam(self.model.parameters(),
+                                          lr=cfg.lr)
+        ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
+        self.timer.reset()
+        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        history, gstep = run_epochs(
+            cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
+            lambda: train_state(self.model, self.optimizer),
+            lambda rng: [rng.permutation(t) for t in self.train_ids],
+            self._sample_all, self.train_step, self.evaluate,
+            self._epoch_stats)
+        return {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "history": history, "step": gstep}
+
+    # -- evaluation -----------------------------------------------------
+    def _eval_context(self):
+        """Per slot its local-to-global ids on the device, and the
+        book's labels and masks over the global node ids (each slot
+        contributes its core rows)."""
+        if self._eval_ctx is None:
+            N = self.num_nodes
+            labels = np.zeros(N, np.int64)
+            masks = {k: np.zeros(N, bool) for k in ("val_mask", "test_mask")
+                     if k in self.parts[0].graph.ndata}
+            orig = []
+            for p in self.parts:
+                ni = p.num_inner
+                core = p.orig_id[:ni]
+                labels[core] = p.graph.ndata[self.label_key][:ni]
+                for k, m in masks.items():
+                    m[core] = p.graph.ndata[k][:ni]
+                orig.append(torch.from_numpy(
+                    np.asarray(p.orig_id, np.int64)).to(self.device))
+            self._eval_ctx = (
+                orig, torch.from_numpy(labels).to(self.device),
+                {k: torch.from_numpy(m).to(self.device)
+                 for k, m in masks.items()})
+        return self._eval_ctx
+
+    def evaluate(self, mask_names=("val_mask", "test_mask")
+                 ) -> Dict[str, float]:
+        """Accuracy per node mask of full-neighborhood layer-wise
+        inference over the slots: per layer every slot aggregates over
+        its local edges (``gspmm``; a core node's in-edges are all
+        local), its core outputs go to one global ``[N, D]`` buffer, and
+        each slot reads its local rows from there for the next layer.
+        The mean and sum aggregators are ported."""
+        orig, labels, masks = self._eval_context()
+        n_inner = [int(n) for n in self._n_inner]
+        with torch.no_grad():
+            buf = self.feats.new_zeros(self.num_nodes, self.feats.shape[-1])
+            for i, ni in enumerate(n_inner):
+                buf[orig[i][:ni]] = self.feats[i, :ni]
+            for li in range(len(self.model.layers)):
+                nxt = None
+                for i, p in enumerate(self.parts):
+                    out = sage_layer(self.model, li, p.graph, buf[orig[i]])
+                    if nxt is None:
+                        nxt = out.new_zeros(self.num_nodes, out.shape[1])
+                    nxt[orig[i][:n_inner[i]]] = out[:n_inner[i]]
+                buf = nxt
+            correct = buf.argmax(-1) == labels
+            return {name: float((correct & masks[name]).sum()
+                                / masks[name].sum().clamp_min(1))
+                    for name in mask_names if name in masks}
+
+    def predict(self, node_ids, sample_seed: int = 0) -> np.ndarray:
+        """``[len(node_ids), C]`` float32 logits in request order through
+        the serving path (``runtime/forward.py``): route each global id
+        to its owner partition, sample its neighborhood on the stream
+        ``part_sample_seed(sample_seed + chunk, part)``, gather the input
+        rows from the partition's features and run the model in
+        inference mode with its current weights."""
+        cfg = self.cfg
+        node_ids = np.asarray(node_ids, np.int64)
+        if self._predict_fn is None:
+            self._predict_fn = forward.build_predict_fn(self.model)
+        weights = dict(self.model.state_dict())
+        out = None
+        for part, ci, pos in forward.route_by_owner(
+                node_ids, self.parts[0].node_map, cfg.batch_size):
+            p = self.parts[part]
+            core_g = p.orig_id[:p.num_inner]
+            loc = np.clip(np.searchsorted(core_g, node_ids[pos]),
+                          0, len(core_g) - 1)
+            if not np.array_equal(core_g[loc], node_ids[pos]):
+                raise ValueError("predict: node id not found in its owner "
+                                 f"partition {part}")
+            mb = forward.sample_padded(
+                self.cscs[part], loc, cfg.fanouts, self.caps, self.n_pad,
+                cfg.batch_size,
+                forward.part_sample_seed(sample_seed + ci, part))
+            h = torch.from_numpy(forward.gather_host_rows(
+                p.graph.ndata[self.feat_key], mb)).to(self.device)
+            blocks = [b.to(self.device) for b in mb.blocks]
+            logits = self._predict_fn(weights, blocks, h).cpu().numpy()
+            if out is None:
+                out = np.zeros((len(node_ids), logits.shape[-1]),
+                               np.float32)
+            out[pos] = logits[:len(pos)]
+        return out if out is not None else np.zeros((0, 0), np.float32)

@@ -1,9 +1,11 @@
-"""The sample → gather → forward path of a request.
+"""The sample → gather → forward path, shared by serving and the
+partition-parallel trainer.
 
 Seed ids are routed to their owner partition (:func:`route_by_owner`),
 sampled and padded on the host (:func:`sample_padded`), their input rows
-gathered (:func:`gather_host_rows`, or the engine's owner-sharded
-gather) and run through the model (:func:`build_predict_fn`). The
+gathered (:func:`gather_host_rows`, the engine's owner-sharded gather,
+or on the card :func:`gather_input_rows`) and run through the model
+(:func:`build_predict_fn`, or :func:`seed_loss` in training). The
 sampling stream of every chunk derives from one formula
 (:func:`part_sample_seed`), so the same request and seed draw the same
 neighborhoods in this package and in the JAX package.
@@ -11,14 +13,16 @@ neighborhoods in this package and in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dgl_operator_tpu_torch.graph.blocks import (MiniBatch,
+from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
                                                  build_fanout_blocks,
                                                  pad_minibatch)
+from dgl_operator_tpu_torch.ops.gather import gather_rows
 
 
 def part_sample_seed(step_seed: int, part_id: int) -> int:
@@ -42,6 +46,59 @@ def seed_logits(model: torch.nn.Module, params: Dict[str, torch.Tensor],
     the model's device) in place of the module's own weights."""
     return torch.func.functional_call(model, params, (blocks, h),
                                       strict=True)
+
+
+def masked_loss(logits: torch.Tensor, labels: torch.Tensor,
+                seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy and accuracy over the valid seed rows
+    (``seeds >= 0``; padded seeds are -1)."""
+    valid = (seeds >= 0).float()
+    lab = labels[seeds.clamp_min(0).long()]
+    ll = F.cross_entropy(logits, lab, reduction="none")
+    n = valid.sum().clamp_min(1.0)
+    loss = (ll * valid).sum() / n
+    acc = ((logits.argmax(-1) == lab).float() * valid).sum() / n
+    return loss, acc
+
+
+def seed_loss(model: torch.nn.Module, blocks: Sequence[FanoutBlock],
+              h: torch.Tensor, seeds: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Seed-masked cross-entropy of one padded minibatch, the loss the
+    partition-parallel trainer optimizes: the model runs in ``eval()``
+    mode (no dropout, as the JAX ``seed_logits`` applies it with
+    ``train=False``) with gradients on. ``labels`` is the slot's
+    ``[n_pad]`` label row; a slot of padding only gives 0."""
+    model.eval()
+    return masked_loss(model(blocks, h), labels, seeds)[0]
+
+
+def apply_exchanged_rows(rows: torch.Tensor, recv: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """The local half of the owner-layout gather: ``rows`` ``[n, D]``
+    holds the slot's core rows and cache hits (a miss holds a junk row),
+    and every answered halo row ``recv[o, j]`` lands at ``pos[o, j]``.
+    Positions are unique; a pad points past the buffer (at ``n``) and
+    is dropped: it lands in a spare row that is cut off."""
+    n, d = rows.shape
+    buf = torch.cat([rows, rows.new_zeros(1, d)])
+    buf.index_copy_(0, pos.reshape(-1).long().clamp_max(n),
+                    recv.reshape(-1, d))
+    return buf[:n]
+
+
+def gather_input_rows(store: torch.Tensor, batch: Dict[str, torch.Tensor],
+                      owner_layout: bool) -> torch.Tensor:
+    """One slot's input rows on its device — the feature-layout seam.
+    Replicated: ``gather_rows`` of ``batch["inputs"]`` from the slot's
+    ``[n_pad, D]`` store. Owner: ``gather_rows`` of ``batch["exch_loc"]``
+    from its ``[c_pad + H, D]`` core and hot-cache store, then the halo
+    rows the exchange answered (``batch["recv"]``, ``[P, pair_cap, D]``)
+    scattered to ``batch["exch_pos"]``."""
+    if not owner_layout:
+        return gather_rows(store, batch["inputs"])
+    return apply_exchanged_rows(gather_rows(store, batch["exch_loc"]),
+                                batch["recv"], batch["exch_pos"])
 
 
 def build_predict_fn(model: torch.nn.Module):

@@ -11,11 +11,14 @@ rows are gathered by the hand-written ``gather_rows`` kernel, the model
 aggregates with ``fanout_agg`` and its backward with
 ``scatter_add_rows`` (over the transpose plans the sampler attaches to
 the blocks), and ``torch.optim.Adam`` updates the weights.
-Evaluation runs ``sage_inference`` over the full graph.
+Evaluation runs ``sage_inference`` over the full graph. With
+``ckpt_dir`` the model and Adam's state are checkpointed every
+``ckpt_every`` steps and at each epoch's end, and a new run resumes
+from the newest good checkpoint (``resume="auto"``).
 
 What the JAX trainer also carries and this one does not yet: the device
-sampler, ``steps_per_call`` scans, checkpoints and resume, the numerics
-sentry, the live plane and chaos hooks (``ROADMAP.md`` Queue 1).
+sampler, ``steps_per_call`` scans, the numerics sentry, the live plane
+and chaos hooks (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -23,11 +26,10 @@ from __future__ import annotations
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
@@ -40,17 +42,26 @@ from dgl_operator_tpu_torch.models.sage import (sage_inference,
 from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                       load_train_state,
+                                                       train_state)
+from dgl_operator_tpu_torch.runtime.forward import masked_loss
 from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 
 _ROADMAP = "ROADMAP.md Queue 1"
+FEATS_LAYOUTS = ("replicated", "owner")
+RESUME_POLICIES = ("auto", "never")
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX ``TrainConfig``'s fields and defaults for the knobs this
-    trainer honours. ``sampler``, ``steps_per_call`` and ``ckpt_dir``
-    take only their defaults; the JAX fields not listed here are not
-    ported, so passing one is a ``TypeError``."""
+    """The JAX ``TrainConfig``'s fields and defaults for the knobs the
+    two trainers honour. ``sampler``, ``steps_per_call``, ``feat_dtype``,
+    ``shard_update``, ``shard_rules``, ``zero_stage`` and
+    ``tp_axis_size`` take only their defaults (another value raises
+    ``NotImplementedError``); the JAX fields not listed here are not
+    ported, so passing one is a ``TypeError``. ``feats_layout`` and
+    ``halo_cache_frac`` are read by ``DistTrainer`` only."""
 
     num_epochs: int = 10
     batch_size: int = 1000             # reference default (dglrun:35)
@@ -62,6 +73,10 @@ class TrainConfig:
     dropout: float = 0.5
     seed: int = 0
     ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0                # steps; 0 = only at epoch end
+    # "auto": resume from the newest good checkpoint under ckpt_dir;
+    # "never": start at step 0 (saves still happen)
+    resume: str = "auto"
     # "auto" calibrates per-layer caps from sampled batches; "worst"
     # keeps the analytic bound
     cap_policy: str = "auto"
@@ -74,6 +89,16 @@ class TrainConfig:
     num_samplers: int = 0
     steps_per_call: int = 1
     sampler: str = "host"
+    # DistTrainer: "replicated" stores each slot's core and halo rows;
+    # "owner" stores core rows plus a hot-halo cache of halo_cache_frac
+    # of the halo and exchanges the rest each step
+    feats_layout: str = "replicated"
+    halo_cache_frac: float = 0.25
+    feat_dtype: str = "float32"
+    shard_update: bool = False
+    shard_rules: Optional[tuple] = None
+    zero_stage: int = 1
+    tp_axis_size: int = 1
 
     def __post_init__(self):
         if self.sampler != "host":
@@ -84,10 +109,28 @@ class TrainConfig:
             raise NotImplementedError(
                 f"steps_per_call={self.steps_per_call}: only 1 is ported "
                 f"({_ROADMAP} item 1)")
-        if self.ckpt_dir is not None:
-            raise NotImplementedError(
-                f"ckpt_dir: training checkpoints are not ported "
-                f"({_ROADMAP} item 1)")
+        unported = {"feat_dtype": self.feat_dtype != "float32",
+                    "shard_update": bool(self.shard_update),
+                    "shard_rules": self.shard_rules is not None,
+                    "zero_stage": self.zero_stage != 1,
+                    "tp_axis_size": self.tp_axis_size != 1}
+        for name, set_ in unported.items():
+            if set_:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: only the default is "
+                    f"ported ({_ROADMAP})")
+        if self.feats_layout not in FEATS_LAYOUTS:
+            raise ValueError(f"unknown feats_layout {self.feats_layout!r} "
+                             f"(expected {FEATS_LAYOUTS})")
+        if self.resume not in RESUME_POLICIES:
+            raise ValueError(f"unknown resume policy {self.resume!r} "
+                             f"(expected {RESUME_POLICIES})")
+        if self.ckpt_every < 0:
+            raise ValueError(f"ckpt_every must be >= 0, got "
+                             f"{self.ckpt_every}")
+        if not 0.0 <= self.halo_cache_frac <= 1.0:
+            raise ValueError(f"halo_cache_frac must be in [0, 1], got "
+                             f"{self.halo_cache_frac}")
         if self.cap_policy not in ("auto", "worst"):
             raise ValueError(f"cap_policy must be 'auto' or 'worst', got "
                              f"{self.cap_policy!r}")
@@ -104,17 +147,158 @@ def _eval_due(cfg: TrainConfig, epoch: int) -> bool:
                                      or epoch == cfg.num_epochs - 1)
 
 
-def masked_loss(logits: torch.Tensor, labels: torch.Tensor,
-                seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean cross-entropy and accuracy over the valid seed rows
-    (``seeds >= 0``; padded seeds are -1)."""
-    valid = (seeds >= 0).float()
-    lab = labels[seeds.clamp_min(0).long()]
-    ll = F.cross_entropy(logits, lab, reduction="none")
-    n = valid.sum().clamp_min(1.0)
-    loss = (ll * valid).sum() / n
-    acc = ((logits.argmax(-1) == lab).float() * valid).sum() / n
-    return loss, acc
+def prefetch_map(fn: Callable, items: Sequence[tuple], depth: int,
+                 workers: int) -> Iterator:
+    """``fn(*item)`` for each item, in order, computed up to ``depth``
+    items ahead on ``workers`` threads; ``depth <= 0`` computes inline.
+    Closing the generator cancels what has not started and joins the
+    threads."""
+    if depth <= 0:
+        for item in items:
+            yield fn(*item)
+        return
+    with ThreadPoolExecutor(max_workers=min(max(workers, 1), depth + 1),
+                            thread_name_prefix="sampler") as pool:
+        pending = []
+        it = iter(items)
+        try:
+            while True:
+                while len(pending) < depth + 1:
+                    nxt = next(it, None)
+                    if nxt is None:
+                        break
+                    pending.append(pool.submit(fn, *nxt))
+                if not pending:
+                    return
+                yield pending.pop(0).result()
+        finally:
+            for fut in pending:
+                fut.cancel()
+
+
+def resume_seed(seed: int, start_step: int) -> int:
+    """The dropout generator's seed in a run resumed at ``start_step``:
+    a stream of its own, as the JAX trainer folds ``start_step`` into
+    its key. A resumed run with dropout on does not replay the masks the
+    uninterrupted run would have drawn; with dropout 0 it equals that
+    run bit for bit."""
+    return int(np.random.SeedSequence([int(seed), int(start_step)])
+               .generate_state(1, np.uint64)[0])
+
+
+def open_checkpoints(cfg: TrainConfig, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer
+                     ) -> Tuple[Optional[CheckpointManager], int]:
+    """The run's checkpoint manager (None without ``cfg.ckpt_dir``) and
+    the global step it starts from. With ``resume="auto"`` the newest
+    good checkpoint is loaded into ``model`` and ``optimizer``."""
+    if cfg.ckpt_dir is None:
+        return None, 0
+    ckpt = CheckpointManager(cfg.ckpt_dir)
+    if cfg.resume != "auto":
+        return ckpt, 0
+    start_step, state = ckpt.restore(None, train_state(model, optimizer))
+    if start_step:
+        load_train_state(model, optimizer, state)
+        obs = get_obs()
+        obs.metrics.counter("train_resumes_total",
+                            "trainings resumed from a checkpoint").inc()
+        obs.emit("train_resume", step=start_step)
+    return ckpt, start_step
+
+
+def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
+               start_step: int, ckpt: Optional[CheckpointManager],
+               state: Callable[[], Dict],
+               permute: Callable[[np.random.Generator], object],
+               sample: Callable[[object, int, int], Tuple[object, int]],
+               step: Callable[[object], Tuple[torch.Tensor,
+                                              Optional[torch.Tensor]]],
+               evaluate: Callable[[], Dict[str, float]],
+               epoch_stats: Callable[[int], Dict] = lambda steps: {}
+               ) -> Tuple[List[Dict], int]:
+    """The epoch loop both trainers run, from global step
+    ``start_step`` to ``cfg.num_epochs`` epochs; returns the per-epoch
+    records and the final global step.
+
+    Each epoch draws ``permute(rng)`` from one numpy stream seeded with
+    ``cfg.seed`` (replayed over the epochs a resume skips, so the
+    resumed epoch sees the uninterrupted run's shuffle), skips the steps
+    a mid-epoch resume already took, samples ``sample(perm, b,
+    step_seed) -> (batch, seeds)`` for batch ``b`` on the prefetch
+    pipeline (``step_seed`` is the batch's global step) and takes
+    ``step(batch) -> (loss, acc or None)``. ``state()`` is saved every
+    ``cfg.ckpt_every`` steps and at each epoch's end (asynchronously;
+    the last write is drained before this returns). ``epoch_stats(n)``
+    adds the trainer's own fields to the record of an epoch of ``n``
+    steps."""
+    rng = np.random.default_rng(cfg.seed)
+    start_epoch = start_step // steps_per_epoch
+    for _ in range(start_epoch):
+        permute(rng)
+    obs = get_obs()
+    history: List[Dict] = []
+    gstep = start_step
+    # inline sampling is sampling work; with a pipeline, time spent
+    # waiting for a batch is a stall
+    wait_bucket = "sample" if cfg.prefetch <= 0 else "stall"
+    try:
+        for epoch in range(start_epoch, cfg.num_epochs):
+            perm = permute(rng)
+            skip = start_step % steps_per_epoch if epoch == start_epoch else 0
+            steps = [(b, gstep + b - skip)
+                     for b in range(skip, steps_per_epoch)]
+            t_epoch = time.time()
+            losses, step_s = [], []
+            seen = 0
+            pipeline = prefetch_map(lambda b, s: sample(perm, b, s), steps,
+                                    cfg.prefetch, cfg.num_samplers)
+            try:
+                for _ in steps:
+                    t_step = time.perf_counter()
+                    with timer.phase(wait_bucket):
+                        batch, n_seeds = next(pipeline)
+                    with timer.phase("dispatch"):
+                        loss, acc = step(batch)
+                    step_s.append(time.perf_counter() - t_step)
+                    losses.append(loss)
+                    seen += n_seeds
+                    prev_gstep, gstep = gstep, gstep + 1
+                    if gstep // cfg.log_every != prev_gstep // cfg.log_every:
+                        obs.emit("train_step", epoch=epoch, step=gstep,
+                                 loss=float(loss),
+                                 train_acc=None if acc is None
+                                 else float(acc),
+                                 seeds_per_sec=seen / max(
+                                     time.time() - t_epoch, 1e-9))
+                    if ckpt is not None and cfg.ckpt_every and (
+                            gstep // cfg.ckpt_every
+                            != prev_gstep // cfg.ckpt_every):
+                        ckpt.save(gstep, state(), wait=False)
+            finally:
+                pipeline.close()
+            loss_values = torch.stack(losses).tolist()   # waits for the card
+            dt = time.time() - t_epoch
+            rec = {"epoch": epoch, "loss": loss_values[-1],
+                   "losses": loss_values, "step_s": step_s,
+                   "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
+                   **timer.as_dict(), **epoch_stats(len(steps))}
+            if _eval_due(cfg, epoch):
+                t_eval = time.perf_counter()
+                accs = evaluate()
+                rec["val_acc"] = accs.get("val_mask")
+                rec["test_acc"] = accs.get("test_mask")
+                rec["eval_s"] = time.perf_counter() - t_eval
+            obs.emit("epoch", **{k: v for k, v in rec.items()
+                                 if not isinstance(v, list)})
+            history.append(rec)
+            timer.reset()
+            if ckpt is not None:
+                ckpt.save(gstep, state(), wait=False)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    return history, gstep
 
 
 class SampledTrainer:
@@ -183,28 +367,8 @@ class SampledTrainer:
         depth and worker count yields the same stream."""
         if depth is None:
             depth = self.cfg.prefetch
-        if depth <= 0:
-            for seeds, step_seed in batches:
-                yield self.sample(seeds, step_seed)
-            return
-        workers = min(max(self.cfg.num_samplers, 1), depth + 1)
-        with ThreadPoolExecutor(max_workers=workers,
-                                thread_name_prefix="sampler") as pool:
-            pending = []
-            it = iter(batches)
-            try:
-                while True:
-                    while len(pending) < depth + 1:
-                        nxt = next(it, None)
-                        if nxt is None:
-                            break
-                        pending.append(pool.submit(self.sample, *nxt))
-                    if not pending:
-                        return
-                    yield pending.pop(0).result()
-            finally:
-                for fut in pending:
-                    fut.cancel()
+        return prefetch_map(self.sample, batches, depth,
+                            self.cfg.num_samplers)
 
     def ship(self, mb: MiniBatch
              ) -> Tuple[List[FanoutBlock], torch.Tensor, torch.Tensor]:
@@ -261,13 +425,14 @@ class SampledTrainer:
     def train(self, init_params=None) -> Dict:
         """Train ``cfg.num_epochs`` epochs from the model's weights, or
         from ``init_params`` (a flax-layout params tree, loaded through
-        ``state_dict_from_flax``), with a fresh Adam. Returns
-        ``{"params": state dict, "opt_state": Adam's state dict,
-        "history": one record per epoch, "step": steps taken}``."""
+        ``state_dict_from_flax``), with a fresh Adam — or, with
+        ``cfg.ckpt_dir`` and ``resume="auto"``, from the newest good
+        checkpoint there. Returns ``{"params": state dict, "opt_state":
+        Adam's state dict, "history": one record per epoch trained,
+        "step": the global step reached}``."""
         cfg = self.cfg
         if init_params is not None:
             self.model.load_state_dict(state_dict_from_flax(init_params))
-        rng = np.random.default_rng(cfg.seed)
         # the warm-up batch (the JAX trainer initialises its params on
         # it): one forward without a gradient builds the kernels and
         # checks the model against the caps before the clock starts
@@ -277,56 +442,21 @@ class SampledTrainer:
         self.optimizer = torch.optim.Adam(self.model.parameters(),
                                           lr=cfg.lr)
         self.generator.manual_seed(cfg.seed)
+        ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
+        if start_step:
+            self.generator.manual_seed(resume_seed(cfg.seed, start_step))
         self.timer.reset()
-        obs = get_obs()
-        history: List[Dict] = []
-        gstep = 0
-        steps_per_epoch = max(len(self.train_ids) // cfg.batch_size, 1)
-        # inline sampling is sampling work; with a pipeline, time spent
-        # waiting for a batch is a stall
-        wait_bucket = "sample" if cfg.prefetch <= 0 else "stall"
-        for epoch in range(cfg.num_epochs):
-            ids = rng.permutation(self.train_ids)
-            t_epoch = time.time()
-            batches = [(ids[b * cfg.batch_size:(b + 1) * cfg.batch_size],
-                        gstep + b) for b in range(steps_per_epoch)]
-            losses, step_s = [], []
-            seen = 0
-            pipeline = self.sample_pipeline(batches)
-            try:
-                for seeds, _ in batches:
-                    t_step = time.perf_counter()
-                    with self.timer.phase(wait_bucket):
-                        mb = next(pipeline)
-                    with self.timer.phase("dispatch"):
-                        loss, acc = self.train_step(mb)
-                    step_s.append(time.perf_counter() - t_step)
-                    losses.append(loss)
-                    seen += len(seeds)
-                    prev_gstep, gstep = gstep, gstep + 1
-                    if gstep // cfg.log_every != prev_gstep // cfg.log_every:
-                        obs.emit("train_step", epoch=epoch, step=gstep,
-                                 loss=float(loss), train_acc=float(acc),
-                                 seeds_per_sec=seen / max(
-                                     time.time() - t_epoch, 1e-9))
-            finally:
-                pipeline.close()
-            loss_values = torch.stack(losses).tolist()   # waits for the card
-            dt = time.time() - t_epoch
-            rec = {"epoch": epoch, "loss": loss_values[-1],
-                   "losses": loss_values, "step_s": step_s,
-                   "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
-                   **self.timer.as_dict()}
-            if _eval_due(cfg, epoch):
-                t_eval = time.perf_counter()
-                accs = self.evaluate()
-                rec["val_acc"] = accs.get("val_mask")
-                rec["test_acc"] = accs.get("test_mask")
-                rec["eval_s"] = time.perf_counter() - t_eval
-            obs.emit("epoch", **{k: v for k, v in rec.items()
-                                 if not isinstance(v, list)})
-            history.append(rec)
-            self.timer.reset()
+        B = cfg.batch_size
+
+        def sample(ids, b, step_seed):
+            seeds = ids[b * B:(b + 1) * B]
+            return self.sample(seeds, step_seed), len(seeds)
+
+        history, gstep = run_epochs(
+            cfg, self.timer, max(len(self.train_ids) // B, 1), start_step,
+            ckpt, lambda: train_state(self.model, self.optimizer),
+            lambda rng: rng.permutation(self.train_ids), sample,
+            self.train_step, self.evaluate)
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}

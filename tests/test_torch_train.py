@@ -182,14 +182,15 @@ def test_seeded_dropout_run_is_reproducible(port_graph):
 
 @pytest.mark.parametrize("field,value", [("sampler", "device"),
                                          ("steps_per_call", 2),
-                                         ("ckpt_dir", "ckpt")])
+                                         ("zero_stage", 3)])
 def test_unported_knobs_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**{field: value})
 
 
-@pytest.mark.parametrize("field", ["sentry", "resume", "feats_layout",
-                                   "shard_update", "ckpt_every"])
+@pytest.mark.parametrize("field", ["sentry", "pipeline_mode",
+                                   "pipeline_depth", "donate",
+                                   "gather_depth"])
 def test_jax_only_fields_are_not_fields(field):
     with pytest.raises(TypeError):
         TrainConfig(**{field: JaxTrainConfig().__dict__[field]})
