@@ -50,8 +50,10 @@ Each phase prints JSON lines:
    times, the host time of a batch's sampling and of its scatter plans,
    and the device time of one step's forward, backward and Adam.
 8. ``train_cpu`` — the same seeded weights with dropout 0 stepped on the
-   card and on the CPU over the first 5 batches: step-1 loss and
-   gradients and step-5 loss must agree.
+   card and on the CPU over the first 5 batches, the card taking the
+   CPU's parameters and Adam state before every step: each step's loss
+   within 1e-5 relative and each gradient within 1e-4 of its largest
+   entry, every step's gradient gap reported.
 9. ``resume`` — ``SampledTrainer`` with dropout 0 over an epoch of 10
    steps: a run with checkpoints every 5 steps is cut after 5, and a
    fresh trainer resumes it; its parameters and losses must equal an
@@ -59,9 +61,9 @@ Each phase prints JSON lines:
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
 10. ``dist``  — ``DistTrainer`` at full width over the serving phase's
    2-part assignment, each part's train split cut to 20,000 ids (20
-   steps an epoch): the first 3 steps on the card and on the CPU from
-   the same weights (``dist_cpu``: loss within 1e-5 relative, each
-   gradient within 1e-4 of its largest entry); an epoch in the
+   steps an epoch; the weights drawn from ``--seed`` as the entry point
+   draws them): the first 3 steps on the card and on the CPU, synced
+   before each step as in phase 8 (``dist_cpu``); an epoch in the
    replicated layout and one in the owner layout (hot-halo cache of
    0.25 of the halo, the rest exchanged each step), whose losses must
    equal the replicated ones, each with its kernel launches per step,
@@ -71,9 +73,27 @@ Each phase prints JSON lines:
    weights; ``kernel`` lines at the path's shapes (the exchange's
    gather over every slot's store among them); and a ``resume`` line as
    in phase 9, cut after 10 of the 20 steps.
+11. ``dist_mp`` — the multi-process form on the same book and weights:
+   (a) the single-process ``DistTrainer`` at sampler widths 1 and 2 in
+   the order 1, 2, 2, 1, each layout: identical batch streams and
+   losses, step, stall and seeds/s per width; (b) an in-process NCCL
+   group of world size 1, both parts on rank 0: each layout's epoch
+   equal to phase 10's bit for bit (losses, parameters, ``evaluate``),
+   with its launches and the µs of the gradient ``all_reduce`` and the
+   two exchange ``all_to_all_single`` calls at the owner step's shapes;
+   the group is destroyed after; (c) two processes through the entry
+   point ``examples/train_dist.py`` on the card over gloo (NCCL refuses
+   two ranks on one card), one part each, from a 2-line hostfile: equal
+   losses on both ranks, within 1e-6 relative of (b)'s at every step,
+   with each rank's launches and, in a second gloo group after the
+   run, the µs of the step's three collectives on CUDA tensors of the
+   owner step's shapes; a rank that fails or hangs past 300 s
+   fails the run; (d) a ``kernel`` line of ``gather_rows`` at the
+   two-rank owner-serve shape.
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
-launches during the serving, training and dist phases, worst error,
+launches during the serving, training, dist and dist_mp phases (both
+ranks of (c) included), worst error,
 and the times of its calls in one training step), the nvidia-smi line,
 and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
@@ -973,9 +993,56 @@ def train_phase(torch, args, wrappers, trainer, card: str):
     return launches
 
 
+def synced_step_gaps(torch, card_tr, cpu_tr, batches, step):
+    """Step ``card_tr`` and ``cpu_tr`` over ``batches`` with ``step(tr,
+    batch) -> loss``; before each step the card takes the CPU's
+    parameters and Adam state, so every step's gap is that step's alone.
+    Returns the card's and the CPU's losses, each step's gradient gap
+    (max abs error over max abs, per parameter) and the seconds each
+    side spent."""
+    import copy
+
+    def grads(tr):
+        return {n: q.grad.detach().cpu().clone()
+                for n, q in tr.model.named_parameters()}
+
+    card_l, cpu_l, gaps, secs = [], [], [], [0.0, 0.0]
+    for batch in batches:
+        card_tr.model.load_state_dict(cpu_tr.model.state_dict())
+        # a deep copy: Adam keeps its step counts as host tensors, which
+        # a shallow load would share between the two optimizers
+        card_tr.optimizer.load_state_dict(
+            copy.deepcopy(cpu_tr.optimizer.state_dict()))
+        for k, (tr, losses) in enumerate(((card_tr, card_l),
+                                          (cpu_tr, cpu_l))):
+            t0 = time.perf_counter()
+            losses.append(float(step(tr, batch)))
+            secs[k] += time.perf_counter() - t0
+        want = grads(cpu_tr)
+        gaps.append({n: float((got - want[n]).abs().max())
+                     / max(float(want[n].abs().max()), 1e-30)
+                     for n, got in grads(card_tr).items()})
+    return card_l, cpu_l, gaps, secs
+
+
+def check_step_gaps(what: str, card_l, cpu_l, gaps) -> Tuple[list, list]:
+    """Every step's loss within 1e-5 relative and every gradient within
+    1e-4 of its largest entry; returns the relative loss gaps and each
+    step's worst gradient gap."""
+    rel = [abs(g - c) / abs(c) for g, c in zip(card_l, cpu_l)]
+    for i, (r, gap) in enumerate(zip(rel, gaps)):
+        check(r <= 1e-5, f"{what} step {i + 1} loss card {card_l[i]} vs "
+              f"CPU {cpu_l[i]}: relative {r} > 1e-5")
+        for name, e in gap.items():
+            check(e <= 1e-4, f"{what} step {i + 1} grad {name}: max abs "
+                  f"err {e} x max > 1e-4")
+    return rel, [max(gap.values()) for gap in gaps]
+
+
 def train_cpu_phase(torch, args, g, trainer, card: str):
     """The same seeded weights, dropout 0 and the first batches of the
-    training stream, stepped on the card and on the CPU."""
+    training stream, stepped on the card and on the CPU, the card
+    taking the CPU's parameters and Adam state before every step."""
     import numpy as np
 
     from dgl_operator_tpu_torch.models.sage import DistSAGE
@@ -988,39 +1055,17 @@ def train_cpu_phase(torch, args, g, trainer, card: str):
     ids = np.random.default_rng(args.seed).permutation(trainer.train_ids)
     mbs = [trainer.sample(ids[b * BATCH_TRAIN:(b + 1) * BATCH_TRAIN], b)
            for b in range(CPU_STEPS)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        model = DistSAGE(FEAT, HIDDEN, CLASSES, device=dev,
-                         generator=torch.Generator().manual_seed(
-                             args.seed + 1))
-        tr = SampledTrainer(model, g, cfg, train_ids=trainer.train_ids,
-                            device=dev)
-        t0 = time.perf_counter()
-        losses, grads = [], None
-        for i, mb in enumerate(mbs):
-            loss, _ = tr.train_step(mb)
-            losses.append(float(loss))
-            if i == 0:
-                grads = {n: p.grad.detach().cpu().clone()
-                         for n, p in model.named_parameters()}
-        runs[dev] = (losses, grads, time.perf_counter() - t0)
-    (gl, gg, gs), (cl, cg, cs) = runs["cuda"], runs["cpu"]
-    rel1 = abs(gl[0] - cl[0]) / abs(cl[0])
-    rel5 = abs(gl[-1] - cl[-1]) / abs(cl[-1])
-    check(rel1 <= 1e-5, f"step-1 loss card {gl[0]} vs CPU {cl[0]}: "
-          f"relative {rel1} > 1e-5")
-    grad_err = {}
-    for name, want in cg.items():
-        err = float((gg[name] - want).abs().max())
-        tol = 1e-4 * float(want.abs().max())
-        check(err <= tol, f"step-1 grad {name}: max abs err {err} > {tol}")
-        grad_err[name] = err / max(float(want.abs().max()), 1e-30)
-    check(rel5 <= 1e-3, f"step-{CPU_STEPS} loss card {gl[-1]} vs CPU "
-          f"{cl[-1]}: relative {rel5} > 1e-3")
-    emit(phase="train_cpu", card=card, steps=CPU_STEPS, card_losses=gl,
-         cpu_losses=cl, step1_loss_rel_err=rel1,
-         step5_loss_rel_err=rel5, step1_grad_rel_err=grad_err,
-         card_s=gs, cpu_s=cs)
+    trainers = [SampledTrainer(
+        DistSAGE(FEAT, HIDDEN, CLASSES, device=dev,
+                 generator=torch.Generator().manual_seed(args.seed + 1)),
+        g, cfg, train_ids=trainer.train_ids, device=dev)
+        for dev in ("cuda", "cpu")]
+    gl, cl, gaps, (gs, cs) = synced_step_gaps(
+        torch, *trainers, mbs, lambda tr, mb: tr.train_step(mb)[0])
+    rel, worst = check_step_gaps("train", gl, cl, gaps)
+    emit(phase="train_cpu", card=card, steps=CPU_STEPS, synced=True,
+         card_losses=gl, cpu_losses=cl, loss_rel_err=rel,
+         grad_rel_err_max=worst, grad_rel_err=gaps, card_s=gs, cpu_s=cs)
 
 
 class Killed(RuntimeError):
@@ -1241,9 +1286,10 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     book = partition_graph(cut, "ogbn-products", 2,
                            os.path.join(work, "dist_book"), parts=node_map)
     book_s = time.perf_counter() - t0
+    # the weights the entry point draws from TrainConfig.seed
     w0 = state_dict_to_flax(DistSAGE(
         FEAT, HIDDEN, CLASSES, device="cpu",
-        generator=torch.Generator().manual_seed(args.seed + 3)).state_dict())
+        generator=torch.Generator().manual_seed(args.seed)).state_dict())
 
     def make(layout="replicated", device="cuda", **fields):
         cfg = TrainConfig(**{**dict(
@@ -1266,36 +1312,14 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     perm = [rng.permutation(t) for t in rep.train_ids]
     batches = [rep._sample_all(perm, b, b)[0] for b in range(DIST_CPU_STEPS)]
     cpu = make(device="cpu")
-    steps_of = {}
-    for tr in (rep, cpu):
-        tr.model.load_state_dict(state_dict_from_flax(w0))
-        t0 = time.perf_counter()
-        rows = []
-        for batch in batches:
-            loss, _ = tr.train_step(batch)
-            rows.append((float(loss), {
-                n: q.grad.detach().cpu().clone()
-                for n, q in tr.model.named_parameters()}))
-        steps_of[tr.device.type] = (rows, time.perf_counter() - t0)
-    (card_rows, card_s), (cpu_rows, cpu_s) = steps_of["cuda"], steps_of["cpu"]
-    loss_rel, grad_rel = [], []
-    for i, ((gl, gg), (cl, cg)) in enumerate(zip(card_rows, cpu_rows)):
-        rel = abs(gl - cl) / abs(cl)
-        check(rel <= 1e-5, f"dist step {i + 1} loss card {gl} vs CPU {cl}: "
-              f"relative {rel} > 1e-5")
-        loss_rel.append(rel)
-        worst = 0.0
-        for name, want in cg.items():
-            err = float((gg[name] - want).abs().max())
-            scale = float(want.abs().max())
-            check(err <= 1e-4 * scale, f"dist step {i + 1} grad {name}: "
-                  f"max abs err {err} > 1e-4 * {scale}")
-            worst = max(worst, err / max(scale, 1e-30))
-        grad_rel.append(worst)
-    emit(phase="dist_cpu", card=card, steps=DIST_CPU_STEPS,
-         card_losses=[r[0] for r in card_rows],
-         cpu_losses=[r[0] for r in cpu_rows], loss_rel_err=loss_rel,
-         grad_rel_err=grad_rel, card_s=card_s, cpu_s=cpu_s)
+    cpu.model.load_state_dict(state_dict_from_flax(w0))
+    card_l, cpu_l, gaps, (card_s, cpu_s) = synced_step_gaps(
+        torch, rep, cpu, batches, lambda tr, b: tr.train_step(b)[0])
+    loss_rel, grad_rel = check_step_gaps("dist", card_l, cpu_l, gaps)
+    emit(phase="dist_cpu", card=card, steps=DIST_CPU_STEPS, synced=True,
+         card_losses=card_l, cpu_losses=cpu_l, loss_rel_err=loss_rel,
+         grad_rel_err=grad_rel, grad_rel_err_by_param=gaps, card_s=card_s,
+         cpu_s=cpu_s)
 
     # the main path, replicated: every kernel count starts at 0 here
     reset_counts(wrappers)
@@ -1354,6 +1378,8 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     own_wall = time.perf_counter() - t0
     launches_own = read_counts(wrappers)
     own_losses = out_own["history"][0]["losses"]
+    # the epoch's end state: the probe steps below train the model on
+    own_params = {k: v.clone() for k, v in out_own["params"].items()}
     check(out_own["step"] == steps, f"owner layout: {out_own['step']} steps")
     check(launches_own == {"fanout_agg": 2 * P * steps,
                            "gather_rows": (P + 1) * steps,
@@ -1379,8 +1405,371 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     resume_check(torch, "DistTrainer",
                  lambda **fields: make(eval_every=0, **fields), w0, want,
                  steps // 2, os.path.join(work, "ckpt_dist"), card)
+    ctx = dict(book=book, w0=w0, make=make, perm=perm, own=own,
+               seed=args.seed, pair_cap=own.pair_cap, want={
+        "replicated": (want[0], losses, (rec["val_acc"], rec["test_acc"])),
+        "owner": (own_params, own_losses, (out_own["history"][0]["val_acc"],
+                               out_own["history"][0]["test_acc"]))})
     return ({k: launches_rep[k] + launches_own[k] for k in launches_rep},
-            records)
+            records, ctx)
+
+
+LAYOUTS = ("replicated", "owner")
+MP_CHILD_TIMEOUT_S = 300
+# one rank of the dist_mp phase's two-rank run: the entry point's main on
+# the card, with the kernel counts of this process and the result
+# written for the parent (the printed final loss has 4 decimals); then,
+# in a second gloo group, the µs of the step's three collectives on
+# CUDA tensors of the step's shapes
+DIST_MP_CHILD = """
+import datetime, json, os, sys, time
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dgl_operator_tpu_torch.examples.train_dist import main
+from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows)
+for w in wrappers:
+    w.launches = 0
+out = main(spec["argv"])
+rec = out["history"][0]
+np.savez(spec["out"] + ".npz",
+         **{k: v.cpu().numpy() for k, v in out["params"].items()})
+dist = torch.distributed
+dist.init_process_group(
+    "gloo", init_method=f"tcp://127.0.0.1:{spec['probe_port']}",
+    world_size=2, rank=int(os.environ["TPU_OPERATOR_RANK"]),
+    timeout=datetime.timedelta(seconds=120))
+numel = sum(v.numel() for v in out["params"].values()) + 2
+bucket = torch.zeros(numel, device="cuda")
+req = torch.zeros(2 * spec["pair_cap"], dtype=torch.int32, device="cuda")
+rows = torch.zeros(2 * spec["pair_cap"], spec["feat"], device="cuda")
+req_out, rows_out = torch.empty_like(req), torch.empty_like(rows)
+
+
+def us(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+collective_us = {
+    "all_reduce": us(lambda: dist.all_reduce(bucket)),
+    "all_to_all_requests": us(lambda: dist.all_to_all_single(req_out, req)),
+    "all_to_all_rows": us(lambda: dist.all_to_all_single(rows_out, rows))}
+dist.destroy_process_group()
+with open(spec["out"] + ".json", "w") as f:
+    json.dump({"collective_us": collective_us,
+               "losses": rec["losses"], "step_s": rec["step_s"],
+               "stall_s": rec.get("stall", 0.0),
+               "dispatch_s": rec.get("dispatch", 0.0),
+               "seeds_per_sec": rec["seeds_per_sec"],
+               "val_acc": rec["val_acc"], "test_acc": rec["test_acc"],
+               "eval_s": rec["eval_s"],
+               "launches": {w.__name__: w.launches for w in wrappers}}, f)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_batches(a, b) -> bool:
+    """Two ``DistTrainer`` host batches hold the same arrays."""
+    import numpy as np
+
+    arrays = []
+    for x in (a, b):
+        arrays.append([mb.input_nodes for mb in x["mbs"]]
+                      + [mb.seeds for mb in x["mbs"]]
+                      + [getattr(blk, f) for mb in x["mbs"]
+                         for blk in mb.blocks for f in ("nbr", "mask")]
+                      + [np.asarray(v) for mb in x["mbs"]
+                         for blk in mb.blocks[1:]
+                         for v in vars(blk.plan).values()
+                         if isinstance(v, np.ndarray)]
+                      + [x[k] for k in sorted(x) if k.startswith("exch")])
+    return len(arrays[0]) == len(arrays[1]) and all(
+        np.array_equal(u, v) for u, v in zip(*arrays))
+
+
+def step_numbers(rec, steps: int) -> dict:
+    """Step ms, stall ms per step and seeds/s of one epoch record."""
+    import numpy as np
+
+    return dict(step_ms_mean=float(np.mean(rec["step_s"]) * 1e3),
+                stall_ms_per_step=rec.get("stall", 0.0) * 1e3 / steps,
+                dispatch_ms_per_step=rec.get("dispatch", 0.0) * 1e3 / steps,
+                seeds_per_sec=rec["seeds_per_sec"])
+
+
+def sampler_widths(torch, ctx, card: str) -> None:
+    """(a) The single-process ``DistTrainer`` at sampler widths 1 and 2,
+    in the order 1, 2, 2, 1 per layout: bit-identical batch streams and
+    losses, and each width's step numbers."""
+    import numpy as np
+
+    make, w0, perm = ctx["make"], ctx["w0"], ctx["perm"]
+    for layout in LAYOUTS:
+        trs = {w: make(layout, num_samplers=w, eval_every=0) for w in (1, 2)}
+        for b in range(3):
+            one, two = (trs[w]._sample_all(perm, b, 30_000 + b)[0]
+                        for w in (1, 2))
+            check(same_batches(one, two), f"{layout}: batch {b} differs "
+                  "between sampler widths 1 and 2")
+        trs[2]._close_sampler_pool()
+        runs = {1: [], 2: []}
+        for w in (1, 2, 2, 1):
+            out = trs[w].train(init_params=w0)
+            rec = out["history"][0]
+            check(rec["losses"] == ctx["want"][layout][1],
+                  f"{layout} width {w}: losses differ from the dist phase's")
+            runs[w].append(step_numbers(rec, out["step"]))
+        emit(phase="dist_mp", part="sampler_widths", card=card, layout=layout,
+             batches_identical=True, losses_identical=True,
+             **{f"width{w}": {k: [r[k] for r in rows] for k in rows[0]}
+                for w, rows in runs.items()},
+             **{f"width{w}_{k}_mean": float(np.mean([r[k] for r in rows]))
+                for w, rows in runs.items() for k in rows[0]})
+
+
+def collective_us(torch, dist, tr, cap: int, iters: int = 50) -> dict:
+    """µs of one gradient ``all_reduce`` (every parameter and the slot
+    losses in one bucket) and of the two exchange ``all_to_all_single``
+    calls (int32 requests, float32 rows) at the owner step's shapes, by
+    CUDA events."""
+    P = tr.num_parts
+    L = len(tr.parts)
+    W = dist.get_world_size()
+    numel = sum(p.numel() for p in tr.model.parameters()) + P
+    bucket = torch.zeros(numel, device="cuda")
+    req = torch.zeros(W * L * L * cap, dtype=torch.int32, device="cuda")
+    rows = torch.zeros(W * L * L * cap, tr.feats.shape[-1], device="cuda")
+    req_out, rows_out = torch.empty_like(req), torch.empty_like(rows)
+    return dict(
+        all_reduce_us=time_warm_ms(torch, lambda: dist.all_reduce(bucket),
+                                   iters) * 1e3,
+        all_reduce_bytes=bucket.numel() * 4,
+        all_to_all_requests_us=time_warm_ms(
+            torch, lambda: dist.all_to_all_single(req_out, req), iters) * 1e3,
+        all_to_all_requests_bytes=req.numel() * 4,
+        all_to_all_rows_us=time_warm_ms(
+            torch, lambda: dist.all_to_all_single(rows_out, rows),
+            iters) * 1e3,
+        all_to_all_rows_bytes=rows.numel() * 4)
+
+
+def nccl_world_one(torch, wrappers, ctx, card: str) -> dict:
+    """(b) ``DistTrainer`` under an in-process NCCL group of world size
+    1, both parts on rank 0: each layout's 20-step epoch from the dist
+    phase's weights must equal that phase's bit for bit. Returns the
+    launches; the group is destroyed before this returns."""
+    import datetime
+
+    import torch.distributed as dist
+
+    make, w0 = ctx["make"], ctx["w0"]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=MP_CHILD_TIMEOUT_S))
+    total = {}
+    try:
+        for layout in LAYOUTS:
+            tr = make(layout)
+            check(tr.my_parts == [0, 1] and tr.world_size == 1,
+                  f"world 1 holds both parts: {tr.my_parts}")
+            # the main path under NCCL: every kernel count starts at 0
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = tr.train(init_params=w0)
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            want_params, want_losses, want_acc = ctx["want"][layout]
+            rec = out["history"][0]
+            check(rec["losses"] == want_losses, f"NCCL {layout}: losses "
+                  f"{rec['losses']} differ from the single process's "
+                  f"{want_losses}")
+            check(all(torch.equal(v, want_params[k])
+                      for k, v in out["params"].items()),
+                  f"NCCL {layout}: parameters differ from the single "
+                  "process's")
+            check((rec["val_acc"], rec["test_acc"]) == want_acc,
+                  f"NCCL {layout}: evaluate {rec['val_acc']}, "
+                  f"{rec['test_acc']} vs {want_acc}")
+            gathers = 3 if layout == "owner" else 2
+            check(launches == {"fanout_agg": 4 * steps,
+                               "gather_rows": gathers * steps,
+                               "scatter_add_rows": 2 * steps},
+                  f"NCCL {layout}: {launches} launches in {steps} steps")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            extra = {}
+            if layout == "owner":
+                extra = collective_us(torch, dist, tr, tr.pair_cap)
+            emit(phase="dist_mp", part="nccl_world1", card=card,
+                 layout=layout, backend=dist.get_backend(), world_size=1,
+                 steps=steps, bit_identical_to_single_process=True,
+                 launches=launches, pair_cap=tr.pair_cap,
+                 **step_numbers(rec, steps), train_call_s=wall,
+                 eval_s=rec["eval_s"], **extra)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the NCCL group is gone")
+    return total
+
+
+def two_ranks(torch, ctx, work: str, card: str) -> dict:
+    """(c) Two processes on the card over gloo (which takes CUDA tensors
+    for ``all_reduce``, ``all_gather`` and ``all_to_all_single``; NCCL
+    refuses two ranks on one GPU), each with its own part, through the
+    entry point: equal losses on both ranks, within rtol 1e-6 of the
+    single process's at every step; then each rank's µs of the step's
+    three collectives in a second gloo group. Returns both ranks'
+    launches."""
+    import numpy as np
+
+    total = {}
+    for layout in LAYOUTS:
+        tmp = os.path.join(work, f"mp_{layout}")
+        os.makedirs(tmp, exist_ok=True)
+        hostfile = os.path.join(tmp, "hostfile")
+        port = free_port()
+        with open(hostfile, "w") as f:
+            f.write(f"127.0.0.1 {port} worker-0 slots=1\n"
+                    f"127.0.0.1 {port} worker-1 slots=1\n")
+        argv = ["--graph_name", "ogbn-products", "--ip_config", hostfile,
+                "--part_config", ctx["book"], "--num_epochs", "1",
+                "--batch_size", str(BATCH_TRAIN), "--fan_out",
+                ",".join(map(str, FANOUTS)), "--lr", str(LR),
+                "--num_hidden", str(HIDDEN), "--num_classes", str(CLASSES),
+                "--eval_every", "1", "--feats_layout", layout,
+                "--device", "cuda:0", "--backend", "gloo",
+                "--seed", str(ctx["seed"])]
+        procs, logs = [], []
+        probe_port = free_port()
+        t0 = time.perf_counter()
+        try:
+            for r in (0, 1):
+                spec = {"repo": REPO, "argv": argv,
+                        "out": os.path.join(tmp, f"rank{r}"),
+                        "probe_port": probe_port,
+                        "pair_cap": ctx["pair_cap"], "feat": FEAT}
+                logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", DIST_MP_CHILD, json.dumps(spec)],
+                    env=dict(os.environ, TPU_OPERATOR_DIST="1",
+                             TPU_OPERATOR_RANK=str(r)),
+                    stdout=logs[-1], stderr=subprocess.STDOUT))
+            # a rank that fails or hangs ends the run of both
+            while (time.perf_counter() - t0 < MP_CHILD_TIMEOUT_S
+                   and any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            outs = []
+            for log in logs:
+                log.seek(0)
+                outs.append(log.read())
+                log.close()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"{layout}: rank {r} failed or hung "
+                  f"past {MP_CHILD_TIMEOUT_S} s (rc {p.returncode}):\n"
+                  f"{out[-4000:]}")
+        res = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        done = [[ln for ln in out.splitlines() if "done, final loss" in ln]
+                for out in outs]
+        losses = res[0]["losses"]
+        check(res[1]["losses"] == losses,
+              f"{layout}: the ranks' losses differ")
+        want_params, want_losses, want_acc = ctx["want"][layout]
+        rel = np.abs(np.subtract(losses, want_losses)) / np.abs(want_losses)
+        check(len(losses) == len(want_losses) and float(rel.max()) <= 1e-6,
+              f"{layout}: two-rank losses {losses} vs the single "
+              f"process's {want_losses}: relative {rel.tolist()} > 1e-6")
+        with np.load(os.path.join(tmp, "rank0.npz")) as z:
+            pdiff = max(float(np.abs(z[k] - want_params[k].cpu().numpy())
+                              .max()) for k in want_params)
+        steps = len(losses)
+        gathers = 2 if layout == "owner" else 1
+        for r in (0, 1):
+            want = {"fanout_agg": 2 * steps, "gather_rows": gathers * steps,
+                    "scatter_add_rows": steps}
+            check(res[r]["launches"] == want, f"{layout} rank {r}: "
+                  f"{res[r]['launches']} launches in {steps} steps")
+            for k, v in res[r]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        emit(phase="dist_mp", part="two_ranks", card=card, layout=layout,
+             backend="gloo", device="cuda:0", world_size=2, steps=steps,
+             done_lines=[d[0] if d else None for d in done],
+             losses_equal_across_ranks=True,
+             loss_rel_err_max=float(rel.max()),
+             param_max_abs_diff_to_single_process=pdiff,
+             val_acc=res[0]["val_acc"], test_acc=res[0]["test_acc"],
+             single_process_acc=list(want_acc),
+             launches_per_rank=[x["launches"] for x in res],
+             step_ms_mean=[float(np.mean(x["step_s"]) * 1e3) for x in res],
+             stall_ms_per_step=[x["stall_s"] * 1e3 / steps for x in res],
+             dispatch_ms_per_step=[x["dispatch_s"] * 1e3 / steps
+                                   for x in res],
+             seeds_per_sec=[x["seeds_per_sec"] for x in res],
+             eval_s=[x["eval_s"] for x in res], wall_s=wall,
+             gloo_cuda_collective_us=[x["collective_us"] for x in res],
+             collective_shapes=dict(all_reduce_floats=sum(
+                 v.numel() for v in want_params.values()) + 2,
+                 all_to_all_ids=2 * ctx["pair_cap"],
+                 all_to_all_rows=[2 * ctx["pair_cap"], FEAT]))
+    return total
+
+
+def owner_serve_records(torch, args, ops, ctx, card: str):
+    """(d) ``gather_rows`` at the two-rank owner-serve shape: the rows
+    owner part 0 serves both requesters from its own store (its core and
+    cache rows, then a zero row) in one step of the owner layout."""
+    import numpy as np
+
+    _, gather, _ = ops
+    own = ctx["own"]
+    R = own._rows_per_slot
+    serve = own._sample_all(ctx["perm"], 0, 20_000)[0]["exch_serve"]
+    store = torch.cat([own.feats[0], own.feats.new_zeros(1,
+                                                         own.feats.shape[-1])])
+    idx = torch.from_numpy(np.where(serve[0] >= 0, serve[0], R)
+                           .astype(np.int64).reshape(-1)).to("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    return gather_records(torch, gather, [("dist_mp_owner_serve", store, idx)],
+                          flush, args.iters, card)
+
+
+def dist_mp_phase(torch, args, ops, wrappers, ctx, work: str, card: str):
+    """The multi-process form of ``DistTrainer``: (a) sampler widths,
+    (b) an NCCL group of world size 1, (c) two ranks on the card over
+    gloo, (d) the owner-serve gather's kernel line. Returns the
+    launches of (b) and (c) and the kernel records."""
+    sampler_widths(torch, ctx, card)
+    nccl = nccl_world_one(torch, wrappers, ctx, card)
+    ranks = two_ranks(torch, ctx, work, card)
+    records = owner_serve_records(torch, args, ops, ctx, card)
+    return {k: nccl[k] + ranks[k] for k in nccl}, records
 
 
 def kernel_entry(records, name, main_shapes, launches, replaces):
@@ -1465,14 +1854,16 @@ def main(argv=None) -> int:
         trained = train_phase(torch, args, wrappers, trainer, smi)
         train_cpu_phase(torch, args, g, trainer, smi)
         sampled_resume_phase(torch, args, g, trainer, work, smi)
-        dist, dist_records = dist_phase(torch, args, ops, wrappers, g,
-                                        node_map, work, smi)
+        dist, dist_records, ctx = dist_phase(torch, args, ops, wrappers, g,
+                                             node_map, work, smi)
+        dist_mp, mp_records = dist_mp_phase(torch, args, ops, wrappers, ctx,
+                                            work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    records += dist_records
+    records += dist_records + mp_records
 
     def launches(name):
-        return served[name] + trained[name] + dist[name]
+        return served[name] + trained[name] + dist[name] + dist_mp[name]
 
     pg = "dgl_operator_tpu/ops/pallas_gather.py"
     emit(kernels=[

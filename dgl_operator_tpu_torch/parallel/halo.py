@@ -3,10 +3,11 @@ the exchange of halo rows between slots.
 
 Each partition stores its core feature rows once; a halo row is read
 from the part that owns it, unless it is among the hottest halo rows
-that every part keeps resident. :func:`alltoall_serve_rows` is the one
-place rows cross between slots: here every slot lives on one device
-and the exchange is one row gather; across cards its body becomes a
-``torch.distributed.all_to_all_single``.
+that every part keeps resident. Rows cross between slots in one of two
+functions: :func:`alltoall_serve_rows` when every slot lives in one
+process (one row gather), :func:`alltoall_request_rows` across the
+processes of a ``torch.distributed`` group (the requests out and the
+rows back by ``all_to_all_single``, one row gather in between).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 
@@ -88,6 +90,45 @@ def exchange_index(serve: torch.Tensor, rows_per_slot: int) -> torch.Tensor:
                         dtype=torch.int64).view(P, 1, 1) * rows_per_slot
     idx = torch.where(serve >= 0, serve.long() + base, P * rows_per_slot)
     return idx.transpose(0, 1).reshape(-1)
+
+
+def alltoall_request_rows(store: torch.Tensor, req: torch.Tensor,
+                          rows_per_slot: int) -> torch.Tensor:
+    """The compacted halo exchange of one step across the ``W`` processes
+    of the group, each holding ``L`` consecutive slots of ``P = W * L``.
+
+    store : ``[L * rows_per_slot + 1, D]`` this process's slots' stores,
+            slot-major, then one zero row.
+    req   : ``[L, P, pair_cap]`` integer; ``req[a, o]`` are the rows that
+            local slot ``a`` asks of part ``o`` (owner-local, -1 pads).
+
+    A first ``all_to_all_single`` ships each request list to the process
+    of its owner, which answers every list it received with ONE
+    ``gather_rows`` launch over its store; a second returns the rows.
+    Returns ``recv`` ``[L, P, pair_cap, D]``: ``recv[a, o, j]`` is row
+    ``req[a, o, j]`` of part ``o``, a zero row where it is -1 — what
+    :func:`alltoall_serve_rows` gives the same slots in one process."""
+    L, P, cap = req.shape
+    W = dist.get_world_size()
+    R = int(rows_per_slot)
+    if P != W * L or store.shape[0] != L * R + 1:
+        raise ValueError(f"req must be [L, W * L, cap] over a store of L * "
+                         f"{R} + 1 rows with W = {W}; got req "
+                         f"{tuple(req.shape)}, store {tuple(store.shape)}")
+    D = store.shape[1]
+    # by destination process q: send[q, a, b] = req[a, q * L + b]
+    send = req.reshape(L, W, L, cap).transpose(0, 1).contiguous()
+    asked = torch.empty_like(send)
+    dist.all_to_all_single(asked, send)
+    # asked[s, a, b]: what slot a of process s asks of my slot b
+    base = torch.arange(L, device=req.device,
+                        dtype=torch.int64).view(1, 1, L, 1) * R
+    idx = torch.where(asked >= 0, asked.long() + base, L * R)
+    rows = gather_rows(store, idx.reshape(-1))
+    back = torch.empty_like(rows)
+    dist.all_to_all_single(back, rows)
+    # back[q, a, b]: the rows my slot a asked of slot b of process q
+    return back.view(W, L, L, cap, D).transpose(0, 1).reshape(L, P, cap, D)
 
 
 def exchange_bytes_per_step(num_slots: int, rows: int, feat_dim: int,

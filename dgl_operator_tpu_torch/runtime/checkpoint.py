@@ -11,7 +11,8 @@ sidecar written after the publish.
   candidate and falls back past a corrupt newest one. This is the JAX
   package's npz path; its orbax backend, incarnation fences,
   ``quarantine_from`` and ``ServingPromotion`` are not ported
-  (``ROADMAP.md``).
+  (``ROADMAP.md``). :class:`RankZeroCheckpoints` shares one manager
+  between the processes of a ``torch.distributed`` group.
 - :func:`export_for_serving` / :func:`load_params` write and read the
   params tree alone, in the flax layout, so either package reads what
   the other wrote (``models/sage.py`` converts it to and from a
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.parallel.collectives import barrier
 
 SERVING_EXPORT = "serving_params.npz"
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz")
@@ -326,6 +328,29 @@ class CheckpointManager:
                                            f"ckpt_{s}.npz{suffix}"))
                 except OSError:
                     pass
+
+
+class RankZeroCheckpoints:
+    """The processes of a ``torch.distributed`` group sharing one
+    checkpoint directory: rank 0 writes each checkpoint synchronously,
+    then every rank waits at a barrier. So a checkpoint that any rank
+    can read is whole on disk before any rank steps past it, and a
+    resume finds the same newest step on every rank."""
+
+    def __init__(self, manager: CheckpointManager, rank: int):
+        self.manager = manager
+        self.rank = int(rank)
+
+    def save(self, step: int, state: Any, wait: bool = True) -> None:
+        """Publish ``state`` as ``ckpt_<step>.npz`` from rank 0 and wait
+        for every rank; ``wait`` is ignored (the write is synchronous)."""
+        if self.rank == 0:
+            self.manager.save(step, state, wait=True)
+        barrier()
+
+    def close(self) -> None:
+        if self.rank == 0:
+            self.manager.close()
 
 
 # ----------------------------------------------------------------------

@@ -5,10 +5,20 @@ The counterpart of ``dgl_operator_tpu/runtime/dist.py::DistTrainer``
 slot with its own feature shard and its own sampler stream, each step
 takes one padded minibatch per slot, and one Adam step applies the mean
 of the slots' gradients (``parallel/dp.py``). This is the JAX trainer's
-single-process form: every slot is resident on one device (the card
-unless ``device="cpu"`` is asked for), and a slot's step runs through
-the same kernels as ``SampledTrainer``'s: ``gather_rows`` for its input
-rows, two ``fanout_agg`` and one ``scatter_add_rows`` backward.
+single-process form when no ``torch.distributed`` process group is
+initialized: every slot is resident on one device (the card unless
+``device="cpu"`` is asked for). With a group of ``W`` processes (opened
+from the operator's hostfile by ``parallel/bootstrap.py``) each process
+loads only its contiguous block ``my_parts`` of ``P / W`` parts, the
+processes agree on caps, pair cap and steps per epoch
+(``parallel/collectives.py::allreduce_host``), rank 0's weights are
+broadcast at construction, and one ``all_reduce`` a step sums the
+gradients (``parallel/dp.py``). A slot's step runs through the same
+kernels as ``SampledTrainer``'s: ``gather_rows`` for its input rows, two
+``fanout_agg`` and one ``scatter_add_rows`` backward. The slots of a
+batch are sampled in parallel on a pool of
+``runtime/loop.py::resolve_num_samplers`` threads, each slot's task
+doing all of its slot's host work.
 
 Feature layouts (``TrainConfig.feats_layout``):
 
@@ -16,13 +26,15 @@ Feature layouts (``TrainConfig.feats_layout``):
   (``[P, n_pad, D]``).
 - ``"owner"``: slot ``i`` stores its core rows and a degree-ranked hot
   cache of ``halo_cache_frac`` of the halo (``[P, c_pad + H, D]``); the
-  sampler thread translates each batch's input ids into local rows and
-  per-owner requests for the cache misses, and one
-  ``parallel/halo.py::alltoall_serve_rows`` a step answers them.
+  sampler translates each batch's input ids into local rows and
+  per-owner requests for the cache misses, and one exchange a step
+  answers them (``parallel/halo.py``: ``alltoall_serve_rows`` in one
+  process, ``alltoall_request_rows`` across a group).
 
 The loss runs the model in inference mode (no dropout), as the JAX
 trainer's ``seed_loss`` does. Checkpoints and resume follow
-``SampledTrainer`` (``runtime/loop.py::run_epochs``). Not ported: the
+``SampledTrainer`` (``runtime/loop.py::run_epochs``); in a group rank 0
+publishes them (``RankZeroCheckpoints``). Not ported: the
 sentry, live, chaos and preemption planes, the device sampler, the
 overlap pipeline (``pipeline_mode``, ``pipeline_depth``) and the state
 sharding knobs (``ROADMAP.md`` Queue 1).
@@ -30,10 +42,13 @@ sharding knobs (``ROADMAP.md`` Queue 1).
 
 from __future__ import annotations
 
+import json
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
@@ -43,22 +58,27 @@ from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models.sage import (sage_layer,
                                                 state_dict_from_flax)
 from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+from dgl_operator_tpu_torch.parallel import collectives
 from dgl_operator_tpu_torch.parallel.dp import slot_mean_step
 from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
+                                                  alltoall_request_rows,
                                                   alltoall_serve_rows,
                                                   build_halo_cache)
 from dgl_operator_tpu_torch.runtime import forward
-from dgl_operator_tpu_torch.runtime.checkpoint import train_state
+from dgl_operator_tpu_torch.runtime.checkpoint import (RankZeroCheckpoints,
+                                                       train_state)
 from dgl_operator_tpu_torch.runtime.loop import (TrainConfig,
                                                  open_checkpoints,
+                                                 resolve_num_samplers,
                                                  run_epochs)
 from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 
 
 class DistTrainer:
     """Partition-parallel trainer over the ``num_parts`` slots of the
-    book ``part_cfg``, all on ``device``. The model must already be
-    there; it trains without dropout."""
+    book ``part_cfg``: all of them on ``device``, or, in a process
+    group, this process's ``my_parts``. The model must already be on
+    ``device``; it trains without dropout."""
 
     def __init__(self, model, part_cfg: str, cfg: TrainConfig,
                  device: DeviceLike = None, feat_key: str = "feat",
@@ -74,11 +94,21 @@ class DistTrainer:
         self.feat_key = feat_key
         self.label_key = label_key
         self._owner_layout = cfg.feats_layout == "owner"
-        first = GraphPartition(part_cfg, 0)
-        meta = first.meta
+        with open(part_cfg) as f:
+            meta = json.load(f)
         P = self.num_parts = int(meta["num_parts"])
-        self.parts: List[GraphPartition] = [first] + [
-            GraphPartition(part_cfg, p) for p in range(1, P)]
+        self._group = collectives.group_active()
+        self.rank, self.world_size = collectives.world()
+        if P % self.world_size:
+            raise ValueError(f"num_parts={P} is not divisible by the world "
+                             f"size {self.world_size}")
+        per = P // self.world_size
+        # a contiguous block of parts a process, so rank order is part
+        # order
+        self.my_parts = list(range(self.rank * per, (self.rank + 1) * per))
+        self.parts: List[GraphPartition] = [
+            GraphPartition(part_cfg, p) for p in self.my_parts]
+        L = len(self.parts)
         for p in self.parts:
             p.check_float_features(feat_key)
         self.cscs = [p.graph.csc() for p in self.parts]
@@ -90,7 +120,7 @@ class DistTrainer:
         self.h_pad = max(1, max(m["num_local_nodes"] - m["num_inner_nodes"]
                                 for m in info))
         feat_dim = self.parts[0].graph.ndata[feat_key].shape[1]
-        labels = np.zeros((P, self.n_pad), np.int64)
+        labels = np.zeros((L, self.n_pad), np.int64)
         for i, p in enumerate(self.parts):
             labels[i, :p.graph.num_nodes] = p.graph.ndata[label_key]
         self.labels = torch.from_numpy(labels).to(self.device)
@@ -100,10 +130,10 @@ class DistTrainer:
             # zero row after every slot answers a -1 exchange request
             H = self.cache_rows = int(round(cfg.halo_cache_frac * self.h_pad))
             R = self._rows_per_slot = self.c_pad + H
-            flat = np.zeros((P * R + 1, feat_dim), np.float32)
-            store = flat[:-1].reshape(P, R, feat_dim)
-            owner_m = np.full((P, self.h_pad), -1, np.int32)
-            local_m = np.zeros((P, self.h_pad), np.int32)
+            flat = np.zeros((L * R + 1, feat_dim), np.float32)
+            store = flat[:-1].reshape(L, R, feat_dim)
+            owner_m = np.full((L, self.h_pad), -1, np.int32)
+            local_m = np.zeros((L, self.h_pad), np.int32)
             self._cache_slot: List[np.ndarray] = []
             for i, p in enumerate(self.parts):
                 ni = p.num_inner
@@ -119,25 +149,30 @@ class DistTrainer:
                 self._cache_slot.append(slot_of)
             self._host_halo = (owner_m, local_m)
             self._flat = torch.from_numpy(flat).to(self.device)
-            self.feats = self._flat[:-1].view(P, R, feat_dim)
+            self.feats = self._flat[:-1].view(L, R, feat_dim)
         else:
             self.cache_rows = 0
-            feats = np.zeros((P, self.n_pad, feat_dim), np.float32)
+            feats = np.zeros((L, self.n_pad, feat_dim), np.float32)
             for i, p in enumerate(self.parts):
                 feats[i, :p.graph.num_nodes] = p.graph.ndata[feat_key]
             self.feats = torch.from_numpy(feats).to(self.device)
         self.train_ids = [p.node_split("train_mask") for p in self.parts]
+        # every part's train count, on every rank: the shuffle stream
+        # runs over all of them (_permute)
+        counts = np.zeros(P, np.int64)
+        counts[self.my_parts] = [len(t) for t in self.train_ids]
+        self._train_counts = collectives.allreduce_host(counts, np.sum)
         # every slot takes a step together: the shortest partition sets
         # the epoch
         self.steps_per_epoch = max(
-            min(len(t) for t in self.train_ids) // cfg.batch_size, 1)
+            min(self._train_counts) // cfg.batch_size, 1)
         if cfg.cap_policy == "auto":
             caps = np.zeros(len(cfg.fanouts) + 1, np.int64)
             for csc, ids in zip(self.cscs, self.train_ids):
                 caps = np.maximum(caps, calibrate_caps(
                     csc, ids, cfg.batch_size, cfg.fanouts, self.n_pad,
                     margin=cfg.cap_margin, seed=cfg.seed))
-            self.caps = [int(c) for c in caps]
+            self.caps = collectives.allreduce_host(caps, np.max)
         else:
             self.caps = fanout_caps(cfg.batch_size, cfg.fanouts, self.n_pad)
         if self._owner_layout:
@@ -147,11 +182,32 @@ class DistTrainer:
         else:
             self.pair_cap = 0
             self.exchange_bytes_per_step = 0
+        if self._group:
+            collectives.broadcast_params(model)
         self.timer = PhaseTimer()
         self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
         self._counts = {"h2d_bytes": 0, "halo_rows": 0}
         self._eval_ctx = None
         self._predict_fn = None
+        # the per-partition sampler pool (the reference's --num_samplers
+        # processes): built at first use, joined at the end of train()
+        self._n_samplers = resolve_num_samplers(cfg)
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def _sampler_pool(self) -> Optional[ThreadPoolExecutor]:
+        """The pool that samples a batch's slots, None at width 1
+        (sampling inline needs no thread); rebuilt after a
+        :meth:`_close_sampler_pool`."""
+        if self._n_samplers > 1 and self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self._n_samplers,
+                                            thread_name_prefix="slot-sampler")
+        return self._pool
+
+    def _close_sampler_pool(self) -> None:
+        """Join the sampler threads (idempotent)."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
 
     # -- the halo exchange's request tables ------------------------------
     def _calibrate_exchange_cap(self, n_probe: int = 8) -> int:
@@ -160,11 +216,12 @@ class DistTrainer:
         owner; the cap is that times ``max(cap_margin, 1.25)`` rounded
         up to 64, and never above the rows that exist (the uncached
         rows of a pair, at most the input cap). A later batch above it
-        raises in the sampler."""
+        raises in the sampler. In a group the cap is the largest of the
+        processes' caps."""
         cfg = self.cfg
         owner_m, _ = self._host_halo
         hard = 0
-        for i in range(self.num_parts):
+        for i in range(len(self.parts)):
             nh = len(self._cache_slot[i])
             uncached = (owner_m[i, :nh] >= 0) & (self._cache_slot[i] < 0)
             if uncached.any():
@@ -173,7 +230,7 @@ class DistTrainer:
         hard = min(hard, int(self.caps[-1]))
         measured = 0
         rng = np.random.default_rng(cfg.seed + 811)
-        for i in range(self.num_parts):
+        for i in range(len(self.parts)):
             ids = self.train_ids[i]
             if len(ids) == 0:
                 continue
@@ -195,11 +252,11 @@ class DistTrainer:
         # batch varies more than the frontier's size
         margin = max(float(cfg.cap_margin), 1.25)
         cap = max(-(-int(measured * margin) // 64) * 64, 64)
-        return min(cap, max(hard, 1))
+        return collectives.allreduce_host(min(cap, max(hard, 1)), np.max)
 
     def _exchange_requests(self, i: int, input_ids: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Slot ``i``'s padded input ids as ``(loc, req, pos)``: the
+        """Local slot ``i``'s padded input ids as ``(loc, req, pos)``: the
         local store row of every position (core rows and cache hits;
         a miss takes row 0, which its answer overwrites), then per owner
         ``[P, pair_cap]`` the owner-local rows of the cache misses
@@ -226,55 +283,88 @@ class DistTrainer:
                 if k > cap:
                     raise ValueError(
                         f"halo-exchange pair cap {cap} exceeded: partition "
-                        f"{i} requests {k} rows from part {o} in one "
-                        "batch; raise cap_margin (exchange caps are "
-                        "calibrated like fanout caps)")
+                        f"{self.my_parts[i]} requests {k} rows from part "
+                        f"{o} in one batch; raise cap_margin (exchange "
+                        "caps are calibrated like fanout caps)")
                 req[o, :k] = rows[m]
                 pos[o, :k] = hsel[m]
         return loc, req, pos
 
     # -- batches --------------------------------------------------------
-    def _sample_all(self, perm: List[np.ndarray], batch_idx: int,
-                    step_seed: int) -> Tuple[Dict, int]:
-        """One padded minibatch per slot for batch ``batch_idx`` of the
-        epoch's permutations ``perm``, each slot on its own stream
-        ``part_sample_seed(step_seed, slot)``, with the transpose plans
-        of ``blocks[1:]`` (the backward on the card sums over them) and,
-        in the owner layout, the exchange tables. Returns the host
-        batch and its seed count."""
+    def _permute(self, rng: np.random.Generator) -> List[np.ndarray]:
+        """The epoch's shuffle of each local slot's train ids. One numpy
+        stream runs over every part of the book in part order, so each
+        process draws the shuffles the single process draws: a part held
+        elsewhere advances the stream by a permutation of its train
+        count (``rng.permutation(ids)`` is ``ids[rng.permutation(len(
+        ids))]``, draw for draw)."""
+        local = dict(zip(self.my_parts, self.train_ids))
+        out = []
+        for part, n in enumerate(self._train_counts):
+            order = rng.permutation(n)
+            if part in local:
+                out.append(local[part][order])
+        return out
+
+    def _sample_one(self, ids: np.ndarray, i: int, batch_idx: int,
+                    step_seed: int):
+        """Local slot ``i``'s share of a batch: its padded minibatch of
+        batch ``batch_idx`` of ``ids`` on the stream
+        ``part_sample_seed(step_seed, part)`` of its global part, the
+        transpose plans of ``blocks[1:]`` (the backward on the card sums
+        over them) and, in the owner layout, its exchange tables.
+        Depends on ``(ids, batch_idx, step_seed, part)`` alone."""
         cfg = self.cfg
         B = cfg.batch_size
-        mbs, n_seeds = [], 0
-        for i, ids in enumerate(perm):
-            seeds = ids[batch_idx * B:(batch_idx + 1) * B]
-            if len(seeds) == 0 and len(ids):
-                seeds = ids[:1]     # a short partition repeats a seed
-            # a partition without train seeds gives a batch of padding:
-            # zero loss, zero gradients, still one slot of the mean
-            mb = forward.sample_padded(
-                self.cscs[i], seeds, cfg.fanouts, self.caps, self.n_pad, B,
-                forward.part_sample_seed(step_seed, i))
-            for blk in mb.blocks[1:]:
-                blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
-            mbs.append(mb)
-            n_seeds += len(seeds)
+        seeds = ids[batch_idx * B:(batch_idx + 1) * B]
+        if len(seeds) == 0 and len(ids):
+            seeds = ids[:1]     # a short partition repeats a seed
+        # a partition without train seeds gives a batch of padding:
+        # zero loss, zero gradients, still one slot of the mean
+        mb = forward.sample_padded(
+            self.cscs[i], seeds, cfg.fanouts, self.caps, self.n_pad, B,
+            forward.part_sample_seed(step_seed, self.my_parts[i]))
+        for blk in mb.blocks[1:]:
+            blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
+        exch = (self._exchange_requests(i, mb.input_nodes)
+                if self._owner_layout else None)
+        return mb, len(seeds), exch
+
+    def _sample_all(self, perm: List[np.ndarray], batch_idx: int,
+                    step_seed: int) -> Tuple[Dict, int]:
+        """Batch ``batch_idx`` of the epoch's permutations ``perm``: every
+        local slot's :meth:`_sample_one`, mapped over the sampler pool.
+        Returns the host batch and its seed count, scaled to the global
+        slot count (exact when the parts are balanced)."""
+        pool = self._sampler_pool()
+        args = [(ids, i, batch_idx, step_seed) for i, ids in enumerate(perm)]
+        if pool is None:
+            out = [self._sample_one(*a) for a in args]
+        else:
+            out = list(pool.map(lambda a: self._sample_one(*a), args))
+        mbs = [o[0] for o in out]
+        n_seeds = sum(o[1] for o in out) * (self.num_parts // len(out))
         batch = {"mbs": mbs}
         if self._owner_layout:
-            exch = [self._exchange_requests(i, mb.input_nodes)
-                    for i, mb in enumerate(mbs)]
-            batch["exch_loc"] = np.stack([e[0] for e in exch])
-            batch["exch_pos"] = np.stack([e[2] for e in exch])
-            # the serve view is the request stack transposed: owner o
-            # serves requester r exactly r's request list to o
-            batch["exch_serve"] = np.ascontiguousarray(
-                np.stack([e[1] for e in exch]).transpose(1, 0, 2))
+            batch["exch_loc"] = np.stack([o[2][0] for o in out])
+            batch["exch_pos"] = np.stack([o[2][2] for o in out])
+            req = np.stack([o[2][1] for o in out])
+            if self._group:
+                # across processes every slot ships its own requests
+                batch["exch_req"] = req
+            else:
+                # the serve view is the request stack transposed: owner
+                # o serves requester r exactly r's request list to o
+                batch["exch_serve"] = np.ascontiguousarray(
+                    req.transpose(1, 0, 2))
         return batch, n_seeds
 
     def ship(self, batch: Dict) -> Tuple[List[Dict], Optional[torch.Tensor]]:
         """The host batch on the trainer's device: per slot its blocks,
         seeds and input ids (replicated) or exchange positions (owner),
-        and the owner layout's serve table. Each array is stacked over
-        the slots and copied once."""
+        and the owner layout's exchange table (the serve tables in one
+        process, the request tables in a group). Each array is stacked
+        over the slots and copied once."""
         dev = self.device
         mbs = batch["mbs"]
 
@@ -291,12 +381,13 @@ class DistTrainer:
         if self._owner_layout:
             per_slot = {"exch_loc": put(batch["exch_loc"]),
                         "exch_pos": put(batch["exch_pos"])}
-            serve = put(batch["exch_serve"])
-            self._counts["halo_rows"] += int((batch["exch_serve"] >= 0).sum())
+            table = batch["exch_req" if self._group else "exch_serve"]
+            exch = put(table)
+            self._counts["halo_rows"] += int((table >= 0).sum())
         else:
             per_slot = {"inputs": put(np.stack([mb.input_nodes
                                                 for mb in mbs]))}
-            serve = None
+            exch = None
         slots = []
         for i, mb in enumerate(mbs):
             blocks = []
@@ -309,7 +400,7 @@ class DistTrainer:
                                           plan))
             slots.append({"blocks": blocks, "seeds": seeds[i],
                           **{k: v[i] for k, v in per_slot.items()}})
-        return slots, serve
+        return slots, exch
 
     # -- step -----------------------------------------------------------
     def train_step(self, batch: Dict) -> Tuple[torch.Tensor, None]:
@@ -319,13 +410,15 @@ class DistTrainer:
         return self.device_step(*self.ship(batch)), None
 
     def device_step(self, slots: List[Dict],
-                    serve: Optional[torch.Tensor]) -> torch.Tensor:
+                    exch: Optional[torch.Tensor]) -> torch.Tensor:
         """The step's device work on a shipped batch: the exchange
-        (owner layout), every slot's loss and backward, and one Adam
-        step on the mean gradient; returns the mean slot loss."""
-        if serve is not None:
-            recv = alltoall_serve_rows(self._flat, serve,
-                                       self._rows_per_slot)
+        (owner layout), every local slot's loss and backward, and one
+        Adam step on the mean gradient over every slot; returns the mean
+        slot loss."""
+        if exch is not None:
+            exchange = (alltoall_request_rows if self._group
+                        else alltoall_serve_rows)
+            recv = exchange(self._flat, exch, self._rows_per_slot)
             for i, sb in enumerate(slots):
                 sb["recv"] = recv[i]
 
@@ -336,7 +429,8 @@ class DistTrainer:
             return forward.seed_loss(self.model, sb["blocks"], h,
                                      sb["seeds"], self.labels[i])
 
-        return slot_mean_step(self.optimizer, loss_of, self.num_parts)
+        return slot_mean_step(self.optimizer, loss_of, len(self.parts),
+                              self.num_parts)
 
     def _epoch_stats(self, steps: int) -> Dict:
         out = {"h2d_bytes_per_step": self._counts["h2d_bytes"] / steps}
@@ -362,41 +456,64 @@ class DistTrainer:
         self.optimizer = torch.optim.Adam(self.model.parameters(),
                                           lr=cfg.lr)
         ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
+        if self._group:
+            hi, neg_lo = collectives.allreduce_host(
+                [start_step, -start_step], np.max)
+            if hi != -neg_lo:
+                raise RuntimeError(f"the ranks resume from different steps "
+                                   f"({-neg_lo} to {hi}); every rank must "
+                                   "read the same checkpoint directory")
+            if ckpt is not None:
+                ckpt = RankZeroCheckpoints(ckpt, self.rank)
         self.timer.reset()
         self._counts = {"h2d_bytes": 0, "halo_rows": 0}
-        history, gstep = run_epochs(
-            cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
-            lambda: train_state(self.model, self.optimizer),
-            lambda rng: [rng.permutation(t) for t in self.train_ids],
-            self._sample_all, self.train_step, self.evaluate,
-            self._epoch_stats)
+        try:
+            # one lookahead thread stages whole batches; the sampler pool
+            # splits each batch by slot
+            history, gstep = run_epochs(
+                cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
+                lambda: train_state(self.model, self.optimizer),
+                self._permute, self._sample_all, self.train_step,
+                self.evaluate, self._epoch_stats, sample_workers=1)
+        finally:
+            self._close_sampler_pool()
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}
 
     # -- evaluation -----------------------------------------------------
     def _eval_context(self):
-        """Per slot its local-to-global ids on the device, and the
-        book's labels and masks over the global node ids (each slot
-        contributes its core rows)."""
+        """Per local slot its local-to-global ids on the device, and the
+        book's labels and masks over the global node ids: every part's
+        core rows ``(global id, label, masks)``, padded to ``c_pad``
+        rows, gathered from every process (``host_gather_rows``)."""
         if self._eval_ctx is None:
             N = self.num_nodes
-            labels = np.zeros(N, np.int64)
-            masks = {k: np.zeros(N, bool) for k in ("val_mask", "test_mask")
-                     if k in self.parts[0].graph.ndata}
+            names = [k for k in ("val_mask", "test_mask")
+                     if k in self.parts[0].graph.ndata]
+            core = np.full((len(self.parts), self.c_pad, 2 + len(names)),
+                           -1, np.int64)
             orig = []
-            for p in self.parts:
+            for i, p in enumerate(self.parts):
                 ni = p.num_inner
-                core = p.orig_id[:ni]
-                labels[core] = p.graph.ndata[self.label_key][:ni]
-                for k, m in masks.items():
-                    m[core] = p.graph.ndata[k][:ni]
+                core[i, :ni, 0] = p.orig_id[:ni]
+                core[i, :ni, 1] = p.graph.ndata[self.label_key][:ni]
+                for j, k in enumerate(names):
+                    core[i, :ni, 2 + j] = p.graph.ndata[k][:ni]
                 orig.append(torch.from_numpy(
                     np.asarray(p.orig_id, np.int64)).to(self.device))
-            self._eval_ctx = (
-                orig, torch.from_numpy(labels).to(self.device),
-                {k: torch.from_numpy(m).to(self.device)
-                 for k, m in masks.items()})
+            rows = collectives.host_gather_rows(core).reshape(
+                -1, core.shape[-1])
+            rows = rows[rows[:, 0] >= 0]
+            labels = np.zeros(N, np.int64)
+            labels[rows[:, 0]] = rows[:, 1]
+            masks = {}
+            for j, k in enumerate(names):
+                m = np.zeros(N, bool)
+                m[rows[:, 0]] = rows[:, 2 + j] != 0
+                masks[k] = torch.from_numpy(m).to(self.device)
+            self._eval_ctx = (orig, torch.from_numpy(labels).to(self.device),
+                              masks)
         return self._eval_ctx
 
     def evaluate(self, mask_names=("val_mask", "test_mask")
@@ -405,14 +522,24 @@ class DistTrainer:
         inference over the slots: per layer every slot aggregates over
         its local edges (``gspmm``; a core node's in-edges are all
         local), its core outputs go to one global ``[N, D]`` buffer, and
-        each slot reads its local rows from there for the next layer.
+        each slot reads its local rows from there for the next layer. In
+        a group one ``all_reduce(SUM)`` joins the processes' buffers for
+        the input and after each layer: exact, since each row has one
+        non-zero contributor. Every rank computes the same accuracies.
         The mean and sum aggregators are ported."""
         orig, labels, masks = self._eval_context()
         n_inner = [int(n) for n in self._n_inner]
+
+        def joined(buf):
+            if self._group:
+                dist.all_reduce(buf)
+            return buf
+
         with torch.no_grad():
             buf = self.feats.new_zeros(self.num_nodes, self.feats.shape[-1])
             for i, ni in enumerate(n_inner):
                 buf[orig[i][:ni]] = self.feats[i, :ni]
+            buf = joined(buf)
             for li in range(len(self.model.layers)):
                 nxt = None
                 for i, p in enumerate(self.parts):
@@ -420,7 +547,7 @@ class DistTrainer:
                     if nxt is None:
                         nxt = out.new_zeros(self.num_nodes, out.shape[1])
                     nxt[orig[i][:n_inner[i]]] = out[:n_inner[i]]
-                buf = nxt
+                buf = joined(nxt)
             correct = buf.argmax(-1) == labels
             return {name: float((correct & masks[name]).sum()
                                 / masks[name].sum().clamp_min(1))
@@ -432,16 +559,22 @@ class DistTrainer:
         to its owner partition, sample its neighborhood on the stream
         ``part_sample_seed(sample_seed + chunk, part)``, gather the input
         rows from the partition's features and run the model in
-        inference mode with its current weights."""
+        inference mode with its current weights. Every owner partition
+        must be loaded by this process; another raises ``ValueError``."""
         cfg = self.cfg
         node_ids = np.asarray(node_ids, np.int64)
+        local_of = {p: i for i, p in enumerate(self.my_parts)}
         if self._predict_fn is None:
             self._predict_fn = forward.build_predict_fn(self.model)
         weights = dict(self.model.state_dict())
         out = None
         for part, ci, pos in forward.route_by_owner(
                 node_ids, self.parts[0].node_map, cfg.batch_size):
-            p = self.parts[part]
+            if part not in local_of:
+                raise ValueError(f"predict: partition {part} is not loaded "
+                                 f"by this process (rank {self.rank} holds "
+                                 f"{self.my_parts})")
+            p = self.parts[local_of[part]]
             core_g = p.orig_id[:p.num_inner]
             loc = np.clip(np.searchsorted(core_g, node_ids[pos]),
                           0, len(core_g) - 1)
@@ -449,7 +582,8 @@ class DistTrainer:
                 raise ValueError("predict: node id not found in its owner "
                                  f"partition {part}")
             mb = forward.sample_padded(
-                self.cscs[part], loc, cfg.fanouts, self.caps, self.n_pad,
+                self.cscs[local_of[part]], loc, cfg.fanouts, self.caps,
+                self.n_pad,
                 cfg.batch_size,
                 forward.part_sample_seed(sample_seed + ci, part))
             h = torch.from_numpy(forward.gather_host_rows(

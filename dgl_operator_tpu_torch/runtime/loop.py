@@ -24,6 +24,7 @@ and chaos hooks (``ROADMAP.md`` Queue 1).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -51,6 +52,8 @@ from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 _ROADMAP = "ROADMAP.md Queue 1"
 FEATS_LAYOUTS = ("replicated", "owner")
 RESUME_POLICIES = ("auto", "never")
+# the launcher's sampler-width plumb (the entry point's --num_workers)
+NUM_SAMPLERS_ENV = "TPU_OPERATOR_NUM_SAMPLERS"
 
 
 @dataclasses.dataclass
@@ -84,8 +87,8 @@ class TrainConfig:
     # batches sampled ahead of the step on worker threads; 0 samples
     # inline on the loop thread
     prefetch: int = 2
-    # sampler threads; 0 means 1 (the JAX package's launcher plumb,
-    # TPU_OPERATOR_NUM_SAMPLERS, has no counterpart here)
+    # sampler threads; 0 takes the launcher's TPU_OPERATOR_NUM_SAMPLERS,
+    # else 1 (resolve_num_samplers)
     num_samplers: int = 0
     steps_per_call: int = 1
     sampler: str = "host"
@@ -139,6 +142,16 @@ class TrainConfig:
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got "
                              f"{self.dropout}")
+
+
+def resolve_num_samplers(cfg: TrainConfig) -> int:
+    """The sampler-pool width both trainers use: ``cfg.num_samplers``
+    when set, else the launcher's ``TPU_OPERATOR_NUM_SAMPLERS``, else
+    1."""
+    ns = int(cfg.num_samplers)
+    if ns == 0:
+        ns = int(os.environ.get(NUM_SAMPLERS_ENV, "0") or 0)
+    return max(ns, 1)
 
 
 def _eval_due(cfg: TrainConfig, epoch: int) -> bool:
@@ -215,8 +228,8 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                step: Callable[[object], Tuple[torch.Tensor,
                                               Optional[torch.Tensor]]],
                evaluate: Callable[[], Dict[str, float]],
-               epoch_stats: Callable[[int], Dict] = lambda steps: {}
-               ) -> Tuple[List[Dict], int]:
+               epoch_stats: Callable[[int], Dict] = lambda steps: {},
+               sample_workers: int = 1) -> Tuple[List[Dict], int]:
     """The epoch loop both trainers run, from global step
     ``start_step`` to ``cfg.num_epochs`` epochs; returns the per-epoch
     records and the final global step.
@@ -226,7 +239,8 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     resumed epoch sees the uninterrupted run's shuffle), skips the steps
     a mid-epoch resume already took, samples ``sample(perm, b,
     step_seed) -> (batch, seeds)`` for batch ``b`` on the prefetch
-    pipeline (``step_seed`` is the batch's global step) and takes
+    pipeline, ``cfg.prefetch`` batches ahead on ``sample_workers``
+    threads (``step_seed`` is the batch's global step), and takes
     ``step(batch) -> (loss, acc or None)``. ``state()`` is saved every
     ``cfg.ckpt_every`` steps and at each epoch's end (asynchronously;
     the last write is drained before this returns). ``epoch_stats(n)``
@@ -252,7 +266,7 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
             losses, step_s = [], []
             seen = 0
             pipeline = prefetch_map(lambda b, s: sample(perm, b, s), steps,
-                                    cfg.prefetch, cfg.num_samplers)
+                                    cfg.prefetch, sample_workers)
             try:
                 for _ in steps:
                     t_step = time.perf_counter()
@@ -362,13 +376,14 @@ class SampledTrainer:
                         depth: Optional[int] = None) -> Iterator[MiniBatch]:
         """The padded host minibatch of each ``(seeds, step_seed)`` pair,
         in order, sampled up to ``depth`` (default ``cfg.prefetch``)
-        batches ahead on ``num_samplers`` worker threads; ``depth <= 0``
+        batches ahead on :func:`resolve_num_samplers` worker threads;
+        ``depth <= 0``
         samples inline. Batches depend on their pair alone, so every
         depth and worker count yields the same stream."""
         if depth is None:
             depth = self.cfg.prefetch
         return prefetch_map(self.sample, batches, depth,
-                            self.cfg.num_samplers)
+                            resolve_num_samplers(self.cfg))
 
     def ship(self, mb: MiniBatch
              ) -> Tuple[List[FanoutBlock], torch.Tensor, torch.Tensor]:
@@ -456,7 +471,8 @@ class SampledTrainer:
             cfg, self.timer, max(len(self.train_ids) // B, 1), start_step,
             ckpt, lambda: train_state(self.model, self.optimizer),
             lambda rng: rng.permutation(self.train_ids), sample,
-            self.train_step, self.evaluate)
+            self.train_step, self.evaluate,
+            sample_workers=resolve_num_samplers(cfg))
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}

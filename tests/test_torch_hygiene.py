@@ -17,6 +17,7 @@ import torch
 from dgl_operator_tpu_torch import resolve_device
 from dgl_operator_tpu_torch.graph import _native
 from dgl_operator_tpu_torch.ops import _build
+from dgl_operator_tpu_torch.examples import train_dist
 from dgl_operator_tpu_torch.runtime.dist import DistTrainer
 from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
 from dgl_operator_tpu_torch.serve.engine import ServeEngine
@@ -153,6 +154,9 @@ def test_importing_the_port_loads_no_jax():
             "dgl_operator_tpu_torch.runtime.checkpoint, "
             "dgl_operator_tpu_torch.parallel.dp, "
             "dgl_operator_tpu_torch.parallel.halo, "
+            "dgl_operator_tpu_torch.parallel.bootstrap, "
+            "dgl_operator_tpu_torch.parallel.collectives, "
+            "dgl_operator_tpu_torch.examples.train_dist, "
             "dgl_operator_tpu_torch.ops.gather, "
             "dgl_operator_tpu_torch.ops.spmm, "
             "dgl_operator_tpu_torch.ops; "
@@ -173,4 +177,7 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         SampledTrainer(None, None, TrainConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistTrainer(None, "no-such-book.json", TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_dist.main(["--graph_name", "g", "--ip_config", "no-such-hosts",
+                         "--part_config", "no-such-book.json"])
     assert resolve_device("cpu") == torch.device("cpu")
