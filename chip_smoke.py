@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training and KGE paths on one card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -91,11 +91,33 @@ Each phase prints JSON lines:
    fails the run; (d) a ``kernel`` line of ``gather_rows`` at the
    two-rank owner-serve shape.
 
+12. ``kge`` — the DGL-KE slice at the reference job's width (ComplEx,
+   dim 400, gamma 143, lr 0.25, batch 1024, 256 negatives shared by the
+   batch, ``-adv`` at temperature 1) on synthetic FB15k at full size
+   (14,951 entities, 1,345 relations, 483,142 train triples):
+   ``KGETrainer`` for 200 steps (a depth cut of the job's 1000), its
+   launches checked against 2 gathers and 2 scatters a step, with step
+   time, stall, dispatch, steps/s, triples/s, H2D bytes and the device
+   time of single updates; ``kernel`` lines of ``gather_rows`` (the
+   entity and relation lookups) and ``scatter_add_rows`` (the entity and
+   relation pushes, the relation push's long targets on the second
+   launch) at the step's shapes; 5 steps against the CPU, synced before
+   each; every scorer's loss and row gradients against the CPU on one
+   batch of each side (RESCAL and TransR at dim 100); ``DistKGETrainer``
+   over the 2-part book that ``examples/partition_kg.py`` writes, 50
+   steps: both slots in one process, under an in-process NCCL group of
+   world size 1 and as two ranks through ``examples/train_kge.py`` on
+   ``cuda:0`` over gloo (with ``--eval``), all bit-equal, with the µs of
+   the step's collectives; a run cut after 25 of the 50 steps and
+   resumed, bit-exact; ``full_ranking_eval`` and
+   ``sharded_ranking_eval`` raw and filtered on 500 test triples against
+   each other and the CPU.
+
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
-launches during the serving, training, dist and dist_mp phases (both
-ranks of (c) included), worst error,
-and the times of its calls in one training step), the nvidia-smi line,
-and
+launches during the serving, training, dist, dist_mp and kge phases
+(both ranks of each two-rank run included), split by path, worst
+error, the times of its calls in one SAGE training step and, under
+``kge``, in one KGE step), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -1630,6 +1652,51 @@ def nccl_world_one(torch, wrappers, ctx, card: str) -> dict:
     return total
 
 
+def two_rank_hostfile(tmp: str) -> str:
+    """A hostfile of two ranks on this host, at a free port."""
+    path = os.path.join(tmp, "hostfile")
+    port = free_port()
+    with open(path, "w") as f:
+        f.write(f"127.0.0.1 {port} worker-0 slots=1\n"
+                f"127.0.0.1 {port} worker-1 slots=1\n")
+    return path
+
+
+def run_two_ranks(code: str, spec_of, tmp: str, what: str) -> list:
+    """Run ``python -c code <spec>`` as ranks 0 and 1 of a
+    ``TPU_OPERATOR_DIST=1`` job, ``spec_of(r)`` the JSON spec of rank
+    ``r``; a rank that fails or hangs past ``MP_CHILD_TIMEOUT_S`` ends
+    both and fails the run. Returns each rank's output."""
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in (0, 1):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps(spec_of(r))],
+                env=dict(os.environ, TPU_OPERATOR_DIST="1",
+                         TPU_OPERATOR_RANK=str(r)),
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        while (time.perf_counter() - t0 < MP_CHILD_TIMEOUT_S
+               and any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{what}: rank {r} failed or hung past "
+              f"{MP_CHILD_TIMEOUT_S} s (rc {p.returncode}):\n{out[-4000:]}")
+    return outs
+
+
 def two_ranks(torch, ctx, work: str, card: str) -> dict:
     """(c) Two processes on the card over gloo (which takes CUDA tensors
     for ``all_reduce``, ``all_gather`` and ``all_to_all_single``; NCCL
@@ -1644,11 +1711,7 @@ def two_ranks(torch, ctx, work: str, card: str) -> dict:
     for layout in LAYOUTS:
         tmp = os.path.join(work, f"mp_{layout}")
         os.makedirs(tmp, exist_ok=True)
-        hostfile = os.path.join(tmp, "hostfile")
-        port = free_port()
-        with open(hostfile, "w") as f:
-            f.write(f"127.0.0.1 {port} worker-0 slots=1\n"
-                    f"127.0.0.1 {port} worker-1 slots=1\n")
+        hostfile = two_rank_hostfile(tmp)
         argv = ["--graph_name", "ogbn-products", "--ip_config", hostfile,
                 "--part_config", ctx["book"], "--num_epochs", "1",
                 "--batch_size", str(BATCH_TRAIN), "--fan_out",
@@ -1657,41 +1720,13 @@ def two_ranks(torch, ctx, work: str, card: str) -> dict:
                 "--eval_every", "1", "--feats_layout", layout,
                 "--device", "cuda:0", "--backend", "gloo",
                 "--seed", str(ctx["seed"])]
-        procs, logs = [], []
         probe_port = free_port()
         t0 = time.perf_counter()
-        try:
-            for r in (0, 1):
-                spec = {"repo": REPO, "argv": argv,
-                        "out": os.path.join(tmp, f"rank{r}"),
-                        "probe_port": probe_port,
-                        "pair_cap": ctx["pair_cap"], "feat": FEAT}
-                logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c", DIST_MP_CHILD, json.dumps(spec)],
-                    env=dict(os.environ, TPU_OPERATOR_DIST="1",
-                             TPU_OPERATOR_RANK=str(r)),
-                    stdout=logs[-1], stderr=subprocess.STDOUT))
-            # a rank that fails or hangs ends the run of both
-            while (time.perf_counter() - t0 < MP_CHILD_TIMEOUT_S
-                   and any(p.poll() is None for p in procs)
-                   and not any(p.poll() for p in procs)):
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            outs = []
-            for log in logs:
-                log.seek(0)
-                outs.append(log.read())
-                log.close()
+        outs = run_two_ranks(DIST_MP_CHILD, lambda r: {
+            "repo": REPO, "argv": argv, "out": os.path.join(tmp, f"rank{r}"),
+            "probe_port": probe_port, "pair_cap": ctx["pair_cap"],
+            "feat": FEAT}, tmp, layout)
         wall = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            check(p.returncode == 0, f"{layout}: rank {r} failed or hung "
-                  f"past {MP_CHILD_TIMEOUT_S} s (rc {p.returncode}):\n"
-                  f"{out[-4000:]}")
         res = []
         for r in (0, 1):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -1772,23 +1807,613 @@ def dist_mp_phase(torch, args, ops, wrappers, ctx, work: str, card: str):
     return {k: nccl[k] + ranks[k] for k in nccl}, records
 
 
-def kernel_entry(records, name, main_shapes, launches, replaces):
+# ------------------------------------------------------------------ kge
+# the reference's DGL-KE job: ComplEx on FB15k, dim 400, gamma 143, lr
+# 0.25, batch 1024, 256 negatives shared by the whole batch, -adv at
+# temperature 1, 1000 steps (cut to the depths below)
+KGE_DIM, KGE_GAMMA, KGE_LR = 400, 143.0, 0.25
+KGE_BATCH, KGE_NEG = 1024, 256
+KGE_STEPS = 200        # KGETrainer: a depth cut of the job's 1000 steps
+KGE_CPU_STEPS = 5      # card-against-CPU steps
+KGE_DIST_STEPS = 50    # DistKGETrainer over the 2-part book
+KGE_RESUME_AT = 25     # its resume check: cut after 25 of the 50 steps
+KGE_EVAL = 500         # test triples ranked
+# RESCAL's and TransR's relation rows are D^2 wide
+KGE_SCORER_DIM = {"RESCAL": 100, "TransR": 100}
+# ranks may differ only where a candidate's score ties the target's to
+# within the two devices' float32 rounding: metrics within these bounds
+KGE_EVAL_TOL = {"MR": 0.01, "MRR": 0.005, "HITS@1": 0.005,
+                "HITS@3": 0.005, "HITS@10": 0.005}
+# one rank of the kge phase's two-rank run: the entry point's main on the
+# card, the kernel counts of this process and the result written for the
+# parent; then, in a second gloo group, the µs of the step's all_to_all
+# of rows and its all_reduce on CUDA tensors of the step's shapes
+KGE_MP_CHILD = """
+import datetime, json, os, sys, time
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dgl_operator_tpu_torch.examples.train_kge import main
+from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows)
+for w in wrappers:
+    w.launches = 0
+out = main(spec["argv"])
+launches = {w.__name__: w.launches for w in wrappers}
+dist = torch.distributed
+dist.init_process_group(
+    "gloo", init_method=f"tcp://127.0.0.1:{spec['probe_port']}",
+    world_size=2, rank=int(os.environ["TPU_OPERATOR_RANK"]),
+    timeout=datetime.timedelta(seconds=120))
+rows = torch.zeros(spec["rows"], spec["dim"], device="cuda")
+rows_out = torch.empty_like(rows)
+bucket = torch.zeros(spec["bucket"], device="cuda")
+
+
+def us(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+collective_us = {
+    "all_to_all_rows": us(lambda: dist.all_to_all_single(rows_out, rows)),
+    "all_reduce": us(lambda: dist.all_reduce(bucket))}
+dist.destroy_process_group()
+with open(spec["out"] + ".json", "w") as f:
+    json.dump({"losses": out["losses"], "step_s": out["step_s"],
+               "stall_s": out["stall_s"], "dispatch_s": out["dispatch_s"],
+               "train_time_s": out["train_time_s"], "eval": out["eval"],
+               "launches": launches, "collective_us": collective_us}, f)
+"""
+
+
+def kge_configs(ds, seed: int, **fields):
+    """The job's model and training configurations on ``ds``."""
+    from dgl_operator_tpu_torch.models.kge import KGEConfig
+    from dgl_operator_tpu_torch.runtime.kge import KGETrainConfig
+
+    cfg = KGEConfig(model_name="ComplEx", n_entities=ds.n_entities,
+                    n_relations=ds.n_relations, hidden_dim=KGE_DIM,
+                    gamma=KGE_GAMMA, neg_sample_size=KGE_NEG,
+                    neg_adversarial_sampling=True,
+                    adversarial_temperature=1.0)
+    tcfg = KGETrainConfig(**{**dict(
+        lr=KGE_LR, max_step=KGE_STEPS, batch_size=KGE_BATCH,
+        neg_sample_size=KGE_NEG, log_interval=100, seed=seed), **fields})
+    return cfg, tcfg
+
+
+def kge_stream(td, rank: int, seeds):
+    """The bidirectional batch stream of edge partition ``rank`` of
+    ``td`` with head and tail sampler seeds ``seeds``."""
+    from dgl_operator_tpu_torch.graph.kge_sampler import (
+        BidirectionalOneShotIterator)
+
+    head, tail = (td.create_sampler(KGE_BATCH, KGE_NEG, KGE_BATCH, mode=m,
+                                    rank=rank, seed=s)
+                  for m, s in zip(("head", "tail"), seeds))
+    return BidirectionalOneShotIterator(head, tail)
+
+
+def kge_state_gaps(got: dict, want: dict) -> dict:
+    """Max abs difference over max abs of every state array."""
+    import numpy as np
+
+    return {k: float(np.abs(got[k] - want[k]).max())
+            / max(float(np.abs(want[k]).max()), 1e-30) for k in want}
+
+
+def kge_kernel_records(torch, args, ops, tr, hs, card: str):
+    """Both kernels at the KGE step's shapes, from one tail-mode host
+    step ``hs`` of ``tr`` (a ``KGETrainer`` on the card): the entity
+    lookup (``h || t || neg``, 2,304 int32 ids into the 14,951 x 400
+    table) and the relation lookup (1,024 ids), then the entity push
+    (2,304 gradient rows into their distinct rows) and the relation push
+    (1,024 rows), each over the plan the host built. The relation push's
+    plan must hold targets of more than ``CHUNK`` entries, which the
+    kernel sums in its second, dependent launch."""
+    from dgl_operator_tpu_torch.ops.scatter import CHUNK, ScatterPlan
+
+    _, gather, scatter = ops
+    arrs = tr.ship(hs)
+    ent = hs.ent_route.rebuilt(arrs[:hs.n_ent])
+    rel_ids, union, inv, *plan = arrs[hs.n_ent:]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    records = gather_records(torch, gather, [
+        ("kge_entity", tr.entity, ent.serve),
+        ("kge_relation", tr.relation, rel_ids)], flush, args.iters, card)
+    records += scatter_records(torch, scatter, [
+        ("kge_entity_push", torch.randn(ent.serve.numel(), KGE_DIM,
+                                        device="cuda", generator=gen),
+         ent.push.inverse, None, ent.push.num_rows, False,
+         ent.push.scatter),
+        ("kge_relation_push", torch.randn(rel_ids.numel(), KGE_DIM,
+                                          device="cuda", generator=gen),
+         inv, None, union.numel(), False, ScatterPlan(*plan))],
+        flush, args.iters, card)
+    rel_push = records[-1]
+    check(rel_push["long_targets"] > 0,
+          f"the relation push has no target of more than {CHUNK} entries")
+    return records
+
+
+def kge_device_ms(torch, tr, batches) -> dict:
+    """Per batch: the host time of its host step (routes and push plans)
+    and of shipping its buffer, then the device time of its update
+    (lookups, scoring, backward, pushes) by CUDA events, with a spin
+    kernel first that keeps the card busy while the host enqueues the
+    update, so the events bracket device work."""
+    import numpy as np
+
+    rows = []
+    for b in batches:
+        t = time.perf_counter()
+        hs = tr.host_step([b])
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        arrs = tr.ship(hs)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        tr.update(hs, arrs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rows.append([host_ms, h2d_ms, ev[0].elapsed_time(ev[1]),
+                     hs.buf.nbytes])
+    mean = np.mean(rows[1:], axis=0)    # the first pays one-time costs
+    return dict(host_step_ms=float(mean[0]), h2d_ms=float(mean[1]),
+                device_ms=float(mean[2]), h2d_bytes=int(mean[3]))
+
+
+def kge_train(torch, args, wrappers, ds, card: str):
+    """``KGETrainer`` on the card, ``KGE_STEPS`` steps (the main path),
+    with its launches checked against 2 gathers and 2 scatters a step;
+    then the host and device time of single steps. Returns the trainer,
+    its launches and a tail-mode host step for the kernel lines."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.runtime.kge import KGETrainer
+
+    td = TrainDataset(ds.train, ds.n_entities, ds.n_relations, ranks=1)
+    tr = KGETrainer(*kge_configs(ds, args.seed), device="cuda")
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out = tr.train(td)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    steps = KGE_STEPS
+    losses = np.asarray(out["losses"])
+    # a step gathers h || t || neg and r, and pushes both
+    check(launches == {"fanout_agg": 0, "gather_rows": 2 * steps,
+                       "scatter_add_rows": 2 * steps},
+          f"per step 2 gather_rows and 2 scatter_add_rows: {launches} in "
+          f"{steps} steps")
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          "finite losses")
+    check(losses[-20:].mean() < losses[:20].mean(),
+          f"loss decreases: first 20 {losses[:20].mean()}, last 20 "
+          f"{losses[-20:].mean()}")
+    it = kge_stream(td, 0, (args.seed + 10, args.seed + 11))
+    probe = [next(it) for _ in range(9)]
+    dev = kge_device_ms(torch, tr, probe)
+    step_ms = np.asarray(out["step_s"]) * 1e3
+    emit(phase="kge", part="train", card=card, trainer="KGETrainer",
+         model="ComplEx", dim=KGE_DIM, entities=ds.n_entities,
+         relations=ds.n_relations, train_triples=len(ds.train[0]),
+         steps=steps, launches=launches,
+         launches_per_step={k: v / steps for k, v in launches.items()},
+         loss_first20=float(losses[:20].mean()),
+         loss_last20=float(losses[-20:].mean()),
+         step_ms_mean=float(step_ms.mean()),
+         step_ms_p50=float(np.percentile(step_ms, 50)),
+         stall_ms_per_step=out["stall_s"] * 1e3 / steps,
+         dispatch_ms_per_step=out["dispatch_s"] * 1e3 / steps,
+         steps_per_s=steps / out["train_time_s"],
+         triples_per_s=steps * KGE_BATCH / out["train_time_s"],
+         h2d_bytes_per_step=out["h2d_bytes_per_step"],
+         train_time_s=out["train_time_s"], train_call_s=wall_s,
+         **{f"probe_{k}": v for k, v in dev.items()},
+         device_busy_share=dev["device_ms"] / float(step_ms.mean()))
+    tail = next(b for b in probe if b.neg_mode == "tail")
+    return tr, launches, tr.host_step([tail])
+
+
+def kge_cpu(torch, args, ds, card: str) -> None:
+    """``KGE_CPU_STEPS`` steps of the trainer's stream on the card and on
+    the CPU, the card taking the CPU's tables and Adagrad sums before
+    every step: each step's loss within 1e-5 relative, each table within
+    1e-4 of its largest entry."""
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.runtime.kge import KGETrainer
+
+    td = TrainDataset(ds.train, ds.n_entities, ds.n_relations, ranks=1)
+    card_tr, cpu_tr = (KGETrainer(*kge_configs(ds, args.seed), device=d)
+                       for d in ("cuda", "cpu"))
+    it = kge_stream(td, 0, (args.seed, args.seed + 1))
+    rel, gaps, secs = [], [], [0.0, 0.0]
+    for i in range(KGE_CPU_STEPS):
+        hs = cpu_tr.host_step([next(it)])
+        card_tr.load_state_dict(cpu_tr.state_dict())
+        losses = []
+        for k, tr in enumerate((card_tr, cpu_tr)):
+            t0 = time.perf_counter()
+            losses.append(float(tr.device_step(hs)))
+            secs[k] += time.perf_counter() - t0
+        rel.append(abs(losses[0] - losses[1]) / abs(losses[1]))
+        gaps.append(kge_state_gaps(card_tr.state_dict(),
+                                   cpu_tr.state_dict()))
+        check(rel[-1] <= 1e-5, f"kge step {i + 1}: loss card {losses[0]} vs "
+              f"CPU {losses[1]}: relative {rel[-1]} > 1e-5")
+        for name, e in gaps[-1].items():
+            check(e <= 1e-4, f"kge step {i + 1} {name}: max abs err {e} x "
+                  "max > 1e-4")
+    emit(phase="kge", part="train_cpu", card=card, steps=KGE_CPU_STEPS,
+         synced=True, loss_rel_err=rel, state_rel_err=gaps,
+         loss_tol=1e-5, state_tol=1e-4, card_s=secs[0], cpu_s=secs[1])
+
+
+def kge_scorers(torch, args, ds, card: str) -> None:
+    """Every scorer on one batch of each corruption side, card against
+    CPU: the loss within 1e-5 relative and its gradients with respect to
+    the gathered entity and relation rows within 1e-4 of their largest
+    entry; the tables drawn as the trainers draw them."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
+                                                   init_kge_params)
+    from dgl_operator_tpu_torch.nn.kge import KGE_SCORERS
+    from dgl_operator_tpu_torch.ops.gather import gather_rows
+
+    td = TrainDataset(ds.train, ds.n_entities, ds.n_relations, ranks=1)
+    it = kge_stream(td, 0, (args.seed + 20, args.seed + 21))
+    batches = [next(it), next(it)]
+    out = {}
+    for name in sorted(KGE_SCORERS):
+        d = KGE_SCORER_DIM.get(name, KGE_DIM)
+        cfg = KGEConfig(model_name=name, n_entities=ds.n_entities,
+                        n_relations=ds.n_relations, hidden_dim=d,
+                        gamma=KGE_GAMMA, neg_sample_size=KGE_NEG,
+                        neg_adversarial_sampling=True)
+        model = KGEModel(cfg)
+        host = init_kge_params(cfg, torch.Generator().manual_seed(args.seed))
+        for b in batches:
+            res = []
+            for dev in ("cuda", "cpu"):
+                tabs = {k: v.to(dev) for k, v in host.items()}
+                ids = [torch.from_numpy(np.concatenate(
+                    [b.h, b.t, b.neg_ids.reshape(-1)])).to(dev),
+                    torch.from_numpy(b.r).to(dev)]
+                e = gather_rows(tabs["entity"], ids[0]).requires_grad_()
+                r = gather_rows(tabs["relation"], ids[1]).requires_grad_()
+                loss = model.rows_loss(e[:KGE_BATCH], r,
+                                       e[KGE_BATCH:2 * KGE_BATCH],
+                                       e[2 * KGE_BATCH:].view(1, KGE_NEG, d),
+                                       b.neg_mode)
+                res.append([loss.item()] + [g.cpu() for g in
+                                            torch.autograd.grad(loss,
+                                                                (e, r))])
+            (lc, *gc), (lp, *gp) = res
+            loss_rel = abs(lc - lp) / abs(lp)
+            grad_rel = [float((x - y).abs().max())
+                        / max(float(y.abs().max()), 1e-30)
+                        for x, y in zip(gc, gp)]
+            check(loss_rel <= 1e-5, f"{name} {b.neg_mode}: loss card {lc} "
+                  f"vs CPU {lp}: relative {loss_rel} > 1e-5")
+            check(max(grad_rel) <= 1e-4, f"{name} {b.neg_mode}: row "
+                  f"gradients {grad_rel} x max > 1e-4")
+            out[f"{name}/{b.neg_mode}"] = dict(dim=d, loss=lp,
+                                               loss_rel_err=loss_rel,
+                                               grad_rel_err=grad_rel)
+    emit(phase="kge", part="scorers", card=card, batch=KGE_BATCH,
+         negatives=KGE_NEG, loss_tol=1e-5, grad_tol=1e-4, scorers=out)
+
+
+def kge_dist(torch, args, wrappers, ds, work: str, card: str):
+    """``DistKGETrainer`` over the 2-part book that the partition entry
+    point writes, ``KGE_DIST_STEPS`` steps, each form from the tables
+    drawn from ``--seed``: (a) both slots in one process; (b) under an
+    in-process NCCL group of world size 1, equal to (a) bit for bit; (c)
+    two ranks through the entry point on the card over gloo, both equal
+    to (a) bit for bit (losses and saved tables); (d) a run cut after
+    ``KGE_RESUME_AT`` steps and resumed, equal to (a) bit for bit.
+    Returns (a)'s trainer and the launches of (a), (b) and (c)."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dgl_operator_tpu_torch.examples import partition_kg
+    from dgl_operator_tpu_torch.examples.train_kge import EVAL_TRIPLES
+    from dgl_operator_tpu_torch.graph.kge_sampler import (TrainDataset,
+                                                          load_kg_partition)
+    from dgl_operator_tpu_torch.runtime.kge import DistKGETrainer
+
+    t0 = time.perf_counter()
+    ws = os.path.join(work, "kge")
+    book = partition_kg.main(["--workspace", ws, "--num_parts", "2",
+                              "--dataset", "FB15k", "--graph_name", "FB15k"])
+    book_s = time.perf_counter() - t0
+    # what the entry point trains on with --num_dp: every part, in order
+    parts = [load_kg_partition(book, p)[0] for p in range(2)]
+    triples = tuple(np.concatenate([p[i] for p in parts]) for i in range(3))
+    td = TrainDataset(triples, ds.n_entities, ds.n_relations, ranks=2)
+    steps = KGE_DIST_STEPS
+
+    def make(**fields):
+        cfg, tcfg = kge_configs(ds, args.seed, max_step=steps,
+                                log_interval=25, **fields)
+        return DistKGETrainer(cfg, tcfg, num_slots=2, device="cuda")
+
+    def run(tr):
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        out = tr.train(td)
+        return out, read_counts(wrappers), time.perf_counter() - t
+
+    def step_numbers(out):
+        step_ms = np.asarray(out["step_s"]) * 1e3
+        return dict(step_ms_mean=float(step_ms.mean()),
+                    step_ms_p50=float(np.percentile(step_ms, 50)),
+                    stall_ms_per_step=out["stall_s"] * 1e3 / steps,
+                    dispatch_ms_per_step=out["dispatch_s"] * 1e3 / steps,
+                    steps_per_s=steps / out["train_time_s"],
+                    triples_per_s=2 * steps * KGE_BATCH
+                    / out["train_time_s"])
+
+    # (a) one process: one gather of every slot's entity rows and one of
+    # their relation rows a step; one entity push and a relation push
+    # for each slot
+    in_process = {"fanout_agg": 0, "gather_rows": 2 * steps,
+                  "scatter_add_rows": 3 * steps}
+    tr_a = make()
+    out_a, launches_a, wall_a = run(tr_a)
+    want_losses, want = out_a["losses"], tr_a.state_dict()
+    check(launches_a == in_process, f"kge dist: {launches_a} launches in "
+          f"{steps} steps")
+    check(bool(np.isfinite(want_losses).all()), "kge dist: finite losses")
+    emit(phase="kge", part="dist", card=card, form="one_process",
+         slots=2, steps=steps, book_s=book_s,
+         part_triples=[len(p[0]) for p in parts], launches=launches_a,
+         h2d_bytes_per_step=out_a["h2d_bytes_per_step"],
+         loss_first=want_losses[0], loss_last=want_losses[-1],
+         train_call_s=wall_a, **step_numbers(out_a))
+    # the step's all_reduce bucket: the relation accumulator over the
+    # slots' distinct relations, and the slots' losses
+    hs = tr_a.host_step([next(kge_stream(td, s, (args.seed + 30 + s,
+                                                 args.seed + 32 + s)))
+                         for s in range(2)])
+    bucket_floats = hs.shapes[hs.n_ent + 1][0] * KGE_DIM + 2
+    # (b) an NCCL group of world size 1
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=MP_CHILD_TIMEOUT_S))
+    try:
+        tr_b = make()
+        check(tr_b.my_slots == [0, 1] and tr_b.world_size == 1,
+              f"world 1 holds both slots: {tr_b.my_slots}")
+        out_b, launches_b, wall_b = run(tr_b)
+        check(out_b["losses"] == want_losses, "kge NCCL: losses differ from "
+              "the single process's")
+        got = tr_b.state_dict()
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              "kge NCCL: tables differ from the single process's")
+        check(launches_b == in_process, f"kge NCCL: {launches_b} launches")
+        bucket = torch.zeros(bucket_floats, device="cuda")
+        reduce_us = time_warm_ms(torch, lambda: dist.all_reduce(bucket),
+                                 50) * 1e3
+        emit(phase="kge", part="dist", card=card, form="nccl_world1",
+             backend=dist.get_backend(), world_size=1, steps=steps,
+             bit_identical_to_one_process=True, launches=launches_b,
+             all_reduce_us=reduce_us, all_reduce_bytes=bucket.numel() * 4,
+             train_call_s=wall_b, **step_numbers(out_b))
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the NCCL group is gone")
+    # (c) two ranks on the card over gloo, one slot each
+    tmp = os.path.join(work, "kge_ranks")
+    os.makedirs(tmp, exist_ok=True)
+    hostfile = two_rank_hostfile(tmp)
+    save = os.path.join(tmp, "save")
+    argv = ["--graph_name", "FB15k", "--ip_config", hostfile,
+            "--part_config", book, "--model_name", "ComplEx",
+            "--hidden_dim", str(KGE_DIM), "--gamma", str(KGE_GAMMA),
+            "--lr", str(KGE_LR), "--batch_size", str(KGE_BATCH),
+            "--neg_sample_size", str(KGE_NEG), "--max_step", str(steps),
+            "--log_interval", "25", "-adv", "--adversarial_temperature",
+            "1.0", "--save_path", save, "--eval", "--num_dp", "2",
+            "--device", "cuda:0", "--backend", "gloo",
+            "--seed", str(args.seed)]
+    probe_port = free_port()
+    t0 = time.perf_counter()
+    outs = run_two_ranks(KGE_MP_CHILD, lambda r: {
+        "repo": REPO, "argv": argv, "out": os.path.join(tmp, f"rank{r}"),
+        "probe_port": probe_port, "rows": 2 * KGE_BATCH + KGE_NEG,
+        "dim": KGE_DIM, "bucket": bucket_floats},
+        tmp, "kge")
+    wall_c = time.perf_counter() - t0
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    eval_batches = 2 * -(-EVAL_TRIPLES // 128)
+    # a group step: the owner's gather, the gather back into request
+    # order, the gather of the gradient rows by owner, the relation
+    # gather; one entity and one relation push. Each ranking batch of
+    # --eval: two gathers of the lookup and one of the relations
+    per_rank = {"fanout_agg": 0,
+                "gather_rows": 4 * steps + 3 * eval_batches,
+                "scatter_add_rows": 2 * steps}
+    launches_c = {}
+    for r, x in enumerate(res):
+        check(x["losses"] == want_losses, f"kge rank {r}: losses differ "
+              "from the single process's")
+        check(x["launches"] == per_rank, f"kge rank {r}: {x['launches']} "
+              f"launches, expected {per_rank}")
+        with np.load(os.path.join(save, f"FB15k_ComplEx_rank{r}.npz")) as z:
+            check(np.array_equal(z["entity"], want["entity"])
+                  and np.array_equal(z["relation"], want["relation"]),
+                  f"kge rank {r}: saved tables differ from the single "
+                  "process's")
+        for k, v in x["launches"].items():
+            launches_c[k] = launches_c.get(k, 0) + v
+    check(res[0]["eval"] == res[1]["eval"], "kge ranks: eval differs")
+    emit(phase="kge", part="dist", card=card, form="two_ranks",
+         backend="gloo", device="cuda:0", world_size=2, steps=steps,
+         bit_identical_to_one_process=True, saved_tables_identical=True,
+         done_lines=[[ln for ln in o.splitlines() if "trained" in ln]
+                     for o in outs],
+         launches_per_rank=[x["launches"] for x in res],
+         eval=res[0]["eval"],
+         step_ms_mean=[float(np.mean(x["step_s"]) * 1e3) for x in res],
+         stall_ms_per_step=[x["stall_s"] * 1e3 / steps for x in res],
+         dispatch_ms_per_step=[x["dispatch_s"] * 1e3 / steps for x in res],
+         steps_per_s=[steps / x["train_time_s"] for x in res],
+         gloo_cuda_collective_us=[x["collective_us"] for x in res],
+         collective_shapes=dict(all_to_all_rows=[2 * KGE_BATCH + KGE_NEG,
+                                                 KGE_DIM],
+                                all_reduce_floats=bucket_floats),
+         wall_s=wall_c)
+    # (d) cut after KGE_RESUME_AT steps, resumed by a fresh trainer
+    ckpt_dir = os.path.join(work, "kge_ckpt")
+    first = make(ckpt_dir=ckpt_dir, ckpt_every=KGE_RESUME_AT)
+    step, taken = first.device_step, []
+
+    def dying_step(hs):
+        if len(taken) == KGE_RESUME_AT:
+            raise Killed(f"kge: killed after {KGE_RESUME_AT} steps")
+        taken.append(1)
+        return step(hs)
+
+    first.device_step = dying_step
+    try:
+        first.train(td)
+        cut = False
+    except Killed:
+        cut = True
+    check(cut, "kge: the first run was not cut")
+    resumed = make(ckpt_dir=ckpt_dir)
+    out_d = resumed.train(td)
+    got = resumed.state_dict()
+    check(out_d["start_step"] == KGE_RESUME_AT
+          and out_d["losses"] == want_losses[KGE_RESUME_AT:],
+          "kge: resumed losses differ from the uninterrupted run's")
+    check(all(np.array_equal(got[k], want[k]) for k in want),
+          "kge: resumed tables differ from the uninterrupted run's")
+    emit(phase="kge", part="resume", card=card, trainer="DistKGETrainer",
+         killed_at=KGE_RESUME_AT, resumed_steps=len(out_d["losses"]),
+         bit_exact=True)
+    total = {k: launches_a[k] + launches_b[k] + launches_c[k]
+             for k in launches_a}
+    return tr_a, total
+
+
+def kge_eval(torch, tr, ds, card: str) -> None:
+    """``full_ranking_eval`` and ``sharded_ranking_eval`` of ``tr``'s
+    tables on the card, raw and filtered (known answers from every
+    split), over ``KGE_EVAL`` test triples, and ``full_ranking_eval`` of
+    the same tables on the CPU: the metrics agree within
+    ``KGE_EVAL_TOL``."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.runtime.kge import (build_filter,
+                                                    full_ranking_eval)
+
+    ev = tuple(a[:KGE_EVAL] for a in ds.test)
+    t0 = time.perf_counter()
+    filt = build_filter(tuple(np.concatenate(x) for x in zip(
+        ds.train, ds.valid, ds.test)), ds.n_entities)
+    filter_s = time.perf_counter() - t0
+    params = tr.gathered_params()
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    for label, f in (("raw", None), ("filtered", filt)):
+        got, secs = {}, {}
+        for name, fn in (
+                ("full", lambda: full_ranking_eval(tr.model, params, ev,
+                                                   filters=f)),
+                ("sharded", lambda: tr.sharded_ranking_eval(ev, filters=f)),
+                ("cpu_full", lambda: full_ranking_eval(tr.model, cpu_params,
+                                                       ev, filters=f))):
+            t0 = time.perf_counter()
+            got[name] = fn()
+            secs[name] = time.perf_counter() - t0
+        for other in ("sharded", "cpu_full"):
+            for k, tol in KGE_EVAL_TOL.items():
+                a, b = got["full"][k], got[other][k]
+                bound = tol * (b if k == "MR" else 1.0)
+                check(abs(a - b) <= bound, f"kge eval {label}: {k} full "
+                      f"{a} vs {other} {b}")
+        emit(phase="kge", part="eval", card=card, filtered=label,
+             triples=KGE_EVAL, metrics=got, seconds=secs,
+             filter_build_s=filter_s, tol=KGE_EVAL_TOL,
+             sharded_equal=got["sharded"] == got["full"],
+             cpu_equal=got["cpu_full"] == got["full"])
+
+
+def kge_phase(torch, args, ops, wrappers, work: str, card: str):
+    """The DGL-KE slice at the reference job's width on synthetic FB15k
+    at full size: the kernels at the step's shapes, ``KGETrainer`` (the
+    main path), card against CPU, every scorer, ``DistKGETrainer`` in
+    its three forms and resumed, and the ranking evaluations. Returns
+    the kernel records and the launches of the main-path runs."""
+    from dgl_operator_tpu_torch.graph import datasets
+
+    t0 = time.perf_counter()
+    ds = datasets.fb15k(seed=args.seed)
+    check((ds.n_entities, ds.n_relations, len(ds.train[0]))
+          == (14_951, 1_345, 483_142), "FB15k at its real shape")
+    emit(phase="kge", part="setup", card=card, entities=ds.n_entities,
+         relations=ds.n_relations, train_triples=len(ds.train[0]),
+         test_triples=len(ds.test[0]), data_s=time.perf_counter() - t0)
+    tr, launches, hs = kge_train(torch, args, wrappers, ds, card)
+    records = kge_kernel_records(torch, args, ops, tr, hs, card)
+    kge_cpu(torch, args, ds, card)
+    kge_scorers(torch, args, ds, card)
+    tr_a, dist_launches = kge_dist(torch, args, wrappers, ds, work, card)
+    kge_eval(torch, tr_a, ds, card)
+    return records, {k: launches[k] + dist_launches[k] for k in launches}
+
+
+def kernel_entry(records, name, main_shapes, launches, replaces,
+                 kge_shapes=(), kge_launches=0):
     """The kernels line's entry: worst error over every shape, times
-    summed over the calls of one training step."""
+    summed over the calls of one SAGE training step (and, under
+    ``kge``, of one KGE training step), launches of both paths."""
     mine = [r for r in records if r["kernel"] == name]
-    main = [r for r in mine if (r["shape"], r["dtype"]) in main_shapes]
-    check(len(main) == len(main_shapes), f"{name}: main-path records")
-    total = {k: sum(r[k] for r in main)
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    return {"name": name, "route": "cuda",
-            "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"],
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                        for r in main) else "operations"),
-            "library_ms": total["library_ms"]}
+
+    def step_sums(shapes):
+        main = [r for r in mine if (r["shape"], r["dtype"]) in shapes]
+        check(len(main) == len(shapes), f"{name}: main-path records")
+        out = {k: sum(r[k] for r in main)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                          for r in main) else "operations")
+        return out
+
+    total = step_sums(main_shapes)
+    entry = {"name": name, "route": "cuda",
+             "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces, "launches": launches + kge_launches,
+             "max_abs_err": max(r["max_abs_err"] for r in mine),
+             "ms": total["ms"], "plain_ms": total["plain_ms"],
+             "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
+             "library_ms": total["library_ms"],
+             "launches_sage": launches, "launches_kge": kge_launches}
+    if kge_shapes:
+        entry["kge"] = step_sums(kge_shapes)
+    return entry
 
 
 def main(argv=None) -> int:
@@ -1858,9 +2483,10 @@ def main(argv=None) -> int:
                                              node_map, work, smi)
         dist_mp, mp_records = dist_mp_phase(torch, args, ops, wrappers, ctx,
                                             work, smi)
+        kge_records, kge = kge_phase(torch, args, ops, wrappers, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    records += dist_records + mp_records
+    records += dist_records + mp_records + kge_records
 
     def launches(name):
         return served[name] + trained[name] + dist[name] + dist_mp[name]
@@ -1872,10 +2498,15 @@ def main(argv=None) -> int:
                       ("train_block1", "float32")},
                      launches("fanout_agg"), f"{pg}:221"),
         kernel_entry(records, "gather_rows", {("train_feats", "float32")},
-                     launches("gather_rows"), f"{pg}:120"),
+                     launches("gather_rows"), f"{pg}:120",
+                     {("kge_entity", "float32"), ("kge_relation", "float32")},
+                     kge["gather_rows"]),
         kernel_entry(records, "scatter_add_rows",
                      {("train_block1_bwd", "float32")},
-                     launches("scatter_add_rows"), f"{pg}:234"),
+                     launches("scatter_add_rows"), f"{pg}:234",
+                     {("kge_entity_push", "float32"),
+                      ("kge_relation_push", "float32")},
+                     kge["scatter_add_rows"]),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})

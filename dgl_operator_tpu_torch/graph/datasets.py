@@ -1,15 +1,19 @@
-"""Synthetic node-classification datasets.
+"""Synthetic node-classification datasets and knowledge-graph triples.
 
 The generators draw from numpy in the same order as the JAX package's
 ``graph/datasets.py``, so the same seed gives the same graph, features,
-labels and splits in both packages. Reading staged on-disk copies of
-the real datasets is left to a later slice.
+labels and splits, and the same triples, in both packages. Of the
+readers of staged on-disk copies only the knowledge graphs' triple
+directories (:func:`_load_triples_dir`) are ported; the node datasets'
+readers are left to a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import gzip
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -89,3 +93,166 @@ def ogbn_products(seed: int = 0, scale: float = 1.0) -> NodeClfDataset:
     n = max(1000, int(2_449_029 * scale))
     e = max(5000, int(30_000_000 * scale))
     return _clustered_node_clf("ogbn-products", n, e, 100, 47, seed)
+
+
+# ----------------------------------------------------------------------
+# Knowledge-graph triples (the DGL-KE path)
+@dataclasses.dataclass
+class KGDataset:
+    """Triple store with the DGL-KE split layout: ``(head, rel, tail)``
+    int64 arrays per split."""
+    train: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    valid: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    test: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    n_entities: int
+    n_relations: int
+    name: str = "synthetic-kg"
+
+
+def _csv_path(dirname: str, stem: str) -> Optional[str]:
+    """First existing variant of ``stem`` (.csv / .csv.gz / .txt /
+    .txt.gz) in a directory."""
+    for suffix in (".csv", ".csv.gz", ".txt", ".txt.gz"):
+        p = os.path.join(dirname, stem + suffix)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _load_triples_dir(root: str) -> Optional[KGDataset]:
+    """Read an FB15k-style triple directory: ``{train,valid,test}.txt``
+    of tab-separated ``head<TAB>relation<TAB>tail`` (string names or raw
+    ids), plus optional ``entities.dict`` / ``relations.dict`` id maps
+    (``id<TAB>name`` lines). Names are interned in the order they are
+    first met, after the dictionaries' ids. Returns None when there is no
+    train split."""
+    train_p = _csv_path(root, "train")
+    if train_p is None or not train_p.endswith((".txt", ".txt.gz")):
+        return None
+
+    def read_dict(path):
+        m = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    parts = line.rstrip("\n").split("\t")
+                    if len(parts) == 2:
+                        m[parts[1]] = int(parts[0])
+        return m
+
+    ent = read_dict(os.path.join(root, "entities.dict"))
+    rel = read_dict(os.path.join(root, "relations.dict"))
+
+    def intern(table, key):
+        if key not in table:
+            table[key] = len(table)
+        return table[key]
+
+    def read_split(stem):
+        p = _csv_path(root, stem)
+        if p is None:
+            e = np.zeros(0, np.int64)
+            return e, e.copy(), e.copy()
+        hs, rs, ts = [], [], []
+        opener = gzip.open if p.endswith(".gz") else open
+        with opener(p, "rt") as f:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) != 3:
+                    continue
+                h, r, t = parts
+                hs.append(intern(ent, h))
+                rs.append(intern(rel, r))
+                ts.append(intern(ent, t))
+        return (np.asarray(hs, np.int64), np.asarray(rs, np.int64),
+                np.asarray(ts, np.int64))
+
+    train = read_split("train")
+    valid = read_split("valid")
+    test = read_split("test")
+    if len(train[0]) == 0:
+        return None
+    return KGDataset(train, valid, test, len(ent), len(rel),
+                     os.path.basename(os.path.abspath(root)) or "kg")
+
+
+def _synth_kg(seed: int, ne: int, nr: int, nt: int, eval_div: int,
+              name: str) -> KGDataset:
+    """Synthetic KG: long-tail relation frequency (``r ~ rank^-1.1``)
+    and ``(h, r)``-correlated tails (70%; the rest uniform) so scorers
+    have signal. The numpy draw order is the JAX package's."""
+    rng = np.random.default_rng(seed)
+    rel_p = np.arange(1, nr + 1, dtype=np.float64) ** -1.1
+    rel_p /= rel_p.sum()
+
+    def make(n):
+        h = rng.integers(0, ne, size=n).astype(np.int64)
+        r = rng.choice(nr, size=n, p=rel_p).astype(np.int64)
+        t = ((h * 2654435761 + r * 40503) % ne).astype(np.int64)
+        noise = rng.random(n) < 0.3
+        t[noise] = rng.integers(0, ne, size=noise.sum())
+        return h, r, t
+
+    return KGDataset(make(nt), make(max(50, nt // eval_div)),
+                     make(max(50, nt // eval_div)), ne, nr, name)
+
+
+# the dglke --dataset registry: canonical directory casing, real
+# (entities, relations, train triples), synthesis floors and the eval
+# split divisor of each dataset
+_KG_REGISTRY = {
+    "fb15k": ("FB15k", (14_951, 1_345, 483_142), (100, 10, 1000), 100),
+    "fb15k-237": ("FB15k-237", (14_541, 237, 272_115),
+                  (100, 10, 1000), 100),
+    "wn18": ("wn18", (40_943, 18, 141_442), (100, 10, 1000), 100),
+    "wn18rr": ("wn18rr", (40_943, 11, 86_835), (100, 10, 1000), 100),
+    "freebase": ("Freebase", (86_054_151, 14_824, 304_727_650),
+                 (100, 10, 1000), 100),
+    "wikidata5m": ("wikidata5m", (4_594_485, 822, 20_614_279),
+                   (200, 8, 2000), 200),
+}
+
+
+def kg_dataset(name: str, root: Optional[str] = None, seed: int = 0,
+               scale: float = 1.0) -> KGDataset:
+    """The DGL-KE ``--dataset`` surface (FB15k, FB15k-237, wn18, wn18rr,
+    Freebase, wikidata5m). Reads ``{train,valid,test}.txt`` under
+    ``root`` (or ``root/<name>`` in the caller's, lowercase or canonical
+    casing) when present; otherwise synthesizes the dataset's real shape
+    cut to ``scale`` (:func:`_synth_kg`), never below its floors."""
+    key = name.lower().replace("_", "-")
+    if key not in _KG_REGISTRY:
+        raise ValueError(f"unknown KG dataset {name!r} "
+                         f"(choices: {sorted(_KG_REGISTRY)})")
+    canonical, shape, floors, eval_div = _KG_REGISTRY[key]
+    if root:
+        seen = []
+        for sub in (None, name, key, canonical):
+            base = os.path.join(root, sub) if sub else root
+            if base in seen:
+                continue
+            seen.append(base)
+            if os.path.isdir(base):
+                ds = _load_triples_dir(base)
+                if ds is not None:
+                    return ds
+    ne, nr, nt = shape
+    f_ne, f_nr, f_nt = floors
+    return _synth_kg(seed, ne=max(f_ne, int(ne * scale)),
+                     nr=max(f_nr, int(nr * scale)),
+                     nt=max(f_nt, int(nt * scale)),
+                     eval_div=eval_div, name=key)
+
+
+def fb15k(root: Optional[str] = None, seed: int = 0,
+          scale: float = 1.0) -> KGDataset:
+    """FB15k: 14,951 entities, 1,345 relations, 483,142 train triples
+    (the reference's DGL-KE job: ComplEx, dim 400, 2 workers)."""
+    return kg_dataset("fb15k", root=root, seed=seed, scale=scale)
+
+
+def wikidata5m(root: Optional[str] = None, seed: int = 0,
+               scale: float = 1.0) -> KGDataset:
+    """Wikidata5M: about 4.59M entities, 822 relations, 20.6M train
+    triples (the scale that needs the sharded entity table)."""
+    return kg_dataset("wikidata5m", root=root, seed=seed, scale=scale)

@@ -18,7 +18,7 @@ is held against on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,33 @@ _INDEX_DTYPES = (torch.int32, torch.int64)
 # a longer one is cut into pieces of CHUNK entries, summed apart and
 # added in a fixed order (kChunk in the .cu)
 CHUNK = 32
+
+
+def pack_int32(arrays: Sequence[np.ndarray]):
+    """Integer host arrays as one int32 buffer and their shapes (for
+    :func:`unpack`)."""
+    flat = [np.asarray(a).reshape(-1).astype(np.int32, copy=False)
+            for a in arrays]
+    buf = np.concatenate(flat) if flat else np.zeros(0, np.int32)
+    return buf, [np.shape(a) for a in arrays]
+
+
+def unpack(packed: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """The arrays of a :func:`pack_int32` buffer, as views of ``packed``
+    (the buffer, on any device)."""
+    out, at = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(packed[at:at + n].view(shape))
+        at += n
+    return out
+
+
+def ship_int32(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
+    """Integer host arrays as int32 tensors on ``device``, in one copy of
+    their concatenation; each comes back with its own shape."""
+    buf, shapes = pack_int32(arrays)
+    return unpack(torch.from_numpy(buf).to(device), shapes)
 
 
 class ScatterPlan:
@@ -89,13 +116,7 @@ class ScatterPlan:
                 raise ValueError(f"a plan on {have} is not moved to "
                                  f"{want}; ship the host plan")
             return self
-        flat = [np.asarray(a, np.int32).reshape(-1) for a in arrays]
-        packed = torch.from_numpy(np.concatenate(flat)).to(device)
-        out, at = [], 0
-        for a, f in zip(arrays, flat):
-            out.append(packed[at:at + f.size].view(np.shape(a)))
-            at += f.size
-        return ScatterPlan(*out)
+        return ScatterPlan(*ship_int32(arrays, device))
 
 
 def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:

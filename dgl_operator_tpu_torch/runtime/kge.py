@@ -1,0 +1,583 @@
+"""KGE training and ranking evaluation (the DGL-KE runtime).
+
+The counterpart of the JAX package's ``runtime/kge.py``: the reference's
+parameter-server training (``dglke_server``/``dglke_client``), with the
+sharded-embedding pull and push of ``parallel/embedding.py`` in place of
+KVStore RPC.
+
+- A step gathers the entity rows ``h || t || neg`` and the relation rows
+  ``r`` with ``gather_rows`` into leaf tensors and takes the loss's
+  gradient with respect to those rows, not the tables, so the gradients
+  are row-sparse by construction (the pull).
+- The entities push ``h || t || neg`` and the relations ``r`` with
+  row-sparse Adagrad (``ops/adagrad.py``; the push): ``scatter_add_rows``
+  sums each row's gradients over a plan the host builds next to the
+  sampler, and only the touched rows change.
+
+:class:`DistKGETrainer` trains ``num_slots`` slots, each with its own
+relation-aware edge partition and sampler streams, the entity table
+sharded over them (slot ``s`` owns a block of rows). In one process
+every slot lives on one device; in a ``torch.distributed`` group each
+process holds the slots of its rank (``my_slots``) and their blocks.
+Every process draws every slot's batch on its host (cheap), so it builds
+its exchange routes and push plans with no exchange of ids; only rows,
+gradients and one ``all_reduce`` a step (the relation accumulator and
+the slots' losses) cross processes. Per update: one corruption side for
+every slot; the entity push summed over the slots in slot order; the
+relation gradient summed over the slots and divided by their count; the
+loss the slots' mean. :class:`KGETrainer` is the single-device trainer:
+one slot, whose relation gradient is not divided (dividing by 1 is
+exact).
+
+:func:`full_ranking_eval` scores every entity as the corruption of each
+side in one ``[B, D] x [D, Ne]`` product per batch and reports MR, MRR
+and Hits@{1,3,10}, raw or filtered;
+:meth:`DistKGETrainer.sharded_ranking_eval` scores each block in place
+and combines the counts.
+
+Not ported (``ROADMAP.md`` Queue 1 item 8): the 2-D mesh, device-drawn
+negatives, ``num_client`` > 1, relation ``shard_rules``, the sentry and
+its ``quality_*`` fields, and the tuned-manifest overlay.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
+from dgl_operator_tpu_torch.graph.kge_sampler import (
+    BidirectionalOneShotIterator, KGEBatch, TrainDataset)
+from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
+                                               init_kge_params, relation_dim)
+from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_
+from dgl_operator_tpu_torch.ops.gather import gather_rows
+from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, pack_int32,
+                                                scatter_add_rows, scatter_plan,
+                                                ship_int32, unpack)
+from dgl_operator_tpu_torch.parallel import collectives
+from dgl_operator_tpu_torch.parallel.embedding import (ShardedTableSpec,
+                                                       gather_blocks, my_block,
+                                                       pad_rows, route,
+                                                       sharded_lookup,
+                                                       sharded_push_adagrad)
+from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                       RankZeroCheckpoints)
+from dgl_operator_tpu_torch.runtime.loop import prefetch_map
+from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
+
+# host steps (batches, routes and plans) built ahead of the device step
+# on one sampler thread
+PREFETCH = 2
+
+
+@dataclasses.dataclass
+class KGETrainConfig:
+    """The JAX ``KGETrainConfig``'s ported fields and defaults.
+    ``neg_sampler``, ``num_client`` and ``shard_rules`` take only their
+    defaults (another value raises ``NotImplementedError``); the
+    ``sentry`` and ``quality_*`` fields are not ported, so passing one is
+    a ``TypeError``. ``ckpt_dir``, ``ckpt_every`` and ``resume`` are read
+    by ``DistKGETrainer`` only, as in the JAX package."""
+
+    lr: float = 0.25               # the dglke default
+    max_step: int = 1000
+    batch_size: int = 1024
+    neg_sample_size: int = 256
+    neg_chunk_size: Optional[int] = None
+    log_interval: int = 100
+    seed: int = 0
+    neg_sampler: str = "host"
+    num_client: int = 1
+    shard_rules: Optional[tuple] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0            # steps; 0 = only at train()'s end
+    resume: str = "auto"           # "auto" | "never"
+
+    def __post_init__(self):
+        unported = {
+            "neg_sampler": (self.neg_sampler != "host", "8.2 (device "
+                            "negatives)"),
+            "num_client": (self.num_client != 1, "8.3 (num_client)"),
+            "shard_rules": (self.shard_rules is not None, "8.4 (relation "
+                            "shard_rules)")}
+        for name, (set_, item) in unported.items():
+            if set_:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: only the default is "
+                    f"ported (ROADMAP.md Queue 1 item {item})")
+        if self.resume not in ("auto", "never"):
+            raise ValueError(f"unknown resume policy {self.resume!r}")
+        if self.ckpt_every < 0 or self.log_interval < 1:
+            raise ValueError("ckpt_every must be >= 0 and log_interval "
+                             ">= 1")
+
+    @property
+    def chunk(self) -> int:
+        return self.neg_chunk_size or self.batch_size
+
+
+@dataclasses.dataclass
+class _HostStep:
+    """One update's host side: the corruption side, every array the
+    device step needs packed into one int32 buffer (in pinned memory for
+    a card, so its copy does not wait for the card), and the entity
+    route whose exchange counts stay on the host."""
+    mode: str
+    buf: torch.Tensor
+    shapes: list
+    ent_route: object
+    n_ent: int                    # entity arrays in the buffer
+
+
+class DistKGETrainer:
+    """KGE training over ``num_slots`` slots with the entity table sharded
+    over them: all on ``device`` (the current card when None), or, in a
+    process group, this process's ``my_slots``. Tables are drawn from
+    ``tcfg.seed`` (``init_kge_params``), so every process and a
+    single-process run start from the same tables."""
+
+    _uses_group = True
+
+    def __init__(self, cfg: KGEConfig, tcfg: KGETrainConfig,
+                 num_slots: int = 1, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg, self.tcfg = cfg, tcfg
+        self.model = KGEModel(cfg)
+        self.nslots = int(num_slots)
+        self._group = self._uses_group and collectives.group_active()
+        self.rank, self.world_size = (collectives.world() if self._group
+                                      else (0, 1))
+        if self.nslots < 1 or self.nslots % self.world_size:
+            raise ValueError(f"num_slots={self.nslots} does not split over "
+                             f"{self.world_size} processes")
+        L = self.nslots // self.world_size
+        self.my_slots = list(range(self.rank * L, (self.rank + 1) * L))
+        self.spec = ShardedTableSpec(cfg.n_entities, cfg.hidden_dim,
+                                     self.nslots)
+        # the relation accumulator is the slots' sum over their count,
+        # as the JAX step's psum / nslots
+        self.rel_divisor = self.nslots
+        if self._group:
+            mine = [self.nslots, cfg.n_entities, cfg.n_relations,
+                    cfg.hidden_dim, tcfg.batch_size, tcfg.neg_sample_size,
+                    tcfg.max_step, tcfg.seed]
+            if collectives.allreduce_host(mine, np.min) != \
+                    collectives.allreduce_host(mine, np.max):
+                raise ValueError("the processes of the group disagree on "
+                                 "the KGE configuration")
+        init = init_kge_params(cfg, torch.Generator().manual_seed(tcfg.seed))
+        self.load_state_dict({
+            "entity": init["entity"].numpy(),
+            "entity_state": np.zeros(cfg.n_entities, np.float32),
+            "relation": init["relation"].numpy(),
+            "relation_state": np.zeros(cfg.n_relations, np.float32)})
+        self.timer = PhaseTimer()
+
+    # -- state -----------------------------------------------------------
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """Logical (de-padded) host arrays of the whole training state:
+        ``entity``, ``entity_state``, ``relation``, ``relation_state``.
+        In a group every process gathers every block (a collective)."""
+        ne = self.cfg.n_entities
+        return {"entity": gather_blocks(self.entity)[:ne],
+                "entity_state": gather_blocks(self.ent_state)[:ne],
+                "relation": self.relation.cpu().numpy().copy(),
+                "relation_state": self.rel_state.cpu().numpy().copy()}
+
+    def load_state_dict(self, sd) -> None:
+        """Take a :meth:`state_dict` (numpy arrays or tensors, e.g. from
+        ``kge_state_from_numpy``): pad the entity arrays to the slots'
+        blocks and keep this process's."""
+        cfg = self.cfg
+        want = {"entity": (cfg.n_entities, cfg.hidden_dim),
+                "entity_state": (cfg.n_entities,),
+                "relation": (cfg.n_relations, relation_dim(cfg)),
+                "relation_state": (cfg.n_relations,)}
+        host = {}
+        for k, shape in want.items():
+            v = sd[k]
+            # a copy: the trainer updates its tables in place
+            v = np.array(v.detach().cpu() if isinstance(v, torch.Tensor)
+                         else v, np.float32)
+            if v.shape != shape:
+                raise ValueError(f"state_dict[{k!r}] has shape {v.shape}, "
+                                 f"expected {shape}")
+            host[k] = v
+
+        def block(a):
+            full = pad_rows(a, self.spec.padded_rows)
+            return torch.from_numpy(np.ascontiguousarray(my_block(
+                full, self.rank, self.world_size))).to(self.device)
+
+        self.entity = block(host["entity"])
+        self.ent_state = block(host["entity_state"])
+        self.relation = torch.from_numpy(host["relation"]).to(self.device)
+        self.rel_state = torch.from_numpy(host["relation_state"]).to(
+            self.device)
+
+    def gathered_params(self) -> Dict[str, torch.Tensor]:
+        """``{"entity": [Ne, D], "relation": [Nr, Dr]}`` on the trainer's
+        device, the entity table gathered from every block (a collective
+        in a group)."""
+        ent = gather_blocks(self.entity)[:self.cfg.n_entities]
+        return {"entity": torch.from_numpy(np.ascontiguousarray(ent)).to(
+            self.device), "relation": self.relation.clone()}
+
+    # -- one update ------------------------------------------------------
+    def host_step(self, batches: Sequence[KGEBatch]) -> _HostStep:
+        """The host side of one update from every slot's batch (slot
+        order): the entity route of this process's requests
+        (``h || t || neg`` of each of its slots) with its push plan, the
+        relation ids of its slots, the union of every slot's relation ids
+        and each of its slots' relation push plan into that union."""
+        if len(batches) != self.nslots:
+            raise ValueError(f"{len(batches)} batches for {self.nslots} "
+                             "slots")
+        modes = {b.neg_mode for b in batches}
+        if len(modes) != 1:
+            raise ValueError(f"one corruption side an update, got {modes}")
+        ent = [np.concatenate([b.h, b.t, b.neg_ids.reshape(-1)])
+               for b in batches]
+        L = len(self.my_slots)
+        reqs = [np.concatenate(ent[p * L:(p + 1) * L])
+                for p in range(self.world_size)]
+        ent_route = route(reqs, self.spec, self.rank)
+        arrays = ent_route.arrays()
+        n_ent = len(arrays)
+        union = np.unique(np.concatenate([b.r for b in batches]))
+        arrays += [np.concatenate([batches[s].r for s in self.my_slots]),
+                   union]
+        for s in self.my_slots:
+            inv = np.searchsorted(union, batches[s].r).astype(
+                np.int32)[:, None]
+            plan = scatter_plan(inv, None, len(union))
+            arrays += [inv] + [getattr(plan, k) for k in ScatterPlan.FIELDS]
+        buf, shapes = pack_int32(arrays)
+        buf = torch.from_numpy(buf)
+        if self.device.type == "cuda":
+            buf = buf.pin_memory()
+        return _HostStep(modes.pop(), buf, shapes, ent_route, n_ent)
+
+    def ship(self, hs: _HostStep) -> List[torch.Tensor]:
+        """A host step's arrays on the device, in one copy that does not
+        wait for the device's queue."""
+        return unpack(hs.buf.to(self.device, non_blocking=True), hs.shapes)
+
+    def device_step(self, hs: _HostStep) -> torch.Tensor:
+        """One update on the device from a :meth:`host_step`; returns the
+        slots' mean loss (a device scalar, no sync)."""
+        return self.update(hs, self.ship(hs))
+
+    def update(self, hs: _HostStep, arrs: List[torch.Tensor]) -> torch.Tensor:
+        """The update of a shipped host step (:meth:`ship`)."""
+        cfg, t = self.cfg, self.tcfg
+        ent_rt = hs.ent_route.rebuilt(arrs[:hs.n_ent])
+        rel_ids, union = arrs[hs.n_ent:hs.n_ent + 2]
+        rel_plans = arrs[hs.n_ent + 2:]
+        B, C = t.batch_size, t.batch_size // t.chunk
+        M = 2 * B + C * t.neg_sample_size
+        ent_rows = sharded_lookup(self.entity, ent_rt)
+        rel_rows = gather_rows(self.relation, rel_ids)
+        g_ent, losses, rel_acc = [], [], None
+        k = 1 + len(ScatterPlan.FIELDS)
+        for i in range(len(self.my_slots)):
+            e = ent_rows[i * M:(i + 1) * M].detach().requires_grad_()
+            r = rel_rows[i * B:(i + 1) * B].detach().requires_grad_()
+            loss = self.model.rows_loss(
+                e[:B], r, e[B:2 * B],
+                e[2 * B:].view(C, t.neg_sample_size, cfg.hidden_dim),
+                hs.mode)
+            ge, gr = torch.autograd.grad(loss, (e, r))
+            g_ent.append(ge)
+            losses.append(loss.detach())
+            inv, *plan = rel_plans[i * k:(i + 1) * k]
+            acc = scatter_add_rows(gr.contiguous(), inv, None, len(union),
+                                   mean=False, plan=ScatterPlan(*plan))
+            # the slots' accumulators in slot order
+            rel_acc = acc if rel_acc is None else rel_acc + acc
+        loss_vec = torch.stack(losses)
+        if self._group:
+            # one all_reduce: the relation accumulator and every slot's
+            # loss (each entry has one non-zero contributor: exact)
+            full = loss_vec.new_zeros(self.nslots)
+            full[self.my_slots[0]:self.my_slots[-1] + 1] = loss_vec
+            flat = torch.cat([rel_acc.reshape(-1), full])
+            dist.all_reduce(flat)
+            rel_acc = flat[:rel_acc.numel()].view_as(rel_acc)
+            loss_vec = flat[rel_acc.numel():]
+        g = g_ent[0] if len(g_ent) == 1 else torch.cat(g_ent)
+        sharded_push_adagrad(self.entity, self.ent_state, g.contiguous(),
+                             ent_rt, t.lr)
+        adagrad_rows_(self.relation, self.rel_state, union,
+                      rel_acc / self.rel_divisor, t.lr)
+        return loss_vec.mean()
+
+    # -- training --------------------------------------------------------
+    def _iterators(self, dataset: TrainDataset, ranks: Sequence[int],
+                   seeds: Sequence[Tuple[int, int]]):
+        t = self.tcfg
+        out = []
+        for rank, (hs, ts) in zip(ranks, seeds):
+            head = dataset.create_sampler(t.batch_size, t.neg_sample_size,
+                                          t.chunk, mode="head", rank=rank,
+                                          seed=hs)
+            tail = dataset.create_sampler(t.batch_size, t.neg_sample_size,
+                                          t.chunk, mode="tail", rank=rank,
+                                          seed=ts)
+            out.append(BidirectionalOneShotIterator(head, tail))
+        return out
+
+    def _open_checkpoints(self, checkpoints: bool):
+        t = self.tcfg
+        if t.ckpt_dir is None or not checkpoints:
+            return None, 0
+        mgr = CheckpointManager(t.ckpt_dir)
+        ckpt = RankZeroCheckpoints(mgr, self.rank) if self._group else mgr
+        start = 0
+        if t.resume == "auto":
+            cfg = self.cfg
+            like = {"entity": np.zeros((cfg.n_entities, cfg.hidden_dim),
+                                       np.float32),
+                    "entity_state": np.zeros(cfg.n_entities, np.float32),
+                    "relation": np.zeros((cfg.n_relations,
+                                          relation_dim(cfg)), np.float32),
+                    "relation_state": np.zeros(cfg.n_relations, np.float32)}
+            start, sd = mgr.restore(None, like)
+            if self._group and collectives.allreduce_host(
+                    start, np.min) != collectives.allreduce_host(start,
+                                                                 np.max):
+                raise RuntimeError("the processes restored different "
+                                   "checkpoint steps")
+            if start:
+                self.load_state_dict(sd)
+        return ckpt, start
+
+    def _run(self, iters, checkpoints: bool = True) -> Dict:
+        """Steps ``[start, max_step)`` over the slots' iterators (every
+        slot's, on every process), host steps built ``PREFETCH`` ahead on
+        one thread; ``checkpoints`` reads and writes ``tcfg.ckpt_dir``."""
+        t = self.tcfg
+        ckpt, start = self._open_checkpoints(checkpoints)
+        # fast-forward the streams the completed steps consumed
+        for _ in range(start):
+            for it in iters:
+                next(it)
+        self.timer.reset()
+        pipeline = prefetch_map(
+            lambda: self.host_step([next(it) for it in iters]),
+            [()] * (t.max_step - start), PREFETCH, 1)
+        losses, step_s, h2d = [], [], 0
+        t0 = time.perf_counter()
+        try:
+            for step in range(start + 1, t.max_step + 1):
+                t_step = time.perf_counter()
+                with self.timer.phase("stall"):
+                    hs = next(pipeline)
+                with self.timer.phase("dispatch"):
+                    losses.append(self.device_step(hs))
+                h2d += hs.buf.nbytes
+                step_s.append(time.perf_counter() - t_step)
+                if step % t.log_interval == 0:
+                    window = torch.stack(losses[-t.log_interval:])
+                    print(f"[{self.rank}][Train]({step}/{t.max_step}) "
+                          f"average loss: {float(window.mean()):.6f}",
+                          flush=True)
+                if ckpt is not None and t.ckpt_every and \
+                        step % t.ckpt_every == 0:
+                    ckpt.save(step, self.state_dict(), wait=False)
+            values = torch.stack(losses).tolist() if losses else []
+            train_s = time.perf_counter() - t0      # waited for the device
+            # the final state, unless the cadence has just written it
+            if ckpt is not None and start < t.max_step and not (
+                    t.ckpt_every and t.max_step % t.ckpt_every == 0):
+                ckpt.save(t.max_step, self.state_dict(), wait=False)
+        finally:
+            pipeline.close()
+            if ckpt is not None:
+                ckpt.close()
+        n = max(len(values), 1)
+        return {"steps": t.max_step, "start_step": start, "losses": values,
+                "loss": float(np.mean(values[-50:])) if values
+                else float("nan"),
+                "train_time_s": train_s, "step_s": step_s,
+                "stall_s": self.timer.total.get("stall", 0.0),
+                "dispatch_s": self.timer.total.get("dispatch", 0.0),
+                "h2d_bytes_per_step": h2d / n}
+
+    def train(self, dataset: TrainDataset) -> Dict:
+        """Train from the current tables (or, with ``ckpt_dir`` and
+        ``resume="auto"``, the newest good checkpoint) to ``max_step``.
+        ``dataset`` must be partitioned into ``num_slots`` ranks; slot
+        ``s`` samples rank ``s`` with head seed ``seed + s`` and tail
+        seed ``seed + s + num_slots``. Returns ``{"steps",
+        "loss" (mean of the last 50), "losses" (every step's),
+        "start_step", "train_time_s", "step_s", "stall_s", "dispatch_s",
+        "h2d_bytes_per_step"}``."""
+        S, seed = self.nslots, self.tcfg.seed
+        if len(dataset.edge_parts) != S:
+            raise ValueError(
+                f"TrainDataset was partitioned into "
+                f"{len(dataset.edge_parts)} ranks but num_slots = {S}; "
+                "build it with ranks=num_slots")
+        return self._run(self._iterators(
+            dataset, range(S), [(seed + s, seed + s + S) for s in range(S)]))
+
+    # -- ranking evaluation ----------------------------------------------
+    @torch.no_grad()
+    def sharded_ranking_eval(self, eval_triples, batch_size: int = 128,
+                             filters=None) -> Dict[str, float]:
+        """:func:`full_ranking_eval`'s metrics with every block scored in
+        place: each process scores its own rows as candidates, reads the
+        target's score from its owner's column, counts the candidates
+        above it (and, filtered, the known positives above it, which are
+        subtracted) and the counts are summed over the processes."""
+        h_all, r_all, t_all = (np.asarray(a) for a in eval_triples)
+        rows = self.entity.shape[0]
+        base = self.rank * rows
+        gid = base + torch.arange(rows, device=self.device)
+        valid = gid < self.cfg.n_entities
+        ranks = []
+        for mode in ("tail", "head"):
+            for b in range(0, len(h_all), batch_size):
+                sel = slice(b, min(b + batch_size, len(h_all)))
+                h, r, t = h_all[sel], r_all[sel], t_all[sel]
+                fixed_ids, target = (h, t) if mode == "tail" else (t, h)
+                known = _known(filters, h, r, t, mode)
+                rt = route([fixed_ids] * self.world_size, self.spec,
+                           self.rank)
+                shipped = ship_int32(rt.arrays() + [r, target, known],
+                                     self.device)
+                r_d, tgt, kn = shipped[-3:]
+                fixed = sharded_lookup(self.entity,
+                                       rt.rebuilt(shipped[:-3]))
+                scores = self.model.neg_score(
+                    fixed, gather_rows(self.relation, r_d),
+                    self.entity[None], len(h), mode)       # [B, rows]
+                local = tgt.long() - base
+                own = (local >= 0) & (local < rows)
+                pos = torch.where(own, scores.gather(
+                    1, local.clamp(0, rows - 1)[:, None])[:, 0],
+                    scores.new_zeros(()))
+                if self._group:
+                    dist.all_reduce(pos)
+                count = ((scores > pos[:, None]) & valid).sum(1)
+                k_local = kn.long() - base
+                k_mine = (kn >= 0) & (k_local >= 0) & (k_local < rows)
+                k_scores = scores.gather(1, k_local.clamp(0, rows - 1))
+                k_gt = (k_mine & (k_scores > pos[:, None])).sum(1)
+                counts = torch.stack([count, k_gt])
+                if self._group:
+                    dist.all_reduce(counts)
+                ranks.append(1 + counts[0] - counts[1])
+        return _metrics(torch.cat(ranks))
+
+
+class KGETrainer(DistKGETrainer):
+    """Single-device KGE trainer (the JAX ``KGETrainer``): one slot, every
+    table on ``device`` (the current card when None), relation gradients
+    not divided. ``params`` and ``opt_state`` are the tables and their
+    Adagrad sums. A process group, if any, is not used."""
+
+    _uses_group = False
+
+    def __init__(self, cfg: KGEConfig, tcfg: KGETrainConfig,
+                 device: DeviceLike = None):
+        super().__init__(cfg, tcfg, num_slots=1, device=device)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"entity": self.entity, "relation": self.relation}
+
+    @property
+    def opt_state(self) -> Dict[str, torch.Tensor]:
+        return {"entity": self.ent_state, "relation": self.rel_state}
+
+    def train(self, dataset: TrainDataset, rank: int = 0) -> Dict:
+        """``max_step`` updates on the edge partition ``rank`` of
+        ``dataset`` (head sampler seed ``seed``, tail ``seed + 1``);
+        returns :meth:`DistKGETrainer.train`'s record with ``loss`` the
+        mean of the last 100 losses. Checkpoints are not read or
+        written, as in the JAX package."""
+        t = self.tcfg
+        out = self._run(self._iterators(dataset, [rank],
+                                        [(t.seed, t.seed + 1)]),
+                        checkpoints=False)
+        out["loss"] = float(np.mean(out["losses"][-100:]))
+        return out
+
+
+# ----------------------------------------------------------------------
+# Ranking evaluation
+def build_filter(triples, n_entities: int):
+    """``(h, r) -> tails`` and ``(r, t) -> heads`` maps for filtered
+    ranking."""
+    h, r, t = triples
+    tails: Dict[Tuple[int, int], list] = {}
+    heads: Dict[Tuple[int, int], list] = {}
+    for hi, ri, ti in zip(h.tolist(), r.tolist(), t.tolist()):
+        tails.setdefault((hi, ri), []).append(ti)
+        heads.setdefault((ri, ti), []).append(hi)
+    return {"tails": tails, "heads": heads}
+
+
+def _known(filters, h, r, t, mode: str) -> np.ndarray:
+    """``[B, K]`` each query's distinct known answers on the corrupted
+    side, -1 padded (``K`` at least 1)."""
+    lists = [[] for _ in range(len(h))]
+    if filters is not None:
+        for i in range(len(h)):
+            key = ((int(h[i]), int(r[i])) if mode == "tail"
+                   else (int(r[i]), int(t[i])))
+            lists[i] = sorted(set(filters["tails" if mode == "tail"
+                                          else "heads"].get(key, [])))
+    out = np.full((len(h), max([1] + [len(x) for x in lists])), -1,
+                  np.int64)
+    for i, ks in enumerate(lists):
+        out[i, :len(ks)] = ks
+    return out
+
+
+def _metrics(rank: torch.Tensor) -> Dict[str, float]:
+    rank = rank.cpu().double()
+    return {"MR": float(rank.mean()), "MRR": float((1.0 / rank).mean()),
+            "HITS@1": float((rank <= 1).double().mean()),
+            "HITS@3": float((rank <= 3).double().mean()),
+            "HITS@10": float((rank <= 10).double().mean())}
+
+
+@torch.no_grad()
+def full_ranking_eval(model: KGEModel, params, eval_triples,
+                      batch_size: int = 128, filters=None
+                      ) -> Dict[str, float]:
+    """Raw (or, with ``filters`` from :func:`build_filter`, filtered)
+    ranking metrics over both corruption sides, ``params`` the
+    ``{"entity", "relation"}`` tables on one device. A query's rank is 1
+    plus the candidates scoring strictly above its target; filtered, the
+    known answers score ``-inf``."""
+    ent, rel = params["entity"], params["relation"]
+    h_all, r_all, t_all = (np.asarray(a) for a in eval_triples)
+    ranks = []
+    for mode in ("tail", "head"):
+        for b in range(0, len(h_all), batch_size):
+            sel = slice(b, min(b + batch_size, len(h_all)))
+            h, r, t = h_all[sel], r_all[sel], t_all[sel]
+            fixed_ids, target = (h, t) if mode == "tail" else (t, h)
+            known = _known(filters, h, r, t, mode)
+            f_d, r_d, tgt, kn = ship_int32([fixed_ids, r, target, known],
+                                           ent.device)
+            scores = model.neg_score(gather_rows(ent, f_d),
+                                     gather_rows(rel, r_d), ent[None],
+                                     len(h), mode)            # [B, Ne]
+            pos = scores.gather(1, tgt.long()[:, None])
+            if filters is not None:
+                row = torch.arange(len(h), device=ent.device)[:, None]
+                hit = kn >= 0
+                scores[row.expand_as(kn)[hit], kn.long()[hit]] = -np.inf
+            ranks.append(1 + (scores > pos).sum(1))
+    return _metrics(torch.cat(ranks))

@@ -17,8 +17,11 @@ import torch
 from dgl_operator_tpu_torch import resolve_device
 from dgl_operator_tpu_torch.graph import _native
 from dgl_operator_tpu_torch.ops import _build
-from dgl_operator_tpu_torch.examples import train_dist
+from dgl_operator_tpu_torch.examples import train_dist, train_kge
+from dgl_operator_tpu_torch.models.kge import KGEConfig
 from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+from dgl_operator_tpu_torch.runtime.kge import (DistKGETrainer,
+                                                KGETrainConfig, KGETrainer)
 from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
 from dgl_operator_tpu_torch.serve.engine import ServeEngine
 
@@ -157,6 +160,11 @@ def test_importing_the_port_loads_no_jax():
             "dgl_operator_tpu_torch.parallel.bootstrap, "
             "dgl_operator_tpu_torch.parallel.collectives, "
             "dgl_operator_tpu_torch.examples.train_dist, "
+            "dgl_operator_tpu_torch.examples.train_kge, "
+            "dgl_operator_tpu_torch.examples.partition_kg, "
+            "dgl_operator_tpu_torch.runtime.kge, "
+            "dgl_operator_tpu_torch.parallel.embedding, "
+            "dgl_operator_tpu_torch.ops.adagrad, "
             "dgl_operator_tpu_torch.ops.gather, "
             "dgl_operator_tpu_torch.ops.spmm, "
             "dgl_operator_tpu_torch.ops; "
@@ -180,4 +188,10 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_dist.main(["--graph_name", "g", "--ip_config", "no-such-hosts",
                          "--part_config", "no-such-book.json"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KGETrainer(KGEConfig(), KGETrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistKGETrainer(KGEConfig(), KGETrainConfig(), num_slots=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_kge.main(["--part_config", "no-such-book.json"])
     assert resolve_device("cpu") == torch.device("cpu")
