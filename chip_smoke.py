@@ -37,7 +37,14 @@ Each phase prints JSON lines:
    sum over a host-built ``scatter_plan``, show that two launches give
    the same bits and whether they equal the CPU's ``index_add_``
    (``bitwise_equal_to_cpu``), including a hub target named by every
-   row.
+   row; ``gather_rows`` lines name the path it took (TMA bulk copies
+   or registers and their access width), and untimed ``gather_rows``
+   lines hold it bit for bit at each path's edges (1,600-byte rows at
+   1, 1,023 and 1,024 rows, a hub, repeated rows, a table 8 bytes off a
+   16-byte boundary, bf16 at D = 100, a table of more than 2^31
+   elements). A
+   ``floor`` line gives the same timers around a near-empty launch
+   (``torch.cuda._sleep(1)``).
 6. ``serve``   — the graph split in 2 parts by the port's multilevel
    partitioner (its seconds, edge cut, part sizes and halo rows), the
    model written as a serving export, a ``ServeEngine`` on the card
@@ -101,7 +108,11 @@ Each phase prints JSON lines:
    time of single updates; ``kernel`` lines of ``gather_rows`` (the
    entity and relation lookups) and ``scatter_add_rows`` (the entity and
    relation pushes, the relation push's long targets on the second
-   launch) at the step's shapes; 5 steps against the CPU, synced before
+   launch) at the step's shapes; a ``profile`` line from
+   ``torch.profiler`` over 5 more steps (device µs and launches per
+   step of each kernel, the relation push's two launches apart, the
+   host µs of the 10 CPU ops with the most self time); 5 steps against
+   the CPU, synced before
    each; every scorer's loss and row gradients against the CPU on one
    batch of each side (RESCAL and TransR at dim 100); ``DistKGETrainer``
    over the 2-part book that ``examples/partition_kg.py`` writes, 50
@@ -329,6 +340,32 @@ def launch_path(h) -> str:
             else "registers")
 
 
+def gather_path(table) -> str:
+    """The path ``csrc/gather_rows.cu`` takes for ``table`` (its output
+    is 16-byte aligned): TMA bulk copies for rows of at least 512 bytes,
+    a multiple of 16, at a 16-byte aligned address; registers otherwise,
+    with the widest access (16, 8, 4 or 2 bytes) that the row and the
+    address allow."""
+    row = table.shape[1] * table.element_size()
+    addr = table.data_ptr()
+    if row >= 512 and row % 16 == 0 and addr % 16 == 0:
+        return "bulk"
+    width = next(w for w in (16, 8, 4, 2) if row % w == 0 and addr % w == 0)
+    return f"registers{width}"
+
+
+def floor_record(torch, flush, iters: int, card: str) -> None:
+    """The timers' floor: ``time_cold_ms`` and ``time_warm_ms`` of one
+    near-empty launch (``torch.cuda._sleep(1)``) under the same flush
+    and spin as every kernel line. Measured only; no check subtracts
+    it."""
+    def launch():
+        torch.cuda._sleep(1)
+    emit(phase="kernel", kernel="floor", what="torch.cuda._sleep(1)",
+         card=card, time_cold_ms=time_cold_ms(torch, launch, flush, iters),
+         time_warm_ms=time_warm_ms(torch, launch, iters))
+
+
 def fanout_records(torch, fanout, cases, flush, iters: int, card: str):
     """``fanout_agg`` against its plain version (sum and mean) on each
     case, timed for the mean, with ``F.embedding_bag`` as the
@@ -387,9 +424,11 @@ def fanout_records(torch, fanout, cases, flush, iters: int, card: str):
     return records
 
 
-def gather_records(torch, gather, cases, flush, iters: int, card: str):
+def gather_records(torch, gather, cases, flush, iters: int, card: str,
+                   timed: bool = True):
     """``gather_rows`` against its plain version (a copy: exact) on each
-    case, with ``torch.index_select`` as the yardstick."""
+    case, with ``torch.index_select`` as the yardstick; ``timed=False``
+    checks without timing."""
     records = []
     for name, table, idx in cases:
         n, d = table.shape
@@ -398,7 +437,7 @@ def gather_records(torch, gather, cases, flush, iters: int, card: str):
                "n": n, "m": m, "d": d,
                "dtype": str(table.dtype).replace("torch.", ""),
                "idx_dtype": str(idx.dtype).replace("torch.", ""),
-               "card": card}
+               "card": card, "path": gather_path(table)}
         before = gather.gather_rows.launches
         got = gather.gather_rows(table, idx)
         torch.cuda.synchronize()
@@ -411,7 +450,7 @@ def gather_records(torch, gather, cases, flush, iters: int, card: str):
         check(torch.equal(got, want), f"{name}: gather is a copy, "
               f"max abs err {err}")
         rec.update(max_abs_err=err, tol=0.0)
-        if m:
+        if m and timed:
             b_ms, b_by, uniq, nbytes = gather_bound(idx, d,
                                                     table.element_size())
             rec.update(
@@ -520,6 +559,46 @@ def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
     return records
 
 
+def gather_edge_records(torch, gather, randn, gen, card: str):
+    """``gather_rows`` bit for bit against its plain version, untimed,
+    on each path's edges at the KGE width (1,600-byte rows): one row, a
+    grid one row short of 1,024 and at 1,024, a hub (every id one row),
+    rows named again within a block (also at 400 bytes),
+    a table starting 8 bytes past a 16-byte boundary (the narrower
+    register moves, not the bulk path), bf16 at D = 100 (200-byte rows)
+    and a table of more than 2^31 elements gathered at its last rows."""
+    def ids(n, m, dtype=torch.int32):
+        return torch.randint(0, n, (m,), device="cuda", generator=gen,
+                             dtype=dtype)
+    kge = randn(14_951, KGE_DIM)
+    flat = randn(2 + 14_951 * KGE_DIM)
+    shifted = flat[2:2 + 14_951 * KGE_DIM].view(14_951, KGE_DIM)
+    cases = [("rows1600_m1", kge, ids(14_951, 1)),
+             ("rows1600_m1023", kge, ids(14_951, 1023, torch.int64)),
+             ("rows1600_m1024", kge, ids(14_951, 1024)),
+             ("rows1600_hub", kge, torch.full((2304,), 7, device="cuda",
+                                               dtype=torch.int64)),
+             ("rows1600_repeats", kge, ids(6, 2304)),
+             ("rows400_repeats", randn(14_951, 100), ids(6, 2304)),
+             ("rows1600_shifted8", shifted, ids(14_951, 2304)),
+             ("rows200_bf16", randn(14_951, 100, dtype=torch.bfloat16),
+              ids(14_951, 2305, torch.int64))]
+    records = gather_records(torch, gather, cases, None, 0, card,
+                             timed=False)
+    del kge, flat, shifted, cases
+    n = 5_400_000               # x 400 f32: 2.16e9 elements, 8.6 GB
+    big = torch.zeros(n, KGE_DIM, device="cuda")
+    big[-4096:] = randn(4096, KGE_DIM)
+    last = ids(4096, 3000, torch.int64) + (n - 4096)
+    records += gather_records(torch, gather, [
+        ("over_2e31_elements", big, last),
+        ("over_2e31_elements", big, last.int())], None, 0, card,
+        timed=False)
+    del big
+    torch.cuda.empty_cache()
+    return records
+
+
 def kernel_phase(torch, args, ops, trainer, mb, card: str):
     """Every kernel against its plain version on the card: at the
     serving shapes, at the training step's own shapes (one sampled
@@ -579,6 +658,8 @@ def kernel_phase(torch, args, ops, trainer, mb, card: str):
     ]
     records += gather_records(torch, gather, gather_cases, flush,
                               args.iters, card)
+    floor_record(torch, flush, args.iters, card)
+    records += gather_edge_records(torch, gather, randn, gen, card)
     g1 = randn(BATCH_TRAIN, HIDDEN)
     # every dst row of block 1 names source row 7 (in its first slot)
     hub_nbr, hub_mask = nbr1.clone(), mask1.clone()
@@ -1976,6 +2057,103 @@ def kge_device_ms(torch, tr, batches) -> dict:
                 device_ms=float(mean[2]), h2d_bytes=int(mean[3]))
 
 
+KGE_PROFILE_STEPS = 5   # KGETrainer steps traced by torch.profiler
+
+
+def short_kernel_name(name: str) -> str:
+    """A device kernel's name without its return type, namespace and
+    arguments."""
+    for junk in ("void ", "(anonymous namespace)::"):
+        name = name.replace(junk, "")
+    return (name.split("(", 1)[0].strip() or name)[:100]
+
+
+def kernel_kind(name: str) -> str:
+    """What launched a device kernel of the KGE step: one of the port's
+    kernels (the relation and entity pushes are told apart by order),
+    cuBLAS, a copy, or one of PyTorch's plain ops."""
+    if "gather_rows" in name:
+        return "gather_rows"
+    if "segment_sum_kernel" in name:
+        return "scatter_first"
+    if "add_partials_kernel" in name:
+        return "scatter_second"
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "cublas", "cutlass", "xmma")):
+        return "cublas"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "plain"
+
+
+def kge_profile(torch, tr, batches, card: str) -> None:
+    """``KGE_PROFILE_STEPS`` steps of ``tr`` (their host steps built
+    first) under ``torch.profiler`` with CPU and CUDA activities: device
+    µs per step of each kernel, the port's split out (the relation
+    push, a step's first ``scatter_add_rows``, by its first and its
+    dependent second launch; the entity push), launches per step, and
+    the host µs per step of the 10 CPU ops with the most self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = len(batches)
+    hss = [tr.host_step([b]) for b in batches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for hs in hss:
+            tr.device_step(hs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    check(events, "the profiler recorded no device event")
+    by_name, count, by_kind = {}, {}, {}
+    pushes = {"relation_first": 0.0, "relation_second": 0.0,
+              "entity_first": 0.0, "entity_second": 0.0}
+    firsts, push = 0, "relation"
+    for e in events:
+        us_ = e.time_range.elapsed_us()
+        name = short_kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + us_
+        count[name] = count.get(name, 0) + 1
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us_
+        if kind == "scatter_first":
+            # a step pushes the relation rows, then the entity rows
+            push = "relation" if firsts % 2 == 0 else "entity"
+            firsts += 1
+            pushes[f"{push}_first"] += us_
+        elif kind == "scatter_second":
+            pushes[f"{push}_second"] += us_
+    check(firsts == 2 * steps, f"{firsts} scatter first launches in {steps} "
+          f"steps, not 2 a step")
+    check(by_kind.get("gather_rows", 0) > 0, "no gather_rows device time")
+    cpu = sorted((a for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU),
+                 key=lambda a: a.self_cpu_time_total, reverse=True)
+    emit(phase="kge", part="profile", card=card, trainer="KGETrainer",
+         steps=steps, wall_ms_per_step=wall_ms / steps,
+         device_us_per_step=sum(by_kind.values()) / steps,
+         launches_per_step=len(events) / steps,
+         device_us_per_step_by_kind={k: v / steps
+                                     for k, v in sorted(by_kind.items())},
+         push_us_per_step={k: v / steps for k, v in pushes.items()},
+         by_kernel=sorted(({"name": k, "us_per_step": v / steps,
+                          "launches_per_step": count[k] / steps}
+                         for k, v in by_name.items()),
+                        key=lambda r: -r["us_per_step"]),
+         host_top10=[{"op": a.key,
+                      "self_cpu_us_per_step": a.self_cpu_time_total / steps,
+                      "cpu_us_per_step": a.cpu_time_total / steps,
+                      "calls_per_step": a.count / steps}
+                     for a in cpu[:10]],
+         host_self_cpu_us_per_step=sum(a.self_cpu_time_total
+                                       for a in cpu) / steps)
+
+
 def kge_train(torch, args, wrappers, ds, card: str):
     """``KGETrainer`` on the card, ``KGE_STEPS`` steps (the main path),
     with its launches checked against 2 gathers and 2 scatters a step;
@@ -2008,6 +2186,8 @@ def kge_train(torch, args, wrappers, ds, card: str):
     it = kge_stream(td, 0, (args.seed + 10, args.seed + 11))
     probe = [next(it) for _ in range(9)]
     dev = kge_device_ms(torch, tr, probe)
+    kge_profile(torch, tr, [next(it) for _ in range(KGE_PROFILE_STEPS)],
+                card)
     step_ms = np.asarray(out["step_s"]) * 1e3
     emit(phase="kge", part="train", card=card, trainer="KGETrainer",
          model="ComplEx", dim=KGE_DIM, entities=ds.n_entities,

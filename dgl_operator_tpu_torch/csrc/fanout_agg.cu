@@ -58,15 +58,12 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <utility>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
 constexpr int kStages = 2;          // bulk path: ring depth per warp
 constexpr int kMaxWarps = 8;        // bulk path: warps per block
 constexpr int kBarBytes = 128;      // bulk path: mbarriers, then stages
@@ -77,6 +74,12 @@ constexpr int kBarBytes = 128;      // bulk path: mbarriers, then stages
 constexpr int64_t kBulkMinRowBytes = 512;
 constexpr int kRowsPerBlock = 8;    // register path: one warp a row
 constexpr int kInFlight = 4;        // register path: row loads in flight
+
+// VW consecutive elements moved as one aligned load or store
+template <typename T, int VW>
+struct alignas(sizeof(T) * VW) Pack {
+  T v[VW];
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -92,52 +95,6 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// VW consecutive elements moved as one aligned load or store
-template <typename T, int VW>
-struct alignas(sizeof(T) * VW) Pack {
-  T v[VW];
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(1)
-               : "memory");
-}
-
-// arrive once and expect `bytes` of copies before the phase completes
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // Issue the bulk copies of dst row `row`'s valid neighbour rows into
@@ -344,58 +301,15 @@ struct Config {
   int64_t smem, blocks, stage_bytes;
 };
 
-// What a launch asks of the runtime besides the launch, read once per
-// device (SMs, opt-in shared memory) and per (device, kernel, shared
-// bytes) (resident blocks per SM; a bulk kernel is first allowed the
-// device's whole opt-in shared memory), then kept for later launches.
-std::mutex g_mu;
-std::map<int, std::pair<int, int>> g_device;   // dev -> (sms, optin)
-std::map<std::tuple<int, const void*, int64_t>, int> g_resident;
-
-cudaError_t device_info(int* dev, int* sms, int* optin) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(g_mu);
-  auto it = g_device.find(*dev);
-  if (it == g_device.end()) {
-    int s = 0, o = 0;
-    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &o, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
-    if (err != cudaSuccess) return err;
-    it = g_device.emplace(*dev, std::make_pair(s, o)).first;
-  }
-  *sms = it->second.first;
-  *optin = it->second.second;
-  return cudaSuccess;
-}
-
 template <typename K>
 cudaError_t resident_blocks(K kernel, int dev, int sms, int optin, int warps,
                             int64_t smem, int64_t nd, int64_t* blocks) {
-  const auto key =
-      std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
   int per_sm = 0;
-  {
-    std::lock_guard<std::mutex> lock(g_mu);
-    auto it = g_resident.find(key);
-    if (it == g_resident.end()) {
-      cudaError_t err = cudaSuccess;
-      // above 48 KB only once the kernel is allowed that much
-      if (smem > 0)
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, warps * kWarp, static_cast<size_t>(smem));
-      if (err != cudaSuccess) return err;
-      it = g_resident.emplace(key, per_sm).first;
-    }
-    per_sm = it->second;
-  }
+  const cudaError_t err =
+      resident_per_sm(kernel, dev, optin, warps * kWarp, smem, &per_sm);
+  if (err != cudaSuccess) return err;
   *blocks = std::min<int64_t>((nd + warps - 1) / warps,
-                              static_cast<int64_t>(std::max(per_sm, 1)) * sms);
+                              static_cast<int64_t>(per_sm) * sms);
   return cudaSuccess;
 }
 

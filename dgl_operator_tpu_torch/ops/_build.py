@@ -3,8 +3,9 @@ use and load them.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``dgl_operator_tpu_torch/_build/``, named by a hash of the source and
-the flags (an edited source rebuilds), and loaded with ``ctypes``. The
+``dgl_operator_tpu_torch/_build/``, named by a hash of the source, the
+``csrc/*.cuh`` headers it may include and the flags (an edited source
+or header rebuilds), and loaded with ``ctypes``. The
 sources include no PyTorch header, so a build takes seconds.
 
 ``native/graphcore.cc``, the host graph core under the sampler and the
@@ -113,11 +114,23 @@ def _compile(path: str, compiler: Callable[[], str],
     return BuildResult(lib, seconds, log)
 
 
+def _headers_digest() -> str:
+    """A hash of every ``csrc/*.cuh`` header, which the sources include:
+    an edited header rebuilds every kernel."""
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                digest.update(name.encode() + f.read())
+    return digest.hexdigest()
+
+
 def build(source: str) -> BuildResult:
     """Compile ``csrc/<source>`` with nvcc unless a build of this exact
-    source is already there; raises with nvcc's output when it fails."""
-    return _compile(os.path.join(CSRC, source), nvcc_path, NVCC_FLAGS, "",
-                    NVCC_TIMEOUT_S)
+    source and headers is already there; raises with nvcc's output when
+    it fails."""
+    return _compile(os.path.join(CSRC, source), nvcc_path, NVCC_FLAGS,
+                    _headers_digest(), NVCC_TIMEOUT_S)
 
 
 def build_host(source: str) -> BuildResult:

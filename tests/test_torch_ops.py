@@ -5,14 +5,17 @@ torch path on CPU tensors and must match ``dgl_operator_tpu.ops`` (its
 XLA path, and at D=128 its Pallas kernel in interpreter mode) to 1e-5.
 Cases cover masked slots, a dst row with no valid slot and the zero
 rows ``pad_minibatch`` appends. ``gather_rows`` must equal the JAX
-Pallas gather (interpreter mode) and its reference; the gradients of
+Pallas gather (interpreter mode; at the KGE width D = 400 its
+``jnp.take`` fallback) and its reference; the gradients of
 ``gather_rows`` and ``fanout_agg`` (the scatter-add backward) must
 equal ``jax.grad`` through the JAX ops to 1e-5; ``gspmm`` must equal
 the JAX ``gspmm``. ``scatter_plan`` (the host-built transpose the
 backward kernel sums over) must equal a brute-force loop, and the
 plain segmented sum over it must equal the plain scatter-add bit for
 bit. The CUDA kernels run only on a card: the tests marked ``cuda``
-hold them against their plain versions there and skip here.
+hold them against their plain versions there (the gather bit for bit
+at each edge of its register and bulk paths, and past 2^31 elements)
+and skip here.
 """
 
 import jax
@@ -199,6 +202,20 @@ def test_gather_rows_matches_pallas_and_reference(d, idx_dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
         got.numpy(), pallas_gather.gather_rows_reference(table, idx))
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gather_rows_matches_pallas_at_the_kge_width(idx_dtype):
+    """At D = 400 (the KGE tables' 1,600-byte rows) ``gather_rows_pallas``
+    does not reach its Pallas kernel, which takes D % 128 == 0 only: it
+    falls back to ``jnp.take``, and the port must equal that."""
+    table, idx = _gather_case(400, 300, 400, 96)
+    assert not pallas_gather.supported(400)
+    got = gather.gather_rows(torch.from_numpy(table),
+                             torch.from_numpy(idx).to(idx_dtype))
+    want = pallas_gather.gather_rows_pallas(
+        jnp.asarray(table), jnp.asarray(idx, jnp.int32), True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("d", [37, 128])
@@ -560,6 +577,99 @@ def test_gather_kernel_matches_plain_on_card(n, m, d, dtype):
         torch.cuda.synchronize()
         assert gather.gather_rows.launches == before + (1 if m else 0)
         assert torch.equal(got, gather.gather_rows_plain(table, idx))
+
+
+def _card_gather_case(case, dtype, g):
+    """(table, idx as int64) of one edge of the gather's two paths."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    n = 14_951
+
+    def ids(m, high=n):
+        return torch.randint(0, high, (m,), device="cuda", generator=g)
+    if case.startswith("rows1600_m"):        # the bulk path's rows
+        m = int(case[len("rows1600_m"):])
+        return (torch.randn(n, 1600 // item, device="cuda",
+                            generator=g).to(dtype), ids(m))
+    if case == "rows400_m2305":      # M not a multiple of a block's rows
+        return (torch.randn(n, 400 // item, device="cuda",
+                            generator=g).to(dtype), ids(2305))
+    if case.startswith("repeats"):   # 6 rows named over and over
+        d = int(case[len("repeats"):]) // item
+        return (torch.randn(n, d, device="cuda", generator=g).to(dtype),
+                ids(2304, 6))
+    if case == "period40":           # repeats 40 rows apart
+        return (torch.randn(n, 400 // item, device="cuda",
+                            generator=g).to(dtype),
+                torch.arange(2304, device="cuda") % 40)
+    if case == "hub":                # every id the same row
+        return (torch.randn(n, 1600 // item, device="cuda",
+                            generator=g).to(dtype),
+                torch.full((2304,), 7, device="cuda"))
+    if case == "shifted8":           # 8 bytes past a 16-byte boundary
+        d = 1600 // item
+        flat = torch.randn(8 // item + n * d, device="cuda",
+                           generator=g).to(dtype)
+        table = flat[8 // item:8 // item + n * d].view(n, d)
+        assert table.data_ptr() % 16 == 8
+        return table, ids(2304)
+    if case == "d100":               # 200-byte rows in bf16
+        return (torch.randn(n, 100, device="cuda", generator=g).to(dtype),
+                ids(2304))
+    assert case == "d37"
+    return (torch.randn(2048, 37, device="cuda", generator=g).to(dtype),
+            ids(512, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["rows1600_m1", "rows1600_m1023",
+                                  "rows1600_m1024", "rows1600_m2304",
+                                  "rows400_m2305", "hub", "repeats1600",
+                                  "repeats400", "period40", "shifted8",
+                                  "d100", "d37"])
+def test_gather_kernel_edges_on_card(case, dtype):
+    """Both paths of ``csrc/gather_rows.cu`` at their edges, bit for bit
+    against the plain gather with int32 and int64 ids: 1,600-byte rows
+    (the bulk path) at 1 row, one short of 1,024, 1,024 and 2,304 rows;
+    a row count no block size divides; one hub row; rows named again
+    and again within a block, at both widths, and 40 rows apart; a
+    table that starts 8 bytes past a 16-byte boundary, so it must take
+    narrower register moves; 200-byte rows (bf16 at D = 100) and
+    D = 37."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    table, idx = _card_gather_case(case, dtype, g)
+    for idx_dtype in (torch.int32, torch.int64):
+        i = idx.to(idx_dtype)
+        before = gather.gather_rows.launches
+        got = gather.gather_rows(table, i)
+        torch.cuda.synchronize()
+        assert gather.gather_rows.launches == before + 1
+        assert torch.equal(got, gather.gather_rows_plain(table, i))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_addresses_past_2e31_elements_on_card():
+    """A 5,400,000 x 400 float32 table (2.16e9 elements, 8.6 GB): its
+    last rows lie past 2^31 elements, and the gather must read them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n, d = 5_400_000, 400
+    g = torch.Generator(device="cuda").manual_seed(4)
+    table = torch.zeros(n, d, device="cuda")
+    table[-4096:] = torch.randn(4096, d, device="cuda", generator=g)
+    idx = torch.randint(n - 4096, n, (3000,), device="cuda", generator=g)
+    assert int(idx.min()) * d > 2 ** 31
+    try:
+        for idx_dtype in (torch.int32, torch.int64):
+            got = gather.gather_rows(table, idx.to(idx_dtype))
+            torch.cuda.synchronize()
+            assert got.abs().sum() > 0
+            assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    finally:
+        del table
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
