@@ -98,7 +98,29 @@ Each phase prints JSON lines:
    fails the run; (d) a ``kernel`` line of ``gather_rows`` at the
    two-rank owner-serve shape.
 
-12. ``kge`` — the DGL-KE slice at the reference job's width (ComplEx,
+12. ``device_sampler`` — the device sampler and ``steps_per_call``:
+   the card's draws, tree blocks (1,000 seeds, fanouts 10 and 25: caps
+   1,000, 26,000, 286,000), input ids and device-built tree plans equal
+   to the CPU's bit for bit, with the sampling's host and device ms;
+   ``kernel`` lines at the tree's shapes (``tree_feats``,
+   ``tree_block0``, ``tree_block1``, ``tree_block1_bwd`` over the
+   device-built plan); ``SampledTrainer`` with the device sampler over
+   the train phase's 40 steps at K = 1 and at K = 4 (a CUDA graph
+   replay a call), dropout 0.5, losses and parameters bit-equal,
+   launches per step (1 gather, 2 fanout, 1 scatter, graph replays
+   included), step, sample and dispatch ms and seeds/s; 5 device-sampler
+   steps against the CPU, synced as in phase 8; ``profile`` lines
+   (``torch.profiler`` over 5 calls) of the host sampler at K = 1 and
+   the device sampler at K = 1 and K = 4: wall ms, device µs, launches
+   per step by kernel, the device's idle share, the host's top ops;
+   ``DistTrainer`` with the device sampler over phase 10's book and
+   weights, each layout at K = 1 and K = 4, all bit-equal; the same at
+   K = 4 under an in-process NCCL group of world size 1 (captured); two
+   ranks through ``examples/train_dist.py --sampler device`` over gloo
+   (owner layout) within 1e-6 relative of one process; and a resume at
+   K = 2 cut after 10 of 20 steps, bit-exact.
+
+13. ``kge`` — the DGL-KE slice at the reference job's width (ComplEx,
    dim 400, gamma 143, lr 0.25, batch 1024, 256 negatives shared by the
    batch, ``-adv`` at temperature 1) on synthetic FB15k at full size
    (14,951 entities, 1,345 relations, 483,142 train triples):
@@ -125,10 +147,12 @@ Each phase prints JSON lines:
    each other and the CPU.
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
-launches during the serving, training, dist, dist_mp and kge phases
-(both ranks of each two-rank run included), split by path, worst
-error, the times of its calls in one SAGE training step and, under
-``kge``, in one KGE step), the nvidia-smi line, and
+launches during the serving, training, dist, dist_mp, device_sampler
+and kge phases (both ranks of each two-rank run and every graph replay
+included), split by path, worst error, the times of its calls in one
+SAGE training step and, under ``kge``, in one KGE step and, under
+``device_sampler``, in one device-sampled step), the nvidia-smi line,
+and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -1037,7 +1061,37 @@ def step_device_ms(torch, trainer, mbs):
               + plan_bytes + mb.input_nodes.nbytes + mb.seeds.nbytes)
     return dict(sample_ms=mean[0], plan_ms=mean[1], h2d_ms=mean[2],
                 h2d_bytes=int(nbytes), plan_bytes=int(plan_bytes),
-                forward_ms=mean[3], backward_ms=mean[4], adam_ms=mean[5])
+                forward_ms=mean[3], backward_ms=mean[4], adam_ms=mean[5],
+                **adam_flag_ms(torch, list(trainer.model.parameters())))
+
+
+def adam_flag_ms(torch, params, n: int = 10) -> dict:
+    """Device ms of an Adam step on copies of ``params`` and their
+    gradients, plain and ``capturable``, alternated over ``n`` steps
+    after one that allocates the state (the queue filled first, as in
+    ``step_device_ms``): what the flag costs a step that is never
+    captured."""
+    import numpy as np
+
+    opts = {}
+    for cap in (False, True):
+        copies = [p.detach().clone().requires_grad_() for p in params]
+        for c, p in zip(copies, params):
+            c.grad = p.grad.detach().clone()
+        opts[cap] = torch.optim.Adam(copies, lr=LR, capturable=cap)
+    ms = {False: [], True: []}
+    for i in range(n + 1):
+        for cap, opt in opts.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(10_000_000)
+            ev[0].record()
+            opt.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            if i:
+                ms[cap].append(ev[0].elapsed_time(ev[1]))
+    return dict(adam_plain_copy_ms=float(np.mean(ms[False])),
+                adam_capturable_copy_ms=float(np.mean(ms[True])))
 
 
 def train_phase(torch, args, wrappers, trainer, card: str):
@@ -1176,27 +1230,30 @@ class Killed(RuntimeError):
 
 
 def resume_check(torch, name, make, w0, want, kill_at: int, ckpt_dir: str,
-                 card: str) -> None:
+                 card: str, method: str = "train_step") -> None:
     """``make(**fields)`` builds a fresh trainer whose ``TrainConfig``
     takes ``fields``. A run from the weights ``w0`` (a flax params
     tree) that checkpoints every ``kill_at`` steps dies as it begins
-    step ``kill_at + 1``; a fresh trainer resumes it from the newest
-    checkpoint and must end on the uninterrupted run's parameters and
-    losses (``want``) bit for bit."""
+    step ``kill_at + 1`` (the trainer's ``method``: ``train_step``, one
+    step a call, or ``train_call``, whose losses count its steps); a
+    fresh trainer resumes it from the newest checkpoint and must end on
+    the uninterrupted run's parameters and losses (``want``) bit for
+    bit."""
     from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                            train_state)
 
     want_params, want_losses = want
     first = make(ckpt_dir=ckpt_dir, ckpt_every=kill_at)
-    step, taken = first.train_step, []
+    step, taken = getattr(first, method), []
 
     def dying_step(batch):
-        if len(taken) == kill_at:
-            raise Killed(f"{name}: killed after {kill_at} steps")
-        taken.append(1)
-        return step(batch)
+        if len(taken) >= kill_at:
+            raise Killed(f"{name}: killed after {len(taken)} steps")
+        out = step(batch)
+        taken.extend([1] * (len(out[0]) if method == "train_call" else 1))
+        return out
 
-    first.train_step = dying_step
+    setattr(first, method, dying_step)
     try:
         first.train(init_params=w0)
         cut = False
@@ -1888,6 +1945,521 @@ def dist_mp_phase(torch, args, ops, wrappers, ctx, work: str, card: str):
     return {k: nccl[k] + ranks[k] for k in nccl}, records
 
 
+# ------------------------------------------------------- device sampler
+DEV_K = 4              # steps_per_call of the captured runs
+DEV_RESUME_K = 2       # the device-mode resume: calls of 2 steps
+DEV_CPU_STEPS = 5      # device-sampler steps of the card-against-CPU check
+PROFILE_CALLS = 5      # calls traced by torch.profiler in each mode
+PROFILE_TRACES = 3     # traces of a mode until its kernel counts match
+
+
+def gnn_kernel_kind(name: str) -> str:
+    """What launched a device kernel of a GNN step: one of the port's
+    kernels, cuBLAS, a copy, or one of PyTorch's plain ops."""
+    for kernel, key in (("fanout_agg", "fanout_agg"),
+                        ("gather_rows", "gather_rows"),
+                        ("scatter_add_rows", "segment_sum_kernel"),
+                        ("scatter_add_rows", "add_partials_kernel")):
+        if key in name:
+            return kernel
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "cublas", "cutlass", "xmma")):
+        return "cublas"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "plain"
+
+
+def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
+                card: str) -> dict:
+    """``PROFILE_CALLS`` calls of ``run_call()`` (``steps_per_call``
+    steps each, warmed up by one call before) under ``torch.profiler``
+    with CPU and CUDA activities: wall ms, device µs and launches per
+    step, device µs per step by kernel kind and by kernel, the device's
+    idle share of the wall time, and the host µs per step of the 10 CPU
+    ops with the most self time. Each kernel's launches in the trace
+    must equal what its wrapper counted over the traced calls: in a
+    graph replay, the counts ``GraphedCall`` adds. The tracer has
+    dropped a step's kernels from a trace (one of 20 steps, once), so a
+    mode is traced again, up to ``PROFILE_TRACES`` times, until the two
+    agree; the record keeps the disagreements."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_call()
+    torch.cuda.synchronize()
+    steps = PROFILE_CALLS * steps_per_call
+    misses = []
+    for _ in range(PROFILE_TRACES):
+        before = read_counts(wrappers)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # idle margins inside the trace's window on both sides
+            time.sleep(0.005)
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_CALLS):
+                run_call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(0.005)
+        counted = {k: v - before[k]
+                   for k, v in read_counts(wrappers).items()}
+        # the device-side copies of host annotations (Adam's step range)
+        # span kernels counted on their own
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("Optimizer.")]
+        check(events,
+              f"profile {mode}: the profiler recorded no device event")
+        # one event a wrapper's launch (a long-target scatter plan's
+        # second kernel, add_partials_kernel, is not a launch of its own)
+        traced = {w: sum(key in e.name for e in events)
+                  for w, key in (("fanout_agg", "fanout_agg"),
+                                 ("gather_rows", "gather_rows"),
+                                 ("scatter_add_rows", "segment_sum_kernel"))}
+        if traced == counted:
+            break
+        misses.append({"traced": traced, "counted": counted})
+    check(traced == counted, f"profile {mode}: in {PROFILE_TRACES} traces "
+          f"the kernel launches differ from the wrappers' counts: {misses}")
+    by_name, count, by_kind = {}, {}, {}
+    for e in events:
+        us_ = e.time_range.elapsed_us()
+        name = short_kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + us_
+        count[name] = count.get(name, 0) + 1
+        kind = gnn_kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us_
+    for kernel in ("fanout_agg", "gather_rows", "scatter_add_rows"):
+        check(by_kind.get(kernel, 0.0) > 0,
+              f"profile {mode}: no {kernel} device time")
+    cpu = sorted((a for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU),
+                 key=lambda a: a.self_cpu_time_total, reverse=True)
+    device_us = sum(by_kind.values()) / steps
+    rec = dict(phase="device_sampler", part="profile", card=card, mode=mode,
+               steps_per_call=steps_per_call, calls=PROFILE_CALLS,
+               steps=steps, device_events_recorded=bool(events),
+               launches_traced_per_step={k: v / steps
+                                         for k, v in traced.items()},
+               trace_misses=misses,
+               wall_ms_per_step=wall_ms / steps,
+               device_us_per_step=device_us,
+               device_idle_share=1.0 - device_us * 1e-3 / (wall_ms / steps),
+               launches_per_step=len(events) / steps,
+               device_us_per_step_by_kind={k: v / steps for k, v in
+                                           sorted(by_kind.items())},
+               by_kernel=sorted(({"name": k, "us_per_step": v / steps,
+                                  "launches_per_step": count[k] / steps}
+                                 for k, v in by_name.items()),
+                                key=lambda r: -r["us_per_step"])[:25],
+               host_top10=[{"op": a.key,
+                            "self_cpu_us_per_step":
+                                a.self_cpu_time_total / steps,
+                            "calls_per_step": a.count / steps}
+                           for a in cpu[:10]],
+               host_self_cpu_us_per_step=sum(a.self_cpu_time_total
+                                             for a in cpu) / steps)
+    emit(**rec)
+
+
+def tree_check_phase(torch, args, ops, tr, card: str):
+    """The card's draws, tree blocks, input ids and tree plans against
+    the CPU's for one batch of the training stream (bit for bit, the key
+    given as an int and as a device step counter), the sampling's host
+    and device ms, then each kernel against its plain version at the
+    tree's shapes. Returns the kernel records."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
+                                                          device_csr,
+                                                          draw_key,
+                                                          tree_draws)
+    from dgl_operator_tpu_torch.ops.scatter import ScatterPlan
+
+    fanout, gather, scatter = ops
+    seeds_np = tr.train_ids[:BATCH_TRAIN].astype(np.int32)
+    seeds = torch.from_numpy(seeds_np).to("cuda")
+    key = draw_key(args.seed, 7)
+    counter = torch.full((1,), 7, dtype=torch.int64, device="cuda")
+    card_draws = tree_draws(draw_key(args.seed, counter),
+                            tr._tree.counters, FANOUTS)
+    cpu_tree = TreeSampler(BATCH_TRAIN, FANOUTS, "cpu")
+    cpu_draws = tree_draws(key, cpu_tree.counters, FANOUTS)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card_draws,
+                                                      cpu_draws)),
+          "the card's draws differ from the CPU's")
+    blocks, inputs = tr._tree.sample(tr._indptr, tr._indices, seeds, key)
+    ip, ix = device_csr(tr.csc, "cpu")
+    cblocks, cinputs = cpu_tree.sample(ip, ix, torch.from_numpy(seeds_np),
+                                       key)
+    check(torch.equal(inputs.cpu(), cinputs), "input ids differ")
+    for b, c in zip(blocks, cblocks):
+        check(b.num_src == c.num_src and torch.equal(b.nbr.cpu(), c.nbr)
+              and torch.equal(b.mask.cpu(), c.mask), "tree blocks differ")
+    for k in ScatterPlan.FIELDS:
+        check(torch.equal(getattr(blocks[1].plan, k).cpu(),
+                          getattr(cblocks[1].plan, k)),
+              f"the card's tree plan {k} differs from the CPU's")
+    torch.cuda.synchronize()
+    sample_host_ms = host_ms(lambda: tr._tree.sample(
+        tr._indptr, tr._indices, seeds, key), 20)
+    sample_ms = time_warm_ms(torch, lambda: tr._tree.sample(
+        tr._indptr, tr._indices, seeds, key), args.iters)
+    emit(phase="device_sampler", part="draws_cpu", card=card,
+         seeds=BATCH_TRAIN, caps=tr.caps,
+         draws=[list(d.shape) for d in card_draws],
+         valid_slots=[int((b.mask > 0).sum()) for b in blocks],
+         unique_inputs=int(inputs.unique().numel()),
+         plan_nnz=int(blocks[1].plan.offsets[-1]),
+         draws_equal=True, blocks_equal=True, inputs_equal=True,
+         plan_equal=True, sample_host_ms=sample_host_ms,
+         sample_device_ms=sample_ms)
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 9)
+    b0, b1 = blocks
+    records = gather_records(torch, gather, [("tree_feats", tr.feats,
+                                               inputs)],
+                             flush, args.iters, card)
+    h1 = torch.randn(b1.num_src, HIDDEN, device="cuda", generator=gen)
+    records += fanout_records(torch, fanout, [
+        ("tree_block0", gather.gather_rows(tr.feats, inputs), b0.nbr,
+         b0.mask),
+        ("tree_block1", h1, b1.nbr, b1.mask)], flush, args.iters, card)
+    g1 = torch.randn(BATCH_TRAIN, HIDDEN, device="cuda", generator=gen)
+    records += scatter_records(torch, scatter, [
+        ("tree_block1_bwd", g1, b1.nbr, b1.mask, b1.num_src, True,
+         b1.plan)], flush, args.iters, card)
+    return records
+
+
+def device_run_record(rec: dict, steps: int, k: int) -> dict:
+    """Step numbers of one device-sampler epoch record of calls of
+    ``k`` steps: host ms per step (a replay returns before the card
+    finishes, so a call's host time is its enqueue), and the epoch's
+    wall time, which ends in a sync, per step after the first call (the
+    warm-up and capture at K > 1)."""
+    import numpy as np
+
+    step_ms = np.asarray(rec["step_s"]) * 1e3
+    first_ms = float(step_ms[:k].sum())
+    return dict(first_call_ms=first_ms,
+                steady_ms_per_step=(rec["time"] * 1e3 - first_ms)
+                / max(steps - k, 1),
+                step_ms_mean=float(step_ms.mean()),
+                step_ms_p50=float(np.percentile(step_ms, 50)),
+                **{f"{k}_ms_per_step": rec.get(k, 0.0) * 1e3 / steps
+                   for k in ("sample", "stall", "dispatch")},
+                seeds_per_sec=rec["seeds_per_sec"], epoch_s=rec["time"],
+                calls=rec["calls"], graph=rec["graph"],
+                graph_replays=rec["graph_replays"])
+
+
+def device_sampled_phase(torch, args, wrappers, g, trainer, card: str):
+    """``SampledTrainer`` with the device sampler over the train phase's
+    40,000 ids (40 steps, dropout 0.5): K = 1 and K = 4 (a CUDA graph a
+    call), losses and parameters bit-equal, launches per step; then 5
+    steps on the card against the CPU (dropout 0, synced as in
+    ``train_cpu``), and the ``profile`` lines of host K = 1, device
+    K = 1 and device K = 4. Returns the launches of the two runs."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 3)).state_dict())
+
+    def make(device="cuda", **fields):
+        cfg = TrainConfig(**{**dict(
+            batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR, num_epochs=1,
+            eval_every=0, seed=args.seed, sampler="device"), **fields})
+        return SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device=device),
+                              g, cfg, train_ids=trainer.train_ids,
+                              device=device)
+
+    runs, total = {}, {}
+    for K in (1, DEV_K):
+        tr = make(steps_per_call=K)
+        # the main path: every kernel count starts at 0 here
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = tr.train(init_params=w0)
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        steps = out["step"]
+        rec = out["history"][0]
+        check(steps == len(trainer.train_ids) // BATCH_TRAIN
+              == len(rec["losses"]), f"device K={K}: {steps} steps")
+        # the warm-up forward adds 1 gather and 2 aggregations
+        check(launches == {"fanout_agg": 2 * steps + 2,
+                           "gather_rows": steps + 1,
+                           "scatter_add_rows": steps},
+              f"device K={K}: per step 1 gather_rows, 2 fanout_agg, 1 "
+              f"scatter_add_rows: {launches} in {steps} steps")
+        check(bool(np.isfinite(rec["losses"]).all()), "finite losses")
+        check(rec["graph"] is (K > 1), f"device K={K}: graph {rec['graph']}")
+        if K > 1:
+            check(rec["graph_replays"] == steps // K - 1,
+                  f"{rec['graph_replays']} replays of {steps // K} calls")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs[K] = (tr, out)
+        emit(phase="device_sampler", part="sampled", card=card,
+             steps_per_call=K, steps=steps, seeds=steps * BATCH_TRAIN,
+             caps=tr.caps, launches=launches,
+             launches_per_step={k: (v - {"fanout_agg": 2, "gather_rows": 1}
+                                    .get(k, 0)) / steps
+                                for k, v in launches.items()},
+             loss_first5=float(np.mean(rec["losses"][:5])),
+             loss_last5=float(np.mean(rec["losses"][-5:])),
+             losses=rec["losses"], train_call_s=wall,
+             **device_run_record(rec, steps, K))
+    (_, one), (tr4, four) = runs[1], runs[DEV_K]
+    check(one["history"][0]["losses"] == four["history"][0]["losses"],
+          f"device K={DEV_K} losses differ from K=1: "
+          f"{four['history'][0]['losses']} vs {one['history'][0]['losses']}")
+    check(all(torch.equal(v, one["params"][k])
+              for k, v in four["params"].items()),
+          f"device K={DEV_K} parameters differ from K=1")
+    emit(phase="device_sampler", part="sampled_k_equal", card=card,
+         steps_per_call=[1, DEV_K], dropout=0.5, losses_bit_equal=True,
+         params_bit_equal=True)
+
+    # the card against the CPU, each step from the CPU's state
+    cpu_card = [make(device=dev, dropout=0.0) for dev in ("cuda", "cpu")]
+    ids = np.random.default_rng(args.seed).permutation(trainer.train_ids)
+    for tr_ in cpu_card:
+        tr_.model.load_state_dict({k: v.to(tr_.device) for k, v in
+                                   one["params"].items()})
+        tr_._start_device_run(len(ids) // BATCH_TRAIN).stage([ids])
+    gl, cl, gaps, (gs, cs) = synced_step_gaps(
+        torch, *cpu_card, list(range(DEV_CPU_STEPS)),
+        lambda tr_, b: tr_.train_call((b, b, 1))[0][0])
+    rel, worst = check_step_gaps("device_sampler", gl, cl, gaps)
+    emit(phase="device_sampler", part="sampled_cpu", card=card,
+         steps=DEV_CPU_STEPS, synced=True, card_losses=gl, cpu_losses=cl,
+         loss_rel_err=rel, grad_rel_err_max=worst, card_s=gs, cpu_s=cs)
+
+    # the traces: host K = 1 (the train phase's trainer), device K = 1,
+    # device K = 4
+    rng = np.random.default_rng(args.seed + 4)
+    mbs = iter([trainer.sample(rng.choice(trainer.train_ids, BATCH_TRAIN,
+                                          replace=False), 20_000 + i)
+                for i in range(PROFILE_CALLS + 1)])
+    gnn_profile(torch, wrappers, "host_k1", 1,
+                lambda: trainer.train_step(next(mbs)), card)
+    spe = len(ids) // BATCH_TRAIN
+    for K, (tr, _) in runs.items():
+        tr._start_device_run(spe).stage([ids])
+        gnn_profile(torch, wrappers, f"device_k{K}", K,
+                    bank_calls(tr, K, spe), card)
+        tr._run = None
+    return total
+
+
+def bank_calls(tr, k: int, spe: int):
+    """A device-sampler trainer's next call of ``k`` steps, from bank
+    rows that cycle within an epoch of ``spe`` steps."""
+    calls = iter(range(10**6))
+
+    def run_call():
+        c = next(calls)
+        b = (c * k) % (spe - k + 1)
+        return tr.train_call((b, c * k, k))
+    return run_call
+
+
+def device_dist_phase(torch, args, wrappers, ctx, work: str, card: str):
+    """``DistTrainer`` with the device sampler over the dist phase's book
+    and weights (20 steps an epoch): each layout at K = 1 and K = 4, all
+    four bit-equal; the same at K = 4 under an in-process NCCL group of
+    world size 1 (captured); two ranks through ``examples/train_dist.py
+    --sampler device`` over gloo (owner layout); and a device-mode resume
+    at K = 2 cut after 10 of the 20 steps. Returns the launches."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    make, w0 = ctx["make"], ctx["w0"]
+    P = 2
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def want_launches(layout, steps, group):
+        # replicated: a gather a slot; owner: one gather over every
+        # slot's requests (a process's, in a group)
+        gathers = P if layout == "replicated" else 1
+        return {"fanout_agg": 2 * P * steps, "gather_rows": gathers * steps,
+                "scatter_add_rows": P * steps}
+
+    want = None
+    profiled = {}
+    for layout in LAYOUTS:
+        for K in (1, DEV_K):
+            tr = make(layout, sampler="device", steps_per_call=K,
+                      eval_every=0)
+            profiled[layout, K] = tr
+            # the main path: every kernel count starts at 0 here
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = tr.train(init_params=w0)
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            rec = out["history"][0]
+            check(launches == want_launches(layout, steps, False),
+                  f"dist device {layout} K={K}: {launches} in {steps} steps")
+            check(rec["graph"] is (K > 1), f"dist device {layout} K={K}: "
+                  f"graph {rec['graph']}")
+            check(bool(np.isfinite(rec["losses"]).all()), "finite losses")
+            add(launches)
+            if want is None:
+                want = ({k: v.clone() for k, v in out["params"].items()},
+                        rec["losses"])
+            check(rec["losses"] == want[1], f"dist device {layout} K={K}: "
+                  f"losses {rec['losses']} differ from replicated K=1's "
+                  f"{want[1]}")
+            check(all(torch.equal(v, want[0][k])
+                      for k, v in out["params"].items()),
+                  f"dist device {layout} K={K}: parameters differ")
+            emit(phase="device_sampler", part="dist", card=card,
+                 layout=layout, steps_per_call=K, parts=P, steps=steps,
+                 seeds=steps * P * BATCH_TRAIN, caps=tr.caps,
+                 launches=launches,
+                 launches_per_step={k: v / steps for k, v in
+                                    launches.items()},
+                 bit_equal_to_replicated_k1=True, losses=rec["losses"],
+                 h2d_bytes_per_step=rec["h2d_bytes_per_step"],
+                 halo_rows_per_step=rec.get("halo_rows_per_step"),
+                 exchange_bytes_per_step=tr.exchange_bytes_per_step,
+                 train_call_s=wall, **device_run_record(rec, steps, K))
+
+    perm = profiled["replicated", 1]._permute(np.random.default_rng(
+        args.seed))
+    for (layout, K), tr in profiled.items():
+        tr._start_device_run().stage(perm)
+        gnn_profile(torch, wrappers, f"dist_{layout}_device_k{K}", K,
+                    bank_calls(tr, K, tr.steps_per_epoch), card)
+        tr._run = None
+    del profiled
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=MP_CHILD_TIMEOUT_S))
+    try:
+        for layout in LAYOUTS:
+            tr = make(layout, sampler="device", steps_per_call=DEV_K,
+                      eval_every=0)
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = tr.train(init_params=w0)
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            rec = out["history"][0]
+            check(rec["graph"] is True, "NCCL: the K-step call is a graph")
+            check(rec["losses"] == want[1] and all(
+                torch.equal(v, want[0][k]) for k, v in
+                out["params"].items()), f"NCCL device {layout}: losses "
+                f"{rec['losses']} or parameters differ from one process's")
+            check(launches == want_launches(layout, steps, True),
+                  f"NCCL device {layout}: {launches} in {steps} steps")
+            add(launches)
+            emit(phase="device_sampler", part="nccl_world1", card=card,
+                 layout=layout, backend=dist.get_backend(), world_size=1,
+                 steps_per_call=DEV_K, steps=steps, launches=launches,
+                 bit_identical_to_single_process=True, train_call_s=wall,
+                 **device_run_record(rec, steps, DEV_K))
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the NCCL group is gone")
+
+    layout = "owner"
+    tmp = os.path.join(work, "mp_device")
+    os.makedirs(tmp, exist_ok=True)
+    argv = ["--graph_name", "ogbn-products", "--ip_config",
+            two_rank_hostfile(tmp), "--part_config", ctx["book"],
+            "--num_epochs", "1", "--batch_size", str(BATCH_TRAIN),
+            "--fan_out", ",".join(map(str, FANOUTS)), "--lr", str(LR),
+            "--num_hidden", str(HIDDEN), "--num_classes", str(CLASSES),
+            "--eval_every", "1", "--feats_layout", layout,
+            "--sampler", "device", "--device", "cuda:0", "--backend",
+            "gloo", "--seed", str(ctx["seed"])]
+    probe_port = free_port()
+    t0 = time.perf_counter()
+    run_two_ranks(DIST_MP_CHILD, lambda r: {
+        "repo": REPO, "argv": argv, "out": os.path.join(tmp, f"rank{r}"),
+        "probe_port": probe_port, "pair_cap": 64, "feat": FEAT}, tmp,
+        "device two ranks")
+    wall = time.perf_counter() - t0
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    losses = res[0]["losses"]
+    check(res[1]["losses"] == losses, "device two ranks: losses differ")
+    rel = np.abs(np.subtract(losses, want[1])) / np.abs(want[1])
+    check(len(losses) == len(want[1]) and float(rel.max()) <= 1e-6,
+          f"device two ranks: losses {losses} vs one process's {want[1]}: "
+          f"relative {rel.tolist()} > 1e-6")
+    steps = len(losses)
+    for r in (0, 1):
+        check(res[r]["launches"] == {"fanout_agg": 2 * steps,
+                                     "gather_rows": steps,
+                                     "scatter_add_rows": steps},
+              f"device two ranks rank {r}: {res[r]['launches']}")
+        add(res[r]["launches"])
+    emit(phase="device_sampler", part="two_ranks", card=card, layout=layout,
+         backend="gloo", device="cuda:0", world_size=2, steps=steps,
+         losses_equal_across_ranks=True, loss_rel_err_max=float(rel.max()),
+         launches_per_rank=[x["launches"] for x in res],
+         step_ms_mean=[float(np.mean(x["step_s"]) * 1e3) for x in res],
+         dispatch_ms_per_step=[x["dispatch_s"] * 1e3 / steps for x in res],
+         seeds_per_sec=[x["seeds_per_sec"] for x in res],
+         val_acc=res[0]["val_acc"], test_acc=res[0]["test_acc"],
+         wall_s=wall)
+
+    resume_check(torch, "DistTrainer device K=2",
+                 lambda **fields: make("replicated", sampler="device",
+                                       steps_per_call=DEV_RESUME_K,
+                                       eval_every=0, **fields),
+                 w0, want, 10, os.path.join(work, "ckpt_device"), card,
+                 method="train_call")
+    return total
+
+
+def device_sampler_phase(torch, args, ops, wrappers, g, trainer, ctx,
+                         work: str, card: str):
+    """The device sampler and ``steps_per_call``: draws and plans against
+    the CPU, the kernels at the tree's shapes, ``SampledTrainer`` and
+    ``DistTrainer`` runs. Returns their launches and the kernel
+    records."""
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    probe = SampledTrainer(
+        DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"), g,
+        TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS,
+                    sampler="device", seed=args.seed),
+        train_ids=trainer.train_ids)
+    records = tree_check_phase(torch, args, ops, probe, card)
+    del probe
+    sampled = device_sampled_phase(torch, args, wrappers, g, trainer, card)
+    dist_launches = device_dist_phase(torch, args, wrappers, ctx, work, card)
+    return {k: sampled[k] + dist_launches[k] for k in sampled}, records
+
+
 # ------------------------------------------------------------------ kge
 # the reference's DGL-KE job: ComplEx on FB15k, dim 400, gamma 143, lr
 # 0.25, batch 1024, 256 negatives shared by the whole batch, -adv at
@@ -2567,10 +3139,11 @@ def kge_phase(torch, args, ops, wrappers, work: str, card: str):
 
 
 def kernel_entry(records, name, main_shapes, launches, replaces,
-                 kge_shapes=(), kge_launches=0):
+                 kge_shapes=(), kge_launches=0, tree_shapes=()):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
-    ``kge``, of one KGE training step), launches of both paths."""
+    ``kge``, of one KGE training step; under ``device_sampler``, of one
+    device-sampled step), launches of every path."""
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -2593,6 +3166,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "launches_sage": launches, "launches_kge": kge_launches}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
+    if tree_shapes:
+        entry["device_sampler"] = step_sums(tree_shapes)
     return entry
 
 
@@ -2663,30 +3238,37 @@ def main(argv=None) -> int:
                                              node_map, work, smi)
         dist_mp, mp_records = dist_mp_phase(torch, args, ops, wrappers, ctx,
                                             work, smi)
+        device, device_records = device_sampler_phase(
+            torch, args, ops, wrappers, g, trainer, ctx, work, smi)
         kge_records, kge = kge_phase(torch, args, ops, wrappers, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    records += dist_records + mp_records + kge_records
+    records += dist_records + mp_records + device_records + kge_records
 
     def launches(name):
-        return served[name] + trained[name] + dist[name] + dist_mp[name]
+        return (served[name] + trained[name] + dist[name] + dist_mp[name]
+                + device[name])
 
     pg = "dgl_operator_tpu/ops/pallas_gather.py"
     emit(kernels=[
         kernel_entry(records, "fanout_agg",
                      {("train_block0", "float32"),
                       ("train_block1", "float32")},
-                     launches("fanout_agg"), f"{pg}:221"),
+                     launches("fanout_agg"), f"{pg}:221",
+                     tree_shapes={("tree_block0", "float32"),
+                                  ("tree_block1", "float32")}),
         kernel_entry(records, "gather_rows", {("train_feats", "float32")},
                      launches("gather_rows"), f"{pg}:120",
                      {("kge_entity", "float32"), ("kge_relation", "float32")},
-                     kge["gather_rows"]),
+                     kge["gather_rows"],
+                     tree_shapes={("tree_feats", "float32")}),
         kernel_entry(records, "scatter_add_rows",
                      {("train_block1_bwd", "float32")},
                      launches("scatter_add_rows"), f"{pg}:234",
                      {("kge_entity_push", "float32"),
                       ("kge_relation_push", "float32")},
-                     kge["scatter_add_rows"]),
+                     kge["scatter_add_rows"],
+                     tree_shapes={("tree_block1_bwd", "float32")}),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})

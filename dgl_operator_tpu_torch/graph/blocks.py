@@ -76,6 +76,21 @@ class MiniBatch:
         self.blocks = blocks
 
 
+def stack_minibatches(mbs: Sequence[MiniBatch]) -> MiniBatch:
+    """K padded minibatches of one shape stacked along a new leading
+    axis (the JAX package's ``stack_minibatches``): every array gains a
+    ``[K]`` axis and each block keeps the first batch's ``num_src``. The
+    blocks' plans, which differ in size from batch to batch, are not
+    stacked: the stacked blocks carry none."""
+    first = mbs[0]
+    blocks = [FanoutBlock(np.stack([mb.blocks[l].nbr for mb in mbs]),
+                          np.stack([mb.blocks[l].mask for mb in mbs]),
+                          first.blocks[l].num_src)
+              for l in range(len(first.blocks))]
+    return MiniBatch(np.stack([mb.input_nodes for mb in mbs]),
+                     np.stack([mb.seeds for mb in mbs]), blocks)
+
+
 def fanout_caps(seed_cap: int, fanouts: Sequence[int],
                 num_nodes: Optional[int] = None) -> List[int]:
     """Static per-layer node caps, innermost (seeds) outward:

@@ -157,6 +157,40 @@ def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:
         long_rows.astype(i32), long_part.astype(i32))
 
 
+def tree_scatter_plan(mask: torch.Tensor) -> ScatterPlan:
+    """The :func:`scatter_plan` of a device-sampled tree block, built on
+    ``mask``'s device with static shapes and no host sync.
+
+    A tree block ``[n, F]`` names source row ``n + i * F + k`` from slot
+    ``(i, k)`` (``ops/device_sample.py``), so each target has at most one
+    entry: ``offsets`` is zeros up to ``n``, then the running count of
+    valid slots; ``src`` holds the valid slots' rows ``i`` in slot order,
+    scattered to the front (its entries past the valid count are never
+    read: they hold the masked slots' rows); ``cnt`` is each row's valid
+    count; there are no long targets. Equal to ``scatter_plan(pos, mask,
+    n * (F + 1))`` field for field, ``src`` on its first ``nnz``
+    entries."""
+    n, f = mask.shape
+    dev = mask.device
+    i32 = torch.int32
+    valid = (mask > 0).reshape(-1)
+    run = torch.cumsum(valid.to(i32), 0, dtype=i32)
+    nnz = valid.sum(dtype=i32)
+    slot = torch.arange(n * f, dtype=i32, device=dev)
+    # a permutation: the valid slots first, then the masked ones, each
+    # in slot order
+    dest = torch.where(valid, run - 1, nnz + slot - run)
+    src = torch.empty_like(slot).scatter_(0, dest.long(),
+                                          torch.div(slot, f,
+                                                    rounding_mode="floor"))
+    return ScatterPlan(
+        torch.cat([torch.zeros(n + 1, dtype=i32, device=dev), run]), src,
+        (mask > 0).sum(1, dtype=i32),
+        torch.zeros((0, 2), dtype=i32, device=dev),
+        torch.zeros(0, dtype=i32, device=dev),
+        torch.zeros(1, dtype=i32, device=dev))
+
+
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
                            mask: Optional[torch.Tensor], num_rows: int,
                            mean: bool) -> torch.Tensor:

@@ -133,10 +133,10 @@ def alltoall_request_rows(store: torch.Tensor, req: torch.Tensor,
 
 def exchange_bytes_per_step(num_slots: int, rows: int, feat_dim: int,
                             itemsize: int = 4) -> int:
-    """Analytic per-slot bytes of one ring exchange (the device
-    sampler's form, not ported): the request all-gather (owner and
-    local, int32 each, from every slot) plus the ring that returns the
-    row payload."""
+    """Analytic per-slot bytes of the device sampler's exchange
+    (``DistTrainer.owner_rows``): the request all-gather (owner and
+    local, int32 each, from every slot) plus the row payload every owner
+    returns for every request."""
     request = num_slots * rows * 2 * 4
     payload = num_slots * rows * feat_dim * itemsize
     return request + payload

@@ -31,13 +31,31 @@ Feature layouts (``TrainConfig.feats_layout``):
   answers them (``parallel/halo.py``: ``alltoall_serve_rows`` in one
   process, ``alltoall_request_rows`` across a group).
 
+With the device sampler (``TrainConfig.sampler="device"``) each slot's
+CSR lives on the device, padded to shapes common to every slot, and a
+step samples each slot's tree-form blocks there
+(``ops/device_sample.py``), its draws keyed on ``(step seed, part)``;
+the epoch's seeds are staged once per slot into a device buffer that
+the step indexes with a device counter. The replicated layout gathers
+from the slot's own store. The owner layout translates the input ids
+into ``(owner, local row)`` through the halo manifest on the device
+(cached halo rows point at the slot's own cache): in one process one
+``gather_rows`` over every slot's store answers them; in a group an
+``all_gather`` ships the requests, each process answers all of them
+from its store in one ``gather_rows`` (a zero row for what it does not
+own) and one ``all_to_all_single`` returns the rows, each taken from
+its owner's answer. ``steps_per_call = K > 1`` needs the device
+sampler (as in JAX); on the card a call of K steps is one replay of a
+CUDA graph (``runtime/graphs.py``), under a gloo group, which cannot be
+captured, K eager steps.
+
 The loss runs the model in inference mode (no dropout), as the JAX
 trainer's ``seed_loss`` does. Checkpoints and resume follow
 ``SampledTrainer`` (``runtime/loop.py::run_epochs``); in a group rank 0
 publishes them (``RankZeroCheckpoints``). Not ported: the
-sentry, live, chaos and preemption planes, the device sampler, the
-overlap pipeline (``pipeline_mode``, ``pipeline_depth``) and the state
-sharding knobs (``ROADMAP.md`` Queue 1).
+sentry, live, chaos and preemption planes, the overlap pipeline
+(``pipeline_mode``, ``pipeline_depth``) and the state sharding knobs
+(``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -57,17 +75,21 @@ from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models.sage import (sage_layer,
                                                 state_dict_from_flax)
+from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
+from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_plan
 from dgl_operator_tpu_torch.parallel import collectives
 from dgl_operator_tpu_torch.parallel.dp import slot_mean_step
 from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
                                                   alltoall_request_rows,
                                                   alltoall_serve_rows,
-                                                  build_halo_cache)
+                                                  build_halo_cache,
+                                                  exchange_bytes_per_step)
 from dgl_operator_tpu_torch.runtime import forward
 from dgl_operator_tpu_torch.runtime.checkpoint import (RankZeroCheckpoints,
                                                        train_state)
-from dgl_operator_tpu_torch.runtime.loop import (TrainConfig,
+from dgl_operator_tpu_torch.runtime.graphs import DeviceRun, graph_stats
+from dgl_operator_tpu_torch.runtime.loop import (TrainConfig, make_adam,
                                                  open_checkpoints,
                                                  resolve_num_samplers,
                                                  run_epochs)
@@ -94,6 +116,13 @@ class DistTrainer:
         self.feat_key = feat_key
         self.label_key = label_key
         self._owner_layout = cfg.feats_layout == "owner"
+        self._device_mode = cfg.sampler == "device"
+        if int(cfg.steps_per_call) > 1 and not self._device_mode:
+            raise ValueError(
+                "DistTrainer steps_per_call > 1 requires sampler='device' "
+                "(host mode would stack K padded minibatches per slot, "
+                "multiplying the staging payload the knob amortizes); use "
+                "SampledTrainer for host-sampler calls of K steps")
         with open(part_cfg) as f:
             meta = json.load(f)
         P = self.num_parts = int(meta["num_parts"])
@@ -148,6 +177,23 @@ class DistTrainer:
                     store[i, self.c_pad:] = feat[ni + cache_idx]
                 self._cache_slot.append(slot_of)
             self._host_halo = (owner_m, local_m)
+            if self._device_mode:
+                # the on-device translation cannot read the host cache
+                # map: a cached halo row's manifest entry points at this
+                # slot's own cache row instead
+                dev_owner, dev_local = owner_m.copy(), local_m.copy()
+                for i, slot_of in enumerate(self._cache_slot):
+                    sel = np.nonzero(slot_of >= 0)[0]
+                    dev_owner[i, sel] = self.my_parts[i]
+                    dev_local[i, sel] = self.c_pad + slot_of[sel]
+                self._dev_halo = tuple(torch.from_numpy(m).to(self.device)
+                                       for m in (dev_owner, dev_local))
+                self._dev_n_inner = torch.from_numpy(np.asarray(
+                    [[p.num_inner] for p in self.parts], np.int32)).to(
+                        self.device)
+                self._dev_parts = torch.tensor(
+                    [[p] for p in self.my_parts], dtype=torch.int32,
+                    device=self.device)
             self._flat = torch.from_numpy(flat).to(self.device)
             self.feats = self._flat[:-1].view(L, R, feat_dim)
         else:
@@ -166,7 +212,12 @@ class DistTrainer:
         # the epoch
         self.steps_per_epoch = max(
             min(self._train_counts) // cfg.batch_size, 1)
-        if cfg.cap_policy == "auto":
+        if self._device_mode:
+            self._tree = TreeSampler(cfg.batch_size, cfg.fanouts,
+                                     self.device)
+            self.caps = self._tree.caps
+            self._dev_csr = self._device_csrs()
+        elif cfg.cap_policy == "auto":
             caps = np.zeros(len(cfg.fanouts) + 1, np.int64)
             for csc, ids in zip(self.cscs, self.train_ids):
                 caps = np.maximum(caps, calibrate_caps(
@@ -175,7 +226,12 @@ class DistTrainer:
             self.caps = collectives.allreduce_host(caps, np.max)
         else:
             self.caps = fanout_caps(cfg.batch_size, cfg.fanouts, self.n_pad)
-        if self._owner_layout:
+        if self._owner_layout and self._device_mode:
+            # every input row's request, answered by every owner
+            self.pair_cap = 0
+            self.exchange_bytes_per_step = exchange_bytes_per_step(
+                P, int(self.caps[-1]), feat_dim)
+        elif self._owner_layout:
             self.pair_cap = self._calibrate_exchange_cap()
             self.exchange_bytes_per_step = alltoall_bytes_per_step(
                 P, self.pair_cap, feat_dim)
@@ -185,8 +241,14 @@ class DistTrainer:
         if self._group:
             collectives.broadcast_params(model)
         self.timer = PhaseTimer()
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
-        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        self.optimizer = make_adam(model.parameters(), cfg, self.device)
+        # the owner layout's halo rows fetched from other parts, counted
+        # on the device by the device sampler's steps (owner_rows)
+        self._dev_halo_rows = torch.zeros((), dtype=torch.int64,
+                                          device=self.device)
+        self._reset_counts()
+        # the device sampler's run state, while train() runs
+        self._run: Optional[DeviceRun] = None
         self._eval_ctx = None
         self._predict_fn = None
         # the per-partition sampler pool (the reference's --num_samplers
@@ -208,6 +270,27 @@ class DistTrainer:
         pool, self._pool = self._pool, None
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
+
+    def _device_csrs(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every local slot's CSR on the device, padded to shapes common
+        to every slot of every process: ``indptr`` ``[L, n_pad + 1]``
+        (padded rows of degree 0) and ``indices`` ``[L, E]``, ``E`` the
+        largest local edge count (at least 1), int32."""
+        e_local = collectives.allreduce_host(
+            max(len(c[1]) for c in self.cscs), np.max)
+        if max(self.n_pad + 1, e_local) >= 2**31:
+            raise ValueError("the device sampler needs int32-addressable "
+                             "per-partition CSRs")
+        L = len(self.parts)
+        indptr = np.zeros((L, self.n_pad + 1), np.int32)
+        indices = np.zeros((L, max(e_local, 1)), np.int32)
+        for i, (ip, ix, _) in enumerate(self.cscs):
+            n = len(ip) - 1
+            indptr[i, :n + 1] = ip
+            indptr[i, n + 1:] = ip[n]
+            indices[i, :len(ix)] = ix
+        return (torch.from_numpy(indptr).to(self.device),
+                torch.from_numpy(indices).to(self.device))
 
     # -- the halo exchange's request tables ------------------------------
     def _calibrate_exchange_cap(self, n_probe: int = 8) -> int:
@@ -432,13 +515,115 @@ class DistTrainer:
         return slot_mean_step(self.optimizer, loss_of, len(self.parts),
                               self.num_parts)
 
+    # -- the device sampler ---------------------------------------------
+    def device_sampler_step(self, seeds: torch.Tensor, gstep: torch.Tensor
+                            ) -> Tuple[torch.Tensor]:
+        """One device-sampler step on the bank's seeds ``[L, B]``: every
+        local slot's tree blocks from the draws keyed on ``(gstep,
+        part)``, its input rows (:meth:`owner_rows` in the owner layout),
+        then :func:`slot_mean_step`. Returns the mean slot loss."""
+        L = len(self.parts)
+        indptr, indices = self._dev_csr
+        sampled = [self._tree.sample(indptr[i], indices[i], seeds[i],
+                                     draw_key(gstep, part))
+                   for i, part in enumerate(self.my_parts)]
+        rows = (self.owner_rows(torch.stack([inp for _, inp in sampled]))
+                if self._owner_layout else None)
+
+        def loss_of(i):
+            blocks, inputs = sampled[i]
+            h = (rows[i] if rows is not None
+                 else gather_rows(self.feats[i], inputs))
+            return forward.seed_loss(self.model, blocks, h, seeds[i],
+                                     self.labels[i])
+
+        return (slot_mean_step(self.optimizer, loss_of, L, self.num_parts),)
+
+    def owner_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """The owner layout's input rows ``[L, M, D]`` of the local slots'
+        device-sampled input ids ``ids`` ``[L, M]`` (slot-local node ids):
+        each id becomes ``(owner part, row in its store)`` through the
+        device manifest (a core row is the slot's own, a cached halo row
+        its own cache row). In one process one ``gather_rows`` over every
+        slot's store answers them. In a group the requests go to every
+        process (``all_gather``), each answers all of them from its store
+        in one ``gather_rows``, a zero row for a row it does not own, and
+        one ``all_to_all_single`` brings the answers back; each row is
+        taken from its owner's answer, so the rows are exact. The ids
+        owned by another part are added to the epoch's halo row count."""
+        L, M = ids.shape
+        R = self._rows_per_slot
+        owner_m, local_m = self._dev_halo
+        core = ids < self._dev_n_inner
+        h = (ids - self._dev_n_inner).clamp(0, self.h_pad - 1).long()
+        owner = torch.where(core, self._dev_parts, owner_m.gather(1, h))
+        local = torch.where(core, ids, local_m.gather(1, h))
+        self._dev_halo_rows += ((owner >= 0)
+                                & (owner != self._dev_parts)).sum()
+        D = self._flat.shape[1]
+        if not self._group:
+            # every part is local, slot i holding part i
+            flat = torch.where(owner >= 0, owner.long() * R + local,
+                               L * R)
+            return gather_rows(self._flat, flat.view(-1)).view(L, M, D)
+        W = self.world_size
+        req = torch.stack([owner, local])
+        got = [torch.empty_like(req) for _ in range(W)]
+        dist.all_gather(got, req)
+        asked = torch.stack(got)                  # [W, 2, L, M]
+        ask_owner, ask_local = asked[:, 0], asked[:, 1]
+        mine = (ask_owner >= 0) & (torch.div(
+            ask_owner, L, rounding_mode="floor") == self.rank)
+        row = torch.where(mine, (ask_owner - self.rank * L).long() * R
+                          + ask_local, L * R)
+        answers = gather_rows(self._flat, row.view(-1))
+        back = torch.empty_like(answers)
+        dist.all_to_all_single(back, answers)
+        # back[q * L * M + j]: process q's answer to my request j
+        src = torch.div(owner.clamp_min(0), L, rounding_mode="floor")
+        pick = src.long() * (L * M) + torch.arange(
+            L * M, device=ids.device).view(L, M)
+        return back.index_select(0, pick.view(-1)).view(L, M, D)
+
+    def train_call(self, batch) -> Tuple[torch.Tensor, None]:
+        """The steps of one call; returns their mean slot losses ``[k]``
+        (no sync) and None. ``batch`` is a host batch (one
+        :meth:`train_step`) or, with the device sampler, ``(b, step,
+        k)``: ``k`` steps from bank row ``b`` at global step ``step``
+        (:class:`DeviceRun`)."""
+        if isinstance(batch, dict):
+            return self.train_step(batch)[0].view(1), None
+        return self._run(*batch)[0], None
+
+    def _start_device_run(self) -> DeviceRun:
+        """The device sampler's run; its calls of K > 1 steps on the card
+        are one graph replay each (captured at the first), except under
+        a gloo group, which cannot be captured."""
+        capture = self.device.type == "cuda" and (
+            not self._group or dist.get_backend() == "nccl")
+        self._run = DeviceRun(
+            self.device_sampler_step, 1,
+            (self.steps_per_epoch, len(self.parts), self.cfg.batch_size),
+            torch.int32, self.cfg.steps_per_call, self.device, capture)
+        return self._run
+
+    def _reset_counts(self) -> None:
+        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        self._dev_halo_rows.zero_()
+
     def _epoch_stats(self, steps: int) -> Dict:
-        out = {"h2d_bytes_per_step": self._counts["h2d_bytes"] / steps}
+        if self._run is not None:
+            # the epoch's seed bank, staged in one copy
+            self._counts["h2d_bytes"] += (self._run.bank.numel()
+                                          * self._run.bank.element_size())
+            self._counts["halo_rows"] += int(self._dev_halo_rows)
+        out = {"h2d_bytes_per_step": self._counts["h2d_bytes"] / steps,
+               **graph_stats(self._run)}
         if self._owner_layout:
             out["halo_rows_per_step"] = self._counts["halo_rows"] / steps
             out["exchange_mib"] = (self.exchange_bytes_per_step * steps
                                    / 2**20)
-        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        self._reset_counts()
         return out
 
     # -- epoch loop -----------------------------------------------------
@@ -453,8 +638,8 @@ class DistTrainer:
         cfg = self.cfg
         if init_params is not None:
             self.model.load_state_dict(state_dict_from_flax(init_params))
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=cfg.lr)
+        self.optimizer = make_adam(self.model.parameters(), cfg,
+                                   self.device)
         ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
         if self._group:
             hi, neg_lo = collectives.allreduce_host(
@@ -466,17 +651,28 @@ class DistTrainer:
             if ckpt is not None:
                 ckpt = RankZeroCheckpoints(ckpt, self.rank)
         self.timer.reset()
-        self._counts = {"h2d_bytes": 0, "halo_rows": 0}
+        self._reset_counts()
+        if self._device_mode:
+            run = self._start_device_run()
+
+            def sample(perm, call):
+                batch, seeds = run.prepare(perm, call)
+                return batch, seeds * (self.num_parts // len(perm))
+        else:
+            def sample(perm, call):
+                return self._sample_all(perm, *call[0])
         try:
             # one lookahead thread stages whole batches; the sampler pool
             # splits each batch by slot
             history, gstep = run_epochs(
                 cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
                 lambda: train_state(self.model, self.optimizer),
-                self._permute, self._sample_all, self.train_step,
+                self._permute, sample, self.train_call,
                 self.evaluate, self._epoch_stats, sample_workers=1)
         finally:
             self._close_sampler_pool()
+            # the graph's memory pool goes with it
+            self._run = None
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}

@@ -1,24 +1,37 @@
-"""The sampled trainer — ``SampledTrainer`` on the host sampler.
+"""The sampled trainer — ``SampledTrainer``.
 
 The counterpart of ``dgl_operator_tpu/runtime/loop.py::SampledTrainer``
 (the reference's ``train_dist.py`` run loop): each epoch permutes the
-training ids with one seeded numpy stream, cuts them into batches,
-samples each batch on the host through the C++ graph core and pads it
-(on a thread pipeline when ``prefetch > 0``; the graph core releases
-the interpreter lock, so sampler threads overlap), and takes one step
-per batch on the card: the input
-rows are gathered by the hand-written ``gather_rows`` kernel, the model
-aggregates with ``fanout_agg`` and its backward with
-``scatter_add_rows`` (over the transpose plans the sampler attaches to
-the blocks), and ``torch.optim.Adam`` updates the weights.
-Evaluation runs ``sage_inference`` over the full graph. With
-``ckpt_dir`` the model and Adam's state are checkpointed every
-``ckpt_every`` steps and at each epoch's end, and a new run resumes
-from the newest good checkpoint (``resume="auto"``).
+training ids with one seeded numpy stream, cuts them into batches and
+takes one step per batch on the card: the input rows are gathered by
+the hand-written ``gather_rows`` kernel, the model aggregates with
+``fanout_agg`` and its backward with ``scatter_add_rows``, and Adam
+updates the weights. Two samplers (``TrainConfig.sampler``):
 
-What the JAX trainer also carries and this one does not yet: the device
-sampler, ``steps_per_call`` scans, the numerics sentry, the live plane
-and chaos hooks (``ROADMAP.md`` Queue 1).
+- ``"host"``: each batch is sampled on the host through the C++ graph
+  core and padded (on a thread pipeline when ``prefetch > 0``; the
+  graph core releases the interpreter lock, so sampler threads
+  overlap), and shipped with the transpose plans of its blocks.
+- ``"device"``: the graph's CSR lives on the card and each step samples
+  tree-form blocks there (``ops/device_sample.py``), its draws keyed on
+  ``(cfg.seed, global step)``, with the plans built on the card too.
+  The epoch's permuted seeds are staged once into a device buffer that
+  the step indexes with a device step counter.
+
+``steps_per_call = K`` groups the steps into calls of K (the JAX
+trainer's ``lax.scan``), then single steps for the epoch's tail
+(:func:`chunk_calls`). With the device sampler on the card a call is
+one replay of a CUDA graph of the K steps (``runtime/graphs.py``); with
+the host sampler a call is K single steps, since the batches' plans
+differ in size. Evaluation runs ``sage_inference`` over the
+full graph. With ``ckpt_dir`` the model and Adam's state are
+checkpointed every ``ckpt_every`` steps (at the end of the call that
+crosses the mark) and at each epoch's end, and a new run resumes from
+the newest good checkpoint (``resume="auto"``).
+
+What the JAX trainer also carries and this one does not yet: the
+numerics sentry, the live plane and chaos hooks (``ROADMAP.md`` Queue
+1).
 """
 
 from __future__ import annotations
@@ -41,16 +54,20 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models.sage import (sage_inference,
                                                 state_dict_from_flax)
 from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
+                                                      device_csr, draw_key)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_plan
 from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                        load_train_state,
                                                        train_state)
 from dgl_operator_tpu_torch.runtime.forward import masked_loss
+from dgl_operator_tpu_torch.runtime.graphs import DeviceRun, graph_stats
 from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 
 _ROADMAP = "ROADMAP.md Queue 1"
 FEATS_LAYOUTS = ("replicated", "owner")
+SAMPLERS = ("host", "device")
 RESUME_POLICIES = ("auto", "never")
 # the launcher's sampler-width plumb (the entry point's --num_workers)
 NUM_SAMPLERS_ENV = "TPU_OPERATOR_NUM_SAMPLERS"
@@ -59,7 +76,9 @@ NUM_SAMPLERS_ENV = "TPU_OPERATOR_NUM_SAMPLERS"
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX ``TrainConfig``'s fields and defaults for the knobs the
-    two trainers honour. ``sampler``, ``steps_per_call``, ``feat_dtype``,
+    two trainers honour. ``sampler`` is ``"host"`` or ``"device"``;
+    ``steps_per_call`` is any K >= 1 (``DistTrainer`` takes K > 1 with
+    the device sampler only, as the JAX trainer does). ``feat_dtype``,
     ``shard_update``, ``shard_rules``, ``zero_stage`` and
     ``tp_axis_size`` take only their defaults (another value raises
     ``NotImplementedError``); the JAX fields not listed here are not
@@ -90,7 +109,11 @@ class TrainConfig:
     # sampler threads; 0 takes the launcher's TPU_OPERATOR_NUM_SAMPLERS,
     # else 1 (resolve_num_samplers)
     num_samplers: int = 0
+    # optimizer steps per call: K-step calls, then single steps for the
+    # epoch's tail
     steps_per_call: int = 1
+    # "host": the C++ graph core samples compacted blocks; "device": the
+    # card samples tree-form blocks (ops/device_sample.py)
     sampler: str = "host"
     # DistTrainer: "replicated" stores each slot's core and halo rows;
     # "owner" stores core rows plus a hot-halo cache of halo_cache_frac
@@ -104,14 +127,12 @@ class TrainConfig:
     tp_axis_size: int = 1
 
     def __post_init__(self):
-        if self.sampler != "host":
-            raise NotImplementedError(
-                f"sampler={self.sampler!r}: only the host sampler is "
-                f"ported (the device sampler is {_ROADMAP} item 6)")
-        if self.steps_per_call != 1:
-            raise NotImplementedError(
-                f"steps_per_call={self.steps_per_call}: only 1 is ported "
-                f"({_ROADMAP} item 1)")
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler!r} (expected "
+                             f"{SAMPLERS})")
+        if int(self.steps_per_call) < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got "
+                             f"{self.steps_per_call}")
         unported = {"feat_dtype": self.feat_dtype != "float32",
                     "shard_update": bool(self.shard_update),
                     "shard_rules": self.shard_rules is not None,
@@ -220,11 +241,35 @@ def open_checkpoints(cfg: TrainConfig, model: torch.nn.Module,
     return ckpt, start_step
 
 
+def chunk_calls(items: Sequence, k: int) -> List[list]:
+    """The ``steps_per_call`` grouping both trainers share (the JAX
+    package's ``chunk_calls``): full K-chunks in order, then the tail
+    one item a call."""
+    k = max(int(k), 1)
+    nfull = len(items) // k if k > 1 else 0
+    calls = [list(items[i * k:(i + 1) * k]) for i in range(nfull)]
+    calls += [[b] for b in items[nfull * k:]]
+    return calls
+
+
+def make_adam(params, cfg: TrainConfig, device: torch.device
+              ) -> torch.optim.Adam:
+    """The trainers' Adam. With the device sampler on a CUDA device it
+    is ``capturable``, so that its step can run inside a CUDA graph, and
+    every step of the run, eager or replayed, takes the same arithmetic.
+    The host sampler's steps, which are never captured, keep the plain
+    Adam, whose step counter stays on the host (the CPU does not take
+    the flag)."""
+    return torch.optim.Adam(
+        params, lr=cfg.lr,
+        capturable=cfg.sampler == "device" and device.type == "cuda")
+
+
 def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                start_step: int, ckpt: Optional[CheckpointManager],
                state: Callable[[], Dict],
                permute: Callable[[np.random.Generator], object],
-               sample: Callable[[object, int, int], Tuple[object, int]],
+               sample: Callable[[object, list], Tuple[object, int]],
                step: Callable[[object], Tuple[torch.Tensor,
                                               Optional[torch.Tensor]]],
                evaluate: Callable[[], Dict[str, float]],
@@ -237,15 +282,18 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     Each epoch draws ``permute(rng)`` from one numpy stream seeded with
     ``cfg.seed`` (replayed over the epochs a resume skips, so the
     resumed epoch sees the uninterrupted run's shuffle), skips the steps
-    a mid-epoch resume already took, samples ``sample(perm, b,
-    step_seed) -> (batch, seeds)`` for batch ``b`` on the prefetch
-    pipeline, ``cfg.prefetch`` batches ahead on ``sample_workers``
-    threads (``step_seed`` is the batch's global step), and takes
-    ``step(batch) -> (loss, acc or None)``. ``state()`` is saved every
-    ``cfg.ckpt_every`` steps and at each epoch's end (asynchronously;
-    the last write is drained before this returns). ``epoch_stats(n)``
-    adds the trainer's own fields to the record of an epoch of ``n``
-    steps."""
+    a mid-epoch resume already took and groups the rest into calls of
+    ``cfg.steps_per_call`` steps (:func:`chunk_calls`), each a list of
+    ``(b, step_seed)`` pairs: batch ``b`` of the epoch at global step
+    ``step_seed``. It prepares ``sample(perm, call) -> (batch, seeds)``
+    on the prefetch pipeline, ``cfg.prefetch`` calls ahead on
+    ``sample_workers`` threads (inline with the device sampler, whose
+    ``sample`` only names the call), and takes ``step(batch)
+    -> (losses [k], accs [k] or None)``. ``state()`` is saved when a
+    call crosses a multiple of ``cfg.ckpt_every`` steps and at each
+    epoch's end (asynchronously; the last write is drained before this
+    returns). ``epoch_stats(n)`` adds the trainer's own fields to the
+    record of an epoch of ``n`` steps."""
     rng = np.random.default_rng(cfg.seed)
     start_epoch = start_step // steps_per_epoch
     for _ in range(start_epoch):
@@ -253,36 +301,40 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     obs = get_obs()
     history: List[Dict] = []
     gstep = start_step
+    depth = 0 if cfg.sampler == "device" else cfg.prefetch
     # inline sampling is sampling work; with a pipeline, time spent
     # waiting for a batch is a stall
-    wait_bucket = "sample" if cfg.prefetch <= 0 else "stall"
+    wait_bucket = "sample" if depth <= 0 else "stall"
     try:
         for epoch in range(start_epoch, cfg.num_epochs):
             perm = permute(rng)
             skip = start_step % steps_per_epoch if epoch == start_epoch else 0
-            steps = [(b, gstep + b - skip)
-                     for b in range(skip, steps_per_epoch)]
+            calls = chunk_calls([(b, gstep + b - skip)
+                                 for b in range(skip, steps_per_epoch)],
+                                cfg.steps_per_call)
             t_epoch = time.time()
             losses, step_s = [], []
             seen = 0
-            pipeline = prefetch_map(lambda b, s: sample(perm, b, s), steps,
-                                    cfg.prefetch, sample_workers)
+            pipeline = prefetch_map(lambda c: sample(perm, c),
+                                    [(c,) for c in calls], depth,
+                                    sample_workers)
             try:
-                for _ in steps:
+                for call in calls:
                     t_step = time.perf_counter()
                     with timer.phase(wait_bucket):
                         batch, n_seeds = next(pipeline)
                     with timer.phase("dispatch"):
                         loss, acc = step(batch)
-                    step_s.append(time.perf_counter() - t_step)
+                    k = len(call)
+                    step_s += [(time.perf_counter() - t_step) / k] * k
                     losses.append(loss)
                     seen += n_seeds
-                    prev_gstep, gstep = gstep, gstep + 1
+                    prev_gstep, gstep = gstep, gstep + k
                     if gstep // cfg.log_every != prev_gstep // cfg.log_every:
                         obs.emit("train_step", epoch=epoch, step=gstep,
-                                 loss=float(loss),
+                                 loss=float(loss[-1]),
                                  train_acc=None if acc is None
-                                 else float(acc),
+                                 else float(acc[-1]),
                                  seeds_per_sec=seen / max(
                                      time.time() - t_epoch, 1e-9))
                     if ckpt is not None and cfg.ckpt_every and (
@@ -291,12 +343,13 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                         ckpt.save(gstep, state(), wait=False)
             finally:
                 pipeline.close()
-            loss_values = torch.stack(losses).tolist()   # waits for the card
+            loss_values = torch.cat(losses).tolist()    # waits for the card
             dt = time.time() - t_epoch
             rec = {"epoch": epoch, "loss": loss_values[-1],
                    "losses": loss_values, "step_s": step_s,
                    "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
-                   **timer.as_dict(), **epoch_stats(len(steps))}
+                   "calls": len(calls), **timer.as_dict(),
+                   **epoch_stats(len(loss_values))}
             if _eval_due(cfg, epoch):
                 t_eval = time.perf_counter()
                 accs = evaluate()
@@ -321,7 +374,8 @@ class SampledTrainer:
     ``device`` is where the model, features and labels live (the
     current CUDA card when None; ``"cpu"`` on request). The model must
     already be on it; the trainer sets its dropout rate to
-    ``cfg.dropout``.
+    ``cfg.dropout``. With ``cfg.sampler="device"`` the graph's CSR goes
+    to ``device`` too, and the caps are the tree's (:func:`tree_caps`).
     """
 
     def __init__(self, model, g: Graph, cfg: TrainConfig,
@@ -345,7 +399,14 @@ class SampledTrainer:
         if train_ids is None:
             train_ids = np.nonzero(g.ndata["train_mask"])[0]
         self.train_ids = np.asarray(train_ids, dtype=np.int64)
-        if cfg.cap_policy == "auto":
+        self._device_mode = cfg.sampler == "device"
+        if self._device_mode:
+            # tree-form blocks: closed-form caps, no calibration probe
+            self._indptr, self._indices = device_csr(self.csc, self.device)
+            self._tree = TreeSampler(cfg.batch_size, cfg.fanouts,
+                                     self.device)
+            self.caps = self._tree.caps
+        elif cfg.cap_policy == "auto":
             self.caps = calibrate_caps(
                 self.csc, self.train_ids, cfg.batch_size, cfg.fanouts,
                 g.num_nodes, margin=cfg.cap_margin, seed=cfg.seed)
@@ -355,7 +416,9 @@ class SampledTrainer:
         self.timer = PhaseTimer()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+        self.optimizer = make_adam(model.parameters(), cfg, self.device)
+        # the device sampler's run state, while train() runs
+        self._run: Optional[DeviceRun] = None
 
     # -- batches --------------------------------------------------------
     def sample(self, seeds: np.ndarray, step_seed: int) -> MiniBatch:
@@ -405,17 +468,56 @@ class SampledTrainer:
         logits = self.model(blocks, h, generator=self.generator)
         return masked_loss(logits, self.labels, seeds)
 
-    def train_step(self, mb: MiniBatch
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One optimizer step on a padded host minibatch; returns the
-        loss and accuracy as device scalars (no sync). The gradients
-        stay in ``.grad`` until the next step."""
-        batch = self.ship(mb)
+    def step_shipped(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on a shipped batch; returns the loss and
+        accuracy as device scalars (no sync). The gradients stay in
+        ``.grad`` until the next step."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self.loss(batch)
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), acc
+        return loss.detach(), acc.detach()
+
+    def train_step(self, mb: MiniBatch
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on a padded host minibatch
+        (:meth:`step_shipped` of :meth:`ship`)."""
+        return self.step_shipped(self.ship(mb))
+
+    def device_sampler_step(self, seeds: torch.Tensor, gstep: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One device-sampler step on the bank's seeds ``[1, B]``: the
+        tree blocks of the draws keyed on ``(cfg.seed, gstep)``, then the
+        step."""
+        seeds = seeds[0]
+        blocks, inputs = self._tree.sample(
+            self._indptr, self._indices, seeds,
+            draw_key(self.cfg.seed, gstep))
+        return self.step_shipped((blocks, inputs, seeds))
+
+    def train_call(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The steps of one call; returns their losses and accuracies
+        ``[k]`` on the device (no sync). ``batch`` is a list of host
+        minibatches (a :meth:`train_step` each) or, with the device
+        sampler, ``(b, step, k)``: ``k`` steps from bank row ``b`` at
+        global step ``step`` (:class:`DeviceRun`)."""
+        if isinstance(batch, list):
+            out = [self.train_step(mb) for mb in batch]
+            return (torch.stack([o[0] for o in out]),
+                    torch.stack([o[1] for o in out]))
+        out = self._run(*batch)
+        return out[0], out[1]
+
+    def _start_device_run(self, steps_per_epoch: int) -> DeviceRun:
+        """The device sampler's run over epochs of ``steps_per_epoch``
+        steps; its calls of K > 1 steps on the card are one graph
+        replay each (captured at the first)."""
+        self._run = DeviceRun(
+            self.device_sampler_step, 2,
+            (steps_per_epoch, 1, self.cfg.batch_size), self._indptr.dtype,
+            self.cfg.steps_per_call, self.device,
+            self.device.type == "cuda", [self.generator])
+        return self._run
 
     # -- evaluation -----------------------------------------------------
     def evaluate(self, mask_names=("val_mask", "test_mask")
@@ -437,6 +539,26 @@ class SampledTrainer:
         return out
 
     # -- epoch loop -----------------------------------------------------
+    def _warm_up(self) -> None:
+        """The warm-up batch (the JAX trainer initialises its params on
+        it): one forward without a gradient builds the kernels and
+        checks the model against the caps before the clock starts."""
+        cfg = self.cfg
+        with torch.no_grad():
+            if self._device_mode:
+                seeds = torch.full((cfg.batch_size,), -1,
+                                   dtype=self._indptr.dtype)
+                first = self.train_ids[:cfg.batch_size]
+                seeds[:len(first)] = torch.from_numpy(first)
+                seeds = seeds.to(self.device)
+                blocks, inputs = self._tree.sample(
+                    self._indptr, self._indices, seeds,
+                    draw_key(cfg.seed ^ 0x5EED))
+                self.loss((blocks, inputs, seeds))
+            else:
+                self.loss(self.ship(self.sample(
+                    self.train_ids[:cfg.batch_size], 0)))
+
     def train(self, init_params=None) -> Dict:
         """Train ``cfg.num_epochs`` epochs from the model's weights, or
         from ``init_params`` (a flax-layout params tree, loaded through
@@ -448,31 +570,39 @@ class SampledTrainer:
         cfg = self.cfg
         if init_params is not None:
             self.model.load_state_dict(state_dict_from_flax(init_params))
-        # the warm-up batch (the JAX trainer initialises its params on
-        # it): one forward without a gradient builds the kernels and
-        # checks the model against the caps before the clock starts
-        with torch.no_grad():
-            self.loss(self.ship(self.sample(
-                self.train_ids[: cfg.batch_size], 0)))
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=cfg.lr)
+        self._warm_up()
+        self.optimizer = make_adam(self.model.parameters(), cfg,
+                                   self.device)
         self.generator.manual_seed(cfg.seed)
         ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
         if start_step:
             self.generator.manual_seed(resume_seed(cfg.seed, start_step))
         self.timer.reset()
         B = cfg.batch_size
+        steps_per_epoch = max(len(self.train_ids) // B, 1)
 
-        def sample(ids, b, step_seed):
-            seeds = ids[b * B:(b + 1) * B]
-            return self.sample(seeds, step_seed), len(seeds)
+        def permute(rng):
+            perm = rng.permutation(self.train_ids)
+            return [perm] if self._device_mode else perm
 
-        history, gstep = run_epochs(
-            cfg, self.timer, max(len(self.train_ids) // B, 1), start_step,
-            ckpt, lambda: train_state(self.model, self.optimizer),
-            lambda rng: rng.permutation(self.train_ids), sample,
-            self.train_step, self.evaluate,
-            sample_workers=resolve_num_samplers(cfg))
+        if self._device_mode:
+            sample = self._start_device_run(steps_per_epoch).prepare
+        else:
+            def sample(ids, call):
+                return ([self.sample(ids[b * B:(b + 1) * B], s)
+                         for b, s in call],
+                        sum(len(ids[b * B:(b + 1) * B]) for b, _ in call))
+
+        try:
+            history, gstep = run_epochs(
+                cfg, self.timer, steps_per_epoch, start_step, ckpt,
+                lambda: train_state(self.model, self.optimizer), permute,
+                sample, self.train_call, self.evaluate,
+                lambda steps: graph_stats(self._run),
+                sample_workers=resolve_num_samplers(cfg))
+        finally:
+            # the graph's memory pool goes with it
+            self._run = None
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}

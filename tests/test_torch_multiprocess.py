@@ -339,10 +339,20 @@ def test_entry_point_trains_two_ranks_from_the_hostfile(books, tmp_path,
     ["--sampler", "device"], ["--feat_dtype", "bfloat16"]])
 def test_entry_point_flags_not_ported_raise(books, tmp_path, monkeypatch,
                                             flags):
+    """The entry point's flags whose features the port lacked raise;
+    ``--sampler device`` is ported, so one process trains both parts
+    with the device sampler."""
     monkeypatch.delenv("TPU_OPERATOR_DIST", raising=False)
     monkeypatch.delenv(RANK_ENV, raising=False)
+    argv = _entry_argv(books[2], str(tmp_path)) + flags
+    if flags == ["--sampler", "device"]:
+        out = train_dist.main(argv)
+        assert out["step"] > 0 and out["history"][-1]["val_acc"] >= 0
+        assert np.isfinite([x for r in out["history"]
+                            for x in r["losses"]]).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_dist.main(_entry_argv(books[2], str(tmp_path)) + flags)
+        train_dist.main(argv)
 
 
 def test_entry_point_other_rank_checks_its_partition(books, tmp_path,

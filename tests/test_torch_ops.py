@@ -773,3 +773,37 @@ def test_fanout_gradient_flows_on_card():
     torch.cuda.synchronize()
     assert scatter.scatter_add_rows.launches == before + 1
     torch.testing.assert_close(hc.grad.cpu(), hp.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["host", "device"])
+def test_graphed_calls_equal_single_steps_on_card(sampler):
+    """On the card a K-step call of the device sampler is a CUDA graph
+    replay; the host sampler's runs eagerly. Both equal K = 1 bit for
+    bit, dropout on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    graph = datasets.synthetic_node_clf(300, 1500, 12, 4, seed=11).graph
+
+    def make(**kw):
+        cfg = dict(num_epochs=2, batch_size=24, fanouts=(3, 4),
+                   eval_every=0, log_every=1000, dropout=0.5, seed=5,
+                   sampler=sampler, **kw)
+        model = DistSAGE(12, 16, 4, device="cuda",
+                         generator=torch.Generator().manual_seed(2))
+        return SampledTrainer(model, graph, TrainConfig(**cfg))
+
+    one = make().train()
+    three = make(steps_per_call=3).train()
+    assert [x for r in one["history"] for x in r["losses"]] == \
+        [x for r in three["history"] for x in r["losses"]]
+    for k, v in one["params"].items():
+        assert torch.equal(v, three["params"][k]), k
+    assert three["history"][0]["graph"] is (sampler == "device")
+    if sampler == "device":
+        assert three["history"][1]["graph_replays"] == 3

@@ -67,17 +67,19 @@ def run_job(job: dict, init) -> dict:
 def run_cut_and_resumed(job: dict, init, ckpt_dir: str,
                         kill_at: int) -> dict:
     """A run that checkpoints every ``kill_at`` steps dies as it begins
-    step ``kill_at + 1``; a fresh trainer resumes it from ``ckpt_dir``."""
+    the call after step ``kill_at``; a fresh trainer resumes it from
+    ``ckpt_dir``."""
     first = make_trainer(job, ckpt_dir=ckpt_dir, ckpt_every=kill_at)
-    step, taken = first.train_step, []
+    call, taken = first.train_call, []
 
-    def dying_step(batch):
-        if len(taken) == kill_at:
-            raise Killed(f"killed after {kill_at} steps")
-        taken.append(1)
-        return step(batch)
+    def dying_call(batch):
+        if len(taken) >= kill_at:
+            raise Killed(f"killed after {len(taken)} steps")
+        losses, acc = call(batch)
+        taken.extend([1] * len(losses))
+        return losses, acc
 
-    first.train_step = dying_step
+    first.train_call = dying_call
     try:
         first.train(init_params=init)
         raise RuntimeError("the first run was not cut")
