@@ -1,4 +1,4 @@
-"""Distributed GraphSAGE training: the worker entry point.
+"""Distributed GNN training: the worker entry point.
 
 The counterpart of ``examples/GraphSAGE_dist/train_dist.py`` of the JAX
 package, with its flags: the launcher's phase 5 starts it on every
@@ -17,11 +17,15 @@ Two execution shapes:
   partition loads and exits 0 (the launcher fans the command out to
   every worker).
 
-It trains on the card unless ``--device cpu`` is given. The backend is
-``--backend``, else NCCL on a card and gloo on the CPU. The model's
-weights are drawn from ``--seed`` (``TrainConfig.seed``) through an
-explicit generator, so every process and a single-process run start from
-the same weights. :func:`main` returns the trainer's result.
+``--model sage|gat|gatv2`` builds ``DistSAGE``, or ``DistGAT`` or
+``DistGATv2`` with 2 heads of ``--num_hidden`` each, as the JAX entry
+point does. It trains on the card unless ``--device cpu`` is given.
+``--bf16`` and ``--remat`` raise: their features are not ported. The
+backend is ``--backend``, else NCCL on a card and gloo on the CPU. The
+model's weights are drawn from ``--seed`` (``TrainConfig.seed``)
+through an explicit generator, so every process and a single-process
+run start from the same weights. :func:`main` returns the trainer's
+result.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 from dgl_operator_tpu_torch._device import resolve_device
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
-from dgl_operator_tpu_torch.models.sage import DistSAGE
+from dgl_operator_tpu_torch.models import DistGAT, DistGATv2, DistSAGE
 from dgl_operator_tpu_torch.parallel import collectives
 from dgl_operator_tpu_torch.parallel.bootstrap import (
     RANK_ENV, initialize_from_hostfile, parse_hostfile)
@@ -45,8 +49,7 @@ from dgl_operator_tpu_torch.runtime.loop import NUM_SAMPLERS_ENV, TrainConfig
 DIST_ENV = "TPU_OPERATOR_DIST"
 # flags of the JAX entry point whose feature the port lacks, and the
 # ROADMAP item that ports it
-_UNPORTED = {"model": "Queue 1 item 6 (GAT and the other workloads)",
-             "bf16": "Queue 1 item 5 (bf16 compute)",
+_UNPORTED = {"bf16": "Queue 1 item 5 (bf16 compute)",
              "remat": "Queue 1 item 1.6 (the remaining dist knobs)"}
 
 
@@ -92,8 +95,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args: argparse.Namespace) -> None:
-    for flag, set_ in (("model", args.model != "sage"), ("bf16", args.bf16),
-                       ("remat", args.remat)):
+    for flag, set_ in (("bf16", args.bf16), ("remat", args.remat)):
         if set_:
             raise NotImplementedError(
                 f"--{flag}: not ported (ROADMAP.md {_UNPORTED[flag]})")
@@ -148,9 +150,14 @@ def _train(args: argparse.Namespace, rank: int, num_parts: int, device):
         n_cls = 1 + collectives.allreduce_host(
             max(int(p.graph.ndata["label"].max()) for p in parts), np.max)
     feat_dim = int(parts[0].graph.ndata["feat"].shape[1])
-    model = DistSAGE(feat_dim, args.num_hidden, n_cls, dropout=0.5,
-                     device=device,
-                     generator=torch.Generator().manual_seed(cfg.seed))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if args.model in ("gat", "gatv2"):
+        cls = DistGATv2 if args.model == "gatv2" else DistGAT
+        model = cls(feat_dim, args.num_hidden, n_cls, num_heads=2,
+                    dropout=0.5, device=device, generator=gen)
+    else:
+        model = DistSAGE(feat_dim, args.num_hidden, n_cls, dropout=0.5,
+                         device=device, generator=gen)
     tr = DistTrainer(model, args.part_config, cfg, device=device)
     out = tr.train()
     print(f"rank {rank}: done, final loss "

@@ -86,6 +86,13 @@ def synthetic_node_clf(num_nodes: int, num_edges: int, feat_dim: int,
                                num_classes, seed)
 
 
+def cora(seed: int = 0) -> NodeClfDataset:
+    """Synthetic Cora (the reference's node-classification example): 2,708
+    nodes, 5,278 generated edges doubled by reversal, 1,433-dim
+    features, 7 classes. The reader of the LINQS files is not ported."""
+    return _clustered_node_clf("cora", 2708, 5278, 1433, 7, seed)
+
+
 def ogbn_products(seed: int = 0, scale: float = 1.0) -> NodeClfDataset:
     """Synthetic graph with the ogbn-products schema: 2.45M nodes,
     100-dim features, 47 classes; ``scale`` shrinks the node and edge

@@ -4,12 +4,15 @@ The host owns the irregular data structure (numpy COO with lazily built
 CSR and CSC indexes, counted by the C++ graph core). The card sees the
 dense ``[num_dst, fanout]`` neighbor tables of sampled blocks
 (``graph/blocks.py``) and, for full-graph inference, the CSC as a
-sparse adjacency (:meth:`Graph.adjacency`).
+sparse adjacency (:meth:`Graph.adjacency`); the full-graph layers
+(``nn/conv.py``: ``GraphConv``, ``GATConv``) read the padded edge list
+of :meth:`Graph.to_device` (:class:`DeviceGraph`).
 ``ndata`` / ``edata`` are DGL-style dicts of numpy arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, Optional, Tuple
 
@@ -17,6 +20,19 @@ import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.graph import _native
+
+
+def sparse_csr(crow: torch.Tensor, col: torch.Tensor, values: torch.Tensor,
+               n: int, check_invariants: bool = False) -> torch.Tensor:
+    """An ``[n, n]`` sparse CSR tensor (torch's beta-state warnings
+    silenced)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support "
+                                "is in beta state")
+        warnings.filterwarnings("ignore", "Sparse invariant checks "
+                                "are implicitly disabled")
+        return torch.sparse_csr_tensor(crow, col, values, size=(n, n),
+                                       check_invariants=check_invariants)
 
 
 class Graph:
@@ -88,20 +104,69 @@ class Graph:
             crow = np.zeros(n + 1, dtype=np.int64)
             np.cumsum(np.bincount(pairs // n, minlength=n), out=crow[1:])
             itype = torch.int32 if len(pairs) < 2**31 else torch.int64
-            with warnings.catch_warnings():
-                warnings.filterwarnings("ignore", "Sparse CSR tensor support "
-                                        "is in beta state")
-                warnings.filterwarnings("ignore", "Sparse invariant checks "
-                                        "are implicitly disabled")
-                self._adj[device] = torch.sparse_csr_tensor(
-                    torch.from_numpy(crow).to(device, itype),
-                    torch.from_numpy(pairs % n).to(device, itype),
-                    torch.from_numpy(counts.astype(np.float32)).to(device),
-                    size=(n, n), check_invariants=True)
+            self._adj[device] = sparse_csr(
+                torch.from_numpy(crow).to(device, itype),
+                torch.from_numpy(pairs % n).to(device, itype),
+                torch.from_numpy(counts.astype(np.float32)).to(device), n,
+                check_invariants=True)
         return self._adj[device]
+
+    def add_self_loop(self) -> "Graph":
+        """A new graph with one self-loop edge per node appended (node
+        data shared, edge data not carried over)."""
+        loop = np.arange(self.num_nodes, dtype=np.int32)
+        g = Graph(np.concatenate([self.src, loop]),
+                  np.concatenate([self.dst, loop]), self.num_nodes)
+        g.ndata = dict(self.ndata)
+        return g
+
+    def to_device(self, device, sort_by_dst: bool = True,
+                  pad_to: Optional[int] = None) -> "DeviceGraph":
+        """The padded edge list on ``device`` that the full-graph layers
+        read: edges sorted by destination (stable) when
+        ``sort_by_dst``, then padded to ``pad_to`` edges; a padded edge
+        runs from node 0 to the dummy node ``num_nodes`` and has
+        ``edge_mask`` 0."""
+        src, dst = self.src, self.dst
+        if sort_by_dst:
+            perm = np.argsort(dst, kind="stable")
+            src, dst = src[perm], dst[perm]
+        n_valid = src.shape[0]
+        if pad_to is not None:
+            if pad_to < n_valid:
+                raise ValueError(f"pad_to={pad_to} < num_edges={n_valid}")
+            pad = pad_to - n_valid
+            src = np.concatenate([src, np.zeros(pad, np.int32)])
+            dst = np.concatenate([dst, np.full(pad, self.num_nodes,
+                                               np.int32)])
+        mask = (np.arange(src.shape[0]) < n_valid).astype(np.float32)
+        return DeviceGraph(
+            src=torch.from_numpy(np.ascontiguousarray(src)).to(device),
+            dst=torch.from_numpy(np.ascontiguousarray(dst)).to(device),
+            edge_mask=torch.from_numpy(mask).to(device),
+            num_nodes=self.num_nodes, sorted_by_dst=sort_by_dst)
 
     def add_reverse_edges(self) -> "Graph":
         g = Graph(np.concatenate([self.src, self.dst]),
                   np.concatenate([self.dst, self.src]), self.num_nodes)
         g.ndata = dict(self.ndata)
         return g
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    """The static-shape edge list the full-graph layers read (the JAX
+    package's ``DeviceGraph``), as tensors on one device: ``src`` and
+    ``dst`` int32 ``[E]``, ``edge_mask`` float32 ``[E]`` (0 on a padded
+    edge, whose ``dst`` is ``num_nodes``, so a segment reduction over
+    ``num_nodes + 1`` segments drops it with the last row)."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    edge_mask: torch.Tensor
+    num_nodes: int
+    sorted_by_dst: bool = True
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])

@@ -13,20 +13,17 @@ Weights cross between the packages in the flax layout
 
 from __future__ import annotations
 
-import re
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.graph.graph import Graph
+from dgl_operator_tpu_torch.models import flax_layout
 from dgl_operator_tpu_torch.nn.conv import FanoutSAGEConv
 from dgl_operator_tpu_torch.ops.spmm import gspmm
-
-_LAYER_RE = re.compile(r"FanoutSAGEConv_(\d+)")
 
 
 def dropout(h: torch.Tensor, p: float,
@@ -42,7 +39,15 @@ def dropout(h: torch.Tensor, p: float,
 class DistSAGE(nn.Module):
     """Sampled-path SAGE stack; ``forward`` returns float32 logits for
     the seed rows of the innermost block. ``dropout`` is the rate
-    applied after each inner ReLU in ``train()`` mode."""
+    applied after each inner ReLU in ``train()`` mode.
+
+    ``slot_plans = False`` tells the trainers which blocks' backward
+    needs a transpose plan on the card: every block but the first (its
+    source rows are the input features), of the rows (``fanout_agg``'s
+    backward)."""
+
+    flax_prefix = "FanoutSAGEConv"
+    slot_plans = False
 
     def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
                  num_layers: int = 2, aggregator: str = "mean",
@@ -113,37 +118,13 @@ def sage_layer(model: DistSAGE, i: int, g: Graph, h: torch.Tensor
 
 def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
     """The ``DistSAGE`` state dict for a flax params tree (numpy leaves,
-    with or without the top-level ``"params"`` key). A flax kernel is
-    ``[in, out]``; a ``Linear`` weight is its transpose."""
-    params = tree.get("params", tree)
-    sd: Dict[str, torch.Tensor] = {}
-    for name, layer in params.items():
-        m = _LAYER_RE.fullmatch(name)
-        if m is None:
-            raise ValueError(f"unexpected params entry {name!r}; expected "
-                             "FanoutSAGEConv_<i>")
-        for sub, leaves in layer.items():
-            key = f"layers.{m.group(1)}.{sub}"
-            sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(leaves["kernel"], np.float32).T))
-            if "bias" in leaves:
-                sd[f"{key}.bias"] = torch.from_numpy(
-                    np.array(leaves["bias"], np.float32))
-    return sd
+    with or without the top-level ``"params"`` key) of
+    ``FanoutSAGEConv_<i>`` entries (``models/flax_layout.py``)."""
+    return flax_layout.state_dict_from_flax(tree, DistSAGE.flax_prefix)
 
 
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     """The flax params tree (numpy leaves, under ``"params"``) of a
     ``DistSAGE`` state dict — the inverse of
     :func:`state_dict_from_flax`."""
-    params: dict = {}
-    for key, value in state_dict.items():
-        _, i, sub, leaf = key.split(".")
-        arr = value.detach().cpu().float().numpy()
-        node = params.setdefault(f"FanoutSAGEConv_{i}", {}).setdefault(
-            sub, {})
-        if leaf == "weight":
-            node["kernel"] = np.ascontiguousarray(arr.T)
-        else:
-            node["bias"] = arr.copy()
-    return {"params": params}
+    return flax_layout.state_dict_to_flax(state_dict, DistSAGE.flax_prefix)

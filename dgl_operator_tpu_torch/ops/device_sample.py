@@ -156,7 +156,8 @@ def sample_fanout_tree_from_draws(
         indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
         fanouts: Sequence[int], draws: Sequence[torch.Tensor],
         positions: Optional[Sequence[torch.Tensor]] = None,
-        plans: bool = False) -> Tuple[List[FanoutBlock], torch.Tensor]:
+        plans: bool = False, slot_plans: bool = False
+        ) -> Tuple[List[FanoutBlock], torch.Tensor]:
     """Multi-layer uniform with-replacement fanout sampling from given
     draws; returns ``(blocks, input_ids)``, blocks outermost-first and
     ``input_ids`` the global ids whose rows the first layer reads.
@@ -169,9 +170,12 @@ def sample_fanout_tree_from_draws(
                      of its node.
     positions        :func:`tree_positions` of these shapes, to reuse
                      (built here when None).
-    plans            attach :func:`~ops.scatter.tree_scatter_plan` to
-                     every block but the first (the transposes the
-                     card's backward sums over).
+    plans            attach :func:`~ops.scatter.tree_scatter_plan` (the
+                     transposes the card's backward sums over) as
+                     :func:`~ops.scatter.attach_plans` does:
+                     ``slot_plans`` (the model's) gives every block
+                     the plan of its slots, else every block but the
+                     first gets the plan of its rows.
 
     A padded seed and a node of degree 0 mask their whole fanout row; a
     masked slot's source id is 0. Out-of-range reads are clamped, as
@@ -202,8 +206,8 @@ def sample_fanout_tree_from_draws(
         valid = torch.cat([valid, mask.reshape(-1)])
     blocks = [FanoutBlock(pos, m, ns) for pos, m, ns in reversed(per_layer)]
     if plans:
-        for blk in blocks[1:]:
-            blk.plan = tree_scatter_plan(blk.mask)
+        for blk in blocks[0 if slot_plans else 1:]:
+            blk.plan = tree_scatter_plan(blk.mask, slots=slot_plans)
     return blocks, f
 
 
@@ -222,9 +226,12 @@ def sample_fanout_tree(indptr: torch.Tensor, indices: torch.Tensor,
 class TreeSampler:
     """The device sampler at one batch size and fanouts: the constant
     positions and draw counters on ``device``, and :meth:`sample` for a
-    CSR, a step's seeds and a key."""
+    CSR, a step's seeds and a key. ``slot_plans`` (the model's) says
+    which plans the blocks carry."""
 
-    def __init__(self, batch_size: int, fanouts: Sequence[int], device):
+    def __init__(self, batch_size: int, fanouts: Sequence[int], device,
+                 slot_plans: bool = False):
+        self.slot_plans = bool(slot_plans)
         self.fanouts = tuple(int(f) for f in fanouts)
         self.caps = tree_caps(batch_size, self.fanouts)
         self.positions = tree_positions(batch_size, self.fanouts, device)
@@ -238,4 +245,5 @@ class TreeSampler:
         return sample_fanout_tree_from_draws(
             indptr, indices, seeds, self.fanouts,
             tree_draws(key, self.counters, self.fanouts),
-            positions=self.positions, plans=True)
+            positions=self.positions, plans=True,
+            slot_plans=self.slot_plans)

@@ -157,19 +157,47 @@ def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:
         long_rows.astype(i32), long_part.astype(i32))
 
 
-def tree_scatter_plan(mask: torch.Tensor) -> ScatterPlan:
-    """The :func:`scatter_plan` of a device-sampled tree block, built on
+def slot_plan(idx, mask, num_rows: int) -> ScatterPlan:
+    """The plan of a gather of every slot of ``idx`` ``[ND, F]``
+    (``gather_rows(table, idx.reshape(-1))``, as the attention layers
+    gather their neighbours): :func:`scatter_plan` of the flattened
+    table, one source row per slot, over the valid slots only. A masked
+    slot is left out of the transpose; the layers that gather this way
+    weigh it by exactly 0, so its cotangent row is 0."""
+    idx = np.asarray(idx).reshape(-1, 1)
+    return scatter_plan(idx, None if mask is None
+                        else np.asarray(mask).reshape(-1, 1), num_rows)
+
+
+def attach_plans(blocks, slots: bool) -> None:
+    """Give each host block the plan its layer's backward sums over on
+    the card, as a model's ``slot_plans`` says: without ``slots``, the
+    transpose of the rows of every block but the first
+    (:func:`scatter_plan`, for ``fanout_agg``; the first block's source
+    rows are the input features, which need no gradient); with
+    ``slots``, the transpose of the slots of every block
+    (:func:`slot_plan`, for per-slot gathers)."""
+    make = slot_plan if slots else scatter_plan
+    for blk in blocks[0 if slots else 1:]:
+        blk.plan = make(blk.nbr, blk.mask, blk.num_src)
+
+
+def tree_scatter_plan(mask: torch.Tensor, slots: bool = False
+                      ) -> ScatterPlan:
+    """The :func:`scatter_plan` (or, with ``slots``, the
+    :func:`slot_plan`) of a device-sampled tree block, built on
     ``mask``'s device with static shapes and no host sync.
 
     A tree block ``[n, F]`` names source row ``n + i * F + k`` from slot
     ``(i, k)`` (``ops/device_sample.py``), so each target has at most one
     entry: ``offsets`` is zeros up to ``n``, then the running count of
-    valid slots; ``src`` holds the valid slots' rows ``i`` in slot order,
-    scattered to the front (its entries past the valid count are never
-    read: they hold the masked slots' rows); ``cnt`` is each row's valid
+    valid slots; ``src`` holds the valid slots' rows ``i`` (with
+    ``slots``: the slots ``i * F + k``) in slot order, scattered to the
+    front (its entries past the valid count are never read: they hold
+    the masked slots' rows); ``cnt`` is each row's (each slot's) valid
     count; there are no long targets. Equal to ``scatter_plan(pos, mask,
-    n * (F + 1))`` field for field, ``src`` on its first ``nnz``
-    entries."""
+    n * (F + 1))`` (``slot_plan(pos, mask, n * (F + 1))``) field for
+    field, ``src`` on its first ``nnz`` entries."""
     n, f = mask.shape
     dev = mask.device
     i32 = torch.int32
@@ -180,13 +208,12 @@ def tree_scatter_plan(mask: torch.Tensor) -> ScatterPlan:
     # a permutation: the valid slots first, then the masked ones, each
     # in slot order
     dest = torch.where(valid, run - 1, nnz + slot - run)
-    src = torch.empty_like(slot).scatter_(0, dest.long(),
-                                          torch.div(slot, f,
-                                                    rounding_mode="floor"))
+    row = slot if slots else torch.div(slot, f, rounding_mode="floor")
+    src = torch.empty_like(slot).scatter_(0, dest.long(), row)
+    cnt = valid.to(i32) if slots else (mask > 0).sum(1, dtype=i32)
     return ScatterPlan(
         torch.cat([torch.zeros(n + 1, dtype=i32, device=dev), run]), src,
-        (mask > 0).sum(1, dtype=i32),
-        torch.zeros((0, 2), dtype=i32, device=dev),
+        cnt, torch.zeros((0, 2), dtype=i32, device=dev),
         torch.zeros(0, dtype=i32, device=dev),
         torch.zeros(1, dtype=i32, device=dev))
 

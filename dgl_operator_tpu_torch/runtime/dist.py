@@ -1,4 +1,4 @@
-"""Partition-parallel GraphSAGE training — ``DistTrainer``.
+"""Partition-parallel GNN training — ``DistTrainer``.
 
 The counterpart of ``dgl_operator_tpu/runtime/dist.py::DistTrainer``
 (the reference's ``train_dist.py``): every partition of a book is one
@@ -13,9 +13,12 @@ loads only its contiguous block ``my_parts`` of ``P / W`` parts, the
 processes agree on caps, pair cap and steps per epoch
 (``parallel/collectives.py::allreduce_host``), rank 0's weights are
 broadcast at construction, and one ``all_reduce`` a step sums the
-gradients (``parallel/dp.py``). A slot's step runs through the same
-kernels as ``SampledTrainer``'s: ``gather_rows`` for its input rows, two
-``fanout_agg`` and one ``scatter_add_rows`` backward. The slots of a
+gradients (``parallel/dp.py``). The model is ``DistSAGE``, ``DistGAT``
+or ``DistGATv2``. A slot's step runs through the same kernels as
+``SampledTrainer``'s: ``gather_rows`` for its input rows; for SAGE two
+``fanout_agg`` and one ``scatter_add_rows`` backward, for GAT two
+``gather_rows`` a layer (GATv2: one) and their ``scatter_add_rows``
+backward. The slots of a
 batch are sampled in parallel on a pool of
 ``runtime/loop.py::resolve_num_samplers`` threads, each slot's task
 doing all of its slot's host work.
@@ -73,11 +76,11 @@ from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
                                                  build_fanout_blocks,
                                                  calibrate_caps, fanout_caps)
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
-from dgl_operator_tpu_torch.models.sage import (sage_layer,
-                                                state_dict_from_flax)
+from dgl_operator_tpu_torch.models import (inference_layer,
+                                           state_dict_from_flax)
 from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
 from dgl_operator_tpu_torch.ops.gather import gather_rows
-from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+from dgl_operator_tpu_torch.ops.scatter import attach_plans
 from dgl_operator_tpu_torch.parallel import collectives
 from dgl_operator_tpu_torch.parallel.dp import slot_mean_step
 from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
@@ -214,7 +217,7 @@ class DistTrainer:
             min(self._train_counts) // cfg.batch_size, 1)
         if self._device_mode:
             self._tree = TreeSampler(cfg.batch_size, cfg.fanouts,
-                                     self.device)
+                                     self.device, model.slot_plans)
             self.caps = self._tree.caps
             self._dev_csr = self._device_csrs()
         elif cfg.cap_policy == "auto":
@@ -394,8 +397,9 @@ class DistTrainer:
         """Local slot ``i``'s share of a batch: its padded minibatch of
         batch ``batch_idx`` of ``ids`` on the stream
         ``part_sample_seed(step_seed, part)`` of its global part, the
-        transpose plans of ``blocks[1:]`` (the backward on the card sums
-        over them) and, in the owner layout, its exchange tables.
+        transpose plans the model's backward sums over on the card
+        (``ops/scatter.py::attach_plans``) and, in the owner layout, its
+        exchange tables.
         Depends on ``(ids, batch_idx, step_seed, part)`` alone."""
         cfg = self.cfg
         B = cfg.batch_size
@@ -407,8 +411,7 @@ class DistTrainer:
         mb = forward.sample_padded(
             self.cscs[i], seeds, cfg.fanouts, self.caps, self.n_pad, B,
             forward.part_sample_seed(step_seed, self.my_parts[i]))
-        for blk in mb.blocks[1:]:
-            blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
+        attach_plans(mb.blocks, self.model.slot_plans)
         exch = (self._exchange_requests(i, mb.input_nodes)
                 if self._owner_layout else None)
         return mb, len(seeds), exch
@@ -716,13 +719,15 @@ class DistTrainer:
                  ) -> Dict[str, float]:
         """Accuracy per node mask of full-neighborhood layer-wise
         inference over the slots: per layer every slot aggregates over
-        its local edges (``gspmm``; a core node's in-edges are all
-        local), its core outputs go to one global ``[N, D]`` buffer, and
+        its local edges (``models.inference_layer``: SAGE's ``gspmm``, or
+        the GAT and GATv2 edge softmax; a core node's in-edges are all
+        local, so its attention denominator is exact), its core outputs
+        go to one global ``[N, D]`` buffer, and
         each slot reads its local rows from there for the next layer. In
         a group one ``all_reduce(SUM)`` joins the processes' buffers for
         the input and after each layer: exact, since each row has one
         non-zero contributor. Every rank computes the same accuracies.
-        The mean and sum aggregators are ported."""
+        SAGE's mean and sum aggregators are ported."""
         orig, labels, masks = self._eval_context()
         n_inner = [int(n) for n in self._n_inner]
 
@@ -739,7 +744,8 @@ class DistTrainer:
             for li in range(len(self.model.layers)):
                 nxt = None
                 for i, p in enumerate(self.parts):
-                    out = sage_layer(self.model, li, p.graph, buf[orig[i]])
+                    out = inference_layer(self.model, li, p.graph,
+                                          buf[orig[i]])
                     if nxt is None:
                         nxt = out.new_zeros(self.num_nodes, out.shape[1])
                     nxt[orig[i][:n_inner[i]]] = out[:n_inner[i]]

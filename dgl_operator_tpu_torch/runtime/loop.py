@@ -4,9 +4,11 @@ The counterpart of ``dgl_operator_tpu/runtime/loop.py::SampledTrainer``
 (the reference's ``train_dist.py`` run loop): each epoch permutes the
 training ids with one seeded numpy stream, cuts them into batches and
 takes one step per batch on the card: the input rows are gathered by
-the hand-written ``gather_rows`` kernel, the model aggregates with
-``fanout_agg`` and its backward with ``scatter_add_rows``, and Adam
-updates the weights. Two samplers (``TrainConfig.sampler``):
+the hand-written ``gather_rows`` kernel, the model (``DistSAGE``,
+``DistGAT`` or ``DistGATv2``) aggregates with ``fanout_agg`` (SAGE) or
+gathers each neighbour slot with ``gather_rows`` (GAT), its backward
+runs ``scatter_add_rows``, and Adam updates the weights. Two samplers
+(``TrainConfig.sampler``):
 
 - ``"host"``: each batch is sampled on the host through the C++ graph
   core and padded (on a thread pipeline when ``prefetch > 0``; the
@@ -23,11 +25,15 @@ trainer's ``lax.scan``), then single steps for the epoch's tail
 (:func:`chunk_calls`). With the device sampler on the card a call is
 one replay of a CUDA graph of the K steps (``runtime/graphs.py``); with
 the host sampler a call is K single steps, since the batches' plans
-differ in size. Evaluation runs ``sage_inference`` over the
-full graph. With ``ckpt_dir`` the model and Adam's state are
-checkpointed every ``ckpt_every`` steps (at the end of the call that
-crosses the mark) and at each epoch's end, and a new run resumes from
-the newest good checkpoint (``resume="auto"``).
+differ in size. Evaluation runs the model's layer-wise inference over
+the full graph (``models.full_graph_inference``). The blocks carry the
+transpose plans the model's backward needs on the card (its
+``slot_plans``). :func:`train_full_graph` is the
+full-graph loop (GCN or GAT on one ``DeviceGraph``). With
+``ckpt_dir`` the model and Adam's state are checkpointed every
+``ckpt_every`` steps (at the end of the call that crosses the mark) and
+at each epoch's end, and a new run resumes from the newest good
+checkpoint (``resume="auto"``).
 
 What the JAX trainer also carries and this one does not yet: the
 numerics sentry, the live plane and chaos hooks (``ROADMAP.md`` Queue
@@ -51,13 +57,13 @@ from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
                                                  calibrate_caps, fanout_caps,
                                                  pad_minibatch)
 from dgl_operator_tpu_torch.graph.graph import Graph
-from dgl_operator_tpu_torch.models.sage import (sage_inference,
-                                                state_dict_from_flax)
+from dgl_operator_tpu_torch.models import (flax_params, full_graph_inference,
+                                           state_dict_from_flax)
 from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                       device_csr, draw_key)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
-from dgl_operator_tpu_torch.ops.scatter import scatter_plan
+from dgl_operator_tpu_torch.ops.scatter import attach_plans
 from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                        load_train_state,
                                                        train_state)
@@ -369,7 +375,8 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
 
 
 class SampledTrainer:
-    """Mini-batch neighbor-sampled trainer for ``DistSAGE``.
+    """Mini-batch neighbor-sampled trainer for ``DistSAGE``, ``DistGAT``
+    and ``DistGATv2``.
 
     ``device`` is where the model, features and labels live (the
     current CUDA card when None; ``"cpu"`` on request). The model must
@@ -404,7 +411,7 @@ class SampledTrainer:
             # tree-form blocks: closed-form caps, no calibration probe
             self._indptr, self._indices = device_csr(self.csc, self.device)
             self._tree = TreeSampler(cfg.batch_size, cfg.fanouts,
-                                     self.device)
+                                     self.device, model.slot_plans)
             self.caps = self._tree.caps
         elif cfg.cap_policy == "auto":
             self.caps = calibrate_caps(
@@ -423,16 +430,16 @@ class SampledTrainer:
     # -- batches --------------------------------------------------------
     def sample(self, seeds: np.ndarray, step_seed: int) -> MiniBatch:
         """The padded host minibatch of ``seeds``; a function of
-        ``(seeds, step_seed)`` alone. Every block but the first carries
-        the transpose plan its aggregation's backward sums over; the
-        first one's source rows are the input features, which need no
-        gradient."""
+        ``(seeds, step_seed)`` alone. The blocks the model names carry
+        the transpose plans their backward sums over
+        (``ops/scatter.py::attach_plans``): for SAGE every block but the
+        first, whose source rows are the input features and need no
+        gradient; for GAT every block, per slot."""
         mb = build_fanout_blocks(self.csc, seeds, self.cfg.fanouts,
                                  seed=step_seed, src_caps=self.caps[1:])
         mb = pad_minibatch(mb, self.cfg.batch_size, self.cfg.fanouts,
                            self.g.num_nodes, caps=self.caps)
-        for blk in mb.blocks[1:]:
-            blk.plan = scatter_plan(blk.nbr, blk.mask, blk.num_src)
+        attach_plans(mb.blocks, self.model.slot_plans)
         return mb
 
     def sample_pipeline(self, batches: Sequence[Tuple[np.ndarray, int]],
@@ -524,9 +531,10 @@ class SampledTrainer:
                  ) -> Dict[str, float]:
         """Accuracy per node mask of full-neighborhood layer-wise
         inference with the current weights (the reference's
-        ``evaluate``); masks the graph lacks are skipped."""
+        ``evaluate``; ``sage_inference`` or ``gat_inference`` by the
+        model's family); masks the graph lacks are skipped."""
         with torch.no_grad():
-            logits = sage_inference(self.model, self.g, self.feats)
+            logits = full_graph_inference(self.model, self.g, self.feats)
             correct = logits.argmax(-1) == self.labels
             out = {}
             for name in mask_names:
@@ -606,3 +614,53 @@ class SampledTrainer:
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "history": history, "step": gstep}
+
+
+# ----------------------------------------------------------------------
+def train_full_graph(model: torch.nn.Module, g: Graph, cfg: TrainConfig,
+                     pad_edges_to: Optional[int] = None,
+                     init_params=None, device: DeviceLike = None) -> Dict:
+    """The full-graph node-classification loop (GCN or GAT; the JAX
+    package's ``train_full_graph``, the reference's Cora example): one
+    Adam step a epoch on the masked cross-entropy of the train nodes
+    over the whole graph (``g.to_device(pad_to=pad_edges_to)``), the
+    validation accuracy every ``cfg.eval_every`` epochs and at the last.
+    The model's weights, or ``init_params`` (a flax params tree), on
+    ``device`` (the card unless told otherwise). Returns ``{"params":
+    the flax params tree, "history": [{"epoch", "loss"[, "val_acc"]}],
+    "test_acc"}``."""
+    device = resolve_device(device)
+    if init_params is not None:
+        model.load_state_dict(state_dict_from_flax(init_params))
+    model.to(device).train()
+    dg = g.to_device(device, pad_to=pad_edges_to)
+    x = torch.from_numpy(np.ascontiguousarray(g.ndata["feat"],
+                                              np.float32)).to(device)
+    y = torch.from_numpy(g.ndata["label"].astype(np.int64)).to(device)
+    masks = {k: torch.from_numpy(np.asarray(g.ndata[k], np.float32)
+                                 ).to(device)
+             for k in ("train_mask", "val_mask", "test_mask")}
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+
+    def accuracy(mask):
+        with torch.no_grad():
+            hit = (model(dg, x).argmax(-1) == y).float() * mask
+            return float(hit.sum() / mask.sum().clamp_min(1.0))
+
+    history: List[Dict] = []
+    for epoch in range(cfg.num_epochs):
+        opt.zero_grad(set_to_none=True)
+        ll = torch.nn.functional.cross_entropy(model(dg, x), y,
+                                               reduction="none")
+        mask = masks["train_mask"]
+        loss = (ll * mask).sum() / mask.sum().clamp_min(1.0)
+        loss.backward()
+        opt.step()
+        rec = {"epoch": epoch, "loss": float(loss.detach())}
+        if _eval_due(cfg, epoch):
+            rec["val_acc"] = accuracy(masks["val_mask"])
+            print(f"Epoch {epoch} loss {rec['loss']:.4f} "
+                  f"val_acc {rec['val_acc']:.4f}", flush=True)
+        history.append(rec)
+    return {"params": flax_params(model), "history": history,
+            "test_acc": accuracy(masks["test_mask"])}

@@ -13,7 +13,9 @@ ownership manifest; hits and owner fetches are counted
 
 Params arrive as a flax-layout tree (an export from either package's
 ``export_for_serving``) and are converted to the model's state dict on
-the engine's device at load. :meth:`warmup` runs one all-padding batch
+the engine's device at load (``models.state_dict_from_flax``, which
+reads the family, ``DistSAGE``, ``DistGAT`` or ``DistGATv2``, from the
+tree's layer prefix). :meth:`warmup` runs one all-padding batch
 per shape rung before the first request, which also builds the CUDA
 kernels.
 """
@@ -32,7 +34,7 @@ from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import calibrate_caps, fanout_caps
 from dgl_operator_tpu_torch.graph.featstore import PagedFeatureStore
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
-from dgl_operator_tpu_torch.models.sage import state_dict_from_flax
+from dgl_operator_tpu_torch.models import state_dict_from_flax
 from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs
 from dgl_operator_tpu_torch.parallel.halo import (DEFAULT_HALO_CACHE_FRAC,
                                                   build_halo_cache)

@@ -1,8 +1,9 @@
-"""The port stands alone: no module of ``dgl_operator_tpu_torch`` and
-not ``chip_smoke.py`` imports JAX, its libraries or the JAX package,
-or names a file of the JAX package to compile or load (the port builds
-its own graph core and kernels from its own sources), and no entry
-point runs on the CPU unless asked to."""
+"""The port stands alone: no module of ``dgl_operator_tpu_torch``,
+neither ``chip_smoke.py`` nor ``leaky_branch_probe.py``, imports JAX,
+its libraries or the JAX package, or names a file of the JAX package
+to compile or load (the port builds its own graph core and kernels from
+its own sources), and no entry point runs on the CPU unless asked
+to."""
 
 import ast
 import ctypes
@@ -36,7 +37,8 @@ REPLACES_LABEL = re.compile(r"^dgl_operator_tpu/ops/pallas_gather\.py(:\d+)?$")
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f)
+             for f in ("chip_smoke.py", "leaky_branch_probe.py")]
     for root, _, files in os.walk(os.path.join(REPO,
                                                "dgl_operator_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

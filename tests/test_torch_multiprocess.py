@@ -340,12 +340,13 @@ def test_entry_point_trains_two_ranks_from_the_hostfile(books, tmp_path,
 def test_entry_point_flags_not_ported_raise(books, tmp_path, monkeypatch,
                                             flags):
     """The entry point's flags whose features the port lacked raise;
-    ``--sampler device`` is ported, so one process trains both parts
-    with the device sampler."""
+    ``--sampler device`` and ``--model gat|gatv2`` are ported, so one
+    process trains both parts with the device sampler or the attention
+    stack."""
     monkeypatch.delenv("TPU_OPERATOR_DIST", raising=False)
     monkeypatch.delenv(RANK_ENV, raising=False)
     argv = _entry_argv(books[2], str(tmp_path)) + flags
-    if flags == ["--sampler", "device"]:
+    if flags[0] in ("--sampler", "--model"):
         out = train_dist.main(argv)
         assert out["step"] > 0 and out["history"][-1]["val_acc"] >= 0
         assert np.isfinite([x for r in out["history"]
