@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, KGE and GAT paths.
+"""Drive the PyTorch/CUDA port's serving, training, KGE, GAT and
+full-graph paths.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -176,16 +177,34 @@ Each phase prints JSON lines:
    a flax export (8 requests, then one request against the CPU
    engine); and ``train_full_graph`` through
    ``examples/node_classification.py`` with GCN and GAT on the
-   synthetic Cora, 20 epochs against the CPU.
+   synthetic Cora, 20 epochs, twice on the card and twice on the CPU:
+   each pair bit-equal in every loss and final parameter, the card's
+   launches per epoch checked, the first 3 epochs against the CPU, and
+   the 20-epoch gap beside a float64 CPU run's.
+
+15. ``message_passing`` — the full-graph message-passing vocabulary
+   and link prediction, each run twice on the card (bit-equal, launches
+   per epoch checked) and once on the CPU (3 epochs within 1e-4):
+   ``examples/message_passing.py`` plain and ``--weighted`` (20 epochs
+   on Cora), ``examples/link_predict.py`` with the dot and the MLP
+   predictor (100 epochs, the AUC on both sides within 0.01 and at
+   least 0.8); ``examples/graphsage.py`` for one epoch at ``--scale``
+   on the card (launches per step); pool ``sage_inference`` at full
+   width over phase 3's graph against the CPU, its launches (a gather a
+   destination chunk) and peak memory, and ``DistTrainer.evaluate``
+   with pool over phase 10's book against it; ``kernel`` lines of
+   ``gather_rows`` and ``scatter_add_rows`` at the full-graph Cora
+   shapes (``cora_gather16``, ``cora_segment_sum``).
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge and gat phases (both ranks of each two-rank run and every graph
-replay included), split by path, worst error, the times of its calls in
-one SAGE training step and, under ``kge``, in one KGE step, under
-``device_sampler``, in one device-sampled step and, under ``gat`` and
-``gatv2``, in one device-sampled step of that stack), the nvidia-smi
-line, and
+kge, gat and message_passing phases (both ranks of each two-rank run
+and every graph replay included), split by path, worst error, the
+times of its calls in one SAGE training step and, under ``kge``, in one
+KGE step, under ``device_sampler``, in one device-sampled step, under
+``gat`` and ``gatv2``, in one device-sampled step of that stack and,
+under ``full_graph``, in one edge gather or segment sum of the Cora
+loop), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -3756,48 +3775,142 @@ def gat_serve(torch, args, wrappers, g, ctx, work: str, card: str
     return launches
 
 
-def gat_full_graph(torch, args, card: str) -> None:
-    """``examples/node_classification.py`` (``train_full_graph``) with
-    GCN and with GAT (4 heads of 16) on the synthetic Cora, 20 epochs on
-    the card and on the CPU from the same seeded weights: the first 3
-    epochs' losses within 1e-4 relative of the CPU's, finite losses that
-    fall, the seconds of each call (the dataset's synthesis included).
-    Later epochs are reported, not held: GAT's losses at Adam's lr 1e-2
-    oscillate, and a float32 rounding gap grows with every epoch (two
-    runs on the CPU, whose ``index_add_`` sums differ in order, already
-    part after the first epoch)."""
+# launches of one full-graph training epoch and of one forward, per
+# model, as (gather_rows, scatter_add_rows): each edge gather that needs
+# a gradient adds a scatter to the backward, each segment sum a gather;
+# a layer whose input needs no gradient has no backward
+FULL_GRAPH_LAUNCHES = {
+    "gcn": ((4, 4), (2, 2)),       # 2 x (gather + sum), both projected
+    "gat": ((14, 12), (10, 4)),    # 2 x (el, er, smax, denom, feat; 2 sums)
+    "sage": ((3, 3), (2, 2)),      # layer 0's input is the features
+    "weighted": ((3, 3), (2, 2)),
+    "link": ((7, 7), (6, 2)),      # + the pos and neg graphs' 2 gathers
+}
+
+
+def full_graph_want(model: str, epochs: int, forwards: int) -> dict:
+    """The launches ``epochs`` training epochs and ``forwards``
+    evaluation forwards of ``model`` make (:data:`FULL_GRAPH_LAUNCHES`)."""
+    (tg, ts), (fg, fs) = FULL_GRAPH_LAUNCHES[model]
+    return {"fanout_agg": 0, "gather_rows": epochs * tg + forwards * fg,
+            "scatter_add_rows": epochs * ts + forwards * fs}
+
+
+def run_example(torch, wrappers, module, argv, **kw):
+    """``module.main(argv, **kw)`` with its stdout captured: its result,
+    its seconds and, on the card, its launches (every count set to 0
+    just before)."""
     import contextlib
     import io
 
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = module.main(argv, **kw)
+    if "cpu" not in argv:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(wrappers)
+
+
+def flax_leaves(tree, path: str = "") -> dict:
+    """The arrays of a flax params tree by their ``/``-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flax_leaves(v, f"{path}{k}/"))
+        else:
+            out[f"{path}{k}"] = v
+    return out
+
+
+def same_params(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    la, lb = flax_leaves(a), flax_leaves(b)
+    return la.keys() == lb.keys() and all(
+        np.array_equal(la[k], lb[k]) for k in la)
+
+
+def gat_full_graph(torch, args, wrappers, card: str) -> dict:
+    """``examples/node_classification.py`` (``train_full_graph``) with
+    GCN and with GAT (4 heads of 16) on the synthetic Cora, 20 epochs,
+    twice on the card and twice on the CPU from the same seeded weights:
+    each pair equal in every loss and every final parameter bit for bit
+    (the gathers and segment sums run over the graph's transpose plans);
+    the card's launches per epoch as :data:`FULL_GRAPH_LAUNCHES` says;
+    the first 3 epochs' losses within 1e-4 relative of the CPU's, finite
+    losses that fall, the seconds of each call (the dataset's synthesis
+    included). The later epochs' card-to-CPU gap is reported beside the
+    gap of a float64 run of the same weights on the CPU from the CPU's
+    float32 run and from the card's: GAT's losses at Adam's lr 1e-2
+    oscillate, and float32 rounding grows with every epoch. Returns the
+    card runs' launches."""
     import numpy as np
 
     from dgl_operator_tpu_torch.examples import node_classification
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.models import GAT, GCN
+    from dgl_operator_tpu_torch.runtime.loop import (TrainConfig,
+                                                     train_full_graph)
 
     epochs, held = 20, 3
+    total = {}
+    cora = datasets.cora().graph
     for model in ("gcn", "gat"):
         runs, secs = {}, {}
-        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                runs[side] = node_classification.main([
-                    "--model", model, "--num_epochs", str(epochs),
-                    "--device", dev, "--seed", str(args.seed)])
-            secs[side] = time.perf_counter() - t0
-        card_l, cpu_l = [[h["loss"] for h in runs[side]["history"]]
-                         for side in ("card", "cpu")]
-        rel = np.abs(np.subtract(card_l, cpu_l)) / np.abs(cpu_l)
-        check(len(rel) == epochs and float(rel[:held].max()) <= 1e-4,
+        for side, dev in (("card", "cuda"), ("card2", "cuda"),
+                          ("cpu", "cpu"), ("cpu2", "cpu")):
+            argv = ["--model", model, "--num_epochs", str(epochs),
+                    "--device", dev, "--seed", str(args.seed)]
+            runs[side], secs[side], launches = run_example(
+                torch, wrappers, node_classification, argv)
+            if dev == "cuda":
+                evals = 1 + sum("val_acc" in h
+                                for h in runs[side]["history"])
+                want = full_graph_want(model, epochs, evals)
+                check(launches == want, f"full graph {model}: {launches} "
+                      f"launches in {epochs} epochs, expected {want}")
+                card_launches = launches
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+        losses = {side: [h["loss"] for h in run["history"]]
+                  for side, run in runs.items()}
+        for a, b in (("card", "card2"), ("cpu", "cpu2")):
+            check(losses[a] == losses[b] and same_params(
+                runs[a]["params"], runs[b]["params"]),
+                f"full graph {model}: two {a} runs part: {losses[a]} vs "
+                f"{losses[b]}")
+        # the same weights in float64 on the CPU
+        gen = torch.Generator().manual_seed(args.seed)
+        net = (GAT(1433, 16, 7, num_heads=4, device="cpu", generator=gen)
+               if model == "gat" else
+               GCN(1433, 16, 7, device="cpu", generator=gen))
+        f64 = train_full_graph(net.double(), cora, TrainConfig(
+            num_epochs=epochs, lr=0.01, eval_every=0), device="cpu")
+        l64 = [h["loss"] for h in f64["history"]]
+        card_l, cpu_l = losses["card"], losses["cpu"]
+
+        def rel(a, b):
+            return (np.abs(np.subtract(a, b)) / np.abs(b)).tolist()
+
+        gap = rel(card_l, cpu_l)
+        check(len(gap) == epochs and max(gap[:held]) <= 1e-4,
               f"full graph {model}: card losses {card_l[:held]} vs CPU "
-              f"{cpu_l[:held]}: relative {rel[:held].tolist()} > 1e-4")
+              f"{cpu_l[:held]}: relative {gap[:held]} > 1e-4")
         check(bool(np.isfinite(card_l).all()) and card_l[-1] < card_l[0],
               f"full graph {model}: loss decreases: {card_l}")
         emit(phase="gat", part="full_graph", model=model, card=card,
              dataset="cora", epochs=epochs, epochs_held=held,
-             card_losses=card_l, cpu_losses=cpu_l,
-             loss_rel_err=rel.tolist(),
+             card_runs_bit_equal=True, cpu_runs_bit_equal=True,
+             launches_per_card_run=card_launches,
+             card_losses=card_l, cpu_losses=cpu_l, cpu_f64_losses=l64,
+             loss_rel_err=gap, card_to_cpu_f64=rel(card_l, l64),
+             cpu_to_cpu_f64=rel(cpu_l, l64),
              test_acc=runs["card"]["test_acc"],
              cpu_test_acc=runs["cpu"]["test_acc"],
-             card_call_s=secs["card"], cpu_call_s=secs["cpu"])
+             card_call_s=secs["card"], card_call2_s=secs["card2"],
+             cpu_call_s=secs["cpu"])
+    return total
 
 
 def gat_phase(torch, args, ops, wrappers, g, trainer, ctx, work: str,
@@ -3805,7 +3918,8 @@ def gat_phase(torch, args, ops, wrappers, g, trainer, ctx, work: str,
     """The GAT slice at full width: card against CPU, ``SampledTrainer``
     with both samplers and K = 4, the kernels at the attention's shapes
     and ``DistTrainer`` in both layouts with evaluation and resume.
-    Returns the main-path launches and the kernel records."""
+    Returns the main-path launches, the full-graph runs' launches
+    and the kernel records."""
     t0 = time.perf_counter()
     gat_cpu(torch, args, g, trainer, card)
     sampled, runs = gat_sampled(torch, args, wrappers, g, trainer, card)
@@ -3815,20 +3929,279 @@ def gat_phase(torch, args, ops, wrappers, g, trainer, ctx, work: str,
     torch.cuda.empty_cache()
     dist = gat_dist(torch, args, wrappers, g, ctx, work, card)
     served = gat_serve(torch, args, wrappers, g, ctx, work, card)
-    gat_full_graph(torch, args, card)
+    full = gat_full_graph(torch, args, wrappers, card)
     emit(phase="gat", part="done", card=card,
          seconds=time.perf_counter() - t0)
-    return {k: sampled[k] + dist[k] + served[k] for k in sampled}, records
+    return ({k: sampled[k] + dist[k] + served[k] for k in sampled}, full,
+            records)
+
+
+MP_EPOCHS = 20          # message_passing.py epochs, card against CPU
+MP_HELD = 3             # epochs held within 1e-4 relative of the CPU's
+
+
+def full_graph_pair(torch, wrappers, module, argv, model: str, what: str,
+                    forwards, **kw):
+    """An example twice on the card (bit-equal losses and parameters,
+    launches as :func:`full_graph_want` says for ``forwards(result)``
+    evaluation forwards) and once on the CPU; the first ``MP_HELD``
+    losses within 1e-4 relative. Returns the card's and the CPU's
+    results, the card runs' launches and the card's seconds."""
+    import numpy as np
+
+    card, secs, total = [], [], {}
+    for _ in range(2):
+        out, sec, launches = run_example(torch, wrappers, module,
+                                         argv + ["--device", "cuda"], **kw)
+        hist = out["history"]
+        epochs = len(hist)
+        want = full_graph_want(model, epochs, forwards(out))
+        check(launches == want, f"{what}: {launches} launches in {epochs} "
+              f"epochs, expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        card.append(out)
+        secs.append(sec)
+    cpu, cpu_s, _ = run_example(torch, wrappers, module,
+                                argv + ["--device", "cpu"], **kw)
+
+    def losses(out):
+        return [h if isinstance(h, float) else h["loss"]
+                for h in out["history"]]
+
+    check(losses(card[0]) == losses(card[1]) and same_params(
+        card[0]["params"], card[1]["params"]),
+        f"{what}: two card runs part")
+    card_l, cpu_l = losses(card[0]), losses(cpu)
+    gap = (np.abs(np.subtract(card_l, cpu_l)) / np.abs(cpu_l)).tolist()
+    check(max(gap[:MP_HELD]) <= 1e-4, f"{what}: card losses "
+          f"{card_l[:MP_HELD]} vs CPU {cpu_l[:MP_HELD]}: relative "
+          f"{gap[:MP_HELD]} > 1e-4")
+    check(bool(np.isfinite(card_l).all()) and card_l[-1] < card_l[0],
+          f"{what}: loss decreases: {card_l}")
+    return card[0], cpu, dict(launches_per_card_run=launches,
+                              card_losses=card_l, cpu_losses=cpu_l,
+                              loss_rel_err=gap, card_call_s=secs,
+                              cpu_call_s=cpu_s)
+
+
+def csr_chunk_floor(g, d: int) -> int:
+    """The fewest destination chunks ``gspmm``'s host max can cut
+    ``g``'s merged adjacency into at row width ``d``."""
+    from dgl_operator_tpu_torch.ops import spmm
+
+    nnz = int(g.adjacency("cpu").values().numel())
+    return -(-nnz * d // spmm.CHUNK_ELEMS)
+
+
+def pool_inference(torch, args, wrappers, g, ctx, card: str) -> dict:
+    """``sage_inference`` with the pool aggregator at full width (100 ->
+    256 -> 47, seeded weights) over phase 3's graph on the card against
+    the CPU (logits within 1e-4 of their largest entry), its launches
+    (one ``gather_rows`` per destination chunk) and peak memory beside
+    the ``[E, D]`` tables it does not build; then ``DistTrainer.evaluate``
+    of the same weights over the dist phase's book against that CPU
+    inference (within max(2, n / 10,000) nodes). Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import DistSAGE, sage_inference
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import TrainConfig
+
+    def model(device):
+        return DistSAGE(FEAT, HIDDEN, CLASSES, aggregator="pool",
+                        device=device,
+                        generator=torch.Generator().manual_seed(args.seed))
+
+    x = torch.from_numpy(g.ndata["feat"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_logits = sage_inference(model("cpu"), g, x)
+    cpu_s = time.perf_counter() - t0
+    card_model, feats = model("cuda"), x.to("cuda")
+    g.adjacency("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card_logits = sage_inference(card_model, g, feats)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() - base
+    floor = csr_chunk_floor(g, FEAT) + csr_chunk_floor(g, HIDDEN)
+    check(launches["scatter_add_rows"] == launches["fanout_agg"] == 0
+          and floor <= launches["gather_rows"] <= 2 * g.num_nodes,
+          f"pool inference: {launches} launches, at least {floor} gathers "
+          "(one a destination chunk)")
+    err, scale = err_of(card_logits.cpu(), cpu_logits)
+    check(err <= 1e-4 * scale, f"pool sage_inference on the card {err} "
+          f"from the CPU's > 1e-4 x {scale}")
+    table = g.num_edges * HIDDEN * 4
+    check(peak < table, f"pool inference peak {peak} B reaches an [E, D] "
+          "table")
+    emit(phase="message_passing", part="pool_inference", card=card,
+         nodes=g.num_nodes, edges=g.num_edges, launches=launches,
+         gather_chunks_floor=floor, card_s=card_s, cpu_s=cpu_s,
+         logits_max_abs_err=err, logits_scale=scale,
+         peak_bytes_above_inputs=peak, message_table_bytes_not_built=table)
+    del card_model, feats, card_logits
+
+    cfg = TrainConfig(num_epochs=1, batch_size=BATCH_TRAIN, fanouts=FANOUTS,
+                      lr=LR, eval_every=1, seed=args.seed)
+    tr = DistTrainer(model("cuda"), ctx["book"], cfg)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    got = tr.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = read_counts(wrappers)
+    check(eval_launches["gather_rows"] >= tr.num_parts * 2,
+          f"pool evaluate: {eval_launches} launches")
+    pred = cpu_logits.argmax(-1).numpy()
+    cmp = {}
+    for key, name in (("val_mask", "val_mask"), ("test_mask", "test_mask")):
+        m = np.asarray(g.ndata[name], bool)
+        n = int(m.sum())
+        single = float((pred[m] == g.ndata["label"][m]).mean())
+        nodes = abs(got[key] - single) * n
+        slack = max(2, n // 10_000)
+        check(nodes <= slack + 1e-6, f"pool evaluate {key} {got[key]} on "
+              f"the card vs {single} single-graph on the CPU: {nodes} nodes "
+              f"apart > {slack}")
+        cmp[key] = dict(card=got[key], cpu_single_graph=single,
+                        nodes_apart=round(nodes), slack_nodes=slack)
+    emit(phase="message_passing", part="pool_evaluate", card=card,
+         parts=tr.num_parts, launches=eval_launches, eval_s=eval_s,
+         eval_vs_single_graph=cmp)
+    del tr
+    torch.cuda.empty_cache()
+    return {k: launches[k] + eval_launches[k] for k in launches}
+
+
+def full_graph_kernel_records(torch, args, ops, card: str):
+    """``gather_rows`` and ``scatter_add_rows`` against their plain
+    versions at the full-graph Cora shapes (``node_classification.py``'s
+    GCN): the 16-wide edge gather ``h[src]`` and the segment sum into
+    ``N + 1`` segments over the graph's ``dst_plan``."""
+    from dgl_operator_tpu_torch.graph import datasets
+
+    _, gather, scatter = ops
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 13)
+    dg = datasets.cora().graph.to_device("cuda")
+    n, e = dg.num_nodes, dg.num_edges
+    table = torch.randn(n, 16, device="cuda", generator=gen)
+    rows = torch.randn(e, 16, device="cuda", generator=gen)
+    records = gather_records(torch, gather, [("cora_gather16", table,
+                                              dg.src)], flush, args.iters,
+                             card)
+    records += scatter_records(torch, scatter, [
+        ("cora_segment_sum", rows, dg.dst.view(-1, 1), None, n + 1, False,
+         dg.dst_plan)], flush, args.iters, card)
+    return records
+
+
+def message_passing_phase(torch, args, ops, wrappers, g, ctx, card: str):
+    """The message-passing vocabulary and link prediction (full graph,
+    over a ``DeviceGraph``'s plans), the standalone sampled entry point,
+    and pool inference: ``examples/message_passing.py`` plain and
+    ``--weighted`` and ``examples/link_predict.py`` with the dot and the
+    MLP predictor (:func:`full_graph_pair`; the AUC on both sides),
+    ``examples/graphsage.py`` for one epoch at ``--scale`` on the card
+    (launches per step as the train phase's; not run on the CPU:
+    dropout draws differ by device, and phase 8 holds the trainer to
+    the CPU), :func:`pool_inference` and the kernels at the full-graph
+    Cora shapes. Returns the launches and the kernel records."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.examples import (graphsage, link_predict,
+                                                 message_passing)
+
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def nc_forwards(out):
+        return 1 + sum("val_acc" in h for h in out["history"])
+
+    for weighted in (False, True):
+        argv = ["--num_epochs", str(MP_EPOCHS), "--seed", str(args.seed)]
+        argv += ["--weighted"] if weighted else []
+        name = "weighted" if weighted else "sage"
+        card_out, cpu_out, rec = full_graph_pair(
+            torch, wrappers, message_passing, argv, name,
+            f"message_passing {name}", nc_forwards)
+        add(rec["launches_per_card_run"])
+        add(rec["launches_per_card_run"])
+        emit(phase="message_passing", part="message_passing", model=name,
+             card=card, dataset="cora", epochs=MP_EPOCHS,
+             epochs_held=MP_HELD, test_acc=card_out["test_acc"],
+             cpu_test_acc=cpu_out["test_acc"], **rec)
+    for predictor in ("dot", "mlp"):
+        card_out, cpu_out, rec = full_graph_pair(
+            torch, wrappers, link_predict,
+            ["--predictor", predictor, "--seed", str(args.seed)], "link",
+            f"link_predict {predictor}", lambda out: 1)
+        add(rec["launches_per_card_run"])
+        add(rec["launches_per_card_run"])
+        check(abs(card_out["auc"] - cpu_out["auc"]) <= 0.01
+              and card_out["auc"] >= 0.8,
+              f"link_predict {predictor}: AUC {card_out['auc']} on the "
+              f"card, {cpu_out['auc']} on the CPU")
+        emit(phase="message_passing", part="link_predict",
+             predictor=predictor, card=card, epochs=len(rec["card_losses"]),
+             epochs_held=MP_HELD, auc=card_out["auc"],
+             cpu_auc=cpu_out["auc"], **rec)
+
+    out, sec, launches = run_example(torch, wrappers, graphsage, [
+        "--num_epochs", "1", "--dataset_scale", str(args.scale),
+        "--seed", str(args.seed)])
+    steps = out["step"]
+    rec = out["history"][0]
+    losses = np.asarray(rec["losses"])
+    check(launches == {"fanout_agg": 2 * steps + 2,
+                       "gather_rows": steps + 1,
+                       "scatter_add_rows": steps},
+          f"graphsage.py: per step 1 gather_rows, 2 fanout_agg, 1 "
+          f"scatter_add_rows: {launches} launches in {steps} steps")
+    check(steps == len(losses) > 10 and bool(np.isfinite(losses).all())
+          and losses[-5:].mean() < losses[:5].mean(),
+          f"graphsage.py: {steps} steps, losses {losses.tolist()}")
+    add(launches)
+    step_ms = np.asarray(rec["step_s"]) * 1e3
+    emit(phase="message_passing", part="graphsage", card=card,
+         scale=args.scale, steps=steps, launches=launches,
+         loss_first5=float(losses[:5].mean()),
+         loss_last5=float(losses[-5:].mean()),
+         step_ms_mean=float(step_ms.mean()),
+         stall_ms_per_step=rec.get("stall", 0.0) * 1e3 / steps,
+         val_acc=rec.get("val_acc"), test_acc=rec.get("test_acc"),
+         eval_s=rec.get("eval_s"), call_s=sec)
+
+    add(pool_inference(torch, args, wrappers, g, ctx, card))
+    records = full_graph_kernel_records(torch, args, ops, card)
+    emit(phase="message_passing", part="done", card=card, launches=total,
+         seconds=time.perf_counter() - t0)
+    return total, records
 
 
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
-                 gat_shapes=None, gat_launches=0):
+                 gat_shapes=None, gat_launches=0, mp_launches=0):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
     ``kge``, of one KGE training step; under ``device_sampler``, of one
     device-sampled step; under each key of ``gat_shapes``, of one
-    device-sampled step of that stack), launches of every path."""
+    device-sampled step of that stack, or under ``full_graph`` of one
+    edge gather or segment sum of the full-graph Cora loop), launches of
+    every path (``mp_launches``: the full-graph and message-passing
+    runs and ``examples/graphsage.py``)."""
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -3844,13 +4217,15 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
     entry = {"name": name, "route": "cuda",
              "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
              "replaces": replaces,
-             "launches": launches + kge_launches + gat_launches,
+             "launches": launches + kge_launches + gat_launches
+             + mp_launches,
              "max_abs_err": max(r["max_abs_err"] for r in mine),
              "ms": total["ms"], "plain_ms": total["plain_ms"],
              "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
              "library_ms": total["library_ms"],
              "launches_sage": launches, "launches_kge": kge_launches,
-             "launches_gat": gat_launches}
+             "launches_gat": gat_launches,
+             "launches_message_passing": mp_launches}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
     if tree_shapes:
@@ -3930,12 +4305,18 @@ def main(argv=None) -> int:
         device, device_records = device_sampler_phase(
             torch, args, ops, wrappers, g, trainer, ctx, work, smi)
         kge_records, kge = kge_phase(torch, args, ops, wrappers, work, smi)
-        gat, gat_records = gat_phase(torch, args, ops, wrappers, g, trainer,
-                                     ctx, work, smi)
+        gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
+                                           trainer, ctx, work, smi)
+        mpass, mpass_records = message_passing_phase(
+            torch, args, ops, wrappers, g, ctx, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
-                + gat_records)
+                + gat_records + mpass_records)
+    # the full-graph and message-passing paths, and the standalone
+    # sampled entry point
+    for k, v in full.items():
+        mpass[k] += v
 
     def launches(name):
         return (served[name] + trained[name] + dist[name] + dist_mp[name]
@@ -3951,7 +4332,8 @@ def main(argv=None) -> int:
                      f32("train_block0", "train_block1"),
                      launches("fanout_agg"), f"{pg}:221",
                      tree_shapes=f32("tree_block0", "tree_block1"),
-                     gat_launches=gat["fanout_agg"]),
+                     gat_launches=gat["fanout_agg"],
+                     mp_launches=mpass["fanout_agg"]),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -3961,8 +4343,10 @@ def main(argv=None) -> int:
                                     "gat_el_block0", "gat_x_block1",
                                     "gat_el_block1"),
                          "gatv2": f32("tree_feats", "gatv2_fs_block0",
-                                      "gatv2_fs_block1")},
-                     gat_launches=gat["gather_rows"]),
+                                      "gatv2_fs_block1"),
+                         "full_graph": f32("cora_gather16")},
+                     gat_launches=gat["gather_rows"],
+                     mp_launches=mpass["gather_rows"]),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -3972,8 +4356,10 @@ def main(argv=None) -> int:
                          "gat": f32("gat_el_block0_bwd", "gat_x_block1_bwd",
                                     "gat_el_block1_bwd"),
                          "gatv2": f32("gatv2_fs_block0_bwd",
-                                      "gatv2_fs_block1_bwd")},
-                     gat_launches=gat["scatter_add_rows"]),
+                                      "gatv2_fs_block1_bwd"),
+                         "full_graph": f32("cora_segment_sum")},
+                     gat_launches=gat["scatter_add_rows"],
+                     mp_launches=mpass["scatter_add_rows"]),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})

@@ -102,6 +102,40 @@ def ogbn_products(seed: int = 0, scale: float = 1.0) -> NodeClfDataset:
     return _clustered_node_clf("ogbn-products", n, e, 100, 47, seed)
 
 
+def link_pred_graph(num_nodes: int = 2708, num_edges: int = 5278,
+                    feat_dim: int = 64, num_classes: int = 7,
+                    latent_dim: int = 16, seed: int = 0
+                    ) -> NodeClfDataset:
+    """Citation-shaped graph whose edges encode latent proximity (the
+    link-prediction workload): each node gets a unit latent (class
+    centre plus noise); an edge's end is the most similar node of a
+    random pool of 12 (the node itself excluded), so an encoder can
+    recover the pairs; features are a noisy projection of the latents.
+    Edges are doubled by reversal."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size=num_nodes)
+    centers = rng.normal(size=(num_classes, latent_dim))
+    z = centers[labels] + 0.7 * rng.normal(size=(num_nodes, latent_dim))
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    # oversample, then trim: an argmax over a small pool per edge, no
+    # N^2 similarity matrix
+    src = rng.integers(0, num_nodes, size=num_edges * 2)
+    pool = rng.integers(0, num_nodes, size=(num_edges * 2, 12))
+    sims = np.einsum("ed,epd->ep", z[src], z[pool])
+    sims[pool == src[:, None]] = -np.inf
+    dst = pool[np.arange(len(src)), sims.argmax(axis=1)]
+    keep = src != dst      # only all-self pools remain (tiny n)
+    src, dst = src[keep][:num_edges], dst[keep][:num_edges]
+    g = Graph(src.astype(np.int32), dst.astype(np.int32),
+              num_nodes).add_reverse_edges()
+    proj = rng.normal(size=(latent_dim, feat_dim))
+    g.ndata["feat"] = (z @ proj + 0.5 * rng.normal(
+        size=(num_nodes, feat_dim))).astype(np.float32)
+    g.ndata["label"] = labels.astype(np.int32)
+    _make_splits(g, rng)
+    return NodeClfDataset(g, num_classes, "link-pred-graph")
+
+
 # ----------------------------------------------------------------------
 # Knowledge-graph triples (the DGL-KE path)
 @dataclasses.dataclass

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.graph import _native
+from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, scatter_plan,
+                                                ship_int32)
 
 
 def sparse_csr(crow: torch.Tensor, col: torch.Tensor, values: torch.Tensor,
@@ -120,31 +122,106 @@ class Graph:
         g.ndata = dict(self.ndata)
         return g
 
+    def node_subgraph(self, nodes: np.ndarray,
+                      relabel: bool = True) -> "Graph":
+        """Induced subgraph on a node set (DGL ``g.subgraph``): every
+        edge whose both endpoints are in ``nodes`` (ids, or a boolean
+        mask of ``num_nodes``). With ``relabel`` the nodes compact to
+        ``[0, len(nodes))`` in the given order, ndata rows follow, and
+        ``ndata["orig_id"]`` / ``edata["orig_eid"]`` map back to this
+        graph; without it the node ids stay (:meth:`edge_subgraph`)."""
+        nodes = np.asarray(nodes)
+        if nodes.dtype == bool:
+            if nodes.shape != (self.num_nodes,):
+                raise ValueError(
+                    f"boolean node mask must have shape "
+                    f"({self.num_nodes},), got {nodes.shape}")
+            nodes = np.nonzero(nodes)[0]
+        nodes = nodes.astype(np.int64)
+        if nodes.size and (nodes.min() < 0
+                           or nodes.max() >= self.num_nodes):
+            raise ValueError("node ids out of range")
+        if len(np.unique(nodes)) != len(nodes):
+            raise ValueError("duplicate node ids in subgraph set")
+        keep = np.zeros(self.num_nodes, dtype=bool)
+        keep[nodes] = True
+        eids = np.nonzero(keep[self.src] & keep[self.dst])[0]
+        if not relabel:
+            return self.edge_subgraph(eids, relabel=False)
+        new_id = np.full(self.num_nodes, -1, dtype=np.int64)
+        new_id[nodes] = np.arange(len(nodes), dtype=np.int64)
+        g = Graph(new_id[self.src[eids]].astype(np.int32),
+                  new_id[self.dst[eids]].astype(np.int32), len(nodes))
+        g.ndata = {k: v[nodes] for k, v in self.ndata.items()}
+        g.ndata["orig_id"] = nodes
+        g.edata = {k: v[eids] for k, v in self.edata.items()}
+        g.edata["orig_eid"] = eids
+        return g
+
+    def edge_subgraph(self, eids: np.ndarray,
+                      relabel: bool = False) -> "Graph":
+        """The subgraph of the edges ``eids``, with ``edata["orig_eid"]``.
+        Without ``relabel`` it keeps every node and shares ndata; with
+        it the endpoints compact in id order and ``ndata["orig_id"]``
+        maps back."""
+        eids = np.asarray(eids, dtype=np.int64)
+        src, dst = self.src[eids], self.dst[eids]
+        if not relabel:
+            g = Graph(src, dst, self.num_nodes)
+            g.ndata = dict(self.ndata)
+        else:
+            uniq, inv = np.unique(np.concatenate([src, dst]),
+                                  return_inverse=True)
+            g = Graph(inv[: len(src)].astype(np.int32),
+                      inv[len(src):].astype(np.int32), len(uniq))
+            g.ndata = {k: v[uniq] for k, v in self.ndata.items()}
+            g.ndata["orig_id"] = uniq.astype(np.int64)
+        g.edata = {k: v[eids] for k, v in self.edata.items()}
+        g.edata["orig_eid"] = eids
+        return g
+
     def to_device(self, device, sort_by_dst: bool = True,
                   pad_to: Optional[int] = None) -> "DeviceGraph":
         """The padded edge list on ``device`` that the full-graph layers
         read: edges sorted by destination (stable) when
         ``sort_by_dst``, then padded to ``pad_to`` edges; a padded edge
         runs from node 0 to the dummy node ``num_nodes`` and has
-        ``edge_mask`` 0."""
+        ``edge_mask`` 0. The two transpose plans (:class:`DeviceGraph`)
+        and the degrees are built here on the host, once per graph, and
+        shipped with the edge list in one copy."""
         src, dst = self.src, self.dst
+        perm = None
         if sort_by_dst:
             perm = np.argsort(dst, kind="stable")
             src, dst = src[perm], dst[perm]
         n_valid = src.shape[0]
+        n = self.num_nodes
         if pad_to is not None:
             if pad_to < n_valid:
                 raise ValueError(f"pad_to={pad_to} < num_edges={n_valid}")
             pad = pad_to - n_valid
             src = np.concatenate([src, np.zeros(pad, np.int32)])
-            dst = np.concatenate([dst, np.full(pad, self.num_nodes,
-                                               np.int32)])
-        mask = (np.arange(src.shape[0]) < n_valid).astype(np.float32)
+            dst = np.concatenate([dst, np.full(pad, n, np.int32)])
+        # every edge, padded ones included, enters both plans, so each
+        # transpose is exact for any cotangent: a padded edge's gradient
+        # lands on row 0 (src) or on the spare segment n (dst), as the
+        # JAX package's gathers and segment sums put it
+        src_plan = scatter_plan(src[:, None], None, n)
+        dst_plan = scatter_plan(dst[:, None], None, n + 1)
+        fields = ScatterPlan.FIELDS
+        shipped = ship_int32(
+            [src, dst, np.bincount(dst[:n_valid], minlength=n),
+             np.bincount(src[:n_valid], minlength=n)]
+            + [getattr(src_plan, k) for k in fields]
+            + [getattr(dst_plan, k) for k in fields], device)
+        k = len(fields)
+        mask = torch.arange(src.shape[0], device=shipped[0].device) < n_valid
         return DeviceGraph(
-            src=torch.from_numpy(np.ascontiguousarray(src)).to(device),
-            dst=torch.from_numpy(np.ascontiguousarray(dst)).to(device),
-            edge_mask=torch.from_numpy(mask).to(device),
-            num_nodes=self.num_nodes, sorted_by_dst=sort_by_dst)
+            src=shipped[0], dst=shipped[1], edge_mask=mask.float(),
+            num_nodes=n, sorted_by_dst=sort_by_dst,
+            in_deg=shipped[2], out_deg=shipped[3],
+            src_plan=ScatterPlan(*shipped[4:4 + k]),
+            dst_plan=ScatterPlan(*shipped[4 + k:]), edge_perm=perm)
 
     def add_reverse_edges(self) -> "Graph":
         g = Graph(np.concatenate([self.src, self.dst]),
@@ -159,14 +236,33 @@ class DeviceGraph:
     package's ``DeviceGraph``), as tensors on one device: ``src`` and
     ``dst`` int32 ``[E]``, ``edge_mask`` float32 ``[E]`` (0 on a padded
     edge, whose ``dst`` is ``num_nodes``, so a segment reduction over
-    ``num_nodes + 1`` segments drops it with the last row)."""
+    ``num_nodes + 1`` segments drops it with the last row).
+
+    ``src_plan`` is the transpose of ``src`` into ``num_nodes`` rows:
+    the backward of every source gather (``ops/sddmm.py::gather_src``).
+    ``dst_plan`` is the transpose of ``dst`` into ``num_nodes + 1``
+    segments: the segment sum's forward (``ops/segment.py``) and the
+    backward of every destination gather. Both hold every edge.
+    ``in_deg`` / ``out_deg`` are the int32 ``[num_nodes]`` counts of
+    valid in- and out-edges. ``edge_perm`` (host numpy, or None when
+    unsorted) is the sort that :meth:`permute_edata` applies to a host
+    edge-feature array."""
 
     src: torch.Tensor
     dst: torch.Tensor
     edge_mask: torch.Tensor
     num_nodes: int
+    in_deg: torch.Tensor
+    out_deg: torch.Tensor
+    src_plan: ScatterPlan
+    dst_plan: ScatterPlan
     sorted_by_dst: bool = True
+    edge_perm: Optional[np.ndarray] = None
 
     @property
     def num_edges(self) -> int:
         return int(self.src.shape[0])
+
+    def permute_edata(self, x: np.ndarray) -> np.ndarray:
+        """A host edge-feature array in the sorted edge order."""
+        return x if self.edge_perm is None else x[self.edge_perm]

@@ -1,7 +1,9 @@
 """The port's models, and the converter that carries any of their
 flax params trees into a state dict: the family is read from the
-tree's layer prefix (``FanoutSAGEConv_``, ``FanoutGATConv_``,
-``FanoutGATv2Conv_``, ``GATConv_``, ``GraphConv_``)."""
+tree's top-level prefixes (a flat stack's ``FanoutSAGEConv_``,
+``FanoutGATConv_``, ``FanoutGATv2Conv_``, ``GATConv_``, ``GraphConv_``,
+``SAGEConv_``, ``WeightedSAGEConv_``; ``LinkPredModel``'s nested
+``GraphSAGE_0`` with or without ``MLPPredictor_0``)."""
 
 from typing import Dict
 
@@ -12,26 +14,43 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models.gat import (  # noqa: F401
     GAT, DistGAT, DistGATv2, gat_inference, gat_layer, gatv2_inference)
 from dgl_operator_tpu_torch.models.gcn import GCN
+from dgl_operator_tpu_torch.models.link_predict import (  # noqa: F401
+    PREDICTORS, LinkPredModel, auc_score, bce_link_loss, split_edges)
 from dgl_operator_tpu_torch.models.sage import (  # noqa: F401
-    DistSAGE, sage_inference, sage_layer)
+    DistSAGE, GraphSAGE, WeightedSAGE, sage_inference, sage_layer)
 
 FAMILIES = {cls.flax_prefix: cls
-            for cls in (DistSAGE, DistGAT, DistGATv2, GAT, GCN)}
+            for cls in (DistSAGE, DistGAT, DistGATv2, GAT, GCN, GraphSAGE,
+                        WeightedSAGE)}
+# a nested tree's top-level prefixes, and its layout
+NESTED = {frozenset(name.rsplit("_", 1)[0]
+                    for name, _ in LinkPredModel.layout(p).values()):
+          LinkPredModel.layout(p) for p in PREDICTORS}
 
 
-def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """The state dict of a flax params tree of any of the port's model
-    families (:data:`FAMILIES`, picked by the tree's layer prefix)."""
+def flax_layout_of(tree) -> flax_layout.Layout:
+    """The layout of a flax params tree of any of the port's model
+    families: a flat stack's layer prefix (:data:`FAMILIES`) or a nested
+    model's layout (:data:`NESTED`)."""
+    found = frozenset(flax_layout.prefixes(tree))
+    if found in NESTED:
+        return NESTED[found]
     prefix = flax_layout.layer_prefix(tree)
     if prefix not in FAMILIES:
         raise ValueError(f"no model of the port has layers {prefix}_<i> "
                          f"(known: {sorted(FAMILIES)})")
-    return flax_layout.state_dict_from_flax(tree, prefix)
+    return prefix
+
+
+def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """The state dict of a flax params tree of any of the port's model
+    families (:func:`flax_layout_of`)."""
+    return flax_layout.state_dict_from_flax(tree, flax_layout_of(tree))
 
 
 def flax_params(model: torch.nn.Module) -> dict:
-    """The flax params tree of ``model``'s weights, its layers named by
-    the model's family."""
+    """The flax params tree of ``model``'s weights, laid out by the
+    model's ``flax_prefix``."""
     return flax_layout.state_dict_to_flax(model.state_dict(),
                                           model.flax_prefix)
 

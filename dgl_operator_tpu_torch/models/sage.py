@@ -1,9 +1,14 @@
-"""DistSAGE — the sampled GraphSAGE stack, and its full-graph inference.
+"""GraphSAGE — the sampled stack ``DistSAGE``, its full-graph
+inference, and the full-graph stacks ``GraphSAGE`` and ``WeightedSAGE``.
 
-An L-layer stack of ``FanoutSAGEConv`` with ReLU and, in ``train()``
-mode, dropout between layers, consuming sampled blocks
+``DistSAGE`` is an L-layer stack of ``FanoutSAGEConv`` with ReLU and,
+in ``train()`` mode, dropout between layers, consuming sampled blocks
 outermost-first. :func:`sage_inference` applies the same weights layer
-by layer over the whole graph with full neighborhoods (evaluation).
+by layer over the whole graph with full neighborhoods (evaluation),
+for every aggregator. ``GraphSAGE`` (``SAGEConv`` layers, the JAX
+package's standalone model: the link predictor's encoder) and
+``WeightedSAGE`` (``WeightedSAGEConv`` layers, the message-passing
+example's weighted model) train over a ``DeviceGraph``.
 
 Weights cross between the packages in the flax layout
 (``{"params": {"FanoutSAGEConv_i": {"self": {"kernel", "bias"},
@@ -20,9 +25,10 @@ from torch import nn
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
-from dgl_operator_tpu_torch.graph.graph import Graph
+from dgl_operator_tpu_torch.graph.graph import DeviceGraph, Graph
 from dgl_operator_tpu_torch.models import flax_layout
-from dgl_operator_tpu_torch.nn.conv import FanoutSAGEConv
+from dgl_operator_tpu_torch.nn.conv import (FanoutSAGEConv, SAGEConv,
+                                            WeightedSAGEConv)
 from dgl_operator_tpu_torch.ops.spmm import gspmm
 
 
@@ -93,8 +99,10 @@ def sage_inference(model: DistSAGE, g: Graph, x: torch.Tensor
     every in-neighbor of every node (``gspmm``) instead of a sampled
     fanout, then applies ``self(h) + neigh(agg)``, ReLU between
     layers, no dropout. ``x`` is ``[num_nodes, in_feats]`` on the
-    model's device; returns float32 logits for every node. The mean
-    and sum aggregators are ported; pool raises."""
+    model's device; returns float32 logits for every node. The pool
+    aggregator takes the max of ``relu(pool(h))`` over every
+    in-neighbour, destination chunk by destination chunk (``gspmm`` over
+    a host ``Graph``), so no ``[E, D]`` table is built."""
     h = x.float()
     for i in range(len(model.layers)):
         h = sage_layer(model, i, g, h)
@@ -107,13 +115,85 @@ def sage_layer(model: DistSAGE, i: int, g: Graph, h: torch.Tensor
     ``self(h) + neigh(gspmm(h))``, ReLU after every layer but the last.
     Exact for a node whose in-edges are all in ``g`` (a partition's core
     node)."""
-    if model.aggregator not in ("mean", "sum"):
-        raise NotImplementedError(
-            f"layer-wise inference with the {model.aggregator!r} "
-            "aggregator is not ported (it needs gspmm's max reduce)")
     layer = model.layers[i]
-    out = layer.self(h) + layer.neigh(gspmm(g, "copy_u", model.aggregator, h))
+    if model.aggregator == "pool":
+        agg = gspmm(g, "copy_u", "max", torch.relu(layer.pool(h)))
+    else:
+        agg = gspmm(g, "copy_u", model.aggregator, h)
+    out = layer.self(h) + layer.neigh(agg)
     return torch.relu(out) if i < len(model.layers) - 1 else out
+
+
+class _FullGraphStack(nn.Module):
+    """An L-layer stack of full-graph layers ``layer(in, out)`` with
+    ReLU between them, drawn on the CPU from ``generator`` (a fresh
+    generator seeded 0 when None) and moved to ``device``."""
+
+    def __init__(self, make, in_feats: int, hidden_feats: int,
+                 out_feats: int, num_layers: int, device: DeviceLike,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        dims = [in_feats] + [hidden_feats] * (num_layers - 1) + [out_feats]
+        self.layers = nn.ModuleList(
+            make(dims[i], dims[i + 1], generator)
+            for i in range(num_layers))
+        self.to(device)
+
+    def _stack(self, g: DeviceGraph, h: torch.Tensor, *extra):
+        for i, layer in enumerate(self.layers):
+            h = layer(g, h, *extra)
+            if i < len(self.layers) - 1:
+                h = torch.relu(h)
+        return h
+
+
+class GraphSAGE(_FullGraphStack):
+    """The full-graph GraphSAGE stack (the JAX package's ``GraphSAGE``):
+    ``SAGEConv`` layers ``in -> hidden -> ... -> out`` with ``aggregator``
+    (mean, sum or pool), ReLU between layers, over a ``DeviceGraph``.
+    Nested in ``LinkPredModel`` its flax name is ``GraphSAGE_0``."""
+
+    flax_prefix = "SAGEConv"
+    flax_name = "GraphSAGE_0"
+
+    def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
+                 num_layers: int = 2, aggregator: str = "mean",
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(
+            lambda i, o, gen: SAGEConv(i, o, aggregator, device="cpu",
+                                       generator=gen),
+            in_feats, hidden_feats, out_feats, num_layers, device, generator)
+        self.aggregator = aggregator
+
+    def forward(self, g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+        return self._stack(g, x)
+
+
+class WeightedSAGE(_FullGraphStack):
+    """A stack of ``WeightedSAGEConv`` layers with ReLU between them
+    (the message-passing example's weighted model): every layer scales
+    each message by its edge's weight ``ew`` ``[E, 1]`` (ones when None,
+    as the example passes) before the mean."""
+
+    flax_prefix = "WeightedSAGEConv"
+
+    def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
+                 num_layers: int = 2, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(
+            lambda i, o, gen: WeightedSAGEConv(i, o, device="cpu",
+                                               generator=gen),
+            in_feats, hidden_feats, out_feats, num_layers, device, generator)
+
+    def forward(self, g: DeviceGraph, x: torch.Tensor,
+                ew: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if ew is None:
+            ew = x.new_ones(g.num_edges, 1)
+        return self._stack(g, x, ew)
 
 
 def state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:

@@ -7,8 +7,11 @@ their neighbours' rows with ``ops/gather.py::gather_rows`` over the
 block's per-slot plan (``ops/scatter.py::slot_plan``), so their
 backward is the port's deterministic ``scatter_add_rows``, and softmax
 over the fanout axis. The full-graph layers (``GraphConv``,
-``GATConv``, ``GATv2Conv``) consume a ``DeviceGraph`` and reduce with
-the segment ops of ``ops/segment.py``; :func:`sparse_edge_attention` is
+``GATConv``, ``GATv2Conv``, ``SAGEConv``, ``WeightedSAGEConv``) consume
+a ``DeviceGraph``: they gather its edges' ends with ``gather_rows`` over
+the graph's transpose plans (``ops/sddmm.py``) and reduce with the
+segment ops of ``ops/segment.py`` and ``gspmm``, so their backward is
+``scatter_add_rows`` too; :func:`sparse_edge_attention` is
 the attention's full-graph inference over a ``Graph``'s sparse
 adjacency, which holds no ``[E, H * D]`` message table.
 
@@ -31,8 +34,10 @@ from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.graph.graph import DeviceGraph, Graph, sparse_csr
 from dgl_operator_tpu_torch.ops import fanout
 from dgl_operator_tpu_torch.ops.gather import gather_rows
+from dgl_operator_tpu_torch.ops.sddmm import gather_dst, gather_src
 from dgl_operator_tpu_torch.ops.segment import (segment_max, segment_softmax,
                                                 segment_sum)
+from dgl_operator_tpu_torch.ops.spmm import gspmm
 
 AGGREGATORS = ("mean", "sum", "pool")
 
@@ -77,15 +82,13 @@ def _materialize(module: nn.Module, device: DeviceLike,
     module.to(device)
 
 
-class FanoutSAGEConv(nn.Module):
-    """GraphSAGE layer on a sampled ``FanoutBlock``:
-    ``self(h_dst) + neigh(agg)`` with ``h_dst = h_src[:num_dst]`` (the
-    dst nodes are a prefix of the src nodes).
-
-    Parameters are drawn on the CPU from ``generator`` (a fresh
-    generator seeded 0 when none is given), so a seed gives the same
-    weights on every device, then moved to ``device``.
-    """
+class _SAGE(nn.Module):
+    """The parameters of a GraphSAGE layer, sampled or full-graph:
+    ``pool`` (``in -> in``, the pool aggregator only), ``self`` and the
+    bias-free ``neigh`` (``in -> out``). They are drawn on the CPU from
+    ``generator`` (a fresh generator seeded 0 when none is given), so a
+    seed gives the same weights on every device, then moved to
+    ``device``."""
 
     def __init__(self, in_feats: int, out_feats: int,
                  aggregator: str = "mean", device: DeviceLike = None,
@@ -101,6 +104,12 @@ class FanoutSAGEConv(nn.Module):
         self.self = nn.Linear(in_feats, out_feats, device=meta)
         self.neigh = nn.Linear(in_feats, out_feats, bias=False, device=meta)
         _materialize(self, device, generator)
+
+
+class FanoutSAGEConv(_SAGE):
+    """GraphSAGE layer on a sampled ``FanoutBlock``:
+    ``self(h_dst) + neigh(agg)`` with ``h_dst = h_src[:num_dst]`` (the
+    dst nodes are a prefix of the src nodes)."""
 
     def forward(self, block: FanoutBlock, h_src: torch.Tensor
                 ) -> torch.Tensor:
@@ -196,20 +205,14 @@ def edge_softmax_aggregate(g: DeviceGraph, logits: torch.Tensor,
     ``logits`` ``[E, H]`` over the valid edges (a padded edge is masked
     to ``-inf`` and points at the spare segment), then the α-weighted
     sum of ``feat_src[src]`` ``[E, H, D]`` messages; a node with no
-    in-edge gets 0."""
+    in-edge gets 0. The gathers and sums run over the graph's plans."""
     n = g.num_nodes
     logits = logits.masked_fill((g.edge_mask <= 0).unsqueeze(-1),
                                 float("-inf"))
-    alpha = segment_softmax(logits, g.dst, n + 1)
-    msg = feat_src[g.src.long()] * alpha.unsqueeze(-1)
-    return _heads_out(segment_sum(msg, g.dst, n + 1)[:n], concat)
-
-
-def _dst_rows(g: DeviceGraph) -> torch.Tensor:
-    """Each edge's destination as a row index of an ``[N, ...]`` table
-    (a padded edge's dummy destination clamped to a real row; its logit
-    is masked)."""
-    return g.dst.long().clamp_max(g.num_nodes - 1)
+    alpha = segment_softmax(logits, g.dst, n + 1, g.dst_plan)
+    msg = gather_src(g, feat_src) * alpha.unsqueeze(-1)
+    return _heads_out(segment_sum(msg, g.dst, n + 1, g.dst_plan)[:n],
+                      concat)
 
 
 class GATConv(_Attention):
@@ -222,7 +225,7 @@ class GATConv(_Attention):
 
     def forward(self, g: DeviceGraph, h: torch.Tensor) -> torch.Tensor:
         feat, el, er = gat_projection_raw(self, h)
-        logits = self.act(el[g.src.long()] + er[_dst_rows(g)])
+        logits = self.act(gather_src(g, el) + gather_dst(g, er))
         return edge_softmax_aggregate(g, logits, feat, self.concat_heads)
 
 
@@ -236,7 +239,7 @@ class GATv2Conv(_Attention):
 
     def forward(self, g: DeviceGraph, h: torch.Tensor) -> torch.Tensor:
         fs, fd, attn = gatv2_projection_raw(self, h)
-        e = self.act(fs[g.src.long()] + fd[_dst_rows(g)])
+        e = self.act(gather_src(g, fs) + gather_dst(g, fd))
         return edge_softmax_aggregate(g, (e * attn).sum(-1), fs,
                                       self.concat_heads)
 
@@ -348,9 +351,10 @@ def sparse_edge_attention(g: Graph, feat_src: torch.Tensor,
 class GraphConv(nn.Module):
     """Kipf-Welling GCN layer over a ``DeviceGraph``: ``D^-1/2 A D^-1/2
     H W`` (norm ``both``), ``D^-1 A H W`` (``right``) or ``A H W``
-    (``none``), degrees counted over the valid edges; it projects first
-    when that shrinks the message width. ``weight`` is a bias-free
-    Linear, ``bias`` a vector (the flax layer's names)."""
+    (``none``), degrees the graph's counts of valid edges; it projects
+    first when that shrinks the message width (``gspmm``'s sum over the
+    graph's plans). ``weight`` is a bias-free Linear, ``bias`` a vector
+    (the flax layer's names)."""
 
     NORMS = ("both", "right", "none")
 
@@ -371,21 +375,48 @@ class GraphConv(nn.Module):
         _materialize(self, device, generator)
 
     def forward(self, g: DeviceGraph, h: torch.Tensor) -> torch.Tensor:
-        n = g.num_nodes
-        in_deg = segment_sum(g.edge_mask, g.dst, n + 1)[:n]
-        out_deg = segment_sum(g.edge_mask, g.src, n + 1)[:n]
-        src = g.src.long()
-
-        def copy_u_sum(x):
-            return segment_sum(x[src], g.dst, n + 1)[:n]
-
+        in_deg, out_deg = g.in_deg.float(), g.out_deg.float()
         if self.norm == "both":
             h = h * out_deg.clamp_min(1.0).pow(-0.5).unsqueeze(1)
         if h.shape[-1] > self.out_feats:
-            agg = copy_u_sum(self.weight(h))
+            agg = gspmm(g, "copy_u", "sum", self.weight(h))
         else:
-            agg = self.weight(copy_u_sum(h))
+            agg = self.weight(gspmm(g, "copy_u", "sum", h))
         if self.norm != "none":
             p = -0.5 if self.norm == "both" else -1.0
             agg = agg * in_deg.clamp_min(1.0).pow(p).unsqueeze(1)
         return agg if self.bias is None else agg + self.bias
+
+
+class SAGEConv(_SAGE):
+    """GraphSAGE layer over a ``DeviceGraph`` (the flax ``SAGEConv``):
+    ``self(h) + neigh(agg)``, ``agg`` the mean or sum of the in-neighbours'
+    rows, or with ``pool`` the max of ``relu(pool(h))`` over them
+    (``gspmm`` over the graph's plans)."""
+
+    def forward(self, g: DeviceGraph, h: torch.Tensor) -> torch.Tensor:
+        if self.aggregator == "pool":
+            agg = gspmm(g, "copy_u", "max", torch.relu(self.pool(h)))
+        else:
+            agg = gspmm(g, "copy_u", self.aggregator, h)
+        return self.self(h) + self.neigh(agg)
+
+
+class WeightedSAGEConv(nn.Module):
+    """SAGE with a scalar weight per edge (the flax
+    ``WeightedSAGEConv``): ``self(h) + neigh(mean of h[u] * w_uv)``,
+    ``w`` ``[E, 1]`` in the graph's edge order."""
+
+    def __init__(self, in_feats: int, out_feats: int,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        meta = torch.device("meta")
+        self.self = nn.Linear(in_feats, out_feats, device=meta)
+        self.neigh = nn.Linear(in_feats, out_feats, bias=False, device=meta)
+        _materialize(self, device, generator)
+
+    def forward(self, g: DeviceGraph, h: torch.Tensor, ew: torch.Tensor
+                ) -> torch.Tensor:
+        agg = gspmm(g, "u_mul_e", "mean", h, ew)
+        return self.self(h) + self.neigh(agg)

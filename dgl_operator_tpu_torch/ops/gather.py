@@ -94,7 +94,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """``out[i] = table[idx[i]]``, differentiable in ``table``.
 
-    table [N, D] float32 or bfloat16, contiguous.
+    table [N, D] float32 or bfloat16, contiguous (a CPU tensor may also
+          be float64: the plain version takes it, no kernel does).
     idx   [M] int32 or int64; every entry indexes a row of ``table``.
     plan  ``scatter_plan(idx[:, None], None, N)``, read only by the
           backward on the card (which raises without it).
@@ -107,9 +108,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"gather_rows takes table [N, D] and idx [M]; got "
                          f"table {tuple(table.shape)}, idx "
                          f"{tuple(idx.shape)}")
-    if table.dtype not in _DTYPE_CODE:
-        raise TypeError(f"table must be float32 or bfloat16, got "
-                        f"{table.dtype}")
+    if table.dtype not in _DTYPE_CODE and not (
+            table.dtype == torch.float64 and table.device.type == "cpu"):
+        raise TypeError(f"table must be float32 or bfloat16 (or float64 "
+                        f"on the CPU), got {table.dtype}")
     if idx.dtype not in _INDEX_DTYPES:
         raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
     if table.device != idx.device:
@@ -119,3 +121,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
 
 
 gather_rows.launches = 0
+
+
+def gather_edges(table: torch.Tensor, idx: torch.Tensor,
+                 plan: Optional[ScatterPlan] = None) -> torch.Tensor:
+    """:func:`gather_rows` of a table of any trailing shape, ``[N, ...]``
+    to ``[M, ...]`` (the rows flattened for the kernel and shaped
+    back). An integer table carries no gradient and is indexed."""
+    if not table.is_floating_point():
+        return table[idx.long()]
+    rows = table.reshape(table.shape[0], -1).contiguous()
+    return gather_rows(rows, idx, plan).view(
+        (idx.shape[0],) + tuple(table.shape[1:]))

@@ -255,7 +255,8 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     None), into a zero-filled float32 ``[num_rows, D]`` that is
     returned.
 
-    g    [ND, D] float32 or bfloat16, contiguous.
+    g    [ND, D] float32 or bfloat16, contiguous (a CPU tensor may also
+         be float64, summed and returned in float64 by the plain version).
     idx  [ND, F] int32 or int64; every valid slot indexes a row of dst.
     mask [ND, F] uint8, or None.
     plan ``scatter_plan(idx, mask, num_rows)``, on the host or on g's
@@ -274,8 +275,10 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
             f"[ND, F] or None; got g {tuple(g.shape)}, idx "
             f"{tuple(idx.shape)}, mask "
             f"{None if mask is None else tuple(mask.shape)}")
-    if g.dtype not in _DTYPE_CODE:
-        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
+    if g.dtype not in _DTYPE_CODE and not (
+            g.dtype == torch.float64 and g.device.type == "cpu"):
+        raise TypeError(f"g must be float32 or bfloat16 (or float64 on the "
+                        f"CPU), got {g.dtype}")
     if idx.dtype not in _INDEX_DTYPES or (
             mask is not None and mask.dtype != torch.uint8):
         raise TypeError(f"idx must be int32 or int64 and mask uint8, got "

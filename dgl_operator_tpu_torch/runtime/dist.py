@@ -727,7 +727,7 @@ class DistTrainer:
         a group one ``all_reduce(SUM)`` joins the processes' buffers for
         the input and after each layer: exact, since each row has one
         non-zero contributor. Every rank computes the same accuracies.
-        SAGE's mean and sum aggregators are ported."""
+        Every SAGE aggregator is ported."""
         orig, labels, masks = self._eval_context()
         n_inner = [int(n) for n in self._n_inner]
 

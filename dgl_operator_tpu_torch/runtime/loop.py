@@ -620,22 +620,24 @@ class SampledTrainer:
 def train_full_graph(model: torch.nn.Module, g: Graph, cfg: TrainConfig,
                      pad_edges_to: Optional[int] = None,
                      init_params=None, device: DeviceLike = None) -> Dict:
-    """The full-graph node-classification loop (GCN or GAT; the JAX
-    package's ``train_full_graph``, the reference's Cora example): one
-    Adam step a epoch on the masked cross-entropy of the train nodes
-    over the whole graph (``g.to_device(pad_to=pad_edges_to)``), the
-    validation accuracy every ``cfg.eval_every`` epochs and at the last.
-    The model's weights, or ``init_params`` (a flax params tree), on
-    ``device`` (the card unless told otherwise). Returns ``{"params":
-    the flax params tree, "history": [{"epoch", "loss"[, "val_acc"]}],
-    "test_acc"}``."""
+    """The full-graph node-classification loop (GCN, GAT or a SAGE
+    stack; the JAX package's ``train_full_graph``, the reference's Cora
+    example): one Adam step a epoch on the masked cross-entropy of the
+    train nodes over the whole graph (``g.to_device(pad_to=
+    pad_edges_to)``), the validation accuracy every ``cfg.eval_every``
+    epochs and at the last. The model's weights, or ``init_params`` (a
+    flax params tree), on ``device`` (the card unless told otherwise);
+    the features take the weights' dtype (a float64 model runs in
+    float64 on the CPU). Returns ``{"params": the flax params tree,
+    "history": [{"epoch", "loss"[, "val_acc"]}], "test_acc"}``."""
     device = resolve_device(device)
     if init_params is not None:
         model.load_state_dict(state_dict_from_flax(init_params))
     model.to(device).train()
     dg = g.to_device(device, pad_to=pad_edges_to)
+    dtype = next(model.parameters()).dtype
     x = torch.from_numpy(np.ascontiguousarray(g.ndata["feat"],
-                                              np.float32)).to(device)
+                                              np.float32)).to(device, dtype)
     y = torch.from_numpy(g.ndata["label"].astype(np.int64)).to(device)
     masks = {k: torch.from_numpy(np.asarray(g.ndata[k], np.float32)
                                  ).to(device)

@@ -18,7 +18,9 @@ import torch
 from dgl_operator_tpu_torch import resolve_device
 from dgl_operator_tpu_torch.graph import _native
 from dgl_operator_tpu_torch.ops import _build
-from dgl_operator_tpu_torch.examples import train_dist, train_kge
+from dgl_operator_tpu_torch.examples import (graphsage, link_predict,
+                                             message_passing, train_dist,
+                                             train_kge)
 from dgl_operator_tpu_torch.models.kge import KGEConfig
 from dgl_operator_tpu_torch.runtime.dist import DistTrainer
 from dgl_operator_tpu_torch.runtime.kge import (DistKGETrainer,
@@ -169,6 +171,13 @@ def test_importing_the_port_loads_no_jax():
             "dgl_operator_tpu_torch.ops.adagrad, "
             "dgl_operator_tpu_torch.ops.gather, "
             "dgl_operator_tpu_torch.ops.spmm, "
+            "dgl_operator_tpu_torch.ops.sddmm, "
+            "dgl_operator_tpu_torch.ops.segment, "
+            "dgl_operator_tpu_torch.nn.predictors, "
+            "dgl_operator_tpu_torch.models.link_predict, "
+            "dgl_operator_tpu_torch.examples.message_passing, "
+            "dgl_operator_tpu_torch.examples.link_predict, "
+            "dgl_operator_tpu_torch.examples.graphsage, "
             "dgl_operator_tpu_torch.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -196,4 +205,7 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         DistKGETrainer(KGEConfig(), KGETrainConfig(), num_slots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_kge.main(["--part_config", "no-such-book.json"])
+    for example in (graphsage, link_predict, message_passing):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main(["--num_epochs", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

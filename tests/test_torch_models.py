@@ -29,6 +29,7 @@ from dgl_operator_tpu_torch.models.sage import (DistSAGE, sage_inference,
                                                 state_dict_to_flax)
 from dgl_operator_tpu_torch.models.sage import dropout as sage_dropout
 from dgl_operator_tpu_torch.nn.conv import FanoutSAGEConv
+from dgl_operator_tpu_torch.ops import spmm
 from dgl_operator_tpu_torch.runtime import checkpoint
 
 # float32 forward through two matmuls of width <= 32 plus a fanout
@@ -246,8 +247,24 @@ def test_sage_inference_matches_jax(aggregator):
 
 
 def test_sage_inference_pool_is_not_ported():
+    """The pool aggregator's layer-wise inference: the max of
+    ``relu(pool(h))`` over every in-neighbour, taken destination chunk
+    by destination chunk (a chunk of 40 elements here, so many chunks
+    and a node wider than its chunk), against the JAX package's."""
     ds = datasets.synthetic_node_clf(50, 200, IN, OUT, seed=1)
+    jg = jax_datasets.synthetic_node_clf(50, 200, IN, OUT, seed=1).graph
+    model = JaxDistSAGE(hidden_feats=HIDDEN, out_feats=OUT,
+                        aggregator="pool", dropout=0.0)
+    blk = JaxFanoutBlock(jnp.zeros((2, 3), jnp.int32),
+                         jnp.ones((2, 3), jnp.float32), 4)
+    params = _perturbed(model.init(jax.random.PRNGKey(4), [blk, blk],
+                                   jnp.ones((4, IN))), 6)
+    x = ds.graph.ndata["feat"]
+    want = jax_sage_inference(params, jg.to_device(), jnp.asarray(x), 2,
+                              "pool")
     port = DistSAGE(IN, HIDDEN, OUT, aggregator="pool", device="cpu")
-    with pytest.raises(NotImplementedError):
-        sage_inference(port, ds.graph,
-                       torch.from_numpy(ds.graph.ndata["feat"]))
+    port.load_state_dict(state_dict_from_flax(params))
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(spmm, "CHUNK_ELEMS", 40)
+        got = sage_inference(port, ds.graph, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -343,7 +343,7 @@ def test_gather_and_scatter_reject_what_the_kernels_do_not_take(bad):
     g, sidx = torch.randn(3, 4), torch.zeros(3, 2, dtype=torch.int32)
     mask = torch.ones(3, 2, dtype=torch.uint8)
     if bad == "table_dtype":
-        table = table.double()
+        table = table.half()
     elif bad == "idx_dtype":
         idx = idx.short()
     elif bad == "idx_rank":
@@ -551,11 +551,17 @@ def test_gspmm_matches_jax(reduce):
 
 
 def test_gspmm_refuses_what_is_not_ported():
+    """A host ``Graph`` takes ``copy_u`` only (the other message ops run
+    over ``Graph.to_device``); an unknown op or reduce is refused."""
     g = Graph(np.array([0]), np.array([1]), 2)
     with pytest.raises(NotImplementedError):
-        spmm.gspmm(g, "copy_u", "max", torch.ones(2, 3))
+        spmm.gspmm(g, "copy_e", "max", torch.ones(2, 3))
     with pytest.raises(NotImplementedError):
         spmm.gspmm(g, "u_mul_e", "sum", torch.ones(2, 3))
+    with pytest.raises(ValueError, match="unknown"):
+        spmm.gspmm(g, "u_pow_e", "sum", torch.ones(2, 3))
+    with pytest.raises(ValueError, match="unknown"):
+        spmm.gspmm(g, "copy_u", "prod", torch.ones(2, 3))
 
 
 # -- the kernels on the card -------------------------------------------
