@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, KGE, GAT and
-full-graph paths.
+"""Drive the PyTorch/CUDA port's serving, training, KGE, GAT,
+full-graph, RGCN and GIN paths.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -196,15 +196,46 @@ Each phase prints JSON lines:
    ``gather_rows`` and ``scatter_add_rows`` at the full-graph Cora
    shapes (``cora_gather16``, ``cora_segment_sum``).
 
+16. ``rgcn_gin`` — RGCN link prediction, GIN graph classification and
+   the sampled pool aggregator: ``examples/link_predict_rgcn.py`` at its
+   defaults (60 epochs, hidden 32, 8 bases) on the full-size synthetic
+   FB15k twice on the card (losses, AUC and parameters bit-equal,
+   launches per epoch checked, epoch ms, the peak device memory above
+   the call's start below the JAX layer's 1.98 GB ``[E, I, O]``
+   table), 2 epochs from one set of carried weights on the card and on
+   the CPU in float64, synced as in phase 8 (each loss within 1e-5
+   relative, every gradient and the pre-sigmoid scores within 1e-4 of
+   their largest entry), and 10 epochs of the same library run on the
+   synthetic FB15k-237 (14,541 entities, 237 relations, 272,115 train triples);
+   ``examples/graph_classification.py`` at its defaults twice on the
+   card (bit-equal, launches) and once on the CPU (all 140 steps within
+   1e-4 relative, each side's test accuracy); a pool ``DistSAGE`` at
+   the SAGE widths from one set of weights against the CPU (3 steps
+   each of the host sampler, the device sampler and ``DistTrainer``,
+   synced as in phase 8), then ``SampledTrainer`` for 20 steps with
+   the host sampler and with the device sampler at K = 4 (5 calls), and
+   ``DistTrainer`` for an epoch of phase 10's book, each twice, and the
+   device sampler at K = 1 once, all bit-equal, launches per step
+   checked (the pool's slots gathered by ``gather_rows``, no
+   ``fanout_agg``), step ms, the host sampler's per-slot plan ms; and
+   ``kernel`` lines at the RGCN's shapes (``rgcn_hb_src`` 483,142 ids
+   of 1 KB rows and ``_bwd``,
+   ``rgcn_coef_etype`` 32-byte rows and ``_bwd`` into 1,345 targets,
+   ``rgcn_segment_mean`` 128-byte rows into 14,952 segments,
+   ``rgcn_distmult_head``, ``rgcn_distmult_rel`` and ``_bwd``) and the
+   pool's block 0 (``pool_block0``, 400-byte rows, and ``_bwd`` over
+   the per-slot plan).
+
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, gat and message_passing phases (both ranks of each two-rank run
-and every graph replay included), split by path, worst error, the
-times of its calls in one SAGE training step and, under ``kge``, in one
-KGE step, under ``device_sampler``, in one device-sampled step, under
-``gat`` and ``gatv2``, in one device-sampled step of that stack and,
-under ``full_graph``, in one edge gather or segment sum of the Cora
-loop), the nvidia-smi line, and
+kge, gat, message_passing and rgcn_gin phases (both ranks of each
+two-rank run and every graph replay included), split by path, worst
+error, the times of its calls in one SAGE training step and, under
+``kge``, in one KGE step, under ``device_sampler``, in one
+device-sampled step, under ``gat`` and ``gatv2``, in one device-sampled
+step of that stack, under ``full_graph``, in one edge gather or
+segment sum of the Cora loop and, under ``rgcn_gin``, in one call at
+each RGCN and pool shape), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -545,8 +576,11 @@ def gather_records(torch, gather, cases, flush, iters: int, card: str,
 def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
     """``scatter_add_rows`` over its plan against its plain version on
     each case (the backward of an aggregation, or of a gather when
-    ``mask`` is None): two launches must give the same bits, and the
-    line says whether they equal the CPU's sequential ``index_add_``.
+    ``mask`` is None), run on the CPU in float64: the float32 plain
+    version on the card adds by atomics in no fixed order, and over a
+    target of 84,500 entries its own rounding reaches the 1e-5 × max
+    limit. Two launches must give the same bits, and the line says
+    whether they equal the CPU's sequential float32 ``index_add_``.
     The backward of ``F.embedding_bag`` (or ``index_add_`` for the
     gather's) is the yardstick."""
     import torch.nn.functional as F
@@ -579,20 +613,19 @@ def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
               f"{name}: one scatter launch a call with output rows")
         check(torch.equal(got, again),
               f"{name}: two launches give different bits")
-        want = scatter.scatter_add_rows_plain(g, idx, mask, n, mean)
+        mask_cpu = None if mask is None else mask.cpu()
+        want = scatter.scatter_add_rows_plain(g.cpu().double(), idx.cpu(),
+                                              mask_cpu, n, mean).to(g.device)
         check(got.shape == (n, d) and got.dtype == torch.float32,
               f"{name}: scatter shape and dtype")
         err, scale = err_of(got, want)
-        # long targets add their pieces' partial sums, not one entry
-        # at a time as index_add_ does
         tol = 1e-5 * scale
         check(err <= tol, f"{name} {rec['dtype']}: max abs err {err} > "
               f"{tol}")
         if mask is not None and not (mask > 0).any():
             check(not got.any(), f"{name}: all-masked rows add nothing")
-        cpu = scatter.scatter_add_rows_plain(
-            g.cpu(), idx.cpu(), None if mask is None else mask.cpu(), n,
-            mean)
+        cpu = scatter.scatter_add_rows_plain(g.cpu(), idx.cpu(), mask_cpu,
+                                             n, mean)
         rec.update(max_abs_err=err, tol_scale=scale,
                    deterministic=True,
                    bitwise_equal_to_cpu=bool(torch.equal(got.cpu(), cpu)))
@@ -4191,17 +4224,616 @@ def message_passing_phase(torch, args, ops, wrappers, g, ctx, card: str):
     return total, records
 
 
+# launches of the RGCN example (gather_rows, scatter_add_rows): a
+# training epoch (per layer: HB[src], coef[etype] and the segment
+# mean's sum forward; the segment's gather and two scatters backward;
+# DistMult: 6 gathers forward, 6 scatters backward) and the evaluation
+# forward
+RGCN_EPOCH_LAUNCHES = (12, 12)
+RGCN_EVAL_LAUNCHES = (10, 2)
+# GIN: a training step (per layer h[src] and its segment sum, the
+# readout's sum; backward the readout's and layer 1's gathers and layer
+# 1's source scatter: layer 0's input needs no gradient) and a test batch
+GIN_STEP_LAUNCHES = (4, 4)
+GIN_TEST_LAUNCHES = (2, 3)
+RGCN_CPU_EPOCHS = 2     # epochs of the card-against-CPU comparison
+RGCN_237_EPOCHS = 10    # epochs at FB15k-237's size
+POOL_STEPS = 20         # pool SampledTrainer steps: 5 calls at K = 4
+POOL_CPU_STEPS = 3      # pool steps of each card-against-CPU check
+# the [E, I, O] per-edge weight table the JAX layer builds on FB15k at
+# hidden 32 (483,142 train triples)
+JAX_RGCN_TABLE_BYTES = 483_142 * 32 * 32 * 4
+
+
+def counts_of(gathers: int, scatters: int) -> dict:
+    return {"fanout_agg": 0, "gather_rows": gathers,
+            "scatter_add_rows": scatters}
+
+
+def rgcn_launches(epochs: int) -> dict:
+    (eg, es), (vg, vs) = RGCN_EPOCH_LAUNCHES, RGCN_EVAL_LAUNCHES
+    return counts_of(epochs * eg + vg, epochs * es + vs)
+
+
+def rel_gaps(a, b) -> list:
+    import numpy as np
+
+    return (np.abs(np.subtract(a, b)) / np.abs(b)).tolist()
+
+
+class RgcnSide:
+    """One side of the RGCN card-against-CPU check, as
+    ``examples/link_predict_rgcn.py`` trains: the train triples' message
+    graph and edge types, the positive triples with their plans, an
+    ``RGCNLinkPredict`` holding the flax tree ``w0`` (its widths read
+    from the tree) in ``dtype`` (float32 when None) and Adam at the
+    example's lr, on ``device``; the scores of each step go to
+    ``scores``."""
+
+    def __init__(self, torch, ds, w0, device, dtype=None):
+        import numpy as np
+
+        from dgl_operator_tpu_torch.graph.graph import Graph
+        from dgl_operator_tpu_torch.models import state_dict_from_flax
+        from dgl_operator_tpu_torch.models.rgcn import (RGCNLinkPredict,
+                                                        Triples)
+
+        h, r, t = (np.asarray(a) for a in ds.train)
+        ne, nr = ds.n_entities, ds.n_relations
+        tree = w0["params"]
+        self.dg = Graph(h.astype(np.int32), t.astype(np.int32),
+                        ne).to_device(device)
+        self.etypes = self.dg.edge_types(r, nr)
+        self.pos = Triples.build(h, r, t, ne, nr, device)
+        self.model = RGCNLinkPredict(
+            ne, tree["w_rel"].shape[1], nr,
+            num_bases=tree["rgcn_0"]["basis"].shape[0], device=device)
+        self.model.to(dtype or torch.float32)
+        self.model.load_state_dict(state_dict_from_flax(w0))
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=0.01)
+        self.scores = []
+
+
+def rgcn_step(side: RgcnSide, tails):
+    """One epoch of the example on ``side`` with the corrupted ``tails``;
+    returns the loss and keeps the pre-sigmoid scores."""
+    import torch
+
+    from dgl_operator_tpu_torch.models.link_predict import bce_link_loss
+
+    side.optimizer.zero_grad(set_to_none=True)
+    pos_s, neg_s = side.model(side.dg, side.etypes, side.pos,
+                              side.pos.with_tails(tails))
+    loss = bce_link_loss(pos_s, neg_s)
+    loss.backward()
+    side.optimizer.step()
+    side.scores.append(torch.cat([pos_s, neg_s]).detach().cpu())
+    return loss.detach()
+
+
+def rgcn_synced_gaps(torch, card: RgcnSide, cpu: RgcnSide, ds, epochs: int,
+                     seed: int):
+    """``epochs`` epochs of :func:`rgcn_step` on both sides, synced as in
+    phase 8, on the example's negatives for ``seed``; each epoch's loss,
+    every gradient and the pre-sigmoid scores held (``check_step_gaps``'
+    limits, the scores within 1e-4 of their largest entry). ``cpu`` runs
+    in float64: a relation's gradient (``w_rel``, ``coef``) is the small
+    difference of its positives' and negatives' sums over up to 84,500
+    triples, which the CPU's float32 sum rounds to 2e-4 of the largest
+    entry on FB15k and the card's pieces to 5e-6. Returns the losses,
+    the loss gaps, each epoch's worst gradient gap, the score gaps and
+    the seconds of each side."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_tr = len(ds.train[2])
+    tails = [rng.integers(0, ds.n_entities, size=n_tr).astype(np.int64)
+             for _ in range(epochs)]
+    gl, cl, gaps, secs = synced_step_gaps(torch, card, cpu, tails,
+                                          rgcn_step)
+    rel, worst = check_step_gaps("rgcn", gl, cl, gaps)
+    score_gaps = [float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(card.scores, cpu.scores)]
+    for i, e in enumerate(score_gaps):
+        check(e <= 1e-4, f"rgcn epoch {i + 1} scores: max abs err {e} x "
+              f"max > 1e-4")
+    return gl, cl, rel, worst, score_gaps, secs
+
+
+# a spin of about 20 ms before a timed epoch: the host enqueues the
+# whole epoch while the card spins, so the events bracket device time
+EPOCH_SPIN_CYCLES = 40_000_000
+
+
+def rgcn_epoch_probe(torch, args, card: str) -> None:
+    """Where an RGCN epoch's time goes, at the example's defaults on the
+    full-size synthetic FB15k: the host ms of a set of corrupted tails'
+    draw and of its plan (``Triples.with_tails``), and the device ms of
+    one training epoch (forward, backward, Adam) by CUDA events after a
+    spin that covers its enqueue (the enqueue's host ms reported
+    beside it, and whether the spin outlasted it), each the median of
+    5."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.models.link_predict import bce_link_loss
+    from dgl_operator_tpu_torch.models.rgcn import RGCNLinkPredict, Triples
+
+    ds = datasets.fb15k(seed=args.seed)
+    h, r, t = (np.asarray(a) for a in ds.train)
+    ne, nr = ds.n_entities, ds.n_relations
+    dg = Graph(h.astype(np.int32), t.astype(np.int32), ne).to_device("cuda")
+    et = dg.edge_types(r, nr)
+    pos = Triples.build(h, r, t, ne, nr, "cuda")
+    rng = np.random.default_rng(args.seed)
+    tails = rng.integers(0, ne, size=len(t))
+    draw_ms = host_ms(lambda: rng.integers(0, ne, size=len(t)), 5)
+    plan_ms = host_ms(lambda: pos.with_tails(tails), 5)
+    neg = pos.with_tails(tails)
+    model = RGCNLinkPredict(ne, 32, nr, device="cuda",
+                            generator=torch.Generator().manual_seed(
+                                args.seed))
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+
+    def epoch():
+        opt.zero_grad(set_to_none=True)
+        bce_link_loss(*model(dg, et, pos, neg)).backward()
+        opt.step()
+
+    epoch()
+    torch.cuda.synchronize()
+    dev, enq, spin = [], [], []
+    for _ in range(5):
+        z, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        z.record()
+        torch.cuda._sleep(EPOCH_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        s.record()
+        epoch()
+        e.record()
+        enq.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        spin.append(z.elapsed_time(s))
+        dev.append(s.elapsed_time(e))
+    emit(phase="rgcn_gin", part="rgcn_probe", card=card,
+         tails_draw_host_ms=draw_ms, tails_plan_host_ms=plan_ms,
+         epoch_device_ms=float(np.median(dev)),
+         epoch_enqueue_host_ms=float(np.median(enq)),
+         spin_ms=float(np.median(spin)),
+         spin_covers_enqueue=max(enq) < min(spin))
+
+
+def rgcn_runs(torch, args, wrappers, card: str) -> dict:
+    """``examples/link_predict_rgcn.py`` at its defaults on the full-size
+    synthetic FB15k twice on the card (losses, AUC and parameters
+    bit-equal; launches; the peak device memory above what was allocated
+    before the call, beside the JAX layer's ``[E, I, O]`` table); from
+    one set of carried weights ``RGCN_CPU_EPOCHS`` epochs on the card and
+    on the CPU in float64, synced (:func:`rgcn_synced_gaps`); and the
+    same library run (``link_predict_rgcn.run``) for ``RGCN_237_EPOCHS``
+    epochs on the synthetic FB15k-237. :func:`rgcn_epoch_probe` runs
+    between them (its launches are not the main path's). Returns the
+    launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.examples import link_predict_rgcn
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.models import RGCNLinkPredict, flax_params
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, sec, launches = run_example(
+            torch, wrappers, link_predict_rgcn,
+            ["--seed", str(args.seed), "--device", "cuda"])
+        peak = torch.cuda.max_memory_allocated() - base
+        hist = out["history"]
+        want = rgcn_launches(len(hist))
+        check(launches == want, f"rgcn: {launches} launches in "
+              f"{len(hist)} epochs, expected {want}")
+        check(len(hist) == 60 and bool(np.isfinite(hist).all())
+              and hist[-1] < hist[0] and 0.0 <= out["auc"] <= 1.0,
+              f"rgcn: losses {hist}, AUC {out['auc']}")
+        check(peak < JAX_RGCN_TABLE_BYTES, f"rgcn: peak {peak} B above the "
+              f"start reaches the {JAX_RGCN_TABLE_BYTES} B [E, I, O] table")
+        add(launches)
+        runs.append(out)
+        ep_ms = np.asarray(out["epoch_s"]) * 1e3
+        emit(phase="rgcn_gin", part="rgcn", card=card, dataset="fb15k",
+             epochs=len(hist), launches=launches, auc=out["auc"],
+             loss_first=hist[0], loss_last=hist[-1],
+             epoch_ms_first=float(ep_ms[0]),
+             epoch_ms_mean_after_first=float(ep_ms[1:].mean()),
+             epoch_ms_p50=float(np.percentile(ep_ms, 50)), call_s=sec,
+             peak_bytes_above_start=peak,
+             jax_edge_table_bytes=JAX_RGCN_TABLE_BYTES)
+    a, b = runs
+    check(a["history"] == b["history"] and a["auc"] == b["auc"]
+          and same_params(a["params"], b["params"]),
+          "rgcn: two card runs part")
+    emit(phase="rgcn_gin", part="rgcn_bit_equal", card=card,
+         losses_bit_equal=True, auc_bit_equal=True, params_bit_equal=True)
+    rgcn_epoch_probe(torch, args, card)
+
+    ds = datasets.fb15k(seed=args.seed)
+    w0 = flax_params(RGCNLinkPredict(
+        ds.n_entities, 32, ds.n_relations, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 5)))
+    sides = [RgcnSide(torch, ds, w0, "cuda"),
+             RgcnSide(torch, ds, w0, "cpu", dtype=torch.float64)]
+    gl, cl, rel, worst, score_gaps, (card_s, cpu_s) = rgcn_synced_gaps(
+        torch, *sides, ds, RGCN_CPU_EPOCHS, args.seed)
+    del sides
+    emit(phase="rgcn_gin", part="rgcn_cpu", card=card,
+         epochs=RGCN_CPU_EPOCHS, synced=True, cpu_dtype="float64",
+         card_losses=gl,
+         cpu_losses=cl, loss_rel_err=rel, grad_rel_err_max=worst,
+         score_rel_err=score_gaps, card_s=card_s, cpu_s=cpu_s)
+
+    ds = datasets.kg_dataset("fb15k-237", seed=args.seed)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out = link_predict_rgcn.run(ds, num_epochs=RGCN_237_EPOCHS,
+                                seed=args.seed, device="cuda",
+                                log=lambda *_: None)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    hist = out["history"]
+    check(launches == rgcn_launches(RGCN_237_EPOCHS),
+          f"rgcn fb15k-237: {launches} launches")
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          f"rgcn fb15k-237: losses {hist}")
+    add(launches)
+    emit(phase="rgcn_gin", part="rgcn_fb15k237", card=card,
+         entities=ds.n_entities, relations=ds.n_relations,
+         train_triples=len(ds.train[0]), epochs=len(hist),
+         launches=launches, losses=hist, auc=out["auc"],
+         epoch_ms_mean_after_first=float(np.mean(out["epoch_s"][1:]) * 1e3),
+         call_s=sec)
+    return total
+
+
+def gin_runs(torch, args, wrappers, card: str) -> dict:
+    """``examples/graph_classification.py`` at its defaults twice on the
+    card (every step's loss and the parameters bit-equal, launches) and
+    once on the CPU (every step's loss within 1e-4 relative; each run's
+    test accuracy). Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.examples import graph_classification
+
+    argv = ["--seed", str(args.seed)]
+    total, runs = {}, []
+    tests = len(range(int(0.8 * 300), 300 - 32 + 1, 32))
+    for _ in range(2):
+        out, sec, launches = run_example(torch, wrappers,
+                                         graph_classification,
+                                         argv + ["--device", "cuda"])
+        steps = sum(len(h) for h in out["history"])
+        (sg, ss), (tg, ts) = GIN_STEP_LAUNCHES, GIN_TEST_LAUNCHES
+        want = counts_of(steps * sg + tests * tg, steps * ss + tests * ts)
+        check(steps == 20 * 7 and launches == want,
+              f"gin: {launches} launches in {steps} steps, expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs.append((out, sec, launches))
+    (a, sec, launches), (b, _, _) = runs
+    check(a["history"] == b["history"] and a["test_acc"] == b["test_acc"]
+          and same_params(a["params"], b["params"]),
+          "gin: two card runs part")
+    cpu, cpu_s, _ = run_example(torch, wrappers, graph_classification,
+                                argv + ["--device", "cpu"])
+    card_l, cpu_l = np.ravel(a["history"]), np.ravel(cpu["history"])
+    gap = rel_gaps(card_l, cpu_l)
+    check(bool(np.isfinite(card_l).all()) and len(card_l) == len(cpu_l)
+          and max(gap) <= 1e-4, f"gin: card losses {card_l.tolist()} vs "
+          f"CPU {cpu_l.tolist()}: relative {gap}")
+    emit(phase="rgcn_gin", part="gin", card=card, steps=len(card_l),
+         launches=launches, bit_equal=True, test_acc=a["test_acc"],
+         cpu_test_acc=cpu["test_acc"], steps_held=len(card_l),
+         loss_rel_err=gap, card_losses_first_epoch=a["history"][0],
+         card_loss_last_epoch_mean=float(np.mean(a["history"][-1])),
+         cpu_loss_last_epoch_mean=float(np.mean(cpu["history"][-1])),
+         card_call_s=sec, cpu_call_s=cpu_s,
+         step_ms=sec * 1e3 / len(card_l))
+    return total
+
+
+def pool_cpu_checks(torch, args, g, ctx, ids, w0, card: str) -> None:
+    """The pool ``DistSAGE`` from the flax tree ``w0`` (dropout 0) on the
+    card and on the CPU, synced as in phase 8 and held to
+    ``check_step_gaps``' limits: ``POOL_CPU_STEPS`` ``SampledTrainer``
+    steps on the host sampler and on the device sampler (calls of one
+    step; :func:`pool_runs` holds K = 4's graph replays to them bit for
+    bit), and ``POOL_CPU_STEPS`` ``DistTrainer`` steps over phase 10's
+    book, replicated."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models import state_dict_from_flax
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    def model(dev):
+        m = DistSAGE(FEAT, HIDDEN, CLASSES, aggregator="pool", device=dev)
+        m.load_state_dict(state_dict_from_flax(w0))
+        return m
+
+    def sampled(dev, sampler, k):
+        cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                          num_epochs=1, eval_every=0, seed=args.seed,
+                          dropout=0.0, sampler=sampler, steps_per_call=k)
+        return SampledTrainer(model(dev), g, cfg, train_ids=ids, device=dev)
+
+    def dist(dev):
+        cfg = TrainConfig(num_epochs=1, batch_size=BATCH_TRAIN,
+                          fanouts=FANOUTS, lr=LR, eval_every=0,
+                          seed=args.seed, dropout=0.0, cap_policy="auto",
+                          feats_layout="replicated")
+        return DistTrainer(model(dev), ctx["book"], cfg, device=dev)
+
+    host = [sampled(dev, "host", 1) for dev in ("cuda", "cpu")]
+    mbs = [host[0].sample(ids[b * BATCH_TRAIN:(b + 1) * BATCH_TRAIN], b)
+           for b in range(POOL_CPU_STEPS)]
+    dev = [sampled(d, "device", 1) for d in ("cuda", "cpu")]
+    for tr in dev:
+        tr._start_device_run(len(ids) // BATCH_TRAIN).stage([ids])
+    reps = [dist(d) for d in ("cuda", "cpu")]
+    perm = [np.random.default_rng(args.seed).permutation(t)
+            for t in reps[0].train_ids]
+    batches = [reps[0]._sample_all(perm, b, b)[0]
+               for b in range(POOL_CPU_STEPS)]
+
+    def step(tr, b):
+        return tr.train_step(b)[0]
+
+    for name, pair, items, fn in (
+            ("host", host, mbs, step),
+            ("device_k1", dev, list(range(POOL_CPU_STEPS)),
+             lambda tr, b: tr.train_call((b, b, 1))[0][0]),
+            ("dist_replicated", reps, batches, step)):
+        gl, cl, gaps, (gs, cs) = synced_step_gaps(torch, *pair, items, fn)
+        rel, worst = check_step_gaps(f"pool {name}", gl, cl, gaps)
+        emit(phase="rgcn_gin", part="pool_cpu", run=name, card=card,
+             steps=len(items), synced=True, card_losses=gl, cpu_losses=cl,
+             loss_rel_err=rel, grad_rel_err_max=worst, card_s=gs,
+             cpu_s=cs)
+
+
+def pool_runs(torch, args, wrappers, g, trainer, ctx, card: str):
+    """A pool ``DistSAGE`` at the SAGE cell's widths (100 -> 256 -> 47,
+    fanouts 10 and 25, batch 1000): ``SampledTrainer`` for
+    ``POOL_STEPS`` steps with the host sampler and with the device
+    sampler at K = 4 (a CUDA graph a call), and ``DistTrainer`` for an
+    epoch of the dist phase's book, replicated; each run twice from one
+    set of weights, and the device sampler once more at K = 1 (eager),
+    losses and parameters bit-equal (the pool's slots
+    gathered by ``gather_rows`` over per-slot plans, its backward the
+    plan's ``scatter_add_rows``), with its launches and step times; the
+    host sampler's ms for a batch with its per-slot plans beside the
+    plans alone (and the mean's row plans); and, first, the same weights
+    against the CPU (:func:`pool_cpu_checks`). Returns the launches and
+    the device-sampler trainer."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models import flax_params
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.ops.scatter import attach_plans
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    ids = trainer.train_ids[:POOL_STEPS * BATCH_TRAIN]
+    w0 = flax_params(DistSAGE(
+        FEAT, HIDDEN, CLASSES, aggregator="pool", device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 9)))
+
+    pool_cpu_checks(torch, args, g, ctx, ids, w0, card)
+
+    def model():
+        return DistSAGE(FEAT, HIDDEN, CLASSES, aggregator="pool",
+                        device="cuda")
+
+    def sampled(sampler, k):
+        cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                          num_epochs=1, eval_every=0, seed=args.seed,
+                          sampler=sampler, steps_per_call=k)
+        return SampledTrainer(model(), g, cfg, train_ids=ids)
+
+    def dist():
+        cfg = TrainConfig(num_epochs=1, batch_size=BATCH_TRAIN,
+                          fanouts=FANOUTS, lr=LR, eval_every=0,
+                          seed=args.seed, cap_policy="auto",
+                          feats_layout="replicated")
+        return DistTrainer(model(), ctx["book"], cfg)
+
+    def warm3(steps):           # the warm-up forward's three gathers
+        return counts_of(3 * steps + 3, 2 * steps)
+
+    def dist_want(steps):       # per slot: the feature gather, the pool's
+        return counts_of(3 * 2 * steps, 2 * 2 * steps)
+
+    total, device_tr, graphed = {}, None, None
+    for name, make, want_of, runs in (
+            ("host", lambda: sampled("host", 1), warm3, 2),
+            (f"device_k{DEV_K}", lambda: sampled("device", DEV_K), warm3, 2),
+            ("device_k1", lambda: sampled("device", 1), warm3, 1),
+            ("dist_replicated", dist, dist_want, 2)):
+        outs = []
+        for _ in range(runs):
+            tr = make()
+            torch.cuda.synchronize()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = tr.train(init_params=w0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            rec = out["history"][0]
+            check(launches == want_of(steps), f"pool {name}: {launches} "
+                  f"launches in {steps} steps, expected {want_of(steps)}")
+            check(bool(np.isfinite(rec["losses"]).all()),
+                  f"pool {name}: losses {rec['losses']}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            outs.append((tr, out, wall, launches))
+        (tr, a, wall, launches), b = outs[0], outs[-1][1]
+        if name == "device_k1":         # eager against the graph replays
+            b = graphed
+        check(a["history"][0]["losses"] == b["history"][0]["losses"]
+              and all(torch.equal(v, b["params"][k])
+                      for k, v in a["params"].items()),
+              f"pool {name}: two runs part")
+        rec = a["history"][0]
+        steps = a["step"]
+        extra = {}
+        if name == f"device_k{DEV_K}":
+            check(rec["graph"] and rec["graph_replays"] == steps // DEV_K - 1,
+                  f"pool {name}: {rec['graph_replays']} replays of "
+                  f"{steps // DEV_K} calls")
+            device_tr, graphed = tr, a
+        if name == "host":
+            seeds = ids[:BATCH_TRAIN]
+            mb = tr.sample(seeds, 3)
+            extra = dict(
+                sample_with_plans_ms=host_ms(lambda: tr.sample(seeds, 3), 5),
+                slot_plans_ms=host_ms(lambda: attach_plans(mb.blocks, True),
+                                      5),
+                row_plans_ms=host_ms(lambda: attach_plans(mb.blocks, False),
+                                     5))
+        if name.startswith("device"):
+            extra = device_run_record(rec, steps, tr.cfg.steps_per_call)
+        step_ms = np.asarray(rec.get("step_s", [])) * 1e3
+        line = dict(phase="rgcn_gin", part="pool", run=name, card=card,
+                    steps=steps, launches=launches, bit_equal=True,
+                    losses=rec["losses"], train_call_s=wall,
+                    wall_ms_per_step=wall * 1e3 / steps,
+                    step_ms_mean=(float(step_ms.mean()) if step_ms.size
+                                  else None),
+                    **{f"{k}_ms_per_step": rec.get(k, 0.0) * 1e3 / steps
+                       for k in ("sample", "stall", "dispatch")})
+        line.update(extra)
+        emit(**line)
+    return total, device_tr
+
+
+def rgcn_gin_kernel_records(torch, args, ops, pool_tr, card: str):
+    """``gather_rows`` and ``scatter_add_rows`` against their plain
+    versions at the RGCN's shapes on the full-size synthetic FB15k
+    (483,142 train triples, 14,951 entities, 1,345 relations, hidden 32,
+    8 bases): ``HB[src]`` (1,024-byte rows) and its backward,
+    ``coef[etype]`` (32-byte rows) and its backward into 1,345 targets
+    (relation 0 a hub), the segment mean's sum (128-byte rows into
+    14,952 segments), the DistMult head and relation gathers (128-byte
+    rows) and the relation's backward; and the pool's block-0 slot
+    gather (400-byte rows) and its backward over the per-slot plan, on
+    one device-sampled batch of ``pool_tr``."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph import datasets
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.models.rgcn import Triples
+    from dgl_operator_tpu_torch.ops.device_sample import draw_key
+
+    _, gather, scatter = ops
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 17)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    ds = datasets.fb15k(seed=args.seed)
+    h, r, t = (np.asarray(a) for a in ds.train)
+    ne, nr = ds.n_entities, ds.n_relations
+    dg = Graph(h.astype(np.int32), t.astype(np.int32), ne).to_device("cuda")
+    et = dg.edge_types(r, nr)
+    tri = Triples.build(h, r, t, ne, nr, "cuda")
+    e = dg.num_edges
+    records = gather_records(torch, gather, [
+        ("rgcn_hb_src", randn(ne, 8 * 32), dg.src),
+        ("rgcn_coef_etype", randn(nr, 8), et.ids),
+        ("rgcn_distmult_head", randn(ne, 32), tri.head),
+        ("rgcn_distmult_rel", randn(nr, 32), tri.rel),
+    ], flush, args.iters, card)
+    records += scatter_records(torch, scatter, [
+        ("rgcn_hb_src_bwd", randn(e, 8 * 32), dg.src.view(-1, 1), None, ne,
+         False, dg.src_plan),
+        ("rgcn_coef_etype_bwd", randn(e, 8), et.ids.view(-1, 1), None, nr,
+         False, et.plan),
+        ("rgcn_segment_mean", randn(e, 32), dg.dst.view(-1, 1), None,
+         ne + 1, False, dg.dst_plan),
+        ("rgcn_distmult_rel_bwd", randn(e, 32), tri.rel.view(-1, 1), None,
+         nr, False, tri.rel_plan),
+    ], flush, args.iters, card)
+    del dg, et, tri
+
+    seeds = torch.from_numpy(pool_tr.train_ids[:BATCH_TRAIN].astype(
+        np.int32)).to(pool_tr._indptr.dtype).to("cuda")
+    (b0, _), inputs = pool_tr._tree.sample(pool_tr._indptr,
+                                           pool_tr._indices, seeds,
+                                           draw_key(args.seed, 17))
+    check(b0.plan is not None and b0.plan.cnt.numel() == b0.nbr.numel(),
+          "the pool tree blocks carry per-slot plans from block 0")
+    with torch.no_grad():
+        x0 = gather.gather_rows(pool_tr.feats, inputs)
+        p0 = torch.relu(pool_tr.model.layers[0].pool(x0)).contiguous()
+    i0 = b0.nbr.view(-1)
+    records += gather_records(torch, gather, [("pool_block0", p0, i0)],
+                              flush, args.iters, card)
+    records += scatter_records(torch, scatter, [
+        ("pool_block0_bwd", randn(i0.numel(), FEAT), b0.nbr.view(-1, 1),
+         b0.mask.view(-1, 1), b0.num_src, False, b0.plan)],
+        flush, args.iters, card)
+    return records
+
+
+def rgcn_gin_phase(torch, args, ops, wrappers, g, trainer, ctx, card: str):
+    """RGCN link prediction, GIN graph classification and the sampled
+    pool aggregator on the port's kernels (:func:`rgcn_runs`,
+    :func:`gin_runs`, :func:`pool_runs`), then the kernels at their
+    shapes. Returns the launches and the kernel records."""
+    t0 = time.perf_counter()
+    total = rgcn_runs(torch, args, wrappers, card)
+    for k, v in gin_runs(torch, args, wrappers, card).items():
+        total[k] += v
+    pool, pool_tr = pool_runs(torch, args, wrappers, g, trainer, ctx, card)
+    for k, v in pool.items():
+        total[k] += v
+    torch.cuda.empty_cache()
+    records = rgcn_gin_kernel_records(torch, args, ops, pool_tr, card)
+    del pool_tr
+    torch.cuda.empty_cache()
+    emit(phase="rgcn_gin", part="done", card=card, launches=total,
+         seconds=time.perf_counter() - t0)
+    return total, records
+
+
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
-                 gat_shapes=None, gat_launches=0, mp_launches=0):
+                 gat_shapes=None, gat_launches=0, mp_launches=0,
+                 rgcn_launches=0):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
     ``kge``, of one KGE training step; under ``device_sampler``, of one
     device-sampled step; under each key of ``gat_shapes``, of one
     device-sampled step of that stack, or under ``full_graph`` of one
-    edge gather or segment sum of the full-graph Cora loop), launches of
+    edge gather or segment sum of the full-graph Cora loop, or under
+    ``rgcn_gin`` of one call at each RGCN and pool shape), launches of
     every path (``mp_launches``: the full-graph and message-passing
-    runs and ``examples/graphsage.py``)."""
+    runs and ``examples/graphsage.py``; ``rgcn_launches``: the
+    ``rgcn_gin`` phase's runs)."""
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -4218,14 +4850,15 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
              "replaces": replaces,
              "launches": launches + kge_launches + gat_launches
-             + mp_launches,
+             + mp_launches + rgcn_launches,
              "max_abs_err": max(r["max_abs_err"] for r in mine),
              "ms": total["ms"], "plain_ms": total["plain_ms"],
              "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
              "library_ms": total["library_ms"],
              "launches_sage": launches, "launches_kge": kge_launches,
              "launches_gat": gat_launches,
-             "launches_message_passing": mp_launches}
+             "launches_message_passing": mp_launches,
+             "launches_rgcn_gin": rgcn_launches}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
     if tree_shapes:
@@ -4309,10 +4942,12 @@ def main(argv=None) -> int:
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
             torch, args, ops, wrappers, g, ctx, smi)
+        rgin, rgin_records = rgcn_gin_phase(torch, args, ops, wrappers, g,
+                                            trainer, ctx, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
-                + gat_records + mpass_records)
+                + gat_records + mpass_records + rgin_records)
     # the full-graph and message-passing paths, and the standalone
     # sampled entry point
     for k, v in full.items():
@@ -4333,7 +4968,8 @@ def main(argv=None) -> int:
                      launches("fanout_agg"), f"{pg}:221",
                      tree_shapes=f32("tree_block0", "tree_block1"),
                      gat_launches=gat["fanout_agg"],
-                     mp_launches=mpass["fanout_agg"]),
+                     mp_launches=mpass["fanout_agg"],
+                     rgcn_launches=rgin["fanout_agg"]),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -4344,9 +4980,14 @@ def main(argv=None) -> int:
                                     "gat_el_block1"),
                          "gatv2": f32("tree_feats", "gatv2_fs_block0",
                                       "gatv2_fs_block1"),
-                         "full_graph": f32("cora_gather16")},
+                         "full_graph": f32("cora_gather16"),
+                         "rgcn_gin": f32("rgcn_hb_src", "rgcn_coef_etype",
+                                         "rgcn_distmult_head",
+                                         "rgcn_distmult_rel",
+                                         "pool_block0")},
                      gat_launches=gat["gather_rows"],
-                     mp_launches=mpass["gather_rows"]),
+                     mp_launches=mpass["gather_rows"],
+                     rgcn_launches=rgin["gather_rows"]),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -4357,9 +4998,15 @@ def main(argv=None) -> int:
                                     "gat_el_block1_bwd"),
                          "gatv2": f32("gatv2_fs_block0_bwd",
                                       "gatv2_fs_block1_bwd"),
-                         "full_graph": f32("cora_segment_sum")},
+                         "full_graph": f32("cora_segment_sum"),
+                         "rgcn_gin": f32("rgcn_hb_src_bwd",
+                                         "rgcn_coef_etype_bwd",
+                                         "rgcn_segment_mean",
+                                         "rgcn_distmult_rel_bwd",
+                                         "pool_block0_bwd")},
                      gat_launches=gat["scatter_add_rows"],
-                     mp_launches=mpass["scatter_add_rows"]),
+                     mp_launches=mpass["scatter_add_rows"],
+                     rgcn_launches=rgin["scatter_add_rows"]),
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})

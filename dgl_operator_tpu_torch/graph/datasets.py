@@ -1,11 +1,16 @@
-"""Synthetic node-classification datasets and knowledge-graph triples.
+"""Node-classification datasets, knowledge-graph triples and graph
+classification sets.
 
 The generators draw from numpy in the same order as the JAX package's
 ``graph/datasets.py``, so the same seed gives the same graph, features,
-labels and splits, and the same triples, in both packages. Of the
-readers of staged on-disk copies only the knowledge graphs' triple
-directories (:func:`_load_triples_dir`) are ported; the node datasets'
-readers are left to a later slice.
+labels and splits, the same triples and the same small graphs, in both
+packages. The readers of staged on-disk copies take the datasets'
+public layouts: the extracted OGB node-property CSVs
+(:func:`_load_ogb_node_prop`), the LINQS ``cora.content`` /
+``cora.cites`` files (:func:`_load_cora_content`) and the knowledge
+graphs' triple directories (:func:`_load_triples_dir`); a loader given
+a ``root`` without its files synthesizes the same shape, unless it is
+``strict``. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +30,108 @@ class NodeClfDataset:
     graph: Graph
     num_classes: int
     name: str = "synthetic"
+
+
+# ----------------------------------------------------------------------
+# On-disk readers: each returns None when its files are absent
+def _csv_path(dirname: str, stem: str) -> Optional[str]:
+    """First existing variant of ``stem`` (.csv / .csv.gz / .txt /
+    .txt.gz) in a directory."""
+    for suffix in (".csv", ".csv.gz", ".txt", ".txt.gz"):
+        p = os.path.join(dirname, stem + suffix)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _load_ogb_node_prop(root: str, name: str) -> Optional[NodeClfDataset]:
+    """Read an extracted OGB node-property dataset (the layout
+    ``DglNodePropPredDataset`` unpacks):
+
+        <root>/<name_>/raw/{edge,node-feat,node-label}.csv[.gz]
+        <root>/<name_>/split/<scheme>/{train,valid,test}.csv[.gz]
+
+    Edges are doubled by reversal; the first split scheme in name order
+    sets the masks, or, with none shipped, :func:`_make_splits` seeded 0.
+    """
+    base = os.path.join(root, name.replace("-", "_"))
+    raw = os.path.join(base, "raw")
+    edge_p = _csv_path(raw, "edge")
+    feat_p = _csv_path(raw, "node-feat")
+    label_p = _csv_path(raw, "node-label")
+    if not (edge_p and feat_p and label_p):
+        return None
+    edges = np.loadtxt(edge_p, delimiter=",", dtype=np.int64, ndmin=2)
+    feat = np.loadtxt(feat_p, delimiter=",", dtype=np.float32, ndmin=2)
+    label = np.loadtxt(label_p, delimiter=",", dtype=np.int64).reshape(-1)
+    n = feat.shape[0]
+    g = Graph(edges[:, 0].astype(np.int32), edges[:, 1].astype(np.int32),
+              n).add_reverse_edges()
+    g.ndata["feat"] = feat
+    g.ndata["label"] = label.astype(np.int32)
+    for k in ("train_mask", "val_mask", "test_mask"):
+        g.ndata[k] = np.zeros(n, dtype=bool)
+    split_dir = os.path.join(base, "split")
+    scheme = None
+    if os.path.isdir(split_dir):
+        subdirs = sorted(d for d in os.listdir(split_dir)
+                         if os.path.isdir(os.path.join(split_dir, d)))
+        scheme = subdirs[0] if subdirs else None
+    if scheme:
+        sdir = os.path.join(split_dir, scheme)
+        for stem, key in (("train", "train_mask"), ("valid", "val_mask"),
+                          ("test", "test_mask")):
+            p = _csv_path(sdir, stem)
+            if p:
+                ids = np.loadtxt(p, delimiter=",",
+                                 dtype=np.int64).reshape(-1)
+                g.ndata[key][ids] = True
+    else:
+        _make_splits(g, np.random.default_rng(0))
+    return NodeClfDataset(g, int(label.max()) + 1, name)
+
+
+def _load_cora_content(root: str) -> Optional[NodeClfDataset]:
+    """Read the LINQS Cora files under ``root`` or ``root/cora``:
+    ``cora.content`` (tab-separated ``<id> <w0..wN> <label>`` lines) and
+    ``cora.cites`` (``<cited> <citing>`` pairs, an edge citing -> cited
+    between known ids, doubled by reversal). Classes are numbered in
+    name order; the splits are :func:`_make_splits` seeded 0."""
+    for base in (root, os.path.join(root, "cora")):
+        content = os.path.join(base, "cora.content")
+        cites = os.path.join(base, "cora.cites")
+        if os.path.exists(content) and os.path.exists(cites):
+            break
+    else:
+        return None
+    ids, feats, labels = [], [], []
+    with open(content) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 3:
+                continue
+            ids.append(parts[0])
+            feats.append([float(x) for x in parts[1:-1]])
+            labels.append(parts[-1])
+    id2ix = {v: i for i, v in enumerate(ids)}
+    classes = {c: i for i, c in enumerate(sorted(set(labels)))}
+    src, dst = [], []
+    with open(cites) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) != 2:
+                continue
+            cited, citing = parts
+            if cited in id2ix and citing in id2ix:
+                src.append(id2ix[citing])
+                dst.append(id2ix[cited])
+    n = len(ids)
+    g = Graph(np.asarray(src, np.int32), np.asarray(dst, np.int32),
+              n).add_reverse_edges()
+    g.ndata["feat"] = np.asarray(feats, np.float32)
+    g.ndata["label"] = np.asarray([classes[c] for c in labels], np.int32)
+    _make_splits(g, np.random.default_rng(0))
+    return NodeClfDataset(g, len(classes), "cora")
 
 
 def _power_law_edges(rng: np.random.Generator, num_nodes: int,
@@ -86,17 +193,39 @@ def synthetic_node_clf(num_nodes: int, num_edges: int, feat_dim: int,
                                num_classes, seed)
 
 
-def cora(seed: int = 0) -> NodeClfDataset:
-    """Synthetic Cora (the reference's node-classification example): 2,708
-    nodes, 5,278 generated edges doubled by reversal, 1,433-dim
-    features, 7 classes. The reader of the LINQS files is not ported."""
+def cora(root: Optional[str] = None, seed: int = 0) -> NodeClfDataset:
+    """Cora (the reference's node-classification example): the LINQS
+    files under ``root`` when present (:func:`_load_cora_content`);
+    otherwise a synthetic graph of its shape: 2,708 nodes, 5,278
+    generated edges doubled by reversal, 1,433-dim features, 7
+    classes."""
+    if root:
+        ds = _load_cora_content(root)
+        if ds is not None:
+            return ds
     return _clustered_node_clf("cora", 2708, 5278, 1433, 7, seed)
 
 
-def ogbn_products(seed: int = 0, scale: float = 1.0) -> NodeClfDataset:
-    """Synthetic graph with the ogbn-products schema: 2.45M nodes,
-    100-dim features, 47 classes; ``scale`` shrinks the node and edge
-    counts (30M generated edges, doubled by reversal, at scale 1)."""
+def ogbn_products(root: Optional[str] = None, seed: int = 0,
+                  scale: float = 1.0, strict: bool = False
+                  ) -> NodeClfDataset:
+    """ogbn-products (2.45M nodes, 61.9M edges, 100-dim features, 47
+    classes): the extracted OGB layout under ``root`` when present
+    (:func:`_load_ogb_node_prop`); otherwise a synthetic graph of its
+    schema, ``scale`` shrinking the node and edge counts (30M generated
+    edges, doubled by reversal, at scale 1). With ``strict`` a ``root``
+    without that layout raises instead: a dataset the caller staged on
+    purpose is never replaced by synthetic data."""
+    if root:
+        ds = _load_ogb_node_prop(root, "ogbn-products")
+        if ds is not None:
+            return ds
+        if strict:
+            raise FileNotFoundError(
+                f"no OGB node-prop layout under {root!r} (expected "
+                "<root>/ogbn_products/raw/{edge,node-feat,node-label}"
+                ".csv[.gz]); refusing synthetic data for an explicitly "
+                "staged dataset")
     n = max(1000, int(2_449_029 * scale))
     e = max(5000, int(30_000_000 * scale))
     return _clustered_node_clf("ogbn-products", n, e, 100, 47, seed)
@@ -136,6 +265,34 @@ def link_pred_graph(num_nodes: int = 2708, num_edges: int = 5278,
     return NodeClfDataset(g, num_classes, "link-pred-graph")
 
 
+def karate_club() -> NodeClfDataset:
+    """Zachary's karate club: 34 nodes, its 78 edges doubled by
+    reversal, one-hot features, the two factions as labels, splits from
+    :func:`_make_splits` seeded 0. Deterministic, for small tests."""
+    edges = [(0, i) for i in (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 17,
+                              19, 21, 31)]
+    edges += [(1, i) for i in (2, 3, 7, 13, 17, 19, 21, 30)]
+    edges += [(2, i) for i in (3, 7, 8, 9, 13, 27, 28, 32)]
+    edges += [(3, 7), (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10),
+              (5, 16), (6, 16), (8, 30), (8, 32), (8, 33), (9, 33),
+              (13, 33), (14, 32), (14, 33), (15, 32), (15, 33), (18, 32),
+              (18, 33), (19, 33), (20, 32), (20, 33), (22, 32), (22, 33),
+              (23, 25), (23, 27), (23, 29), (23, 32), (23, 33), (24, 25),
+              (24, 27), (24, 31), (25, 31), (26, 29), (26, 33), (27, 33),
+              (28, 31), (28, 33), (29, 32), (29, 33), (30, 32), (30, 33),
+              (31, 32), (31, 33), (32, 33)]
+    src = np.array([e[0] for e in edges], dtype=np.int32)
+    dst = np.array([e[1] for e in edges], dtype=np.int32)
+    g = Graph(src, dst, 34).add_reverse_edges()
+    g.ndata["feat"] = np.eye(34, dtype=np.float32)
+    labels = np.zeros(34, dtype=np.int32)
+    labels[[8, 9, 14, 15, 18, 20, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+            32, 33]] = 1
+    g.ndata["label"] = labels
+    _make_splits(g, np.random.default_rng(0))
+    return NodeClfDataset(g, 2, "karate")
+
+
 # ----------------------------------------------------------------------
 # Knowledge-graph triples (the DGL-KE path)
 @dataclasses.dataclass
@@ -148,16 +305,6 @@ class KGDataset:
     n_entities: int
     n_relations: int
     name: str = "synthetic-kg"
-
-
-def _csv_path(dirname: str, stem: str) -> Optional[str]:
-    """First existing variant of ``stem`` (.csv / .csv.gz / .txt /
-    .txt.gz) in a directory."""
-    for suffix in (".csv", ".csv.gz", ".txt", ".txt.gz"):
-        p = os.path.join(dirname, stem + suffix)
-        if os.path.exists(p):
-            return p
-    return None
 
 
 def _load_triples_dir(root: str) -> Optional[KGDataset]:
@@ -297,3 +444,41 @@ def wikidata5m(root: Optional[str] = None, seed: int = 0,
     """Wikidata5M: about 4.59M entities, 822 relations, 20.6M train
     triples (the scale that needs the sharded entity table)."""
     return kg_dataset("wikidata5m", root=root, seed=seed, scale=scale)
+
+
+# ----------------------------------------------------------------------
+# Graph classification (the GIN path)
+@dataclasses.dataclass
+class GraphClfDataset:
+    graphs: List[Graph]
+    labels: np.ndarray
+    num_classes: int
+    dim_nfeats: int
+    name: str = "synthetic-graphs"
+
+
+def gin_dataset(num_graphs: int = 300, seed: int = 0) -> GraphClfDataset:
+    """A PROTEINS-shaped graph-classification set (the reference's
+    GIN example), synthetic only: graph ``i`` has
+    label ``i % 2``, 10 to 59 nodes and undirected edges drawn with
+    probability 0.10 (label 0) or 0.25 (label 1), doubled by reversal;
+    its ``attr`` features are ``[in-degree, 1]``."""
+    rng = np.random.default_rng(seed)
+    graphs, labels = [], []
+    for i in range(num_graphs):
+        y = i % 2
+        n = int(rng.integers(10, 60))
+        p = 0.10 if y == 0 else 0.25
+        mask = np.triu(rng.random((n, n)) < p, 1)
+        src, dst = np.nonzero(mask)
+        if len(src) == 0:
+            src, dst = np.array([0]), np.array([min(1, n - 1)])
+        g = Graph(src.astype(np.int32), dst.astype(np.int32),
+                  n).add_reverse_edges()
+        deg = g.in_degrees().astype(np.float32)[:, None]
+        g.ndata["attr"] = np.concatenate([deg, np.ones((n, 1), np.float32)],
+                                         1)
+        graphs.append(g)
+        labels.append(y)
+    return GraphClfDataset(graphs, np.array(labels, np.int32), 2, 2,
+                           "proteins")

@@ -21,6 +21,7 @@ import torch
 
 from dgl_operator_tpu_torch.graph import _native
 from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, scatter_plan,
+                                                ship_ids_and_plans,
                                                 ship_int32)
 
 
@@ -266,3 +267,47 @@ class DeviceGraph:
     def permute_edata(self, x: np.ndarray) -> np.ndarray:
         """A host edge-feature array in the sorted edge order."""
         return x if self.edge_perm is None else x[self.edge_perm]
+
+    def edge_types(self, etype: np.ndarray, num_types: int) -> "EdgeTypes":
+        """The :class:`EdgeTypes` of a host array of one type per edge in
+        the graph's input order (:meth:`permute_edata` sorts it; a padded
+        edge takes type 0), its plan built here once."""
+        ids = np.asarray(self.permute_edata(np.asarray(etype)), np.int64)
+        if ids.ndim != 1 or ids.shape[0] > self.num_edges:
+            raise ValueError(f"etype must be [E] for a graph of "
+                             f"{self.num_edges} edges, got {ids.shape}")
+        ids = np.concatenate(
+            [ids, np.zeros(self.num_edges - ids.shape[0], np.int64)])
+        return EdgeTypes(ids, num_types, self.src.device)
+
+
+class EdgeTypes:
+    """One type per edge of a ``DeviceGraph``, in its edge order, and the
+    transposes that gathers of per-type rows need for their backward:
+    ``ids`` int32 ``[E]`` on the graph's device, ``plan`` the
+    ``scatter_plan`` of every id into ``num_types`` rows (built once on
+    the host), and :meth:`chunks`, the same per run of edges."""
+
+    def __init__(self, ids: np.ndarray, num_types: int, device):
+        if ids.size and (ids.min() < 0 or ids.max() >= num_types):
+            raise ValueError(f"edge types must lie in [0, {num_types})")
+        self.host = ids.astype(np.int32)
+        self.num_types = int(num_types)
+        self.device = torch.device(device)
+        (self.ids,), (self.plan,) = ship_ids_and_plans(
+            [self.host], [self.num_types], self.device)
+        self._chunks: Dict[int, list] = {}
+
+    def chunks(self, step: int) -> list:
+        """``(begin, end, ids, plan)`` for each run of ``step`` edges
+        (the last one shorter), each with the plan of its own ids; built
+        once per step."""
+        if step not in self._chunks:
+            out = []
+            for a in range(0, self.host.shape[0], step):
+                part = self.host[a:a + step]
+                (ids,), (plan,) = ship_ids_and_plans(
+                    [part], [self.num_types], self.device)
+                out.append((a, a + part.shape[0], ids, plan))
+            self._chunks[step] = out
+        return self._chunks[step]

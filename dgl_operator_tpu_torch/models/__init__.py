@@ -3,7 +3,9 @@ flax params trees into a state dict: the family is read from the
 tree's top-level prefixes (a flat stack's ``FanoutSAGEConv_``,
 ``FanoutGATConv_``, ``FanoutGATv2Conv_``, ``GATConv_``, ``GraphConv_``,
 ``SAGEConv_``, ``WeightedSAGEConv_``; ``LinkPredModel``'s nested
-``GraphSAGE_0`` with or without ``MLPPredictor_0``)."""
+``GraphSAGE_0`` with or without ``MLPPredictor_0``; ``RGCNLinkPredict``'s
+``embed``, ``rgcn_<i>`` and ``w_rel``; ``GIN``'s ``Dense_<j>`` and
+``GINConv_<i>``)."""
 
 from typing import Dict
 
@@ -14,8 +16,11 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models.gat import (  # noqa: F401
     GAT, DistGAT, DistGATv2, gat_inference, gat_layer, gatv2_inference)
 from dgl_operator_tpu_torch.models.gcn import GCN
+from dgl_operator_tpu_torch.models.gin import GIN, batch_graphs  # noqa: F401
 from dgl_operator_tpu_torch.models.link_predict import (  # noqa: F401
     PREDICTORS, LinkPredModel, auc_score, bce_link_loss, split_edges)
+from dgl_operator_tpu_torch.models.rgcn import (  # noqa: F401
+    RGCNLinkPredict, Triples)
 from dgl_operator_tpu_torch.models.sage import (  # noqa: F401
     DistSAGE, GraphSAGE, WeightedSAGE, sage_inference, sage_layer)
 
@@ -26,12 +31,21 @@ FAMILIES = {cls.flax_prefix: cls
 NESTED = {frozenset(name.rsplit("_", 1)[0]
                     for name, _ in LinkPredModel.layout(p).values()):
           LinkPredModel.layout(p) for p in PREDICTORS}
+# a tree of more than stacks of layers: an entry only it has, and its
+# model's own converters
+MARKED = {"w_rel": RGCNLinkPredict.flax_prefix,
+          "GINConv_0": GIN.flax_prefix}
 
 
 def flax_layout_of(tree) -> flax_layout.Layout:
     """The layout of a flax params tree of any of the port's model
-    families: a flat stack's layer prefix (:data:`FAMILIES`) or a nested
-    model's layout (:data:`NESTED`)."""
+    families: a model's own converters (:data:`MARKED`), a flat stack's
+    layer prefix (:data:`FAMILIES`) or a nested model's layout
+    (:data:`NESTED`)."""
+    names = tree.get("params", tree)
+    for mark, layout in MARKED.items():
+        if mark in names:
+            return layout
     found = frozenset(flax_layout.prefixes(tree))
     if found in NESTED:
         return NESTED[found]

@@ -13,21 +13,34 @@ transposed, ``<Prefix>_<i>/<name>`` is ``layers.<i>.<name>`` and
 A nested tree (``LinkPredModel``: ``GraphSAGE_0/SAGEConv_<i>`` and
 ``MLPPredictor_0/Dense_<j>``) maps each top-level entry to a child
 module holding a flat stack. Its layout is a dict ``{child: (flax name,
-layer prefix)}``; a flat model's layout is its layer prefix.
+layer prefix)}``; a flat model's layout is its layer prefix. A model
+whose tree holds more than stacks of layers (``RGCNLinkPredict``'s
+tables, ``GIN``'s adopted MLPs) brings its own :class:`Converter` as
+its layout.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Set, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 _LAYER_RE = re.compile(r"(.+)_(\d+)")
 
-# a flat stack's layer prefix, or a nested model's children
-Layout = Union[str, Dict[str, Tuple[str, str]]]
+
+class Converter(NamedTuple):
+    """A model's own converters: ``from_flax(tree) -> state dict`` and
+    ``to_flax(state dict) -> tree`` (numpy leaves, under ``"params"``)."""
+
+    from_flax: Callable[[dict], Dict[str, torch.Tensor]]
+    to_flax: Callable[[Dict[str, torch.Tensor]], dict]
+
+
+# a flat stack's layer prefix, a nested model's children, or a model's
+# own converters
+Layout = Union[str, Dict[str, Tuple[str, str]], Converter]
 
 
 def prefixes(tree) -> Set[str]:
@@ -68,7 +81,9 @@ def state_dict_from_flax(tree, prefix: Optional[Layout] = None
     """The state dict of a flax params tree (numpy leaves, with or
     without the top-level ``"params"`` key): a flat tree whose entries
     are ``<prefix>_<i>`` (any one prefix when None), or a nested tree by
-    its layout."""
+    its layout, or by a model's own :class:`Converter`."""
+    if isinstance(prefix, Converter):
+        return prefix.from_flax(tree)
     params = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
     if isinstance(prefix, dict):
@@ -106,6 +121,8 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], prefix: Layout
     state dict, its layers named ``<prefix>_<i>`` (or, for a nested
     layout, each child's stack under its flax name) — the inverse of
     :func:`state_dict_from_flax`."""
+    if isinstance(prefix, Converter):
+        return prefix.to_flax(state_dict)
     params: dict = {}
     if isinstance(prefix, dict):
         rest = set(state_dict)

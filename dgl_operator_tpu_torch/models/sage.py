@@ -47,13 +47,15 @@ class DistSAGE(nn.Module):
     the seed rows of the innermost block. ``dropout`` is the rate
     applied after each inner ReLU in ``train()`` mode.
 
-    ``slot_plans = False`` tells the trainers which blocks' backward
-    needs a transpose plan on the card: every block but the first (its
-    source rows are the input features), of the rows (``fanout_agg``'s
-    backward)."""
+    ``slot_plans`` tells the trainers which blocks' backward needs a
+    transpose plan on the card. For the mean and sum (False): every
+    block but the first (its source rows are the input features), of
+    the rows (``fanout_agg``'s backward). For the pool (True): every
+    block, per slot (``fanout_max`` gathers its slots with
+    ``gather_rows``, and block 0's rows are ``relu(pool(x))``, which
+    carries a gradient into ``pool``)."""
 
     flax_prefix = "FanoutSAGEConv"
-    slot_plans = False
 
     def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
                  num_layers: int = 2, aggregator: str = "mean",
@@ -66,6 +68,7 @@ class DistSAGE(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.aggregator = aggregator
+        self.slot_plans = aggregator == "pool"
         self.dropout = float(dropout)
         dims = [in_feats] + [hidden_feats] * (num_layers - 1) + [out_feats]
         self.layers = nn.ModuleList(

@@ -31,12 +31,13 @@ from torch import nn
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
-from dgl_operator_tpu_torch.graph.graph import DeviceGraph, Graph, sparse_csr
+from dgl_operator_tpu_torch.graph.graph import (DeviceGraph, EdgeTypes, Graph,
+                                                sparse_csr)
 from dgl_operator_tpu_torch.ops import fanout
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.sddmm import gather_dst, gather_src
-from dgl_operator_tpu_torch.ops.segment import (segment_max, segment_softmax,
-                                                segment_sum)
+from dgl_operator_tpu_torch.ops.segment import (segment_max, segment_mean,
+                                                segment_softmax, segment_sum)
 from dgl_operator_tpu_torch.ops.spmm import gspmm
 
 AGGREGATORS = ("mean", "sum", "pool")
@@ -53,9 +54,13 @@ def init_linear_(layer: nn.Linear, generator: torch.Generator) -> None:
 
 
 def glorot_(param: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's ``glorot_uniform`` bound for an ``[1, H, D]`` attention
-    vector (fan in ``H``, fan out ``D``), drawn from ``generator``."""
-    bound = math.sqrt(6.0 / (param.shape[-2] + param.shape[-1]))
+    """flax's ``glorot_uniform`` bound for a parameter ``[..., I, O]``
+    (an ``[1, H, D]`` attention vector, a ``[B, I, O]`` basis, an
+    ``[N, D]`` table): fan in ``I`` and fan out ``O``, each times the
+    product of the leading axes (the receptive field), drawn from
+    ``generator``."""
+    field = math.prod(param.shape[:-2])
+    bound = math.sqrt(6.0 / ((param.shape[-2] + param.shape[-1]) * field))
     with torch.no_grad():
         param.uniform_(-bound, bound, generator=generator)
 
@@ -420,3 +425,86 @@ class WeightedSAGEConv(nn.Module):
                 ) -> torch.Tensor:
         agg = gspmm(g, "u_mul_e", "mean", h, ew)
         return self.self(h) + self.neigh(agg)
+
+
+class GINConv(nn.Module):
+    """Graph isomorphism layer over a ``DeviceGraph`` (the flax
+    ``GINConv``): ``mlp((1 + eps) * h + sum of the in-neighbours' rows)``
+    (``gspmm``'s sum over the graph's plans), ``eps`` a learned scalar
+    (0-d, starting at 0, on the CPU until the owning model moves it).
+    ``mlp`` is the caller's module."""
+
+    def __init__(self, mlp: nn.Module):
+        super().__init__()
+        self.mlp = mlp
+        self.eps = nn.Parameter(torch.zeros(()))
+
+    def forward(self, g: DeviceGraph, h: torch.Tensor) -> torch.Tensor:
+        agg = gspmm(g, "copy_u", "sum", h)
+        return self.mlp((1.0 + self.eps) * h + agg)
+
+
+# elements of a table-form RelGraphConv's [C, I * O] per-edge weights at
+# a time (256 MB of float32)
+REL_CHUNK_ELEMS = 1 << 26
+
+
+class RelGraphConv(nn.Module):
+    """Relational GCN layer over a ``DeviceGraph`` (the flax
+    ``RelGraphConv``): each edge's message is ``h[u] @ W[r]``, ``r`` the
+    edge's type, mean-aggregated per destination over the graph's plans,
+    plus ``loop(h)`` (a bias-free Linear).
+
+    With ``num_bases`` > 0, ``W[r] = sum_b coef[r, b] * basis[b]``; the
+    layer computes the same sum without the JAX layer's ``[E, I, O]``
+    table: ``HB = h @ basis`` (``[N, B * O]``), its rows gathered at the
+    sources (``gather_rows`` over ``g.src_plan``), the coefficients at
+    the edge types (``gather_rows`` over ``EdgeTypes.plan``), combined
+    over ``B`` per edge. With ``num_bases`` = 0, ``W = basis`` ``[R, I,
+    O]`` and each edge's ``[I, O]`` weight is gathered by type, in runs
+    of edges of at most ``REL_CHUNK_ELEMS`` elements, each over its own
+    plan (``EdgeTypes.chunks``). Both are the JAX layer's function in
+    another order of sums. ``basis`` and ``coef`` are drawn by flax's
+    ``glorot_uniform`` (the basis' fans taken times ``B``)."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_rels: int,
+                 num_bases: int = 0, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_rels = int(num_rels)
+        self.num_bases = int(num_bases)
+        self.out_feats = int(out_feats)
+        bases = self.num_bases if self.num_bases > 0 else self.num_rels
+        meta = torch.device("meta")
+        self.basis = nn.Parameter(torch.empty(bases, in_feats, out_feats,
+                                              device=meta))
+        self.coef = (nn.Parameter(torch.empty(self.num_rels, bases,
+                                              device=meta))
+                     if self.num_bases > 0 else None)
+        self.loop = nn.Linear(in_feats, out_feats, bias=False, device=meta)
+        _materialize(self, device, generator)
+
+    def messages(self, g: DeviceGraph, h: torch.Tensor, etypes: EdgeTypes
+                 ) -> torch.Tensor:
+        """``[E, O]``: each edge's ``h[src] @ W[type]``."""
+        bases, i, o = self.basis.shape
+        if self.num_bases > 0:
+            hb = h @ self.basis.permute(1, 0, 2).reshape(i, bases * o)
+            hb_e = gather_src(g, hb).view(-1, bases, o)        # [E, B, O]
+            c_e = gather_rows(self.coef, etypes.ids, etypes.plan)
+            return torch.bmm(c_e.unsqueeze(1), hb_e).squeeze(1)
+        h_e = gather_src(g, h)                                 # [E, I]
+        table = self.basis.reshape(bases, i * o)
+        out = []
+        for a, b, ids, plan in etypes.chunks(
+                max(1, REL_CHUNK_ELEMS // max(i * o, 1))):
+            w_e = gather_rows(table, ids, plan).view(b - a, i, o)
+            out.append(torch.bmm(h_e[a:b].unsqueeze(1), w_e).squeeze(1))
+        return torch.cat(out) if out else h.new_zeros(0, o)
+
+    def forward(self, g: DeviceGraph, h: torch.Tensor, etypes: EdgeTypes
+                ) -> torch.Tensor:
+        msg = self.messages(g, h, etypes) * g.edge_mask.unsqueeze(1)
+        n = g.num_nodes
+        agg = segment_mean(msg, g.dst, n + 1, g.dst_plan)[:n]
+        return agg + self.loop(h)

@@ -11,7 +11,9 @@ division fused), and its backward the segmented-sum kernel
 of ``nbr``, built on the host by ``scatter_plan``); on a CPU tensor
 both run their plain torch versions (:func:`fanout_agg_plain`,
 ``scatter_add_rows_plain``), which are also what the kernels are held
-against on the card.
+against on the card. The pool aggregator's :func:`fanout_max` gathers
+its slots with ``gather_rows`` over the block's per-slot plan, so its
+backward is the same deterministic segmented sum.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch.autograd.function import once_differentiable
 
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.ops import _build
+from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
 
 _SOURCE = "fanout_agg.cu"
@@ -156,13 +159,18 @@ def fanout_mean(block: FanoutBlock, h_src: torch.Tensor) -> torch.Tensor:
 
 def fanout_max(block: FanoutBlock, h_src: torch.Tensor) -> torch.Tensor:
     """Masked max over the fanout axis; a row with no valid slot gives 0
-    (the zero-in-degree convention). Plain torch: its JAX counterpart
-    is XLA, not a hand-written kernel."""
+    (the zero-in-degree convention). The slots' rows are gathered with
+    ``gather_rows`` over the block's per-slot plan
+    (``ops/scatter.py::slot_plan``), so the backward is the port's
+    deterministic ``scatter_add_rows`` (a CUDA tensor that needs a
+    gradient and has no plan raises there); the mask and the max are
+    plain torch, as their JAX counterpart is XLA."""
     b = block.to(h_src.device)
-    nbr, mask = b.nbr, b.mask
-    valid = (mask > 0).unsqueeze(-1)
-    x = torch.where(valid, h_src[nbr.long()],
-                    torch.tensor(float("-inf"), dtype=h_src.dtype,
-                                 device=h_src.device))
+    nd, f = b.nbr.shape
+    x = gather_rows(h_src.contiguous(), b.nbr.view(-1), b.plan)
+    # a fill value, not a tensor made on the host: the step may be
+    # captured into a CUDA graph
+    x = x.view(nd, f, -1).masked_fill((b.mask <= 0).unsqueeze(-1),
+                                      float("-inf"))
     out = x.max(dim=1).values
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

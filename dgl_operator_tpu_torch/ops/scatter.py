@@ -18,7 +18,7 @@ is held against on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +155,23 @@ def scatter_plan(idx, mask, num_rows: int) -> ScatterPlan:
         valid.sum(1).astype(i32),
         np.stack([begin, end], 1).astype(i32).reshape(-1, 2),
         long_rows.astype(i32), long_part.astype(i32))
+
+
+def ship_ids_and_plans(ids_list: Sequence[np.ndarray],
+                       rows_list: Sequence[int], device
+                       ) -> Tuple[List[torch.Tensor], List[ScatterPlan]]:
+    """Host id arrays ``[M]`` as int32 tensors on ``device`` and, for
+    each, the plan of a gather of its ids from a table of as many rows
+    as ``rows_list`` says (``scatter_plan(ids[:, None], None, rows)``),
+    all in one copy."""
+    ids_list = [np.asarray(a) for a in ids_list]
+    plans = [scatter_plan(a[:, None], None, rows)
+             for a, rows in zip(ids_list, rows_list, strict=True)]
+    n, k = len(ids_list), len(ScatterPlan.FIELDS)
+    shipped = ship_int32(ids_list + [getattr(p, f) for p in plans
+                                     for f in ScatterPlan.FIELDS], device)
+    return shipped[:n], [ScatterPlan(*shipped[n + j * k:n + (j + 1) * k])
+                         for j in range(n)]
 
 
 def slot_plan(idx, mask, num_rows: int) -> ScatterPlan:

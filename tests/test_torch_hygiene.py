@@ -18,7 +18,9 @@ import torch
 from dgl_operator_tpu_torch import resolve_device
 from dgl_operator_tpu_torch.graph import _native
 from dgl_operator_tpu_torch.ops import _build
-from dgl_operator_tpu_torch.examples import (graphsage, link_predict,
+from dgl_operator_tpu_torch.examples import (graph_classification,
+                                             graphsage, link_predict,
+                                             link_predict_rgcn,
                                              message_passing, train_dist,
                                              train_kge)
 from dgl_operator_tpu_torch.models.kge import KGEConfig
@@ -178,6 +180,11 @@ def test_importing_the_port_loads_no_jax():
             "dgl_operator_tpu_torch.examples.message_passing, "
             "dgl_operator_tpu_torch.examples.link_predict, "
             "dgl_operator_tpu_torch.examples.graphsage, "
+            "dgl_operator_tpu_torch.models.rgcn, "
+            "dgl_operator_tpu_torch.models.gin, "
+            "dgl_operator_tpu_torch.examples.link_predict_rgcn, "
+            "dgl_operator_tpu_torch.examples.graph_classification, "
+            "dgl_operator_tpu_torch.examples.load_and_partition_graph, "
             "dgl_operator_tpu_torch.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -205,7 +212,8 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         DistKGETrainer(KGEConfig(), KGETrainConfig(), num_slots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_kge.main(["--part_config", "no-such-book.json"])
-    for example in (graphsage, link_predict, message_passing):
+    for example in (graphsage, link_predict, message_passing,
+                    link_predict_rgcn, graph_classification):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.main(["--num_epochs", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
