@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, KGE, GAT,
-full-graph, RGCN and GIN paths.
+full-graph, RGCN and GIN paths, the numerics sentry and the serving
+fleet.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -226,9 +227,43 @@ Each phase prints JSON lines:
    pool's block 0 (``pool_block0``, 400-byte rows, and ``_bwd`` over
    the per-slot plan).
 
+17. ``sentry`` — the numerics sentry (``obs/quality.py``) on the full
+   width DistSAGE: ``SampledTrainer`` over the train phase's 40 steps
+   with the sentry off and on (order off, on, on, off) for the host
+   sampler at K = 1 and the device sampler at K = 1 and K = 4
+   (captured): losses and parameters bit-equal, launches per run
+   checked, the steady ms a step of each side and the overhead, the
+   last call's stats; phase 10's ``DistTrainer`` epoch in both layouts
+   off and on, bit-equal and equal to phase 10's losses, each slot's
+   loss and non-finite count; one step's stats on the card against the
+   CPU's from the same weights and batch (within 1e-5 relative); and
+   the fault drill: the feature rows of 3 train nodes that the first 2
+   batches do not read set to NaN, the card and the CPU (host sampler,
+   same seed) raise ``NumericsFault`` at the same global step; the
+   card's run, checkpointing every step under a fence of epoch 1
+   (``TPU_OPERATOR_ELASTIC_EPOCH``), has every checkpoint at or past
+   the fault quarantined, and a trainer over the clean rows resumes
+   from the survivor and completes the epoch.
+
+18. ``fleet`` — two ``ServingPlane`` replicas on the card (HTTP
+   servers over a ``ServeEngine`` each, the serve phase's 2-part book,
+   the train phase's weights; named so that the ring gives each one
+   partition) behind a ``RouterPlane``: the serve
+   phase's ``--requests`` requests of 1 to 64 seeds through HTTP to the
+   router (p50/p99 beside the serve phase's direct batcher numbers), a
+   fixed request's reply equal to its replica's ``predict`` at the same
+   sample seed, ``/healthz``, ``/metrics`` and ``/livez``; a canary
+   (``CanaryController`` over ``ServingPromotion``): a NaN-filled
+   candidate rolled back on the engine's non-finite logits with the
+   fence and the incumbent untouched, then the trained weights promoted
+   to both replicas at fence epoch 1; and partition 0's replica killed
+   under 4 concurrent clients: every request answered, the replica
+   drained, ``fleet_replicas_up`` 1.
+
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, gat, message_passing and rgcn_gin phases (both ranks of each
+kge, gat, message_passing, rgcn_gin, sentry and fleet phases (both
+ranks of each
 two-rank run and every graph replay included), split by path, worst
 error, the times of its calls in one SAGE training step and, under
 ``kge``, in one KGE step, under ``device_sampler``, in one
@@ -245,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import platform
@@ -279,7 +315,13 @@ DIST_IDS_PER_PART = 20_000
 DIST_CPU_STEPS = 3     # dist steps of the card-against-CPU comparison
 
 
+# the last record printed by each phase
+LAST = {}
+
+
 def emit(**record) -> None:
+    if "phase" in record:
+        LAST[record["phase"]] = record
     print(json.dumps(record), flush=True)
 
 
@@ -1719,7 +1761,8 @@ dist.init_process_group(
     "gloo", init_method=f"tcp://127.0.0.1:{spec['probe_port']}",
     world_size=2, rank=int(os.environ["TPU_OPERATOR_RANK"]),
     timeout=datetime.timedelta(seconds=120))
-numel = sum(v.numel() for v in out["params"].values()) + 2
+# every parameter, then the 2 slots' losses and non-finite counts
+numel = sum(v.numel() for v in out["params"].values()) + 2 * 2
 bucket = torch.zeros(numel, device="cuda")
 req = torch.zeros(2 * spec["pair_cap"], dtype=torch.int32, device="cuda")
 rows = torch.zeros(2 * spec["pair_cap"], spec["feat"], device="cuda")
@@ -1821,14 +1864,15 @@ def sampler_widths(torch, ctx, card: str) -> None:
 
 
 def collective_us(torch, dist, tr, cap: int, iters: int = 50) -> dict:
-    """µs of one gradient ``all_reduce`` (every parameter and the slot
-    losses in one bucket) and of the two exchange ``all_to_all_single``
+    """µs of one gradient ``all_reduce`` (every parameter, the slot
+    losses and the slot non-finite counts in one bucket) and of the two
+    exchange ``all_to_all_single``
     calls (int32 requests, float32 rows) at the owner step's shapes, by
     CUDA events."""
     P = tr.num_parts
     L = len(tr.parts)
     W = dist.get_world_size()
-    numel = sum(p.numel() for p in tr.model.parameters()) + P
+    numel = sum(p.numel() for p in tr.model.parameters()) + 2 * P
     bucket = torch.zeros(numel, device="cuda")
     req = torch.zeros(W * L * L * cap, dtype=torch.int32, device="cuda")
     rows = torch.zeros(W * L * L * cap, tr.feats.shape[-1], device="cuda")
@@ -4820,6 +4864,562 @@ def rgcn_gin_phase(torch, args, ops, wrappers, g, trainer, ctx, card: str):
     return total, records
 
 
+SENTRY_MODES = (("host_k1", dict(sampler="host")),
+                ("device_k1", dict(sampler="device")),
+                ("device_k4", dict(sampler="device", steps_per_call=DEV_K)))
+SENTRY_STATS_TOL = 1e-5   # one step's stats, card against CPU, relative
+SENTRY_STATS_STEPS = 4    # synced steps of that comparison
+SENTRY_SAFE_STEPS = 2     # the drill's poisoned rows miss these batches
+SENTRY_CKPT_EPOCH = 1     # the drill's checkpoint fence
+
+
+def sage_launches(steps: int, warm: int = 1) -> dict:
+    """A SAGE run's launches: per step 1 gather, 2 aggregations and the
+    backward of block 1's aggregation; ``warm`` warm-up forwards add a
+    gather and two aggregations each."""
+    return {"fanout_agg": 2 * (steps + warm), "gather_rows": steps + warm,
+            "scatter_add_rows": steps}
+
+
+def same_run(a, b) -> bool:
+    """Two ``train()`` results with the same losses and parameters, bit
+    for bit."""
+    la = [x for r in a["history"] for x in r["losses"]]
+    lb = [x for r in b["history"] for x in r["losses"]]
+    return la == lb and a["params"].keys() == b["params"].keys() and all(
+        v.equal(b["params"][k]) for k, v in a["params"].items())
+
+
+def nan_tree(tree):
+    """``tree`` (a params export) with every leaf filled with NaN."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: nan_tree(v) for k, v in tree.items()}
+    return np.full_like(tree, np.nan)
+
+
+def sentry_sampled(torch, args, wrappers, g, trainer, card: str) -> dict:
+    """``SampledTrainer`` over the train phase's 40 steps with the sentry
+    off and on, in the order off, on, on, off: the host sampler at
+    K = 1 and the device sampler at K = 1 and at K = 4 (captured);
+    losses and parameters bit-equal, launches checked, the steady ms a
+    step of each side and the sentry's overhead. Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 5)).state_dict())
+    total = {}
+    for mode, fields in SENTRY_MODES:
+        k = fields.get("steps_per_call", 1)
+        runs = {False: [], True: []}
+        for sentry in (False, True, True, False):
+            cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                              num_epochs=1, eval_every=0, seed=args.seed,
+                              sentry=sentry, **fields)
+            tr = SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES,
+                                         device="cuda"),
+                                g, cfg, train_ids=trainer.train_ids,
+                                device="cuda")
+            # the main path: every kernel count starts at 0 here
+            reset_counts(wrappers)
+            out = tr.train(init_params=w0)
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            check(steps == len(trainer.train_ids) // BATCH_TRAIN,
+                  f"sentry {mode}: {steps} steps")
+            check(launches == sage_launches(steps),
+                  f"sentry {mode} on={sentry}: {launches} in {steps} steps")
+            check((tr.last_stats is not None) == sentry,
+                  f"sentry {mode} on={sentry}: last_stats")
+            if sentry:
+                st = {key: float(v) for key, v in tr.last_stats.items()}
+                check(st["nonfinite"] == 0 and st["grad_norm"] > 0,
+                      f"sentry {mode}: last stats {st}")
+            for key, v in launches.items():
+                total[key] = total.get(key, 0) + v
+            rec = device_run_record(out["history"][0], steps, k)
+            runs[sentry].append((out, rec, tr.last_stats))
+        ref = runs[False][0][0]
+        for sentry, rs in runs.items():
+            for out, _, _ in rs:
+                check(same_run(out, ref), f"sentry {mode}: the run with "
+                      f"the sentry {'on' if sentry else 'off'} differs "
+                      "from the first run without it")
+        ms = {s: [r["steady_ms_per_step"] for _, r, _ in rs]
+              for s, rs in runs.items()}
+        off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
+        last = runs[True][0][2]
+        emit(phase="sentry", part="sampled", mode=mode, card=card,
+             steps_per_call=k, steps=ref["step"], order="off,on,on,off",
+             bit_equal=True, launches_per_run=sage_launches(ref["step"]),
+             steady_ms_per_step_off=ms[False],
+             steady_ms_per_step_on=ms[True], off_ms_mean=off,
+             on_ms_mean=on, overhead=(on - off) / off,
+             stall_ms_per_step_on=[r["stall_ms_per_step"]
+                                   for _, r, _ in runs[True]],
+             graph=runs[True][0][1]["graph"],
+             last_stats={key: float(v) for key, v in last.items()})
+    return total
+
+
+def sentry_dist(torch, wrappers, ctx, card: str) -> dict:
+    """Phase 10's ``DistTrainer`` epoch in both layouts with the sentry
+    off and on: bit-equal, launches checked, each slot's loss and
+    non-finite count of the last step. Returns the launches."""
+    total = {}
+    for layout in LAYOUTS:
+        outs, ms = {}, {}
+        for sentry in (False, True):
+            tr = ctx["make"](layout, eval_every=0, sentry=sentry)
+            P = tr.num_parts
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            out = tr.train(init_params=ctx["w0"])
+            wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = out["step"]
+            exchange = steps if layout == "owner" else 0
+            check(launches == {"fanout_agg": 2 * P * steps,
+                               "gather_rows": P * steps + exchange,
+                               "scatter_add_rows": P * steps},
+                  f"sentry dist {layout}: {launches} in {steps} steps")
+            for key, v in launches.items():
+                total[key] = total.get(key, 0) + v
+            outs[sentry], ms[sentry] = out, wall * 1e3 / steps
+            stats = tr.last_stats
+        check(same_run(outs[True], outs[False]),
+              f"sentry dist {layout}: the sentry changed the run")
+        check(outs[True]["history"][0]["losses"]
+              == ctx["want"][layout][1], f"sentry dist {layout}: losses "
+              "differ from the dist phase's")
+        part_nonfinite = stats["part_nonfinite"].tolist()
+        check(part_nonfinite == [0] * P,
+              f"sentry dist {layout}: part_nonfinite {part_nonfinite}")
+        emit(phase="sentry", part="dist", layout=layout, card=card,
+             steps=outs[True]["step"], bit_equal=True,
+             equal_to_dist_phase=True, ms_per_step_off=ms[False],
+             ms_per_step_on=ms[True],
+             part_loss=stats["part_loss"].tolist(),
+             part_nonfinite=part_nonfinite,
+             grad_norm=float(stats["grad_norm"]))
+    return total
+
+
+def sentry_stats_cpu(torch, args, g, trainer, card: str) -> None:
+    """Each step's stats on the card against the CPU's over
+    ``SENTRY_STATS_STEPS`` batches, the card taking the CPU's weights and
+    Adam state before every step (dropout 0, as phase 8): every step
+    after the first within ``SENTRY_STATS_TOL`` relative, no non-finite
+    element. The first step of a fresh Adam divides each gradient
+    element by its own magnitude, so its update ratio carries the
+    rounding of elements near zero; it is reported, not held."""
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.obs.quality import STAT_KEYS
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                      dropout=0.0, cap_policy="worst", seed=args.seed)
+    mbs = [trainer.sample(trainer.train_ids[b * BATCH_TRAIN:
+                                            (b + 1) * BATCH_TRAIN], 70 + b)
+           for b in range(SENTRY_STATS_STEPS)]
+    trainers = [SampledTrainer(
+        DistSAGE(FEAT, HIDDEN, CLASSES, device=dev,
+                 generator=torch.Generator().manual_seed(args.seed + 6)),
+        g, cfg, train_ids=trainer.train_ids, device=dev)
+        for dev in ("cuda", "cpu")]
+    stats = {id(tr): [] for tr in trainers}
+
+    def step(tr, mb):
+        loss, _, rows = tr.step_shipped(tr.ship(mb))
+        stats[id(tr)].append(dict(zip(STAT_KEYS, rows.tolist())))
+        return loss
+
+    synced_step_gaps(torch, *trainers, mbs, step)
+    card_st, cpu_st = (stats[id(tr)] for tr in trainers)
+    rel = [{k: abs(c[k] - h[k]) / max(abs(h[k]), 1e-30)
+            for k in STAT_KEYS if k != "nonfinite"}
+           for c, h in zip(card_st, cpu_st)]
+    check(all(c["nonfinite"] == h["nonfinite"] == 0
+              for c, h in zip(card_st, cpu_st)),
+          f"sentry stats: non-finite {card_st} {cpu_st}")
+    worst = max(max(r.values()) for r in rel[1:])
+    check(worst <= SENTRY_STATS_TOL,
+          f"sentry stats card vs CPU: relative {rel} > {SENTRY_STATS_TOL}")
+    emit(phase="sentry", part="stats_cpu", card=card,
+         steps=SENTRY_STATS_STEPS, synced=True, card_stats=card_st,
+         cpu_stats=cpu_st, rel_err=rel, held_from_step=2,
+         rel_err_max_held=worst, tol=SENTRY_STATS_TOL)
+
+
+def sentry_drill(torch, args, wrappers, g, trainer, work: str,
+                 card: str) -> dict:
+    """The fault drill: the feature rows of 3 train nodes that the first
+    ``SENTRY_SAFE_STEPS`` batches do not read are set to NaN; the card
+    and the CPU, host sampler, same seed, raise ``NumericsFault`` at the
+    same global step; on the card a checkpoint a step under a fenced
+    manager (``TPU_OPERATOR_ELASTIC_EPOCH=1``) has every checkpoint at
+    or past that step quarantined; a fresh trainer over the clean rows
+    resumes from the survivor and completes the epoch. Returns the
+    launches of the two card runs."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.obs.quality import NumericsFault
+    from dgl_operator_tpu_torch.parallel.bootstrap import FENCE_EPOCH_ENV
+    from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                           read_fence)
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    B = BATCH_TRAIN
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 7)).state_dict())
+    perm = np.random.default_rng(args.seed).permutation(trainer.train_ids)
+    read = set()
+    for b in range(SENTRY_SAFE_STEPS):
+        read.update(trainer.sample(perm[b * B:(b + 1) * B], b)
+                    .input_nodes.tolist())
+    nxt = perm[SENTRY_SAFE_STEPS * B:(SENTRY_SAFE_STEPS + 1) * B]
+    poisoned = np.asarray([v for v in nxt if int(v) not in read][:3])
+    check(len(poisoned) == 3, f"3 train nodes unread by the first "
+          f"{SENTRY_SAFE_STEPS} batches: {poisoned}")
+    ckpt = os.path.join(work, "sentry_ckpt")
+
+    def make(dev, **fields):
+        cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                          num_epochs=1, eval_every=0, seed=args.seed,
+                          dropout=0.0, **fields)
+        return SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device=dev),
+                              g, cfg, train_ids=trainer.train_ids,
+                              device=dev)
+
+    faults, launches, steps_s = {}, {}, {}
+    prev = os.environ.get(FENCE_EPOCH_ENV)
+    os.environ[FENCE_EPOCH_ENV] = str(SENTRY_CKPT_EPOCH)
+    try:
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            tr = (make(dev, ckpt_dir=ckpt, ckpt_every=1) if side == "card"
+                  else make(dev, quality_action="halt"))
+            # a copy: on the CPU the trainer's table shares the graph's
+            # memory, which the resume below needs clean
+            tr.feats = tr.feats.clone()
+            tr.feats[torch.from_numpy(poisoned).to(tr.device)] = float("nan")
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            try:
+                tr.train(init_params=w0)
+                raise RuntimeError(f"sentry drill: no fault on the {side}")
+            except NumericsFault as exc:
+                faults[side] = exc
+            steps_s[side] = time.perf_counter() - t0
+            launches[side] = read_counts(wrappers)
+        step = faults["card"].step
+        check((faults["card"].step, faults["card"].partition,
+               faults["card"].kind) == (faults["cpu"].step,
+                                        faults["cpu"].partition,
+                                        faults["cpu"].kind),
+              f"sentry drill: card fault {vars(faults['card'])} vs CPU "
+              f"{vars(faults['cpu'])}")
+        check(SENTRY_SAFE_STEPS < step <= SENTRY_SAFE_STEPS + 1,
+              f"sentry drill: fault at step {step}")
+        # the card ran on past the fault until the tap showed it (the
+        # call after it, when its copy has landed by then)
+        ran = launches["card"]["scatter_add_rows"]
+        check(ran > step and launches["card"] == sage_launches(ran),
+              f"sentry drill: {launches['card']} launches, fault {step}")
+        check(read_fence(ckpt)["epoch"] == SENTRY_CKPT_EPOCH,
+              f"sentry drill: fence {read_fence(ckpt)}")
+        active = os.path.join(ckpt, f"epoch-{SENTRY_CKPT_EPOCH}")
+        files = sorted(os.listdir(active))
+        bad = sorted(int(f[5:-8]) for f in files if f.endswith(".npz.bad"))
+        survivor = CheckpointManager(ckpt).latest_step()
+        check(step in bad and all(step <= s <= ran for s in bad)
+              and survivor is not None and survivor < step,
+              f"sentry drill: quarantined {bad}, survivor {survivor}, "
+              f"fault {step}: {files}")
+        # the rows restored: a fresh trainer resumes from the survivor
+        resumed = make("cuda", ckpt_dir=ckpt, ckpt_every=10)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = resumed.train()
+        resume_s = time.perf_counter() - t0
+        launches["resume"] = read_counts(wrappers)
+    finally:
+        if prev is None:
+            os.environ.pop(FENCE_EPOCH_ENV, None)
+        else:
+            os.environ[FENCE_EPOCH_ENV] = prev
+    total = len(trainer.train_ids) // B
+    losses = out["history"][0]["losses"]
+    check(out["step"] == total and len(losses) == total - survivor
+          and bool(np.isfinite(losses).all()),
+          f"sentry drill: resumed at {survivor}, ended at {out['step']}")
+    check(launches["resume"] == sage_launches(total - survivor),
+          f"sentry drill resume: {launches['resume']}")
+    emit(phase="sentry", part="drill", card=card,
+         poisoned_nodes=poisoned.tolist(), fault_step=step,
+         fault_partition=faults["card"].partition,
+         fault_kind=faults["card"].kind, cpu_fault_step=faults["cpu"].step,
+         card_steps_run=ran,
+         fence_epoch=SENTRY_CKPT_EPOCH, quarantined=bad, survivor=survivor,
+         resumed_steps=len(losses), final_step=out["step"],
+         card_s=steps_s["card"], cpu_s=steps_s["cpu"], resume_s=resume_s)
+    return {key: launches["card"][key] + launches["resume"][key]
+            for key in launches["resume"]}
+
+
+def sentry_phase(torch, args, wrappers, g, trainer, ctx, work: str,
+                 card: str) -> dict:
+    """The numerics sentry: bit-equal runs with it off and on, one
+    step's stats against the CPU, and the fault drill. Returns the
+    launches of its card runs."""
+    parts = [sentry_sampled(torch, args, wrappers, g, trainer, card),
+             sentry_dist(torch, wrappers, ctx, card)]
+    sentry_stats_cpu(torch, args, g, trainer, card)
+    parts.append(sentry_drill(torch, args, wrappers, g, trainer, work, card))
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+FLEET_CLIENTS = 4          # concurrent clients of the failover drill
+FLEET_FAILOVER_REQUESTS = 12   # requests per client; the kill after 3
+FLEET_MAX_CANARY = 400     # requests a canary verdict may take
+
+
+def fleet_requests(args, g):
+    """The serve phase's requests: ``--requests`` of 1 to 64 seeds."""
+    import numpy as np
+
+    rng = np.random.default_rng(args.seed + 1)
+    return [rng.choice(g.num_nodes, size=int(rng.integers(1, 65)),
+                       replace=False) for _ in range(args.requests)]
+
+
+def fleet_phase(torch, args, wrappers, g, trainer, work: str,
+                card: str) -> dict:
+    """Two ``ServingPlane`` replicas on the card over the serve phase's
+    2-part book, serving the trained weights, behind a ``RouterPlane``:
+    the serve phase's requests through HTTP (p50/p99 beside the serve
+    phase's direct batcher numbers), a fixed request's reply against the
+    engine's own ``predict``, a NaN-filled canary rolled back and the
+    trained weights promoted through ``ServingPromotion``, and a replica
+    killed under concurrent clients with no request dropped. Returns the
+    launches of the served requests."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.obs import get_obs
+    from dgl_operator_tpu_torch.runtime.checkpoint import (
+        ServingPromotion, export_for_serving, load_params, promotion_history,
+        read_fence)
+    from dgl_operator_tpu_torch.serve import (CanaryController, FleetRouter,
+                                              HashRing, Replica,
+                                              RouterPlane, ServeConfig,
+                                              ServeEngine, ServingPlane)
+    from dgl_operator_tpu_torch.serve.router import _http_json
+
+    book = os.path.join(work, "book", "ogbn-products.json")
+    trained = state_dict_to_flax({k: v.detach().cpu() for k, v in
+                                  trainer.model.state_dict().items()})
+    export = export_for_serving(os.path.join(work, "fleet") + os.sep,
+                                trained)
+    cfg = ServeConfig(fanouts=FANOUTS, batch_size=BATCH,
+                      halo_cache_frac=0.25, cap_policy="worst")
+    # the first pair of replica names whose ring gives each replica one
+    # of the 2 partitions, so both serve traffic
+    names = next(pair for pair in itertools.combinations(
+        [f"r{i}" for i in range(8)], 2)
+        if len({HashRing(pair).candidates(f"part-{p}")[0]
+                for p in range(2)}) == 2)
+    t0 = time.perf_counter()
+    planes = {}
+    router_plane = None
+    try:
+        for name in names:
+            eng = ServeEngine(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
+                              book, params_path=export, cfg=cfg,
+                              device="cuda")
+            planes[name] = ServingPlane(eng, port=0, name=name).start()
+        node_map = np.asarray(planes[names[0]].engine.node_map)
+        router = FleetRouter([Replica(n, "127.0.0.1", p.port, plane=p)
+                              for n, p in planes.items()],
+                             node_map=node_map, probe_timeout_s=2.0)
+        router_plane = RouterPlane(router).start(probe_interval_s=0.5)
+        setup_s = time.perf_counter() - t0
+        port = router_plane.port
+        for p in planes.values():
+            code, hz = _http_json("GET", "127.0.0.1", p.port, "/healthz")
+            check(code == 200 and hz["ok"] and hz["device"].startswith(
+                "cuda"), f"fleet: /healthz of {p.name}: {code} {hz}")
+
+        def post(ids):
+            return _http_json("POST", "127.0.0.1", port, "/predict",
+                              {"nodes": [int(v) for v in ids]})
+
+        forwards0 = {n: p.engine.forward_calls for n, p in planes.items()}
+        # the main path: every kernel count starts at 0 here
+        reset_counts(wrappers)
+        lat_ms = []
+        for ids in fleet_requests(args, g):
+            t = time.perf_counter()
+            code, payload = post(ids)
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+            preds = np.asarray(payload.get("predictions", []))
+            check(code == 200 and preds.shape == ids.shape
+                  and preds.min() >= 0 and preds.max() < CLASSES,
+                  f"fleet: request of {len(ids)} seeds: {code} {payload}")
+        lat = np.asarray(lat_ms)
+        served_forwards = {n: p.engine.forward_calls - forwards0[n]
+                           for n, p in planes.items()}
+        # a fixed request against its replica's own predict at the batch
+        # sequence number its micro-batch takes
+        rng = np.random.default_rng(args.seed + 8)
+        fixed = np.sort(rng.choice(g.num_nodes, size=BATCH, replace=False))
+        rep = router.route(fixed)[0]
+        seq = rep.plane.batcher._seq
+        code, payload = post(fixed)
+        want = rep.plane.engine.predict(fixed, sample_seed=seq)
+        check(code == 200 and payload["predictions"] == want.tolist(),
+              f"fleet: the fixed request's reply differs from "
+              f"{rep.name}'s predict(sample_seed={seq})")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{rep.port}/metrics", timeout=30) as r:
+            code, metrics = r.status, r.read().decode()
+        check(code == 200 and "serve_quantile_seconds" in metrics,
+              "fleet: /metrics renders the latency quantiles")
+        code, livez = _http_json("GET", "127.0.0.1", rep.port, "/livez")
+        check(code == 200 and livez["ready"], f"fleet: /livez {livez}")
+        emit(phase="fleet", part="traffic", card=card, replicas=list(names),
+             setup_s=setup_s, requests=len(lat),
+             p50_ms=float(np.percentile(lat, 50)),
+             p99_ms=float(np.percentile(lat, 99)),
+             serve_phase_p50_ms=LAST["serve"]["p50_ms"],
+             serve_phase_p99_ms=LAST["serve"]["p99_ms"],
+             forwards_by_replica=served_forwards,
+             fixed_request_replica=rep.name, fixed_request_seq=seq,
+             fixed_request_equal=True, livez_p99_ms=livez.get("p99_ms"),
+             livez_qps=livez.get("qps"))
+
+        # the canary: a NaN-filled candidate, then the trained weights
+        traffic = fleet_requests(args, g)
+        promo = ServingPromotion(os.path.join(work, "promo"))
+        canary = CanaryController(router, promo, frac=0.5,
+                                  divergence_threshold=0.5, min_mirrors=4)
+        # mirrors come from the traffic the other replica serves
+        canary_name = router.ring.candidates("part-1")[0]
+        probe = fixed[:16]
+        before = planes[canary_name].engine.predict(probe, sample_seed=3)
+        verdicts = []
+        for round_ in ("nan", "trained"):
+            cand = promo.stage(trained)
+            if round_ == "nan":
+                # the staged file itself, sidecar included: integrity
+                # checks pass, only the canary's detectors can tell
+                export_for_serving(cand, nan_tree(load_params(cand)))
+            canary.start(cand, replica=canary_name)
+            sent = 0
+            while canary.active and sent < FLEET_MAX_CANARY:
+                code, _ = post(traffic[sent % len(traffic)])
+                check(code == 200, f"fleet canary: {code}")
+                sent += 1
+            check(not canary.active, f"fleet canary {round_}: no verdict "
+                  f"after {sent} requests")
+            verdicts.append(dict(round=round_, requests=sent,
+                                 **canary.state(),
+                                 nonfinite_logits=canary.nonfinite))
+            if round_ == "nan":
+                check(canary.verdict == "rollback" and canary.nonfinite > 0,
+                      f"fleet canary: NaN candidate {verdicts[-1]}")
+                check(read_fence(promo.directory) is None,
+                      "fleet canary: the fence moved on a rollback")
+                after = planes[canary_name].engine.predict(probe,
+                                                           sample_seed=3)
+                check(np.array_equal(before, after),
+                      "fleet canary: the incumbent was not restored")
+            else:
+                check(canary.verdict == "promote",
+                      f"fleet canary: trained candidate {verdicts[-1]}")
+                check(read_fence(promo.directory)["epoch"] == 1,
+                      f"fleet canary: fence {read_fence(promo.directory)}")
+                check(all(p.engine.params is canary._candidate
+                          for p in planes.values()),
+                      "fleet canary: both replicas swapped")
+        check([h["action"] for h in promotion_history(promo.directory)]
+              == ["rolled_back", "promoted"], "fleet: promotion history")
+        emit(phase="fleet", part="canary", card=card, canary=canary_name,
+             rounds=verdicts,
+             fence=read_fence(promo.directory)["epoch"])
+
+        # failover: partition 0's replica killed under concurrent clients
+        victim = planes[router.ring.candidates("part-0")[0]]
+        codes = []
+        lock = threading.Lock()
+        killed = threading.Event()
+
+        def client(c):
+            for i in range(FLEET_FAILOVER_REQUESTS):
+                ids = traffic[(c * FLEET_FAILOVER_REQUESTS + i)
+                              % len(traffic)]
+                code, payload = post(ids)
+                with lock:
+                    codes.append(code == 200 and len(
+                        payload.get("predictions", [])) == len(ids))
+                if c == 0 and i == 2:
+                    victim.kill()
+                    killed.set()
+
+        retries0 = router._m_retries.value()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=FLEET_CLIENTS) as pool:
+            list(pool.map(client, range(FLEET_CLIENTS)))
+        failover_s = time.perf_counter() - t0
+        check(killed.is_set() and len(codes)
+              == FLEET_CLIENTS * FLEET_FAILOVER_REQUESTS and all(codes),
+              f"fleet failover: {codes.count(False)} of {len(codes)} "
+              "requests dropped")
+        deadline = time.monotonic() + 30
+        while router.replicas_up() != 1 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        up = get_obs().metrics.gauge("fleet_replicas_up").value()
+        check(router.replica(victim.name).state == "down" and up == 1,
+              f"fleet failover: fleet_replicas_up {up}")
+        forwards = sum(p.engine.forward_calls - forwards0[n]
+                       for n, p in planes.items())
+        launches = read_counts(wrappers)
+        # engine.predict of the fixed request and the canary probes
+        # are forwards too
+        check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
+                           "scatter_add_rows": 0},
+              f"fleet: 2 fanout_agg launches per forward: {launches}, "
+              f"{forwards} forwards")
+        emit(phase="fleet", part="failover", card=card,
+             clients=FLEET_CLIENTS,
+             victim=victim.name,
+             requests=FLEET_CLIENTS * FLEET_FAILOVER_REQUESTS, dropped=0,
+             retries=router._m_retries.value() - retries0,
+             fleet_replicas_up=up, seconds=failover_s, forwards=forwards,
+             launches=launches)
+    finally:
+        if router_plane is not None:
+            router_plane.stop()
+        for p in planes.values():
+            p.stop()
+    return launches
+
+
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
                  gat_shapes=None, gat_launches=0, mp_launches=0,
@@ -4944,6 +5544,9 @@ def main(argv=None) -> int:
             torch, args, ops, wrappers, g, ctx, smi)
         rgin, rgin_records = rgcn_gin_phase(torch, args, ops, wrappers, g,
                                             trainer, ctx, smi)
+        sentry = sentry_phase(torch, args, wrappers, g, trainer, ctx, work,
+                              smi)
+        fleet = fleet_phase(torch, args, wrappers, g, trainer, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
@@ -4955,7 +5558,7 @@ def main(argv=None) -> int:
 
     def launches(name):
         return (served[name] + trained[name] + dist[name] + dist_mp[name]
-                + device[name])
+                + device[name] + sentry[name] + fleet[name])
 
     pg = "dgl_operator_tpu/ops/pallas_gather.py"
 

@@ -1,8 +1,10 @@
 """In-memory telemetry: a metrics registry, an event list and timed
 spans, one bundle per process (:func:`get_obs`).
 
-Everything stays in memory and is bounded; file sinks and trace-context
-propagation across processes are not ported yet.
+Everything stays in memory and is bounded. A span recorded while a
+trace context is active (``obs/tracectx.py``) carries its trace, span
+and parent ids. File sinks are not ported yet, so :meth:`Obs.flush`
+writes nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import threading
 import time
 from typing import Iterator, Optional
 
+from dgl_operator_tpu_torch.obs import tracectx
 from dgl_operator_tpu_torch.obs.metrics import (DEFAULT_BUCKETS,  # noqa: F401
                                                 LATENCY_BUCKETS, Counter,
                                                 Gauge, Histogram,
@@ -39,8 +42,14 @@ class Obs:
 
     def complete(self, name: str, t0: float, t1: float, **args) -> None:
         """Record a span that ran from ``t0`` to ``t1``
-        (``time.perf_counter`` readings)."""
-        self.spans.append({"name": name, "t0": t0, "t1": t1, **args})
+        (``time.perf_counter`` readings), stamped with the active trace
+        context's ids."""
+        self.spans.append({"name": name, "t0": t0, "t1": t1,
+                           **tracectx.current_ids(), **args})
+
+    def flush(self) -> None:
+        """Publish telemetry to files: a no-op, as the port keeps its
+        telemetry in memory."""
 
     @contextlib.contextmanager
     def span(self, name: str, **args) -> Iterator[None]:

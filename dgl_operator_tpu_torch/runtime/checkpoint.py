@@ -1,4 +1,4 @@
-"""Training checkpoints and params-only serving exports.
+"""Training checkpoints, params-only serving exports and their fences.
 
 Both are ``.npz`` archives whose keys are the '/'-joined paths of a
 nested dict (``params/layers.0.self.weight``, ...), written atomically
@@ -8,15 +8,24 @@ sidecar written after the publish.
 - :class:`CheckpointManager` keeps step-indexed training checkpoints
   (``ckpt_<step>.npz``), at most one background write in flight, the
   newest ``max_keep``; :meth:`~CheckpointManager.restore` verifies every
-  candidate and falls back past a corrupt newest one. This is the JAX
-  package's npz path; its orbax backend, incarnation fences,
-  ``quarantine_from`` and ``ServingPromotion`` are not ported
-  (``ROADMAP.md``). :class:`RankZeroCheckpoints` shares one manager
-  between the processes of a ``torch.distributed`` group.
+  candidate and falls back past a corrupt newest one. With an
+  incarnation epoch (``fence_epoch``, or the elastic launcher's
+  ``TPU_OPERATOR_ELASTIC_EPOCH``) checkpoints publish under
+  ``epoch-<k>/`` and the manager claims ``fence.json`` at open: a
+  zombie of an older incarnation is refused at open and at every
+  publish (:class:`FencedOut`), and a restore falls back across the
+  older epochs' directories. :meth:`~CheckpointManager.quarantine_from`
+  moves every checkpoint at or past a numerics fault's step aside.
+  :class:`RankZeroCheckpoints` shares one manager between the
+  processes of a ``torch.distributed`` group. The JAX package's orbax
+  backend and chaos hooks are not ported.
 - :func:`export_for_serving` / :func:`load_params` write and read the
   params tree alone, in the flax layout, so either package reads what
   the other wrote (``models/sage.py`` converts it to and from a
-  ``state_dict``).
+  ``state_dict``). :class:`ServingPromotion` walks a candidate export
+  through stage → canary → commit or rollback behind the promotion
+  directory's fence; its ``fence.json`` and ``promotion.json`` are the
+  JAX package's format, so each package reads the other's.
 - :func:`save_state_npz` / :func:`load_state_npz` write and read a
   whole state tree by path.
 
@@ -27,21 +36,26 @@ order of the archive's members.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import re
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.parallel.bootstrap import FENCE_EPOCH_ENV
 from dgl_operator_tpu_torch.parallel.collectives import barrier
 
 SERVING_EXPORT = "serving_params.npz"
+FENCE_FILE = "fence.json"
+PROMOTION_LOG = "promotion.json"
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz")
 _ORPHAN_RE = re.compile(r"ckpt_\d+\.npz(\.sha256)?\.tmp")
+_EPOCH_RE = re.compile(r"epoch-(\d+)")
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -49,6 +63,39 @@ class CheckpointCorrupt(RuntimeError):
     against its sidecar, an unreadable archive, or leaves that do not
     match the state skeleton) and nothing older could stand in. A
     partial restore is refused loudly."""
+
+
+class FencedOut(RuntimeError):
+    """This manager's incarnation lost the directory fence: a newer
+    incarnation (or promoter) owns it, and this one must stop
+    publishing."""
+
+
+def read_fence(directory: str) -> Optional[dict]:
+    """The directory's fence record (``{"epoch", "token"}``) or None."""
+    try:
+        with open(os.path.join(directory, FENCE_FILE)) as f:
+            d = json.load(f)
+        return d if isinstance(d, dict) and "epoch" in d else None
+    except (OSError, ValueError):
+        return None
+
+
+def resolve_fence_epoch(explicit: Optional[int] = None) -> Optional[int]:
+    """The incarnation epoch this process checkpoints under: ``explicit``
+    when given, else the elastic launcher's ``TPU_OPERATOR_ELASTIC_EPOCH``,
+    else None (the unfenced flat layout)."""
+    if explicit is not None:
+        return int(explicit)
+    v = os.environ.get(FENCE_EPOCH_ENV)
+    return int(v) if v not in (None, "") else None
+
+
+def _write_fence(directory: str, epoch: int, token: str) -> None:
+    tmp = os.path.join(directory, FENCE_FILE + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump({"epoch": epoch, "token": token}, f)
+    os.replace(tmp, os.path.join(directory, FENCE_FILE))
 
 
 def _sha256_of(path: str, chunk: int = 1 << 20) -> str:
@@ -84,14 +131,19 @@ def _write_tree_npz(path: str, tree: Any) -> int:
     return len(arrays)
 
 
-def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+def _write_npz(path: str, arrays: Dict[str, np.ndarray],
+               gate: Optional[Callable[[], None]] = None) -> None:
     """Atomic publish: a temporary file, ``fsync``, then ``os.replace``
-    (a write cut short never leaves a truncated archive at ``path``)."""
+    (a write cut short never leaves a truncated archive at ``path``).
+    ``gate()``, when given, runs right before the rename and may refuse
+    the publish by raising."""
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
         f.flush()
         os.fsync(f.fileno())
+    if gate is not None:
+        gate()
     os.replace(tmp, path)
 
 
@@ -151,19 +203,76 @@ def _unflatten_like(like: Any, prefix: str, flat: Dict[str, np.ndarray]):
 
 class CheckpointManager:
     """Step-indexed training checkpoints under ``directory``; keeps the
-    newest ``max_keep``.
+    newest ``max_keep`` of the active directory.
+
+    With ``fence_epoch`` (or ``TPU_OPERATOR_ELASTIC_EPOCH``) set,
+    checkpoints publish under ``epoch-<k>/`` and the manager claims
+    ``fence.json`` (epoch and a random token) at open; a newer epoch's
+    fence refuses the open, and every publish re-reads the fence right
+    before its rename (:class:`FencedOut` for a zombie).
 
     ``save``/``close`` are called from one thread (the training loop);
     the background writer has one worker, and every save drains the
     previous write first, so at most one write is in flight.
     """
 
-    def __init__(self, directory: str, max_keep: int = 3):
+    def __init__(self, directory: str, max_keep: int = 3,
+                 fence_epoch: Optional[int] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_keep = int(max_keep)
+        self.fence_epoch = resolve_fence_epoch(fence_epoch)
         self._writer: Optional[ThreadPoolExecutor] = None
         self._last: Optional[Future] = None
+        self._fence_token: Optional[str] = None
+        if self.fence_epoch is not None:
+            self._fence_token = os.urandom(8).hex()
+            self._claim_fence()
+            self._active_dir = os.path.join(
+                self.directory, f"epoch-{self.fence_epoch}")
+            os.makedirs(self._active_dir, exist_ok=True)
+        else:
+            self._active_dir = self.directory
+
+    # ---------------------------------------------------------- fence
+    def _claim_fence(self) -> None:
+        """Refuse to open when a newer epoch holds the fence (a zombie
+        dies before it restores anything); else stamp ``fence.json``
+        with this incarnation's epoch and token (the last same-epoch
+        opener wins the token, so a superseded twin is fenced out at
+        publish)."""
+        cur = read_fence(self.directory)
+        if cur is not None and int(cur.get("epoch", -1)) > self.fence_epoch:
+            raise FencedOut(
+                f"checkpoint dir {self.directory} is fenced at epoch "
+                f"{cur['epoch']}; this trainer's incarnation epoch "
+                f"{self.fence_epoch} is stale — a newer incarnation "
+                "owns the directory")
+        _write_fence(self.directory, self.fence_epoch, self._fence_token)
+        get_obs().emit("ckpt_fenced", epoch=self.fence_epoch,
+                       dir=self.directory)
+
+    def _check_fence(self) -> None:
+        """The publication gate: a fence that moved on (a newer epoch, or
+        a fresher same-epoch claim) rejects the publish."""
+        if self.fence_epoch is None:
+            return
+        cur = read_fence(self.directory)
+        if (cur is not None
+                and int(cur.get("epoch", -1)) == self.fence_epoch
+                and cur.get("token") == self._fence_token):
+            return
+        obs = get_obs()
+        obs.metrics.counter(
+            "ckpt_fence_rejections_total",
+            "checkpoint publications rejected by the fencing token "
+            "(zombie incarnations)").inc()
+        obs.emit("ckpt_fence_rejected", epoch=self.fence_epoch,
+                 current_epoch=(cur or {}).get("epoch"))
+        raise FencedOut(
+            f"checkpoint publication rejected: fence is at epoch "
+            f"{(cur or {}).get('epoch')} (ours: {self.fence_epoch}) — "
+            "a zombie incarnation must not overwrite newer state")
 
     # ------------------------------------------------------------------
     def save(self, step: int, state: Any, wait: bool = True) -> None:
@@ -176,7 +285,8 @@ class CheckpointManager:
         obs = get_obs()
         obs.metrics.counter("ckpt_saves_total", "checkpoint saves",
                             labels=("mode",)).inc(mode=mode)
-        obs.emit("ckpt_save", step=int(step), mode=mode)
+        obs.emit("ckpt_save", step=int(step), mode=mode,
+                 epoch=self.fence_epoch)
         arrays: Dict[str, np.ndarray] = {}
         _flatten(state, "", arrays)
         # joining the previous write bounds the host copies at two and
@@ -197,8 +307,10 @@ class CheckpointManager:
 
     def _write(self, step: int, arrays: Dict[str, np.ndarray]) -> None:
         t0 = time.perf_counter()
-        path = os.path.join(self.directory, f"ckpt_{step}.npz")
-        _write_npz(path, arrays)
+        path = os.path.join(self._active_dir, f"ckpt_{step}.npz")
+        # the fence gate sits right before the rename: the publish, not
+        # the wasted write, is what a zombie is denied
+        _write_npz(path, arrays, gate=self._check_fence)
         # the sidecar comes after the publish: a crash in between leaves
         # a sidecar-less archive, which restore reads unverified
         _write_sidecar(path)
@@ -220,18 +332,35 @@ class CheckpointManager:
             self._writer = None
 
     # ------------------------------------------------------------------
-    def _candidates(self) -> List[Tuple[int, str]]:
-        """``(step, path)`` of every checkpoint, oldest first."""
+    def _candidates(self) -> List[Tuple[int, int, str]]:
+        """``(epoch, step, path)`` of every checkpoint under the root,
+        ascending; the flat (unfenced) layout sorts as epoch -1. Epoch
+        outranks step: a newer incarnation's checkpoint is the job's
+        trajectory even at a lower step."""
+        out: List[Tuple[int, int, str]] = []
+
+        def scan(d: str, epoch: int) -> None:
+            try:
+                names = os.listdir(d)
+            except OSError:
+                return
+            out.extend((epoch, int(m.group(1)), os.path.join(d, fn))
+                       for fn in names if (m := _CKPT_RE.fullmatch(fn)))
+
+        scan(self.directory, -1)
         try:
-            names = os.listdir(self.directory)
+            subs = os.listdir(self.directory)
         except OSError:
-            return []
-        return sorted((int(m.group(1)), os.path.join(self.directory, fn))
-                      for fn in names if (m := _CKPT_RE.fullmatch(fn)))
+            subs = []
+        for fn in subs:
+            if (m := _EPOCH_RE.fullmatch(fn)) and \
+                    os.path.isdir(os.path.join(self.directory, fn)):
+                scan(os.path.join(self.directory, fn), int(m.group(1)))
+        return sorted(out)
 
     def latest_step(self) -> Optional[int]:
         cands = self._candidates()
-        return cands[-1][0] if cands else None
+        return cands[-1][1] if cands else None
 
     @staticmethod
     def _load_verified(path: str, want: Dict[str, np.ndarray]
@@ -266,15 +395,16 @@ class CheckpointManager:
 
         Every candidate is verified against its sidecar and the
         skeleton's leaves. With ``step=None`` a corrupt newest
-        checkpoint falls back to the previous one (counted in
-        ``ckpt_restore_fallback_total``, an ``ckpt_restore_fallback``
-        event each); when no candidate is good, or an explicit step is
-        corrupt, :class:`CheckpointCorrupt` is raised. An explicit step
-        that does not exist raises ``FileNotFoundError``."""
+        checkpoint falls back to the previous one, across older epoch
+        directories too (counted in ``ckpt_restore_fallback_total``, an
+        ``ckpt_restore_fallback`` event each); when no candidate is
+        good, or an explicit step is corrupt, :class:`CheckpointCorrupt`
+        is raised. An explicit step that does not exist raises
+        ``FileNotFoundError``."""
         t0 = time.perf_counter()
         cands = self._candidates()
         if step is not None:
-            cands = [c for c in cands if c[0] == int(step)]
+            cands = [c for c in cands if c[1] == int(step)]
             if not cands:
                 raise FileNotFoundError(f"no checkpoint for step {step} "
                                         f"under {self.directory}")
@@ -284,7 +414,7 @@ class CheckpointManager:
         _flatten(like, "", want)
         obs = get_obs()
         last_err: Optional[CheckpointCorrupt] = None
-        for s, path in reversed(cands):
+        for epoch, s, path in reversed(cands):
             try:
                 flat = self._load_verified(path, want)
             except CheckpointCorrupt as exc:
@@ -293,8 +423,8 @@ class CheckpointManager:
                     "ckpt_restore_fallback_total",
                     "restores that skipped a corrupt/partial "
                     "checkpoint and fell back to an older one").inc()
-                obs.emit("ckpt_restore_fallback", step=s, path=path,
-                         error=str(exc)[:300])
+                obs.emit("ckpt_restore_fallback", step=s, epoch=epoch,
+                         path=path, error=str(exc)[:300])
                 continue
             seconds = time.perf_counter() - t0
             obs.metrics.counter("ckpt_restores_total",
@@ -309,22 +439,54 @@ class CheckpointManager:
             f"{len(cands)} candidate(s) failed verification — last "
             f"error: {last_err}") from last_err
 
+    def quarantine_from(self, step: int) -> Optional[int]:
+        """The numerics-fault rollback: every checkpoint at global step
+        >= ``step`` may hold post-fault state, so it is moved aside
+        (``ckpt_<s>.npz`` -> ``ckpt_<s>.npz.bad``, sidecar included;
+        kept as evidence, never a restore candidate) and restore lands
+        on the last good one. Drains the in-flight background write
+        first (it may be publishing a bad step). Returns the newest
+        surviving step, or None."""
+        self._drain()
+        quarantined = []
+        for _, s, path in self._candidates():
+            if s < step:
+                continue
+            for suffix in ("", ".sha256"):
+                try:
+                    os.replace(path + suffix, path + suffix + ".bad")
+                except OSError:
+                    pass
+            quarantined.append(int(s))
+        obs = get_obs()
+        if quarantined:
+            obs.metrics.counter(
+                "ckpt_quarantined_total",
+                "checkpoints moved aside by a numerics-fault "
+                "rollback").inc(len(quarantined))
+        survivor = self.latest_step()
+        obs.emit("ckpt_quarantined", from_step=int(step),
+                 steps=quarantined, rolled_back_to=survivor)
+        return survivor
+
     def _gc(self) -> None:
-        """Keep the newest ``max_keep`` checkpoints; sweep temporary
-        files a write cut short left behind."""
+        """Keep the newest ``max_keep`` checkpoints of the active
+        directory (older epochs' last checkpoints are the fallback
+        history and no longer grow); sweep temporary files a write cut
+        short left behind."""
         steps = []
-        for fn in os.listdir(self.directory):
+        for fn in os.listdir(self._active_dir):
             if (m := _CKPT_RE.fullmatch(fn)):
                 steps.append(int(m.group(1)))
             elif _ORPHAN_RE.fullmatch(fn):
                 try:
-                    os.remove(os.path.join(self.directory, fn))
+                    os.remove(os.path.join(self._active_dir, fn))
                 except OSError:
                     pass
         for s in sorted(steps)[: -self.max_keep]:
             for suffix in ("", ".sha256"):
                 try:
-                    os.remove(os.path.join(self.directory,
+                    os.remove(os.path.join(self._active_dir,
                                            f"ckpt_{s}.npz{suffix}"))
                 except OSError:
                     pass
@@ -347,6 +509,15 @@ class RankZeroCheckpoints:
         if self.rank == 0:
             self.manager.save(step, state, wait=True)
         barrier()
+
+    def quarantine_from(self, step: int) -> Optional[int]:
+        """Rank 0 moves the checkpoints at or past ``step`` aside
+        (:meth:`CheckpointManager.quarantine_from`) and returns the
+        survivor; the other ranks touch nothing and return None. No
+        barrier: a faulting rank must not wait on one still stepping."""
+        if self.rank == 0:
+            return self.manager.quarantine_from(step)
+        return None
 
     def close(self) -> None:
         if self.rank == 0:
@@ -423,3 +594,110 @@ def load_state_npz(path: str) -> Any:
     """Read a :func:`save_state_npz` archive back into nested dicts of
     numpy arrays."""
     return _read_tree_npz(path)
+
+
+# ----------------------------------------------------------------------
+class ServingPromotion:
+    """Fenced rolling promotion of a serving export.
+
+    ``fence.json`` in the promotion directory records the epoch of the
+    live params, and a candidate walks stage → canary → commit to
+    advance it. :meth:`stage` writes the candidate under
+    ``candidate-epoch-<k>/`` (k = incumbent epoch + 1) with its sha256
+    sidecar; the router's canary serves it to a slice of traffic;
+    :meth:`commit` advances the fence to k and publishes the candidate
+    as the live export, :meth:`rollback` quarantines it (``.bad``) and
+    leaves the incumbent untouched. A commit whose fence moved since the
+    stage (a concurrent promoter won) raises :class:`FencedOut`."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        cur = read_fence(self.directory)
+        self.incumbent_epoch = int(cur["epoch"]) if cur else 0
+        self._token = os.urandom(8).hex()
+        self.candidate_epoch: Optional[int] = None
+        self.candidate_dir: Optional[str] = None
+
+    def stage(self, params: Any) -> str:
+        """Write ``params`` as the epoch-(incumbent + 1) candidate
+        export; returns its npz path (a canary loads it with
+        :func:`load_params`, which verifies the sidecar)."""
+        self.candidate_epoch = self.incumbent_epoch + 1
+        self.candidate_dir = os.path.join(
+            self.directory, f"candidate-epoch-{self.candidate_epoch}")
+        os.makedirs(self.candidate_dir, exist_ok=True)
+        path = export_for_serving(self.candidate_dir, params)
+        get_obs().emit("ckpt_promote_staged", epoch=self.candidate_epoch,
+                       path=path)
+        return path
+
+    def _log_outcome(self, action: str, reason: str = "") -> None:
+        log_path = os.path.join(self.directory, PROMOTION_LOG)
+        history = promotion_history(self.directory)
+        history.append({"epoch": self.candidate_epoch, "action": action,
+                        "reason": reason, "ts": time.time()})
+        tmp = log_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(history, f)
+        os.replace(tmp, log_path)
+        get_obs().metrics.counter(
+            "ckpt_promotions_total",
+            "serving-checkpoint promotion outcomes",
+            labels=("result",)).inc(result=action)
+
+    def commit(self) -> str:
+        """Advance the fence to the candidate's epoch and publish the
+        candidate as the live export (an atomic rename within the
+        promotion directory). Returns the live export's path."""
+        if self.candidate_epoch is None or self.candidate_dir is None:
+            raise RuntimeError("no candidate staged")
+        cur = read_fence(self.directory)
+        if cur is not None and int(cur.get("epoch", 0)) \
+                >= self.candidate_epoch:
+            get_obs().metrics.counter(
+                "ckpt_fence_rejections_total",
+                "checkpoint publications rejected by the fencing "
+                "token (zombie incarnations)").inc()
+            raise FencedOut(
+                f"promotion fence moved to epoch {cur['epoch']} since "
+                f"stage (candidate epoch {self.candidate_epoch}) — a "
+                "concurrent promoter won; this candidate is stale")
+        _write_fence(self.directory, self.candidate_epoch, self._token)
+        live = os.path.join(self.directory, SERVING_EXPORT)
+        cand = os.path.join(self.candidate_dir, SERVING_EXPORT)
+        os.replace(cand, live)
+        try:
+            os.replace(cand + ".sha256", live + ".sha256")
+        except OSError:
+            pass
+        self._log_outcome("promoted")
+        get_obs().emit("ckpt_promote_committed",
+                       epoch=self.candidate_epoch, path=live)
+        self.incumbent_epoch = self.candidate_epoch
+        self.candidate_epoch = self.candidate_dir = None
+        return live
+
+    def rollback(self, reason: str = "") -> None:
+        """Quarantine the candidate (``.bad`` rename, evidence kept)
+        without touching the fence or the live export."""
+        if self.candidate_epoch is None or self.candidate_dir is None:
+            raise RuntimeError("no candidate staged")
+        try:
+            os.replace(self.candidate_dir, self.candidate_dir + ".bad")
+        except OSError:
+            pass
+        self._log_outcome("rolled_back", reason=reason)
+        get_obs().emit("ckpt_promote_rolled_back",
+                       epoch=self.candidate_epoch, reason=reason)
+        self.candidate_epoch = self.candidate_dir = None
+
+
+def promotion_history(directory: str) -> List[dict]:
+    """The promotion directory's outcome ledger, newest last."""
+    try:
+        with open(os.path.join(directory, PROMOTION_LOG)) as f:
+            h = json.load(f)
+        return h if isinstance(h, list) else []
+    except (OSError, ValueError):
+        return []

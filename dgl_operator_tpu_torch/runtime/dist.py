@@ -55,8 +55,13 @@ captured, K eager steps.
 The loss runs the model in inference mode (no dropout), as the JAX
 trainer's ``seed_loss`` does. Checkpoints and resume follow
 ``SampledTrainer`` (``runtime/loop.py::run_epochs``); in a group rank 0
-publishes them (``RankZeroCheckpoints``). Not ported: the
-sentry, live, chaos and preemption planes, the overlap pipeline
+publishes them (``RankZeroCheckpoints``). The numerics sentry
+(``TrainConfig.sentry``) runs as in ``SampledTrainer``: each step's
+``dp_slot_stats`` (norms and non-finite count of the mean gradient,
+each slot's loss and non-finite count) from :func:`slot_mean_step`,
+captured with the K-step graph, and a ``QualityMonitor`` over the slots'
+global ids, so a fault names its partition. Not ported: the live,
+chaos and preemption planes, the overlap pipeline
 (``pipeline_mode``, ``pipeline_depth``) and the state sharding knobs
 (``ROADMAP.md`` Queue 1).
 """
@@ -78,6 +83,7 @@ from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import (inference_layer,
                                            state_dict_from_flax)
+from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import attach_plans
@@ -245,6 +251,11 @@ class DistTrainer:
             collectives.broadcast_params(model)
         self.timer = PhaseTimer()
         self.optimizer = make_adam(model.parameters(), cfg, self.device)
+        # the sentry's view of each step's update, and the last call's
+        # stats
+        self._delta = (Q.ParamDelta(model.parameters()) if cfg.sentry
+                       else None)
+        self.last_stats: Optional[Dict[str, torch.Tensor]] = None
         # the owner layout's halo rows fetched from other parts, counted
         # on the device by the device sampler's steps (owner_rows)
         self._dev_halo_rows = torch.zeros((), dtype=torch.int64,
@@ -492,15 +503,18 @@ class DistTrainer:
     def train_step(self, batch: Dict) -> Tuple[torch.Tensor, None]:
         """One step on a host batch: :meth:`ship` it, then
         :meth:`device_step`. Returns the mean slot loss as a device
-        scalar (no sync) and None (no accuracy is taken)."""
-        return self.device_step(*self.ship(batch)), None
+        scalar (no sync) and None (no accuracy is taken); with the
+        sentry the step's stats are left in :attr:`last_stats`."""
+        loss, self.last_stats = self.device_step(*self.ship(batch))
+        return loss, None
 
-    def device_step(self, slots: List[Dict],
-                    exch: Optional[torch.Tensor]) -> torch.Tensor:
+    def device_step(self, slots: List[Dict], exch: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """The step's device work on a shipped batch: the exchange
         (owner layout), every local slot's loss and backward, and one
         Adam step on the mean gradient over every slot; returns the mean
-        slot loss."""
+        slot loss and, with the sentry, the step's stats
+        (:func:`slot_mean_step`)."""
         if exch is not None:
             exchange = (alltoall_request_rows if self._group
                         else alltoall_serve_rows)
@@ -516,15 +530,17 @@ class DistTrainer:
                                      sb["seeds"], self.labels[i])
 
         return slot_mean_step(self.optimizer, loss_of, len(self.parts),
-                              self.num_parts)
+                              self.num_parts, self._delta)
 
     # -- the device sampler ---------------------------------------------
     def device_sampler_step(self, seeds: torch.Tensor, gstep: torch.Tensor
-                            ) -> Tuple[torch.Tensor]:
+                            ) -> Tuple[torch.Tensor, ...]:
         """One device-sampler step on the bank's seeds ``[L, B]``: every
         local slot's tree blocks from the draws keyed on ``(gstep,
         part)``, its input rows (:meth:`owner_rows` in the owner layout),
-        then :func:`slot_mean_step`. Returns the mean slot loss."""
+        then :func:`slot_mean_step`. Returns the mean slot loss, then,
+        with the sentry, the step's stats as one vector
+        (``obs/quality.py::stat_vector``)."""
         L = len(self.parts)
         indptr, indices = self._dev_csr
         sampled = [self._tree.sample(indptr[i], indices[i], seeds[i],
@@ -540,7 +556,9 @@ class DistTrainer:
             return forward.seed_loss(self.model, blocks, h, seeds[i],
                                      self.labels[i])
 
-        return (slot_mean_step(self.optimizer, loss_of, L, self.num_parts),)
+        loss, stats = slot_mean_step(self.optimizer, loss_of, L,
+                                     self.num_parts, self._delta)
+        return (loss,) if stats is None else (loss, Q.stat_vector(stats))
 
     def owner_rows(self, ids: torch.Tensor) -> torch.Tensor:
         """The owner layout's input rows ``[L, M, D]`` of the local slots'
@@ -593,10 +611,14 @@ class DistTrainer:
         (no sync) and None. ``batch`` is a host batch (one
         :meth:`train_step`) or, with the device sampler, ``(b, step,
         k)``: ``k`` steps from bank row ``b`` at global step ``step``
-        (:class:`DeviceRun`)."""
+        (:class:`DeviceRun`). With the sentry the call's last step's
+        stats are left in :attr:`last_stats`."""
         if isinstance(batch, dict):
             return self.train_step(batch)[0].view(1), None
-        return self._run(*batch)[0], None
+        out = self._run(*batch)
+        if self._delta is not None:
+            self.last_stats = Q.stats_of_rows(out[1:, -1])
+        return out[0], None
 
     def _start_device_run(self) -> DeviceRun:
         """The device sampler's run; its calls of K > 1 steps on the card
@@ -604,8 +626,12 @@ class DistTrainer:
         a gloo group, which cannot be captured."""
         capture = self.device.type == "cuda" and (
             not self._group or dist.get_backend() == "nccl")
+        # the loss, then the sentry's rows: the scalars and each of the
+        # num_parts slots' loss and non-finite count
+        n_out = 1 + (len(Q.STAT_KEYS) + 2 * self.num_parts
+                     if self._delta is not None else 0)
         self._run = DeviceRun(
-            self.device_sampler_step, 1,
+            self.device_sampler_step, n_out,
             (self.steps_per_epoch, len(self.parts), self.cfg.batch_size),
             torch.int32, self.cfg.steps_per_call, self.device, capture)
         return self._run
@@ -671,7 +697,9 @@ class DistTrainer:
                 cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
                 lambda: train_state(self.model, self.optimizer),
                 self._permute, sample, self.train_call,
-                self.evaluate, self._epoch_stats, sample_workers=1)
+                self.evaluate, self._epoch_stats, sample_workers=1,
+                step_stats=lambda: self.last_stats,
+                parts=range(self.num_parts))
         finally:
             self._close_sampler_pool()
             # the graph's memory pool goes with it

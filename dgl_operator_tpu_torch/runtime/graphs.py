@@ -98,8 +98,9 @@ class DeviceRun:
     and global step ``gstep`` as device counters, and a static
     ``[n_out, K]`` buffer for a call's per-step results.
 
-    ``step(seeds [L, B], gstep [1]) -> n_out scalar tensors`` takes one
-    optimizer step with no host sync; the run advances both counters
+    ``step(seeds [L, B], gstep [1]) -> tensors`` takes one optimizer
+    step with no host sync and returns its ``n_out`` results, the
+    elements of those tensors in order; the run advances both counters
     after it. A call of K = ``steps_per_call`` > 1 steps is one replay of
     a :class:`GraphedCall` when ``capture`` (on the card, outside a gloo
     group), else K eager steps; a single step (the epoch's tail, or K =
@@ -146,16 +147,15 @@ class DeviceRun:
                     for c, _ in call for ids in id_lists)
         return (b, step, len(call)), seeds
 
-    def _one(self) -> Sequence[torch.Tensor]:
+    def _one(self) -> torch.Tensor:
         out = self.step(self.bank.index_select(0, self.idx)[0], self.gstep)
         self.idx += 1
         self.gstep += 1
-        return out
+        return torch.cat([v.reshape(-1) for v in out])
 
     def _steps(self) -> torch.Tensor:
         for j in range(self.out.shape[1]):
-            for r, v in enumerate(self._one()):
-                self.out[r, j] = v
+            self.out[:, j] = self._one()
         return self.out
 
     def __call__(self, b: int, step: int, k: int) -> torch.Tensor:
@@ -166,7 +166,7 @@ class DeviceRun:
         if k > 1:
             return (self.graphed() if self.graphed is not None
                     else self._steps().clone())
-        return torch.stack(list(self._one())).view(-1, 1)
+        return self._one().view(-1, 1)
 
 
 def graph_stats(run: Optional[DeviceRun]) -> Dict:

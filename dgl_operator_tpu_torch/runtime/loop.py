@@ -35,9 +35,20 @@ full-graph loop (GCN or GAT on one ``DeviceGraph``). With
 at each epoch's end, and a new run resumes from the newest good
 checkpoint (``resume="auto"``).
 
-What the JAX trainer also carries and this one does not yet: the
-numerics sentry, the live plane and chaos hooks (``ROADMAP.md`` Queue
-1).
+The numerics sentry (``TrainConfig.sentry``, on by default;
+``obs/quality.py``): every step also computes the global gradient and
+parameter norms, the update ratio and the count of non-finite
+gradient elements on the device, a K-step call reporting its last
+step's at the call's end (captured in its CUDA graph on the card).
+:func:`run_epochs` pushes them to a ``StatsTap`` after each call and
+feeds a ``QualityMonitor`` whatever is ready; a non-finite step raises
+``NumericsFault`` and, with ``quality_action="rollback"``, quarantines
+the checkpoints at or past it (``halt_for_rollback``). The stats only
+read the step's tensors, so the trajectory is bit-identical with the
+sentry on or off.
+
+What the JAX trainer also carries and this one does not yet: the live
+plane and chaos hooks (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import numpy as np
 import torch
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
+from dgl_operator_tpu_torch.autotune.knobs import validate
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
                                                  build_fanout_blocks,
                                                  calibrate_caps, fanout_caps,
@@ -60,12 +72,14 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models import (flax_params, full_graph_inference,
                                            state_dict_from_flax)
 from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                       device_csr, draw_key)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import attach_plans
 from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                        load_train_state,
+                                                       resolve_fence_epoch,
                                                        train_state)
 from dgl_operator_tpu_torch.runtime.forward import masked_loss
 from dgl_operator_tpu_torch.runtime.graphs import DeviceRun, graph_stats
@@ -89,7 +103,9 @@ class TrainConfig:
     ``tp_axis_size`` take only their defaults (another value raises
     ``NotImplementedError``); the JAX fields not listed here are not
     ported, so passing one is a ``TypeError``. ``feats_layout`` and
-    ``halo_cache_frac`` are read by ``DistTrainer`` only."""
+    ``halo_cache_frac`` are read by ``DistTrainer`` only. ``sentry``
+    and the ``quality_*`` fields are validated against the knob
+    registry (``autotune/knobs.py``)."""
 
     num_epochs: int = 10
     batch_size: int = 1000             # reference default (dglrun:35)
@@ -131,8 +147,28 @@ class TrainConfig:
     shard_rules: Optional[tuple] = None
     zero_stage: int = 1
     tp_axis_size: int = 1
+    # the numerics sentry (obs/quality.py): in-step stats and the
+    # rolling model-health detectors over them; the trajectory is
+    # bit-identical either way
+    sentry: bool = True
+    # a numerics fault's response: "warn" keeps training, "halt" raises
+    # NumericsFault, "rollback" also quarantines the checkpoints at or
+    # past the fault and leaves the workspace fault marker
+    quality_action: str = "rollback"
+    # detector thresholds: rolling window, EWMA z-score ceiling, grad
+    # explosion multiple of the rolling median (0 disables), plateau
+    # window (0 disables) and relative plateau threshold
+    quality_window: int = 32
+    quality_z_max: float = 6.0
+    quality_grad_ratio_max: float = 50.0
+    quality_plateau_window: int = 0
+    quality_plateau_rel: float = 1e-3
 
     def __post_init__(self):
+        for name in ("sentry", "quality_action", "quality_window",
+                     "quality_z_max", "quality_grad_ratio_max",
+                     "quality_plateau_window", "quality_plateau_rel"):
+            setattr(self, name, validate(name, getattr(self, name)))
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r} (expected "
                              f"{SAMPLERS})")
@@ -234,7 +270,9 @@ def open_checkpoints(cfg: TrainConfig, model: torch.nn.Module,
     good checkpoint is loaded into ``model`` and ``optimizer``."""
     if cfg.ckpt_dir is None:
         return None, 0
-    ckpt = CheckpointManager(cfg.ckpt_dir)
+    # fenced under the elastic launcher's incarnation epoch, when exported
+    ckpt = CheckpointManager(cfg.ckpt_dir,
+                             fence_epoch=resolve_fence_epoch())
     if cfg.resume != "auto":
         return ckpt, 0
     start_step, state = ckpt.restore(None, train_state(model, optimizer))
@@ -280,7 +318,9 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                                               Optional[torch.Tensor]]],
                evaluate: Callable[[], Dict[str, float]],
                epoch_stats: Callable[[int], Dict] = lambda steps: {},
-               sample_workers: int = 1) -> Tuple[List[Dict], int]:
+               sample_workers: int = 1,
+               step_stats: Callable[[], Optional[Dict]] = lambda: None,
+               parts: Sequence[int] = (0,)) -> Tuple[List[Dict], int]:
     """The epoch loop both trainers run, from global step
     ``start_step`` to ``cfg.num_epochs`` epochs; returns the per-epoch
     records and the final global step.
@@ -299,7 +339,15 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     call crosses a multiple of ``cfg.ckpt_every`` steps and at each
     epoch's end (asynchronously; the last write is drained before this
     returns). ``epoch_stats(n)`` adds the trainer's own fields to the
-    record of an epoch of ``n`` steps."""
+    record of an epoch of ``n`` steps.
+
+    With ``cfg.sentry`` each call's last loss and ``step_stats()`` (its
+    last step's stats, device tensors) are pushed to a
+    :class:`~dgl_operator_tpu_torch.obs.quality.StatsTap` at the call's
+    end global step, after the checkpoint, and whatever the tap has
+    ready goes to a ``QualityMonitor`` over ``parts`` (the partitions
+    the stats' rows name); the tap is drained at each epoch's end. A
+    fault goes through ``halt_for_rollback`` and is raised."""
     rng = np.random.default_rng(cfg.seed)
     start_epoch = start_step // steps_per_epoch
     for _ in range(start_epoch):
@@ -311,6 +359,18 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     # inline sampling is sampling work; with a pipeline, time spent
     # waiting for a batch is a stall
     wait_bucket = "sample" if depth <= 0 else "stall"
+    tap = Q.StatsTap() if cfg.sentry else None
+    monitor = (Q.QualityMonitor.from_config(cfg, parts=list(parts))
+               if cfg.sentry else None)
+
+    def observe(rec) -> None:
+        if rec is None:
+            return
+        try:
+            monitor.observe(*rec)
+        except Q.NumericsFault as fault:
+            Q.halt_for_rollback(fault, ckpt=ckpt, action=monitor.action)
+
     try:
         for epoch in range(start_epoch, cfg.num_epochs):
             perm = permute(rng)
@@ -347,8 +407,14 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                             gstep // cfg.ckpt_every
                             != prev_gstep // cfg.ckpt_every):
                         ckpt.save(gstep, state(), wait=False)
+                    if tap is not None:
+                        tap.push(gstep, loss[-1], step_stats())
+                        observe(tap.poll())
             finally:
                 pipeline.close()
+            if tap is not None:
+                # the epoch's last calls must not escape the sentry
+                observe(tap.drain())
             loss_values = torch.cat(losses).tolist()    # waits for the card
             dt = time.time() - t_epoch
             rec = {"epoch": epoch, "loss": loss_values[-1],
@@ -424,6 +490,11 @@ class SampledTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.optimizer = make_adam(model.parameters(), cfg, self.device)
+        # the sentry's view of each step's update (a flat copy of the
+        # parameters before Adam's step) and the last call's stats
+        self._delta = (Q.ParamDelta(model.parameters()) if cfg.sentry
+                       else None)
+        self.last_stats: Optional[Dict[str, torch.Tensor]] = None
         # the device sampler's run state, while train() runs
         self._run: Optional[DeviceRun] = None
 
@@ -475,24 +546,31 @@ class SampledTrainer:
         logits = self.model(blocks, h, generator=self.generator)
         return masked_loss(logits, self.labels, seeds)
 
-    def step_shipped(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def step_shipped(self, batch) -> Tuple[torch.Tensor, ...]:
         """One optimizer step on a shipped batch; returns the loss and
-        accuracy as device scalars (no sync). The gradients stay in
-        ``.grad`` until the next step."""
+        accuracy as device scalars (no sync), then, with the sentry,
+        the step's stats (``obs/quality.py::stat_vector`` of
+        ``grad_stats``). The gradients stay in ``.grad`` until the next
+        step."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self.loss(batch)
         loss.backward()
+        if self._delta is None:
+            self.optimizer.step()
+            return loss.detach(), acc.detach()
+        stats = Q.grad_part([p.grad for p in self._delta.params], loss)
+        self._delta.before()
         self.optimizer.step()
-        return loss.detach(), acc.detach()
+        stats.update(self._delta.stats())
+        return loss.detach(), acc.detach(), Q.stat_vector(stats)
 
-    def train_step(self, mb: MiniBatch
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def train_step(self, mb: MiniBatch) -> Tuple[torch.Tensor, ...]:
         """One optimizer step on a padded host minibatch
         (:meth:`step_shipped` of :meth:`ship`)."""
         return self.step_shipped(self.ship(mb))
 
     def device_sampler_step(self, seeds: torch.Tensor, gstep: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            ) -> Tuple[torch.Tensor, ...]:
         """One device-sampler step on the bank's seeds ``[1, B]``: the
         tree blocks of the draws keyed on ``(cfg.seed, gstep)``, then the
         step."""
@@ -507,20 +585,26 @@ class SampledTrainer:
         ``[k]`` on the device (no sync). ``batch`` is a list of host
         minibatches (a :meth:`train_step` each) or, with the device
         sampler, ``(b, step, k)``: ``k`` steps from bank row ``b`` at
-        global step ``step`` (:class:`DeviceRun`)."""
+        global step ``step`` (:class:`DeviceRun`). With the sentry the
+        call's last step's stats are left in :attr:`last_stats`."""
         if isinstance(batch, list):
             out = [self.train_step(mb) for mb in batch]
+            if self._delta is not None:
+                self.last_stats = Q.stats_of_rows(out[-1][2])
             return (torch.stack([o[0] for o in out]),
                     torch.stack([o[1] for o in out]))
         out = self._run(*batch)
+        if self._delta is not None:
+            self.last_stats = Q.stats_of_rows(out[2:, -1])
         return out[0], out[1]
 
     def _start_device_run(self, steps_per_epoch: int) -> DeviceRun:
         """The device sampler's run over epochs of ``steps_per_epoch``
         steps; its calls of K > 1 steps on the card are one graph
         replay each (captured at the first)."""
+        n_out = 2 + (len(Q.STAT_KEYS) if self._delta is not None else 0)
         self._run = DeviceRun(
-            self.device_sampler_step, 2,
+            self.device_sampler_step, n_out,
             (steps_per_epoch, 1, self.cfg.batch_size), self._indptr.dtype,
             self.cfg.steps_per_call, self.device,
             self.device.type == "cuda", [self.generator])
@@ -607,7 +691,9 @@ class SampledTrainer:
                 lambda: train_state(self.model, self.optimizer), permute,
                 sample, self.train_call, self.evaluate,
                 lambda steps: graph_stats(self._run),
-                sample_workers=resolve_num_samplers(cfg))
+                sample_workers=resolve_num_samplers(cfg),
+                step_stats=lambda: self.last_stats,
+                parts=[Q.my_partition()])
         finally:
             # the graph's memory pool goes with it
             self._run = None

@@ -14,7 +14,10 @@ flushes them together:
 
 ``process_fn(seeds, seq)`` receives a ``[<=batch_size]`` int64 seed
 vector and the batch sequence number and returns one result row per
-seed. Failures propagate to every waiting future of that batch.
+seed. Failures propagate to every waiting future of that batch. Each
+request carries its submitting thread's trace context
+(``obs/tracectx.py``): a batch runs under its oldest request's, and
+each request's submit-to-result span hangs under its own.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs
+from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs, tracectx
 
 
 class Overloaded(RuntimeError):
@@ -36,7 +39,7 @@ class Overloaded(RuntimeError):
 
 class _Pending:
     __slots__ = ("seeds", "future", "t_submit", "results", "filled",
-                 "next_chunk", "pc_submit", "priority", "deadline")
+                 "next_chunk", "ctx", "pc_submit", "priority", "deadline")
 
     def __init__(self, seeds: np.ndarray, t_submit: float,
                  priority: int = 0,
@@ -48,6 +51,9 @@ class _Pending:
         # absolute clock() time past which running this request only
         # wastes padded slots (the client already gave up)
         self.deadline = deadline
+        # the submitting thread's trace context, carried explicitly: the
+        # batcher thread serves many requests' chunks interleaved
+        self.ctx = tracectx.current()
         self.pc_submit = time.perf_counter()
         # chunk index -> result rows; chunk indices are assigned in
         # FIFO take order under the batcher lock, so sorted order IS
@@ -144,6 +150,19 @@ class MicroBatcher:
             get_obs().emit("serve_shed_start", reason=reason)
         else:
             get_obs().emit("serve_shed_stop")
+
+    @property
+    def shedding(self) -> bool:
+        return self._shedding
+
+    @property
+    def shed_floor(self) -> int:
+        return self._shed_floor
+
+    @property
+    def pending_seeds(self) -> int:
+        """Seeds waiting in the queue."""
+        return self._pending_seeds
 
     # -- submission ----------------------------------------------------
     def submit(self, node_ids, priority: int = 0,
@@ -243,15 +262,20 @@ class MicroBatcher:
     def _dispatch(self, seeds: np.ndarray, parts, t_oldest: float,
                   seq: int) -> None:
         """Run one padded batch and fan results (or the failure) back
-        out to the waiting futures; each request's submit→complete
-        window is recorded as a ``serve_request`` span."""
+        out to the waiting futures. The batch runs under the oldest
+        request's trace context (a coalesced batch carries one engine
+        span tree); each request's submit→complete window is recorded as
+        a ``serve_request`` span under its own context."""
         obs = get_obs()
         self._m_batches.inc()
         self._m_occupancy.observe(
             len(seeds) / max(self._capacity_of(len(seeds)), 1))
         self._m_wait.observe(max(self._clock() - t_oldest, 0.0))
+        carrier = parts[0][0].ctx if parts else None
         try:
-            with obs.span("serve_batch", batch=seq, seeds=len(seeds)):
+            with tracectx.use(carrier), \
+                    tracectx.span("serve_batch", cat="serve", batch=seq,
+                                  seeds=len(seeds)):
                 out = np.asarray(self.process_fn(seeds, seq))
             if len(out) != len(seeds):
                 raise RuntimeError(
@@ -274,8 +298,11 @@ class MicroBatcher:
             lo += n
             if complete:
                 self._m_latency.observe(max(now - req.t_submit, 0.0))
+                ids = (req.ctx.child().ids() if req.ctx is not None
+                       else {})
                 obs.complete("serve_request", req.pc_submit,
-                             time.perf_counter(), seeds=len(req.seeds))
+                             time.perf_counter(), cat="serve",
+                             seeds=len(req.seeds), **ids)
                 req.future.set_result(np.concatenate(
                     [req.results[i] for i in sorted(req.results)]))
 

@@ -35,7 +35,7 @@ from dgl_operator_tpu_torch.graph.blocks import calibrate_caps, fanout_caps
 from dgl_operator_tpu_torch.graph.featstore import PagedFeatureStore
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import state_dict_from_flax
-from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs
+from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs, tracectx
 from dgl_operator_tpu_torch.parallel.halo import (DEFAULT_HALO_CACHE_FRAC,
                                                   build_halo_cache)
 from dgl_operator_tpu_torch.runtime import forward
@@ -261,7 +261,6 @@ class ServeEngine:
             self._m_fastpath.inc()
         caps = self._shape_caps[bs]
         weights = self._weights   # one read: a swap mid-request is safe
-        obs = get_obs()
         out = None
         t0 = time.perf_counter()
         for part, ci, pos in forward.route_by_owner(
@@ -272,13 +271,14 @@ class ServeEngine:
             if not np.array_equal(core_g[loc], node_ids[pos]):
                 raise ValueError("node id not found in its owner "
                                  f"partition {part}")
-            with obs.span("engine_fanout", part=part, seeds=len(pos)):
+            with tracectx.span("engine_fanout", cat="serve", part=part,
+                               seeds=len(pos)):
                 mb = forward.sample_padded(
                     self._csc[part], loc, cfg.fanouts, caps,
                     self.n_pad, bs,
                     forward.part_sample_seed(sample_seed + ci, part))
                 h = self._gather(part, mb)
-            with obs.span("forward_dispatch", part=part):
+            with tracectx.span("forward_dispatch", cat="serve", part=part):
                 blocks = [b.to(self.device) for b in mb.blocks]
                 h_dev = torch.from_numpy(h).to(self.device)
                 # .cpu() waits for the card

@@ -230,7 +230,8 @@ def test_empty_slot_counts_in_the_gradient_mean():
             return (w * 0).sum()
         return (w * targets[s]).sum()
 
-    loss = slot_mean_step(opt, loss_of, 2)
+    loss, stats = slot_mean_step(opt, loss_of, 2)
+    assert stats is None
     assert float(loss) == 0.0
     assert torch.equal(w.detach(), -torch.tensor([0.5, 1.0, 1.5]))
 

@@ -28,6 +28,7 @@ from dgl_operator_tpu_torch.runtime.dist import DistTrainer
 from dgl_operator_tpu_torch.runtime.kge import (DistKGETrainer,
                                                 KGETrainConfig, KGETrainer)
 from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
+from dgl_operator_tpu_torch.serve import server as serve_server
 from dgl_operator_tpu_torch.serve.engine import ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,6 +159,13 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, dgl_operator_tpu_torch, "
             "dgl_operator_tpu_torch.serve.engine, "
             "dgl_operator_tpu_torch.serve.batcher, "
+            "dgl_operator_tpu_torch.serve.server, "
+            "dgl_operator_tpu_torch.serve.router, "
+            "dgl_operator_tpu_torch.obs.quality, "
+            "dgl_operator_tpu_torch.obs.slo, "
+            "dgl_operator_tpu_torch.obs.live, "
+            "dgl_operator_tpu_torch.obs.tracectx, "
+            "dgl_operator_tpu_torch.autotune.knobs, "
             "dgl_operator_tpu_torch.runtime.loop, "
             "dgl_operator_tpu_torch.runtime.dist, "
             "dgl_operator_tpu_torch.runtime.checkpoint, "
@@ -212,6 +220,9 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         DistKGETrainer(KGEConfig(), KGETrainConfig(), num_slots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_kge.main(["--part_config", "no-such-book.json"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_server.main(["--part-config", "no-such-book.json",
+                           "--params", "no-such-export.npz"])
     for example in (graphsage, link_predict, message_passing,
                     link_predict_rgcn, graph_classification):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -200,9 +200,8 @@ def test_unported_knobs_raise(port_graph, field, value):
     assert out["step"] == len(losses) > 0 and np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("field", ["sentry", "pipeline_mode",
-                                   "pipeline_depth", "donate",
-                                   "gather_depth"])
+@pytest.mark.parametrize("field", ["pipeline_mode", "pipeline_depth",
+                                   "donate", "gather_depth"])
 def test_jax_only_fields_are_not_fields(field):
     with pytest.raises(TypeError):
         TrainConfig(**{field: JaxTrainConfig().__dict__[field]})
