@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, KGE, GAT,
-full-graph, RGCN and GIN paths, the numerics sentry and the serving
-fleet.
+full-graph, RGCN and GIN paths, the numerics sentry, the serving
+fleet, and the chaos, preemption and live planes.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -258,20 +258,48 @@ Each phase prints JSON lines:
    fence and the incumbent untouched, then the trained weights promoted
    to both replicas at fence epoch 1; and partition 0's replica killed
    under 4 concurrent clients: every request answered, the replica
-   drained, ``fleet_replicas_up`` 1.
+   drained, ``fleet_replicas_up`` 1. The chaos plan drives both drills:
+   ``promote:bad`` poisons the first candidate after its checksum, and
+   ``replica:die:3`` kills a spare plane of the victim's name, built
+   under the plan and swapped into the ring, at its third request.
+
+19. ``chaos`` — the chaos, preemption and live planes on phase 3's
+   graph and widths (``TPU_OPERATOR_CHAOS`` plans set around each run):
+   ``train:kill`` on ``SampledTrainer`` with the device sampler at
+   K = 4 (captured, dropout 0) over 20 steps: the flush at step 8, a
+   fresh trainer resuming there and ending bit-equal to the
+   uninterrupted run; ``DistTrainer`` (owner layout, host sampler,
+   sampler width 2) killed mid-epoch with no sampler, exchange or
+   writer thread left; ``numerics:nan`` at K = 4: the card faulting at
+   the CPU's step and partition, the checkpoints at or past it
+   quarantined, a relaunch on the same workspace not poisoned again and
+   finishing; ``ckpt:corrupt`` (the restore falls back past the stomped
+   archive); ``step:slow:0.05`` (the stall phase grows by the drag a
+   call); ``host:die`` in a child process on the card (exit 113, the
+   dead-host marker, no checkpoint past the last periodic one); the
+   live sidecar (``TPU_OPERATOR_LIVE_PORT=0``) polled from a thread
+   during a 40-step run and read done after it; the KGE sentry
+   (``KGETrainer`` on synthetic FB15k at the job's width, 50 steps with
+   the sentry off, on, on, off: bit-equal, its overhead in ms a step;
+   one step's stats against the CPU's within 1e-5 relative; a NaN
+   entity row faulting the card at the CPU's step); and the owner
+   layout's exchange pipeline (``DistTrainer``, host sampler, phase
+   10's book: synchronous, ``staged``, ``fused`` at K = 1 and 2, 20
+   steps each, bit-equal, launches checked, each run's step time and
+   ``overlap_ratio``).
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, gat, message_passing, rgcn_gin, sentry and fleet phases (both
-ranks of each
+kge, gat, message_passing, rgcn_gin, sentry, fleet and chaos phases
+(both ranks of each
 two-rank run and every graph replay included), split by path, worst
 error, the times of its calls in one SAGE training step and, under
 ``kge``, in one KGE step, under ``device_sampler``, in one
 device-sampled step, under ``gat`` and ``gatv2``, in one device-sampled
 step of that stack, under ``full_graph``, in one edge gather or
 segment sum of the Cora loop and, under ``rgcn_gin``, in one call at
-each RGCN and pool shape), the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
+each RGCN and pool shape), a ``total`` line with the run's seconds, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
 """
@@ -279,6 +307,7 @@ before that last line is printed; without a CUDA card the script exits
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -317,6 +346,8 @@ DIST_CPU_STEPS = 3     # dist steps of the card-against-CPU comparison
 
 # the last record printed by each phase
 LAST = {}
+# the script's start, for the whole run's seconds
+T_START = time.perf_counter()
 
 
 def emit(**record) -> None:
@@ -3282,7 +3313,8 @@ def kge_phase(torch, args, ops, wrappers, work: str, card: str):
     at full size: the kernels at the step's shapes, ``KGETrainer`` (the
     main path), card against CPU, every scorer, ``DistKGETrainer`` in
     its three forms and resumed, and the ranking evaluations. Returns
-    the kernel records and the launches of the main-path runs."""
+    the kernel records, the launches of the main-path runs and the
+    dataset."""
     from dgl_operator_tpu_torch.graph import datasets
 
     t0 = time.perf_counter()
@@ -3298,7 +3330,7 @@ def kge_phase(torch, args, ops, wrappers, work: str, card: str):
     kge_scorers(torch, args, ds, card)
     tr_a, dist_launches = kge_dist(torch, args, wrappers, ds, work, card)
     kge_eval(torch, tr_a, ds, card)
-    return records, {k: launches[k] + dist_launches[k] for k in launches}
+    return records, {k: launches[k] + dist_launches[k] for k in launches}, ds
 
 
 # ------------------------------------------------------------------ gat
@@ -4890,15 +4922,6 @@ def same_run(a, b) -> bool:
         v.equal(b["params"][k]) for k, v in a["params"].items())
 
 
-def nan_tree(tree):
-    """``tree`` (a params export) with every leaf filled with NaN."""
-    import numpy as np
-
-    if isinstance(tree, dict):
-        return {k: nan_tree(v) for k, v in tree.items()}
-    return np.full_like(tree, np.nan)
-
-
 def sentry_sampled(torch, args, wrappers, g, trainer, card: str) -> dict:
     """``SampledTrainer`` over the train phase's 40 steps with the sentry
     off and on, in the order off, on, on, off: the host sampler at
@@ -5193,6 +5216,7 @@ def sentry_phase(torch, args, wrappers, g, trainer, ctx, work: str,
 FLEET_CLIENTS = 4          # concurrent clients of the failover drill
 FLEET_FAILOVER_REQUESTS = 12   # requests per client; the kill after 3
 FLEET_MAX_CANARY = 400     # requests a canary verdict may take
+FLEET_DIE_AFTER = 3        # replica:die: the victim's accepted requests
 
 
 def fleet_requests(args, g):
@@ -5210,15 +5234,18 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
     2-part book, serving the trained weights, behind a ``RouterPlane``:
     the serve phase's requests through HTTP (p50/p99 beside the serve
     phase's direct batcher numbers), a fixed request's reply against the
-    engine's own ``predict``, a NaN-filled canary rolled back and the
-    trained weights promoted through ``ServingPromotion``, and a replica
-    killed under concurrent clients with no request dropped. Returns the
-    launches of the served requests."""
+    engine's own ``predict``, a canary poisoned by the chaos plan's
+    ``promote:bad`` rolled back and the trained weights promoted through
+    ``ServingPromotion``, and partition 0's replica killed by
+    ``replica:die`` under concurrent clients with no request dropped (a
+    spare plane of its name, built with the plan, takes its place in the
+    ring first). Returns the launches of the served requests."""
     import threading
     import urllib.request
 
     import numpy as np
 
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
     from dgl_operator_tpu_torch.models.sage import (DistSAGE,
                                                     state_dict_to_flax)
     from dgl_operator_tpu_torch.obs import get_obs
@@ -5244,18 +5271,23 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
         [f"r{i}" for i in range(8)], 2)
         if len({HashRing(pair).candidates(f"part-{p}")[0]
                 for p in range(2)}) == 2)
+    victim_name = HashRing(names).candidates("part-0")[0]
+    spare_key = victim_name + "-spare"
     t0 = time.perf_counter()
     planes = {}
     router_plane = None
     try:
-        for name in names:
+        for key, name, plan in [(n, n, None) for n in names] + [
+                (spare_key, victim_name,
+                 f"replica:die:{FLEET_DIE_AFTER}@host={victim_name}")]:
             eng = ServeEngine(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
                               book, params_path=export, cfg=cfg,
                               device="cuda")
-            planes[name] = ServingPlane(eng, port=0, name=name).start()
+            with chaos_env(**{CHAOS_ENV: plan}):
+                planes[key] = ServingPlane(eng, port=0, name=name).start()
         node_map = np.asarray(planes[names[0]].engine.node_map)
-        router = FleetRouter([Replica(n, "127.0.0.1", p.port, plane=p)
-                              for n, p in planes.items()],
+        router = FleetRouter([Replica(n, "127.0.0.1", planes[n].port,
+                                      plane=planes[n]) for n in names],
                              node_map=node_map, probe_timeout_s=2.0)
         router_plane = RouterPlane(router).start(probe_interval_s=0.5)
         setup_s = time.perf_counter() - t0
@@ -5324,11 +5356,14 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
         before = planes[canary_name].engine.predict(probe, sample_seed=3)
         verdicts = []
         for round_ in ("nan", "trained"):
-            cand = promo.stage(trained)
-            if round_ == "nan":
-                # the staged file itself, sidecar included: integrity
-                # checks pass, only the canary's detectors can tell
-                export_for_serving(cand, nan_tree(load_params(cand)))
+            # promote:bad poisons the staged file after its checksum:
+            # integrity checks pass, only the canary's detectors can tell
+            with chaos_env(**{CHAOS_ENV: "promote:bad" if round_ == "nan"
+                              else None}):
+                cand = promo.stage(trained)
+            leaf = load_params(cand)["params"]["FanoutSAGEConv_0"]["self"]
+            check(bool(np.isnan(leaf["kernel"]).all()) == (round_ == "nan"),
+                  f"fleet canary {round_}: the staged candidate")
             canary.start(cand, replica=canary_name)
             sent = 0
             while canary.active and sent < FLEET_MAX_CANARY:
@@ -5354,8 +5389,8 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
                       f"fleet canary: trained candidate {verdicts[-1]}")
                 check(read_fence(promo.directory)["epoch"] == 1,
                       f"fleet canary: fence {read_fence(promo.directory)}")
-                check(all(p.engine.params is canary._candidate
-                          for p in planes.values()),
+                check(all(planes[n].engine.params is canary._candidate
+                          for n in names),
                       "fleet canary: both replicas swapped")
         check([h["action"] for h in promotion_history(promo.directory)]
               == ["rolled_back", "promoted"], "fleet: promotion history")
@@ -5363,11 +5398,16 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
              rounds=verdicts,
              fence=read_fence(promo.directory)["epoch"])
 
-        # failover: partition 0's replica killed under concurrent clients
-        victim = planes[router.ring.candidates("part-0")[0]]
+        # failover: partition 0's replica, the spare built under
+        # replica:die, dies after its third request under concurrent
+        # clients
+        check(router.ring.candidates("part-0")[0] == victim_name,
+              "fleet failover: the victim owns partition 0")
+        victim = planes[spare_key]
+        rep = router.replica(victim_name)
+        rep.port, rep.plane = victim.port, victim
         codes = []
         lock = threading.Lock()
-        killed = threading.Event()
 
         def client(c):
             for i in range(FLEET_FAILOVER_REQUESTS):
@@ -5377,24 +5417,23 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
                 with lock:
                     codes.append(code == 200 and len(
                         payload.get("predictions", [])) == len(ids))
-                if c == 0 and i == 2:
-                    victim.kill()
-                    killed.set()
 
         retries0 = router._m_retries.value()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=FLEET_CLIENTS) as pool:
             list(pool.map(client, range(FLEET_CLIENTS)))
         failover_s = time.perf_counter() - t0
-        check(killed.is_set() and len(codes)
-              == FLEET_CLIENTS * FLEET_FAILOVER_REQUESTS and all(codes),
-              f"fleet failover: {codes.count(False)} of {len(codes)} "
-              "requests dropped")
+        check(victim.dead and victim._accepted == FLEET_DIE_AFTER
+              and len(codes) == FLEET_CLIENTS * FLEET_FAILOVER_REQUESTS
+              and all(codes),
+              f"fleet failover: dead {victim.dead} after "
+              f"{victim._accepted} requests; {codes.count(False)} of "
+              f"{len(codes)} requests dropped")
         deadline = time.monotonic() + 30
         while router.replicas_up() != 1 and time.monotonic() < deadline:
             time.sleep(0.1)
         up = get_obs().metrics.gauge("fleet_replicas_up").value()
-        check(router.replica(victim.name).state == "down" and up == 1,
+        check(router.replica(victim_name).state == "down" and up == 1,
               f"fleet failover: fleet_replicas_up {up}")
         forwards = sum(p.engine.forward_calls - forwards0[n]
                        for n, p in planes.items())
@@ -5406,7 +5445,7 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
               f"fleet: 2 fanout_agg launches per forward: {launches}, "
               f"{forwards} forwards")
         emit(phase="fleet", part="failover", card=card,
-             clients=FLEET_CLIENTS,
+             clients=FLEET_CLIENTS, chaos=f"replica:die:{FLEET_DIE_AFTER}",
              victim=victim.name,
              requests=FLEET_CLIENTS * FLEET_FAILOVER_REQUESTS, dropped=0,
              retries=router._m_retries.value() - retries0,
@@ -5420,10 +5459,587 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
     return launches
 
 
+# ---------------------------------------------------------------- chaos
+CHAOS_IDS = 20_000         # the chaos runs' epoch: 20 steps of 1000 seeds
+CHAOS_K = 4                # device-sampler calls of 4 steps (captured)
+CHAOS_KILL_AT = 8          # train:kill at the end of the second call
+CHAOS_NAN_AT = 4           # numerics:nan after the first call
+CHAOS_DIE_AT = 5           # host:die in the child, checkpoints every 2
+CHAOS_SLOW_S = 0.05        # step:slow's drag a call
+CHAOS_SLOW_IDS = 8_000     # its runs: 8 steps, 2 calls
+CHAOS_LIVE_IDS = 40_000    # the sidecar's run: 40 steps of K = 1
+CHAOS_KGE_STEPS = 50       # KGETrainer steps of each sentry run
+CHAOS_PIPE_MODES = (("synchronous", None, 1), ("staged", "staged", 1),
+                    ("fused_k1", "fused", 1), ("fused_k2", "fused", 2))
+# the threads a run may start: sampler pipelines, the sampler pool, the
+# checkpoint writer and the live sidecar
+CHAOS_THREADS = ("sampler", "slot-sampler", "ckpt-writer", "tpu-livez")
+# the host:die child: the setup phase's graph and a device-sampler
+# SampledTrainer at the SAGE widths that checkpoints every 2 steps
+CHAOS_DIE_CHILD = """
+import json, sys
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+import numpy as np
+import torch
+from dgl_operator_tpu_torch.graph import datasets
+from dgl_operator_tpu_torch.models.sage import DistSAGE
+from dgl_operator_tpu_torch.runtime.loop import SampledTrainer, TrainConfig
+g = datasets.ogbn_products(seed=spec["seed"], scale=spec["scale"]).graph
+ids = np.nonzero(g.ndata["train_mask"])[0][:spec["ids"]]
+cfg = TrainConfig(batch_size=spec["batch"], fanouts=(10, 25), num_epochs=1,
+                  eval_every=0, dropout=0.0, sampler="device",
+                  ckpt_dir=spec["ckpt"], ckpt_every=2)
+SampledTrainer(DistSAGE(100, 256, 47, device="cuda"), g, cfg,
+               train_ids=ids).train()
+print("survived", flush=True)
+"""
+
+
+@contextlib.contextmanager
+def chaos_env(**values):
+    """The environment variables ``values`` set (a value of None
+    unsets one) inside the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def chaos_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(CHAOS_THREADS)]
+
+
+def add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def chaos_sampled(torch, g, trainer, ids, device="cuda", **fields):
+    """A full-width ``SampledTrainer`` over ``ids`` with the device
+    sampler (dropout 0) on ``device``."""
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    cfg = TrainConfig(**{**dict(
+        batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR, num_epochs=1,
+        eval_every=0, dropout=0.0, sampler="device",
+        steps_per_call=CHAOS_K), **fields})
+    return SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, dropout=0.0,
+                                   device=device), g, cfg, train_ids=ids,
+                          device=device)
+
+
+def chaos_kill(torch, args, wrappers, g, trainer, ctx, w0, work: str,
+               card: str) -> dict:
+    """``train:kill`` at K = 4 (captured): the flush lands at the kill
+    step, a fresh trainer resumes there and ends on the uninterrupted
+    run's parameters and losses bit for bit; then ``DistTrainer`` in the
+    owner layout, host sampler, sampler width 2, killed mid-epoch,
+    leaves no thread behind. Returns the launches."""
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+    from dgl_operator_tpu_torch.runtime.checkpoint import CheckpointManager
+    from dgl_operator_tpu_torch.runtime.loop import Preempted
+
+    ids = trainer.train_ids[:CHAOS_IDS]
+    total, launches = {}, {}
+    reset_counts(wrappers)
+    full = chaos_sampled(torch, g, trainer, ids).train(init_params=w0)
+    launches["full"] = read_counts(wrappers)
+    steps = full["step"]
+    ckpt = os.path.join(work, "chaos_kill")
+    with chaos_env(**{CHAOS_ENV: f"train:kill:{CHAOS_KILL_AT}"}):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        try:
+            chaos_sampled(torch, g, trainer, ids,
+                          ckpt_dir=ckpt).train(init_params=w0)
+            raise RuntimeError("chaos kill: the run was not preempted")
+        except Preempted as exc:
+            message = str(exc)
+        kill_s = time.perf_counter() - t0
+        launches["killed"] = read_counts(wrappers)
+        flushed = CheckpointManager(ckpt).latest_step()
+        reset_counts(wrappers)
+        resumed = chaos_sampled(torch, g, trainer, ids, ckpt_dir=ckpt).train()
+        launches["resumed"] = read_counts(wrappers)
+    check(flushed == CHAOS_KILL_AT and f"step {CHAOS_KILL_AT}" in message,
+          f"chaos kill: flushed {flushed}: {message}")
+    want = [x for h in full["history"] for x in h["losses"]]
+    got = [x for h in resumed["history"] for x in h["losses"]]
+    check(resumed["step"] == steps and got == want[CHAOS_KILL_AT:]
+          and all(torch.equal(v, full["params"][k])
+                  for k, v in resumed["params"].items()),
+          f"chaos kill: the resumed run differs from the uninterrupted one "
+          f"(steps {resumed['step']} of {steps})")
+    check(launches["full"] == sage_launches(steps)
+          and launches["killed"] == sage_launches(CHAOS_KILL_AT)
+          and launches["resumed"] == sage_launches(steps - CHAOS_KILL_AT),
+          f"chaos kill launches: {launches}")
+    for v in launches.values():
+        add_counts(total, v)
+    emit(phase="chaos", part="train_kill", card=card, trainer="SampledTrainer",
+         sampler="device", steps_per_call=CHAOS_K, steps=steps,
+         kill_at=CHAOS_KILL_AT, flushed_step=flushed,
+         resumed_steps=len(got), bit_equal=True, kill_run_s=kill_s,
+         graph=resumed["history"][0]["graph"], launches=launches,
+         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+    dist_ckpt = os.path.join(work, "chaos_kill_dist")
+    tr = ctx["make"]("owner", eval_every=0, num_samplers=2,
+                     ckpt_dir=dist_ckpt)
+    kill = tr.steps_per_epoch // 4 + 1
+    with chaos_env(**{CHAOS_ENV: f"train:kill:{kill}"}):
+        reset_counts(wrappers)
+        try:
+            tr.train(init_params=ctx["w0"])
+            raise RuntimeError("chaos kill: DistTrainer was not preempted")
+        except Preempted:
+            pass
+        dist_launches = read_counts(wrappers)
+    left = chaos_threads()
+    flushed = CheckpointManager(dist_ckpt).latest_step()
+    P = tr.num_parts
+    check(left == [] and flushed == kill,
+          f"chaos kill DistTrainer: threads {left}, flushed {flushed}")
+    # the fused pipeline (K = 1) had the next batch's exchange enqueued
+    exchanges = min(kill + 1, tr.steps_per_epoch)
+    check(dist_launches == {"fanout_agg": 2 * P * kill,
+                            "gather_rows": P * kill + exchanges,
+                            "scatter_add_rows": P * kill},
+          f"chaos kill DistTrainer launches {dist_launches}")
+    add_counts(total, dist_launches)
+    emit(phase="chaos", part="train_kill", card=card, trainer="DistTrainer",
+         layout="owner", sampler="host", num_samplers=2, kill_at=kill,
+         flushed_step=flushed, threads_left=left, launches=dist_launches)
+    return total
+
+
+def chaos_numerics(torch, args, wrappers, g, trainer, w0, work: str,
+                   card: str) -> dict:
+    """``numerics:nan`` at K = 4: the card faults at the CPU's step and
+    partition under the same plan, the checkpoints at or past the fault
+    are quarantined, and a relaunch on the same workspace is not
+    poisoned again and finishes. Returns the card's launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+    from dgl_operator_tpu_torch.obs import quality as Q
+    from dgl_operator_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    ids = trainer.train_ids[:CHAOS_IDS]
+    ckpt = os.path.join(work, "chaos_nan_ckpt")
+    faults, launches, run_s = {}, {}, {}
+    for side in ("cpu", "card"):
+        ws = os.path.join(work, f"chaos_nan_{side}")
+        os.makedirs(ws)
+        with chaos_env(**{CHAOS_ENV: f"numerics:nan:{CHAOS_NAN_AT}",
+                          Q.WORKSPACE_ENV: ws}):
+            if side == "cpu":
+                tr = chaos_sampled(torch, g, trainer, ids, device="cpu",
+                                   quality_action="halt")
+            else:
+                tr = chaos_sampled(torch, g, trainer, ids, ckpt_dir=ckpt,
+                                   ckpt_every=CHAOS_K)
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            try:
+                tr.train(init_params=w0)
+                raise RuntimeError(f"chaos numerics: no fault on the {side}")
+            except Q.NumericsFault as exc:
+                faults[side] = exc
+            run_s[side] = time.perf_counter() - t0
+            launches[side] = read_counts(wrappers)
+            check(os.path.exists(os.path.join(ws, Q.NUMERICS_FIRED_MARKER)),
+                  f"chaos numerics: no fired marker on the {side}")
+    step = faults["card"].step
+    check((step, faults["card"].partition, faults["card"].kind)
+          == (faults["cpu"].step, faults["cpu"].partition,
+              faults["cpu"].kind) and step == CHAOS_NAN_AT + CHAOS_K,
+          f"chaos numerics: card fault {vars(faults['card'])} vs CPU "
+          f"{vars(faults['cpu'])}")
+    files = sorted(os.listdir(ckpt))
+    bad = sorted(int(f[5:-8]) for f in files if f.endswith(".npz.bad"))
+    survivor = CheckpointManager(ckpt).latest_step()
+    check(step in bad and all(s >= step for s in bad)
+          and survivor == CHAOS_NAN_AT,
+          f"chaos numerics: quarantined {bad}, survivor {survivor}: {files}")
+    # the relaunch: same plan and workspace, the fired marker disarms it
+    ws = os.path.join(work, "chaos_nan_card")
+    with chaos_env(**{CHAOS_ENV: f"numerics:nan:{CHAOS_NAN_AT}",
+                      Q.WORKSPACE_ENV: ws}):
+        reset_counts(wrappers)
+        out = chaos_sampled(torch, g, trainer, ids, ckpt_dir=ckpt,
+                            ckpt_every=CHAOS_K).train()
+        launches["relaunch"] = read_counts(wrappers)
+    losses = out["history"][0]["losses"]
+    total = len(ids) // BATCH_TRAIN
+    check(out["step"] == total and len(losses) == total - survivor
+          and bool(np.isfinite(losses).all())
+          and all(bool(torch.isfinite(v).all())
+                  for v in out["params"].values()),
+          f"chaos numerics relaunch: ended at {out['step']}")
+    ran = launches["card"]["scatter_add_rows"]
+    check(launches["card"] == sage_launches(ran)
+          and launches["relaunch"] == sage_launches(total - survivor),
+          f"chaos numerics launches {launches}")
+    emit(phase="chaos", part="numerics_nan", card=card, sampler="device",
+         steps_per_call=CHAOS_K, nan_at=CHAOS_NAN_AT, fault_step=step,
+         fault_partition=faults["card"].partition,
+         fault_kind=faults["card"].kind, cpu_fault_step=faults["cpu"].step,
+         card_steps_run=ran, quarantined=bad, survivor=survivor,
+         relaunch_steps=len(losses), final_step=out["step"],
+         card_s=run_s["card"], cpu_s=run_s["cpu"], launches=launches)
+    return {k: launches["card"][k] + launches["relaunch"][k]
+            for k in launches["card"]}
+
+
+def chaos_ckpt_corrupt(torch, trainer, work: str, card: str) -> None:
+    """``ckpt:corrupt``: of the trainer's state saved at steps 2 and 4
+    the second is stomped after its publish; the restore falls back to
+    step 2, and a later save is intact (the rule fires once)."""
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+    from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                           train_state)
+
+    d = os.path.join(work, "chaos_corrupt")
+    state = train_state(trainer.model, trainer.optimizer)
+    with chaos_env(**{CHAOS_ENV: "ckpt:corrupt:3"}):
+        mgr = CheckpointManager(d)
+        for step in (2, 4):
+            mgr.save(step, state)
+        step, restored = mgr.restore(None, state)
+        fallback = step
+        same = all(torch.equal(restored["params"][k], v)
+                   for k, v in state["params"].items())
+        mgr.save(6, state)
+        later = mgr.restore(None, state)[0]
+    check(fallback == 2 and same and later == 6,
+          f"chaos ckpt:corrupt: restored {fallback}, then {later}")
+    emit(phase="chaos", part="ckpt_corrupt", card=card, saved=[2, 4, 6],
+         corrupted=4, restored_step=fallback, later_restore=later)
+
+
+def chaos_step_slow(torch, wrappers, g, trainer, card: str) -> dict:
+    """``step:slow``: the stall phase of a device-sampler run grows by
+    at least the drag a call. Returns the launches."""
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+
+    ids = trainer.train_ids[:CHAOS_SLOW_IDS]
+    recs, total = {}, {}
+    for plan in (None, f"step:slow:{CHAOS_SLOW_S}"):
+        with chaos_env(**{CHAOS_ENV: plan}):
+            reset_counts(wrappers)
+            out = chaos_sampled(torch, g, trainer, ids).train()
+            add_counts(total, read_counts(wrappers))
+        recs[plan is not None] = out["history"][0]
+    calls = recs[True]["calls"]
+    grew = recs[True].get("stall", 0.0) - recs[False].get("stall", 0.0)
+    check(grew >= CHAOS_SLOW_S * calls,
+          f"chaos step:slow: stall grew {grew} s over {calls} calls")
+    emit(phase="chaos", part="step_slow", card=card, seconds=CHAOS_SLOW_S,
+         calls=calls, stall_s_off=recs[False].get("stall", 0.0),
+         stall_s_on=recs[True].get("stall", 0.0), stall_growth_s=grew,
+         epoch_s_off=recs[False]["time"], epoch_s_on=recs[True]["time"])
+    return total
+
+
+def chaos_host_die(args, work: str, card: str) -> None:
+    """``host:die`` in a child process on the card: it exits with 113
+    after the dead-host marker, and no checkpoint is published past the
+    last periodic one."""
+    from dgl_operator_tpu_torch.launcher.chaos import (CHAOS_ENV,
+                                                       HOST_DIED_EXIT,
+                                                       dead_hosts)
+    from dgl_operator_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    ws, ckpt = (os.path.join(work, n) for n in ("chaos_die_ws",
+                                                  "chaos_die_ckpt"))
+    os.makedirs(ws)
+    hostfile = os.path.join(work, "chaos_die_hosts")
+    with open(hostfile, "w") as f:
+        f.write("127.0.0.1 30050 w0 slots=1\n127.0.0.1 30051 w1 slots=1\n")
+    spec = dict(repo=REPO, seed=args.seed, scale=args.scale, ckpt=ckpt,
+                ids=10 * BATCH_TRAIN, batch=BATCH_TRAIN)
+    env = dict(os.environ, TPU_OPERATOR_CHAOS=f"host:die:{CHAOS_DIE_AT}"
+               "@host=w1", TPU_OPERATOR_WORKSPACE=ws,
+               TPU_OPERATOR_HOSTFILE_PATH=hostfile, TPU_OPERATOR_RANK="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHAOS_DIE_CHILD,
+                           json.dumps(spec)], env=env, capture_output=True,
+                          text=True, timeout=MP_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    # the periodic checkpoint of step 4 may still have been in its
+    # writer when the process vanished; nothing past it may exist
+    latest = CheckpointManager(ckpt).latest_step()
+    check(proc.returncode == HOST_DIED_EXIT
+          and "survived" not in proc.stdout
+          and dead_hosts(ws) == ["w1"] and latest in (2, 4),
+          f"chaos host:die: exit {proc.returncode}, dead {dead_hosts(ws)}, "
+          f"latest checkpoint {latest}: {proc.stderr[-2000:]}")
+    emit(phase="chaos", part="host_die", card=card, die_at=CHAOS_DIE_AT,
+         exit_code=proc.returncode, dead_hosts=dead_hosts(ws),
+         latest_checkpoint=latest, child_s=child_s)
+
+
+def chaos_live(torch, wrappers, g, trainer, card: str) -> dict:
+    """The live sidecar: ``TPU_OPERATOR_LIVE_PORT=0`` during a 40-step
+    run, ``/livez`` polled from a thread shows the step advancing and a
+    heartbeat rate above 0, and reads done after the run; then the host
+    ms of one heartbeat. Returns the launches."""
+    import threading
+    import urllib.request
+
+    from dgl_operator_tpu_torch.obs import live
+    from dgl_operator_tpu_torch.runtime.loop import heartbeat
+
+    polls, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            sc = live._sidecar
+            if sc is not None:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{sc.port}/livez",
+                        timeout=10) as r:
+                    polls.append(json.loads(r.read()))
+            stop.wait(0.005)
+
+    ids = trainer.train_ids[:CHAOS_LIVE_IDS]
+    live.reset_feed()
+    poller = threading.Thread(target=poll, name="chaos-livez-poll")
+    with chaos_env(**{live.LIVE_PORT_ENV: 0}):
+        tr = chaos_sampled(torch, g, trainer, ids, steps_per_call=1)
+        reset_counts(wrappers)
+        poller.start()
+        try:
+            out = tr.train()
+        finally:
+            stop.set()
+            poller.join(timeout=30)
+        launches = read_counts(wrappers)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{live._sidecar.port}/livez",
+                    timeout=10) as r:
+                after = json.loads(r.read())
+        finally:
+            live.stop_sidecar()
+    steps = [p["step"] for p in polls if p["step"] is not None]
+    rates = [p["heartbeat_hz"] for p in polls if p["heartbeat_hz"]]
+    check(not poller.is_alive() and len(set(steps)) >= 2
+          and steps == sorted(steps) and rates and max(rates) > 0,
+          f"chaos live: /livez steps {steps[:5]}..{steps[-5:]}, "
+          f"heartbeat_hz {rates[-3:]}")
+    check(after["done"] and after["step"] == out["step"],
+          f"chaos live: after the run {after}")
+    check(launches == sage_launches(out["step"]),
+          f"chaos live launches {launches}")
+    # one heartbeat (gauges, an event, a tick of the feed) with the
+    # run's timer, as the loop calls it after every call
+    hb_ms = host_ms(lambda: heartbeat(out["step"], 0, tr.timer, sps=1.0,
+                                      loss=0.5, grad_norm=1.0), 1000)
+    emit(phase="chaos", part="live", card=card, steps=out["step"],
+         heartbeat_ms=hb_ms,
+         polls=len(polls), distinct_steps=len(set(steps)),
+         first_step=steps[0], last_polled_step=steps[-1],
+         heartbeat_hz_max=max(rates), after_done=after["done"],
+         after_step=after["step"], stall_frac=after["stall_frac"],
+         loss=after["loss"])
+    return launches
+
+
+def chaos_kge(torch, args, wrappers, ds, card: str) -> dict:
+    """The KGE sentry at the job's width on synthetic FB15k at full
+    size: ``KGETrainer`` for ``CHAOS_KGE_STEPS`` steps with the sentry
+    off and on (order off, on, on, off): bit-equal, launches checked,
+    ms a step; one synced step's stats against the CPU's; and a NaN
+    entity row, first read by step 3, faults the card at the CPU's
+    step. Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.obs.quality import NumericsFault
+    from dgl_operator_tpu_torch.runtime.kge import KGETrainer
+
+    td = TrainDataset(ds.train, ds.n_entities, ds.n_relations, ranks=1)
+    runs, total = {False: [], True: []}, {}
+    sd0 = None
+    for sentry in (False, True, True, False):
+        tr = KGETrainer(*kge_configs(ds, args.seed, max_step=CHAOS_KGE_STEPS,
+                                     sentry=sentry), device="cuda")
+        sd0 = sd0 or tr.state_dict()
+        reset_counts(wrappers)
+        out = tr.train(td)
+        launches = read_counts(wrappers)
+        check(launches == {"fanout_agg": 0,
+                           "gather_rows": 2 * CHAOS_KGE_STEPS,
+                           "scatter_add_rows": 2 * CHAOS_KGE_STEPS},
+              f"chaos kge sentry={sentry}: {launches}")
+        add_counts(total, launches)
+        runs[sentry].append((out, tr.state_dict(), tr.last_stats))
+    ref_out, ref_sd, _ = runs[False][0]
+    for sentry, rs in runs.items():
+        for out, sd, _ in rs:
+            check(out["losses"] == ref_out["losses"]
+                  and all(np.array_equal(sd[k], ref_sd[k]) for k in sd),
+                  f"chaos kge: the run with the sentry "
+                  f"{'on' if sentry else 'off'} differs")
+    # train_time_s ends in the sync of the losses' fetch
+    ms = {s: [out["train_time_s"] * 1e3 / CHAOS_KGE_STEPS
+              for out, _, _ in rs] for s, rs in runs.items()}
+    off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
+    last = {k: v.tolist() for k, v in runs[True][0][2].items()}
+
+    # one synced step: the card and the CPU from the same tables
+    it = kge_stream(td, 0, (args.seed + 20, args.seed + 21))
+    batch = next(it)
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        tr = KGETrainer(*kge_configs(ds, args.seed), device=dev)
+        tr.load_state_dict(sd0)
+        tr.device_step(tr.host_step([batch]))
+        stats[dev] = {k: np.asarray(v.cpu(), np.float64)
+                      for k, v in tr.last_stats.items()}
+    rel = {k: float(np.max(np.abs(stats["cuda"][k] - stats["cpu"][k])
+                           / np.maximum(np.abs(stats["cpu"][k]), 1e-30)))
+           for k in ("grad_norm", "part_loss")}
+    check(max(rel.values()) <= SENTRY_STATS_TOL
+          and stats["cuda"]["nonfinite"] == stats["cpu"]["nonfinite"] == 0,
+          f"chaos kge stats card vs CPU: {rel}")
+
+    # the NaN drill: a row the stream first reads at step 3
+    it = kge_stream(td, 0, (args.seed, args.seed + 1))
+    seen = [set(np.concatenate([b.h, b.t, b.neg_ids.reshape(-1)]).tolist())
+            for b in (next(it) for _ in range(3))]
+    row = min(seen[2] - seen[0] - seen[1])
+    sd = {k: np.array(v, copy=True) for k, v in sd0.items()}
+    sd["entity"][row] = np.nan
+    faults = {}
+    for dev in ("cpu", "cuda"):
+        tr = KGETrainer(*kge_configs(ds, args.seed, max_step=CHAOS_KGE_STEPS,
+                                     quality_action="halt"), device=dev)
+        tr.load_state_dict(sd)
+        reset_counts(wrappers)
+        try:
+            tr.train(td)
+            raise RuntimeError(f"chaos kge drill: no fault on {dev}")
+        except NumericsFault as exc:
+            faults[dev] = exc
+        if dev == "cuda":
+            add_counts(total, read_counts(wrappers))
+    check((faults["cuda"].step, faults["cuda"].partition)
+          == (faults["cpu"].step, faults["cpu"].partition)
+          and faults["cuda"].step == 3,
+          f"chaos kge drill: card {vars(faults['cuda'])} vs CPU "
+          f"{vars(faults['cpu'])}")
+    emit(phase="chaos", part="kge_sentry", card=card, model="ComplEx",
+         dim=KGE_DIM, steps=CHAOS_KGE_STEPS, order="off,on,on,off",
+         bit_equal=True, ms_per_step_off=ms[False], ms_per_step_on=ms[True],
+         off_ms_mean=off, on_ms_mean=on, overhead_ms=on - off,
+         overhead=(on - off) / off, last_stats=last,
+         stats_rel_err_to_cpu=rel, nan_row=row,
+         fault_step=faults["cuda"].step,
+         fault_partition=faults["cuda"].partition,
+         cpu_fault_step=faults["cpu"].step)
+    return total
+
+
+def chaos_pipeline(torch, wrappers, ctx, card: str) -> dict:
+    """The overlap pipeline: ``DistTrainer`` in the owner layout with the
+    host sampler, 20 steps synchronous (the exchange in the step),
+    ``staged``, and ``fused`` at K = 1 and 2: losses and parameters
+    bit-equal, launches checked, the step time and ``overlap_ratio`` of
+    each. Returns the launches."""
+    import numpy as np
+
+    tr = ctx["make"]("owner", eval_every=0)
+    P, total, runs = tr.num_parts, {}, {}
+    for name, mode, depth in CHAOS_PIPE_MODES:
+        tr._pipelined = mode is not None
+        if mode is not None:
+            tr.cfg = dataclasses.replace(tr.cfg, pipeline_mode=mode,
+                                         pipeline_depth=depth)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = tr.train(init_params=ctx["w0"])
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        steps = out["step"]
+        check(launches == {"fanout_agg": 2 * P * steps,
+                           "gather_rows": (P + 1) * steps,
+                           "scatter_add_rows": P * steps},
+              f"chaos pipeline {name}: {launches} in {steps} steps")
+        add_counts(total, launches)
+        runs[name] = (out, wall, launches)
+    ref = runs["synchronous"][0]
+    for name, (out, _, _) in runs.items():
+        check(out["history"][0]["losses"] == ref["history"][0]["losses"]
+              and all(torch.equal(v, ref["params"][k])
+                      for k, v in out["params"].items()),
+              f"chaos pipeline: {name} differs from the synchronous run")
+    emit(phase="chaos", part="pipeline", card=card, layout="owner",
+         sampler="host", steps=ref["step"], bit_equal=True,
+         runs={name: dict(
+             mode=mode, depth=depth,
+             overlap_ratio=runs[name][0]["history"][0].get("overlap_ratio"),
+             step_ms_mean=float(np.mean(runs[name][0]["history"][0]
+                                        ["step_s"])) * 1e3,
+             epoch_s=runs[name][0]["history"][0]["time"],
+             stall_ms_per_step=runs[name][0]["history"][0].get("stall", 0.0)
+             * 1e3 / ref["step"], wall_s=runs[name][1],
+             launches=runs[name][2])
+             for name, mode, depth in CHAOS_PIPE_MODES})
+    return total
+
+
+def chaos_phase(torch, args, wrappers, g, trainer, ctx, kg, work: str,
+                card: str) -> dict:
+    """The chaos, preemption and live planes on the SAGE cell's graph
+    and widths, the KGE sentry and the overlap pipeline. Returns the
+    launches of its card runs."""
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+
+    t0 = time.perf_counter()
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 9)).state_dict())
+    total = {}
+    add_counts(total, chaos_kill(torch, args, wrappers, g, trainer, ctx, w0,
+                                 work, card))
+    add_counts(total, chaos_numerics(torch, args, wrappers, g, trainer, w0,
+                                     work, card))
+    chaos_ckpt_corrupt(torch, trainer, work, card)
+    add_counts(total, chaos_step_slow(torch, wrappers, g, trainer, card))
+    chaos_host_die(args, work, card)
+    add_counts(total, chaos_live(torch, wrappers, g, trainer, card))
+    add_counts(total, chaos_kge(torch, args, wrappers, kg, card))
+    add_counts(total, chaos_pipeline(torch, wrappers, ctx, card))
+    check(chaos_threads() == [], f"chaos: threads left {chaos_threads()}")
+    emit(phase="chaos", part="done", card=card,
+         seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
                  gat_shapes=None, gat_launches=0, mp_launches=0,
-                 rgcn_launches=0):
+                 rgcn_launches=0, chaos_launches=0):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
     ``kge``, of one KGE training step; under ``device_sampler``, of one
@@ -5433,7 +6049,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
     ``rgcn_gin`` of one call at each RGCN and pool shape), launches of
     every path (``mp_launches``: the full-graph and message-passing
     runs and ``examples/graphsage.py``; ``rgcn_launches``: the
-    ``rgcn_gin`` phase's runs)."""
+    ``rgcn_gin`` phase's runs; ``chaos_launches``: the ``chaos``
+    phase's runs)."""
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -5450,7 +6067,7 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
              "replaces": replaces,
              "launches": launches + kge_launches + gat_launches
-             + mp_launches + rgcn_launches,
+             + mp_launches + rgcn_launches + chaos_launches,
              "max_abs_err": max(r["max_abs_err"] for r in mine),
              "ms": total["ms"], "plain_ms": total["plain_ms"],
              "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
@@ -5458,7 +6075,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "launches_sage": launches, "launches_kge": kge_launches,
              "launches_gat": gat_launches,
              "launches_message_passing": mp_launches,
-             "launches_rgcn_gin": rgcn_launches}
+             "launches_rgcn_gin": rgcn_launches,
+             "launches_chaos": chaos_launches}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
     if tree_shapes:
@@ -5469,6 +6087,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
 
 
 def main(argv=None) -> int:
+    global T_START
+    T_START = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
                     help="ogbn-products graph size (1.0 = 2.45M nodes)")
@@ -5537,7 +6157,8 @@ def main(argv=None) -> int:
                                             work, smi)
         device, device_records = device_sampler_phase(
             torch, args, ops, wrappers, g, trainer, ctx, work, smi)
-        kge_records, kge = kge_phase(torch, args, ops, wrappers, work, smi)
+        kge_records, kge, kg = kge_phase(torch, args, ops, wrappers, work,
+                                         smi)
         gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
@@ -5547,6 +6168,8 @@ def main(argv=None) -> int:
         sentry = sentry_phase(torch, args, wrappers, g, trainer, ctx, work,
                               smi)
         fleet = fleet_phase(torch, args, wrappers, g, trainer, work, smi)
+        chaos = chaos_phase(torch, args, wrappers, g, trainer, ctx, kg, work,
+                            smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
@@ -5572,7 +6195,8 @@ def main(argv=None) -> int:
                      tree_shapes=f32("tree_block0", "tree_block1"),
                      gat_launches=gat["fanout_agg"],
                      mp_launches=mpass["fanout_agg"],
-                     rgcn_launches=rgin["fanout_agg"]),
+                     rgcn_launches=rgin["fanout_agg"],
+                     chaos_launches=chaos.get("fanout_agg", 0)),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -5590,7 +6214,8 @@ def main(argv=None) -> int:
                                          "pool_block0")},
                      gat_launches=gat["gather_rows"],
                      mp_launches=mpass["gather_rows"],
-                     rgcn_launches=rgin["gather_rows"]),
+                     rgcn_launches=rgin["gather_rows"],
+                     chaos_launches=chaos.get("gather_rows", 0)),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -5609,8 +6234,10 @@ def main(argv=None) -> int:
                                          "pool_block0_bwd")},
                      gat_launches=gat["scatter_add_rows"],
                      mp_launches=mpass["scatter_add_rows"],
-                     rgcn_launches=rgin["scatter_add_rows"]),
+                     rgcn_launches=rgin["scatter_add_rows"],
+                     chaos_launches=chaos.get("scatter_add_rows", 0)),
     ])
+    emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})
     return 0

@@ -152,3 +152,28 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], prefix: Layout
         else:
             node["bias"] = arr.copy()
     return {"params": params}
+
+
+def flax_path(key: str, prefix: str) -> Tuple[str, ...]:
+    """The flax params path of the state dict key ``key`` of a flat
+    stack of layers ``<prefix>_<i>`` (the layout of
+    :func:`state_dict_to_flax`)."""
+    parts = key.split(".")
+    layer = f"{prefix}_{parts[1]}"
+    if len(parts) == 3:
+        return (layer, "kernel") if parts[2] == "weight" else (layer,
+                                                                parts[2])
+    return (layer, parts[2], "kernel" if parts[3] == "weight" else "bias")
+
+
+def first_flax_param(model: torch.nn.Module) -> Tuple[str, torch.Tensor]:
+    """The parameter holding the first leaf of ``model``'s flax params
+    tree in flatten order (keys sorted at every level), with its name. A
+    model of a flat stack (a string ``flax_prefix``) only."""
+    prefix = getattr(model, "flax_prefix", None)
+    if not isinstance(prefix, str):
+        raise TypeError(f"{type(model).__name__} is not a flat stack of "
+                        "layers")
+    params = dict(model.named_parameters())
+    name = min(params, key=lambda k: flax_path(k, prefix))
+    return name, params[name]

@@ -27,8 +27,13 @@ the halt → rollback response, as the JAX package's ``obs/quality.py``.
   (``CheckpointManager.quarantine_from``) and leaves a workspace fault
   marker (:func:`halt_for_rollback`).
 
-The chaos ``numerics:nan`` injector and the analytics roll-up are not
-ported.
+- **The chaos ``numerics:nan`` drill** (:class:`NumericsInjector`): at
+  the plan's step the loop poisons one parameter with NaN in place, so
+  the next step's backward produces non-finite gradients through the
+  real kernels; it fires once per workspace.
+
+The analytics roll-up (``model_health_summary``) needs the obs file
+plane and is not ported (``ROADMAP.md`` item 7).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from dgl_operator_tpu_torch.parallel.bootstrap import RANK_ENV
 FAULT_MARKER = ".numerics_fault.json"
 # the shared workspace directory the launcher exports
 WORKSPACE_ENV = "TPU_OPERATOR_WORKSPACE"
+# the workspace marker of a numerics:nan drill that has fired
+NUMERICS_FIRED_MARKER = ".chaos_numerics_fired"
 # retryable exit status for entry scripts that catch NumericsFault
 NUMERICS_FAULT_EXIT = 76
 # the scalar stats of every step, in the order steps return them
@@ -155,8 +162,13 @@ class ParamDelta:
 
     def __init__(self, params: Sequence[torch.Tensor]):
         self.params = list(params)
-        self._views = [p.detach().view(-1) for p in self.params]
         self._buf: Optional[torch.Tensor] = None
+        self.rebind()
+
+    def rebind(self) -> None:
+        """Take the flat views anew, after the parameters were rebound
+        to fresh storage (``DistTrainer`` with ``donate=False``)."""
+        self._views = [p.detach().view(-1) for p in self.params]
 
     def before(self) -> None:
         if self._buf is None:
@@ -245,9 +257,11 @@ class _Entry:
 
 class StatsTap:
     """Delayed host fetch of the in-step stats: the loop pushes each
-    call's ``(step, loss, stats)``, and :meth:`poll` fetches only
+    call's ``(step, loss, stats)``, and :meth:`poll_all` fetches only
     entries older than ``delay`` pushes whose copy has completed on the
-    card, never the call just dispatched. The sentry so trails training
+    card, never the call just dispatched. The trainers observe every
+    fetched entry, so two entries that ripen together (on the card) are
+    both seen and the first bad step is the one reported. The sentry so trails training
     by ``delay`` calls (at most ``max_lag``), which is why the rollback
     quarantine starts at the first observed bad step."""
 
@@ -264,27 +278,39 @@ class StatsTap:
         host and returns at once."""
         self._pending.append(_Entry(step, loss, stats))
 
-    def poll(self) -> Optional[Tuple[int, float, Optional[Dict]]]:
-        """The newest ripe entry (older than ``delay`` pushes and
-        already copied), fetched to the host; None when nothing is ripe.
-        Past ``max_lag`` pending entries the oldest is fetched even if
-        that waits."""
-        out = None
+    def poll_all(self) -> List[Tuple[int, float, Optional[Dict]]]:
+        """Every ripe entry (older than ``delay`` pushes and already
+        copied), oldest first, fetched to the host; empty when nothing
+        is ripe. Past ``max_lag`` pending entries the oldest is fetched
+        even if that waits."""
+        out = []
         while len(self._pending) > self.delay:
             head = self._pending[0]
             if len(self._pending) <= self.max_lag and not head.ready():
                 break
             self._pending.popleft()
-            out = head.fetch()
+            out.append(head.fetch())
+        return out
+
+    def poll(self) -> Optional[Tuple[int, float, Optional[Dict]]]:
+        """The newest of :meth:`poll_all`'s entries (the JAX tap's
+        ``poll``); None when nothing is ripe."""
+        out = self.poll_all()
+        return out[-1] if out else None
+
+    def drain_all(self) -> List[Tuple[int, float, Optional[Dict]]]:
+        """Fetch every pending entry, oldest first (an epoch's end): the
+        last steps must not escape the sentry because the loop ended."""
+        out = []
+        while self._pending:
+            out.append(self._pending.popleft().fetch())
         return out
 
     def drain(self) -> Optional[Tuple[int, float, Optional[Dict]]]:
-        """Fetch everything (an epoch's end): the last steps must not
-        escape the sentry because the loop ended."""
-        out = None
-        while self._pending:
-            out = self._pending.popleft().fetch()
-        return out
+        """The newest of :meth:`drain_all`'s entries (the JAX tap's
+        ``drain``)."""
+        out = self.drain_all()
+        return out[-1] if out else None
 
 
 # ---------------------------------------------------------------------
@@ -612,3 +638,70 @@ def halt_for_rollback(fault: NumericsFault, ckpt=None,
              marker=bool(marker))
     obs.flush()
     raise fault
+
+
+# ---------------------------------------------------------------------
+# chaos: numerics:nan:<step>
+# ---------------------------------------------------------------------
+class NumericsInjector:
+    """The chaos ``numerics:nan:<step>`` drill: at the first call
+    boundary at or past ``<step>`` the trainer's parameter that holds
+    the first leaf of the JAX package's params tree (flatten order,
+    ``models/flax_layout.py::first_flax_param``) is multiplied by NaN in
+    place, so the next step's backward produces non-finite gradients.
+    In place, under ``torch.no_grad()``: a captured K-step graph reads
+    the storage it was captured on, so a rebound tensor would never be
+    poisoned. Fires once per workspace (``.chaos_numerics_fired``),
+    since a rollback resumes below the step; a run that starts at or
+    past the step is never poisoned."""
+
+    def __init__(self, start_step: int = 0):
+        from dgl_operator_tpu_torch.launcher.chaos import proc_plan
+        plan = proc_plan()
+        at = plan.numerics_nan_step() if plan else None
+        self.at = at if at is not None and at > start_step else None
+        if self.at is not None and self._fired_marker_exists():
+            self.at = None
+
+    @staticmethod
+    def _fired_path() -> Optional[str]:
+        ws = os.environ.get(WORKSPACE_ENV)
+        return os.path.join(ws, NUMERICS_FIRED_MARKER) if ws else None
+
+    def _fired_marker_exists(self) -> bool:
+        p = self._fired_path()
+        return bool(p) and os.path.exists(p)
+
+    def _mark_fired(self) -> None:
+        p = self._fired_path()
+        if not p:
+            return
+        try:
+            with open(p, "w") as f:
+                f.write(f"pid={os.getpid()}\n")
+        except OSError:
+            pass
+
+    def maybe_poison(self, gstep: int, model: torch.nn.Module) -> bool:
+        """Once a call, after the checkpoint and heartbeat epilogue (the
+        last checkpoint before the poison stays the last-known-good).
+        Returns whether it poisoned."""
+        if self.at is None or gstep < self.at:
+            return False
+        self.at = None
+        self._mark_fired()
+        from dgl_operator_tpu_torch.launcher.chaos import count_fault
+        from dgl_operator_tpu_torch.models.flax_layout import \
+            first_flax_param
+        name, param = first_flax_param(model)
+        with torch.no_grad():
+            param.mul_(float("nan"))
+        count_fault("numerics", "nan", step=int(gstep), param=name)
+        return True
+
+
+def maybe_injector(start_step: int = 0) -> Optional[NumericsInjector]:
+    """An armed injector, or None when the chaos plan has no due
+    ``numerics:nan`` rule."""
+    inj = NumericsInjector(start_step)
+    return inj if inj.at is not None else None

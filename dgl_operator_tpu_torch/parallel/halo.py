@@ -107,7 +107,18 @@ def alltoall_request_rows(store: torch.Tensor, req: torch.Tensor,
     ``gather_rows`` launch over its store; a second returns the rows.
     Returns ``recv`` ``[L, P, pair_cap, D]``: ``recv[a, o, j]`` is row
     ``req[a, o, j]`` of part ``o``, a zero row where it is -1 — what
-    :func:`alltoall_serve_rows` gives the same slots in one process."""
+    :func:`alltoall_serve_rows` gives the same slots in one process.
+    :func:`request_rows_start` and :func:`request_rows_finish` are its
+    two halves, the first collective in flight between them."""
+    return request_rows_finish(request_rows_start(store, req,
+                                                  rows_per_slot))
+
+
+def request_rows_start(store: torch.Tensor, req: torch.Tensor,
+                       rows_per_slot: int, async_op: bool = False):
+    """The first half of :func:`alltoall_request_rows`: the request
+    ``all_to_all_single``, with ``async_op`` left in flight. Returns the
+    handle :func:`request_rows_finish` takes."""
     L, P, cap = req.shape
     W = dist.get_world_size()
     R = int(rows_per_slot)
@@ -115,13 +126,22 @@ def alltoall_request_rows(store: torch.Tensor, req: torch.Tensor,
         raise ValueError(f"req must be [L, W * L, cap] over a store of L * "
                          f"{R} + 1 rows with W = {W}; got req "
                          f"{tuple(req.shape)}, store {tuple(store.shape)}")
-    D = store.shape[1]
     # by destination process q: send[q, a, b] = req[a, q * L + b]
     send = req.reshape(L, W, L, cap).transpose(0, 1).contiguous()
     asked = torch.empty_like(send)
-    dist.all_to_all_single(asked, send)
+    work = dist.all_to_all_single(asked, send, async_op=async_op)
+    return store, asked, R, work, (W, L, P, cap)
+
+
+def request_rows_finish(handle) -> torch.Tensor:
+    """The second half of :func:`alltoall_request_rows`: wait for the
+    requests, answer them in one ``gather_rows`` and return the rows."""
+    store, asked, R, work, (W, L, P, cap) = handle
+    if work is not None:
+        work.wait()
+    D = store.shape[1]
     # asked[s, a, b]: what slot a of process s asks of my slot b
-    base = torch.arange(L, device=req.device,
+    base = torch.arange(L, device=asked.device,
                         dtype=torch.int64).view(1, 1, L, 1) * R
     idx = torch.where(asked >= 0, asked.long() + base, L * R)
     rows = gather_rows(store, idx.reshape(-1))

@@ -17,8 +17,11 @@ sidecar written after the publish.
   older epochs' directories. :meth:`~CheckpointManager.quarantine_from`
   moves every checkpoint at or past a numerics fault's step aside.
   :class:`RankZeroCheckpoints` shares one manager between the
-  processes of a ``torch.distributed`` group. The JAX package's orbax
-  backend and chaos hooks are not ported.
+  processes of a ``torch.distributed`` group. The chaos plan's
+  ``ckpt:corrupt`` stomps a published archive's bytes after its sidecar
+  (the restore then falls back past it), and ``promote:bad`` poisons a
+  staged serving candidate after its checksum (``launcher/chaos.py``).
+  The JAX package's orbax backend is a JAX library and is not ported.
 - :func:`export_for_serving` / :func:`load_params` write and read the
   params tree alone, in the flax layout, so either package reads what
   the other wrote (``models/sage.py`` converts it to and from a
@@ -46,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dgl_operator_tpu_torch.launcher import chaos
 from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.parallel.bootstrap import FENCE_EPOCH_ENV
 from dgl_operator_tpu_torch.parallel.collectives import barrier
@@ -201,6 +205,42 @@ def _unflatten_like(like: Any, prefix: str, flat: Dict[str, np.ndarray]):
     return arr
 
 
+def _maybe_chaos_corrupt(path: str, step: int) -> None:
+    """The chaos ``ckpt:corrupt:<step>`` edge: stomp the just-published
+    archive's first bytes while its sidecar keeps the true digest, so
+    the next restore detects the mismatch and falls back."""
+    plan = chaos.proc_plan()
+    if plan is None:
+        return
+    rule = plan.take_ckpt_corrupt(step, chaos.my_host_name())
+    if rule is None:
+        return
+    with open(path, "r+b") as f:
+        f.seek(0)
+        f.write(b"\x00CHAOS-CKPT-CORRUPT\x00")
+    chaos.count_fault("ckpt", "corrupt", step=step, path=path,
+                      rule=repr(rule))
+
+
+def _maybe_chaos_poison(path: str) -> None:
+    """The chaos ``promote:bad`` edge: rewrite the staged candidate with
+    NaN in every float leaf and refresh its sidecar, so the archive
+    passes its checksum and only the canary's detectors can catch it."""
+    plan = chaos.proc_plan()
+    if plan is None:
+        return
+    rule = plan.take_promote_bad()
+    if rule is None:
+        return
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    _write_npz(path, {k: (np.full_like(a, np.nan)
+                          if np.issubdtype(a.dtype, np.floating) else a)
+                      for k, a in flat.items()})
+    _write_sidecar(path)
+    chaos.count_fault("promote", "bad", path=path, rule=repr(rule))
+
+
 class CheckpointManager:
     """Step-indexed training checkpoints under ``directory``; keeps the
     newest ``max_keep`` of the active directory.
@@ -314,6 +354,7 @@ class CheckpointManager:
         # the sidecar comes after the publish: a crash in between leaves
         # a sidecar-less archive, which restore reads unverified
         _write_sidecar(path)
+        _maybe_chaos_corrupt(path, step)
         self._gc()
         get_obs().metrics.histogram(
             "ckpt_save_seconds",
@@ -503,6 +544,10 @@ class RankZeroCheckpoints:
         self.manager = manager
         self.rank = int(rank)
 
+    @property
+    def directory(self) -> str:
+        return self.manager.directory
+
     def save(self, step: int, state: Any, wait: bool = True) -> None:
         """Publish ``state`` as ``ckpt_<step>.npz`` from rank 0 and wait
         for every rank; ``wait`` is ignored (the write is synchronous)."""
@@ -628,6 +673,7 @@ class ServingPromotion:
             self.directory, f"candidate-epoch-{self.candidate_epoch}")
         os.makedirs(self.candidate_dir, exist_ok=True)
         path = export_for_serving(self.candidate_dir, params)
+        _maybe_chaos_poison(path)
         get_obs().emit("ckpt_promote_staged", epoch=self.candidate_epoch,
                        path=path)
         return path

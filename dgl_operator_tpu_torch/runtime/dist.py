@@ -60,29 +60,55 @@ publishes them (``RankZeroCheckpoints``). The numerics sentry
 ``dp_slot_stats`` (norms and non-finite count of the mean gradient,
 each slot's loss and non-finite count) from :func:`slot_mean_step`,
 captured with the K-step graph, and a ``QualityMonitor`` over the slots'
-global ids, so a fault names its partition. Not ported: the live,
-chaos and preemption planes, the overlap pipeline
-(``pipeline_mode``, ``pipeline_depth``) and the state sharding knobs
-(``ROADMAP.md`` Queue 1).
+global ids, so a fault names its partition. The live, chaos and
+preemption planes are ``run_epochs``'s, as in ``SampledTrainer``.
+
+The owner layout's exchange pipeline (host sampler; the JAX trainer's
+overlap pipeline): each batch's exchange is enqueued ahead of its step
+(:meth:`DistTrainer._staged_batches`). ``pipeline_mode="staged"``
+enqueues batch t+1's right after step t is dispatched; ``"fused"`` (the
+default) enqueues batch t+K's (``K = pipeline_depth``) before step t's
+compute, K receive buffers in flight. In one process on the card the
+exchange's ``gather_rows`` runs on a side CUDA stream whose event the
+step waits on; in a group the request ``all_to_all_single`` runs with
+``async_op=True`` until the step answers it. Each mode gives the
+synchronous exchange's bits, since the stores the exchange reads never
+change. :class:`~dgl_operator_tpu_torch.runtime.timers.OverlapTracker`
+records the exchange's and the step's windows (CUDA events on the card,
+the host clock elsewhere); an epoch's record carries its
+``overlap_ratio``, and the heartbeat the running one. The device
+sampler keeps its exchange in the step, as in JAX.
+
+``donate=True`` (the default) updates the parameters and Adam's state
+in place; ``donate=False`` rebinds each to a fresh copy before every
+call, so a tensor a caller took keeps its values, and runs the calls
+eagerly (no CUDA graph), with the same trajectory. ``gather_depth`` is
+validated and kept; its reader, ``zero_stage=3``, is not ported
+(``ROADMAP.md`` item 6.6). A tuned manifest overlays the ``train``,
+``quality`` and ``shard`` knobs (``autotune/knobs.py::apply_tuned``).
 """
 
 from __future__ import annotations
 
 import json
+import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
+from dgl_operator_tpu_torch.autotune.knobs import apply_tuned
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
                                                  build_fanout_blocks,
                                                  calibrate_caps, fanout_caps)
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import (inference_layer,
                                            state_dict_from_flax)
+from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
 from dgl_operator_tpu_torch.ops.gather import gather_rows
@@ -93,7 +119,9 @@ from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
                                                   alltoall_request_rows,
                                                   alltoall_serve_rows,
                                                   build_halo_cache,
-                                                  exchange_bytes_per_step)
+                                                  exchange_bytes_per_step,
+                                                  request_rows_finish,
+                                                  request_rows_start)
 from dgl_operator_tpu_torch.runtime import forward
 from dgl_operator_tpu_torch.runtime.checkpoint import (RankZeroCheckpoints,
                                                        train_state)
@@ -102,7 +130,7 @@ from dgl_operator_tpu_torch.runtime.loop import (TrainConfig, make_adam,
                                                  open_checkpoints,
                                                  resolve_num_samplers,
                                                  run_epochs)
-from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
+from dgl_operator_tpu_torch.runtime.timers import OverlapTracker, PhaseTimer
 
 
 class DistTrainer:
@@ -120,12 +148,19 @@ class DistTrainer:
             raise ValueError(f"the model's parameters are on "
                              f"{sorted(map(str, param_devices))}, the "
                              f"trainer's device is {self.device}")
+        # the tuned manifest's train, quality and shard knobs, where cfg
+        # keeps the default
+        cfg = apply_tuned(apply_tuned(apply_tuned(cfg), layer="quality"),
+                          layer="shard")
         self.model = model
         self.cfg = cfg
         self.feat_key = feat_key
         self.label_key = label_key
         self._owner_layout = cfg.feats_layout == "owner"
         self._device_mode = cfg.sampler == "device"
+        # the exchange pipeline: the owner layout's host-sampled batches
+        self._pipelined = self._owner_layout and not self._device_mode
+        self._gather_depth = cfg.gather_depth
         if int(cfg.steps_per_call) > 1 and not self._device_mode:
             raise ValueError(
                 "DistTrainer steps_per_call > 1 requires sampler='device' "
@@ -269,6 +304,12 @@ class DistTrainer:
         # processes): built at first use, joined at the end of train()
         self._n_samplers = resolve_num_samplers(cfg)
         self._pool: Optional[ThreadPoolExecutor] = None
+        # the pipeline's side stream (one process on the card), its
+        # exchange and step windows, and the tracker they resolve into
+        self._exch_stream = None
+        self._windows: List[tuple] = []
+        self._origin = None
+        self.overlap = OverlapTracker()
 
     def _sampler_pool(self) -> Optional[ThreadPoolExecutor]:
         """The pool that samples a batch's slots, None at width 1
@@ -478,9 +519,12 @@ class DistTrainer:
         if self._owner_layout:
             per_slot = {"exch_loc": put(batch["exch_loc"]),
                         "exch_pos": put(batch["exch_pos"])}
-            table = batch["exch_req" if self._group else "exch_serve"]
-            exch = put(table)
-            self._counts["halo_rows"] += int((table >= 0).sum())
+            # a staged batch's table went with its exchange
+            table = batch.get("exch_req" if self._group else "exch_serve")
+            exch = None
+            if table is not None:
+                exch = put(table)
+                self._counts["halo_rows"] += int((table >= 0).sum())
         else:
             per_slot = {"inputs": put(np.stack([mb.input_nodes
                                                 for mb in mbs]))}
@@ -502,23 +546,35 @@ class DistTrainer:
     # -- step -----------------------------------------------------------
     def train_step(self, batch: Dict) -> Tuple[torch.Tensor, None]:
         """One step on a host batch: :meth:`ship` it, then
-        :meth:`device_step`. Returns the mean slot loss as a device
-        scalar (no sync) and None (no accuracy is taken); with the
-        sentry the step's stats are left in :attr:`last_stats`."""
-        loss, self.last_stats = self.device_step(*self.ship(batch))
+        :meth:`device_step`, its exchange in the step or, for a batch of
+        :meth:`_staged_batches`, the one enqueued ahead. Returns the
+        mean slot loss as a device scalar (no sync) and None (no
+        accuracy is taken); with the sentry the step's stats are left in
+        :attr:`last_stats`."""
+        staged = batch.pop("staged", None)
+        slots, exch = self.ship(batch)
+        if staged is None:
+            loss, self.last_stats = self.device_step(slots, exch)
+            return loss, None
+        w0 = self._mark()
+        loss, self.last_stats = self.device_step(
+            slots, None, recv=self._finish_exchange(staged))
+        self._windows.append(("compute", w0, self._mark()))
         return loss, None
 
-    def device_step(self, slots: List[Dict], exch: Optional[torch.Tensor]
+    def device_step(self, slots: List[Dict], exch: Optional[torch.Tensor],
+                    recv: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """The step's device work on a shipped batch: the exchange
-        (owner layout), every local slot's loss and backward, and one
-        Adam step on the mean gradient over every slot; returns the mean
-        slot loss and, with the sentry, the step's stats
-        (:func:`slot_mean_step`)."""
+        (owner layout; ``recv``, its answer, when it was enqueued ahead),
+        every local slot's loss and backward, and one Adam step on the
+        mean gradient over every slot; returns the mean slot loss and,
+        with the sentry, the step's stats (:func:`slot_mean_step`)."""
         if exch is not None:
             exchange = (alltoall_request_rows if self._group
                         else alltoall_serve_rows)
             recv = exchange(self._flat, exch, self._rows_per_slot)
+        if recv is not None:
             for i, sb in enumerate(slots):
                 sb["recv"] = recv[i]
 
@@ -531,6 +587,103 @@ class DistTrainer:
 
         return slot_mean_step(self.optimizer, loss_of, len(self.parts),
                               self.num_parts, self._delta)
+
+    # -- the exchange pipeline ------------------------------------------
+    def _mark(self):
+        """A window edge: with the side stream, an event recorded on the
+        current stream; else the host clock."""
+        if self._exch_stream is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _start_exchange(self, batch: Dict) -> Dict:
+        """Enqueue a host batch's exchange ahead of its step; the batch
+        keeps the handle under ``"staged"``. In one process on the card
+        the table's copy and the exchange's ``gather_rows`` run on the
+        side stream; in a group the request ``all_to_all_single`` is
+        left in flight (``async_op=True``)."""
+        table = batch.pop("exch_req" if self._group else "exch_serve")
+        self._counts["h2d_bytes"] += table.nbytes
+        self._counts["halo_rows"] += int((table >= 0).sum())
+        self.timer.add_bytes("exchange", self.exchange_bytes_per_step)
+        table = torch.from_numpy(np.ascontiguousarray(table))
+        if self._group:
+            w0 = time.perf_counter()
+            handle = request_rows_start(self._flat, table.to(self.device),
+                                        self._rows_per_slot, async_op=True)
+            batch["staged"] = ("group", handle, w0)
+            return batch
+        if self._exch_stream is None:
+            w0 = time.perf_counter()
+            recv = alltoall_serve_rows(self._flat, table.to(self.device),
+                                       self._rows_per_slot)
+            self._windows.append(("exchange", w0, time.perf_counter()))
+            batch["staged"] = ("ready", recv, None)
+            return batch
+        main = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._exch_stream):
+            w0 = self._mark()
+            recv = alltoall_serve_rows(self._flat, table.to(self.device),
+                                       self._rows_per_slot)
+            w1 = self._mark()
+        # the step reads recv on the main stream
+        recv.record_stream(main)
+        self._windows.append(("exchange", w0, w1))
+        batch["staged"] = ("stream", recv, w1)
+        return batch
+
+    def _finish_exchange(self, staged) -> torch.Tensor:
+        """The answer of an exchange :meth:`_start_exchange` enqueued,
+        ready for the current stream."""
+        kind, obj, mark = staged
+        if kind == "group":
+            recv = request_rows_finish(obj)
+            self._windows.append(("exchange", mark, time.perf_counter()))
+            return recv
+        if kind == "stream":
+            torch.cuda.current_stream(self.device).wait_event(mark)
+        return obj
+
+    def _staged_batches(self, batches: Iterator) -> Iterator:
+        """The host batch stream with each batch's exchange enqueued
+        ahead of its step: ``"staged"`` enqueues a batch's when the loop
+        asks for it, right after the previous step was dispatched;
+        ``"fused"`` keeps ``pipeline_depth`` batches enqueued beyond
+        the one the loop takes, so batch t+K's exchange is enqueued
+        before step t's compute."""
+        lead = (self.cfg.pipeline_depth
+                if self.cfg.pipeline_mode == "fused" else 0)
+        ring: deque = deque()
+        try:
+            for batch, n_seeds in batches:
+                ring.append((self._start_exchange(batch), n_seeds))
+                if len(ring) > lead:
+                    yield ring.popleft()
+            while ring:
+                yield ring.popleft()
+        finally:
+            batches.close()
+
+    def _overlap_ratio(self) -> Optional[float]:
+        """The share of the exchanges' time hidden under the steps' so
+        far this epoch; windows whose events have not completed wait for
+        a later call."""
+        keep = []
+        for kind, w0, w1 in self._windows:
+            if isinstance(w1, float):
+                t0, t1 = w0, w1
+            elif w1.query():
+                t0, t1 = (self._origin.elapsed_time(w) / 1e3
+                          for w in (w0, w1))
+            else:
+                keep.append((kind, w0, w1))
+                continue
+            (self.overlap.add_exchange if kind == "exchange"
+             else self.overlap.add_compute)(t0, t1)
+        self._windows = keep
+        return self.overlap.ratio()
 
     # -- the device sampler ---------------------------------------------
     def device_sampler_step(self, seeds: torch.Tensor, gstep: torch.Tensor
@@ -613,6 +766,8 @@ class DistTrainer:
         k)``: ``k`` steps from bank row ``b`` at global step ``step``
         (:class:`DeviceRun`). With the sentry the call's last step's
         stats are left in :attr:`last_stats`."""
+        if not self.cfg.donate:
+            self._rebind_state()
         if isinstance(batch, dict):
             return self.train_step(batch)[0].view(1), None
         out = self._run(*batch)
@@ -620,11 +775,25 @@ class DistTrainer:
             self.last_stats = Q.stats_of_rows(out[1:, -1])
         return out[0], None
 
+    def _rebind_state(self) -> None:
+        """``donate=False``: every parameter and Adam state tensor to a
+        fresh copy, so the tensors a caller took before this call keep
+        their values."""
+        with torch.no_grad():
+            for p in self.model.parameters():
+                p.data = p.data.clone()
+        for st in self.optimizer.state.values():
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    st[k] = v.clone()
+        if self._delta is not None:
+            self._delta.rebind()
+
     def _start_device_run(self) -> DeviceRun:
         """The device sampler's run; its calls of K > 1 steps on the card
         are one graph replay each (captured at the first), except under
         a gloo group, which cannot be captured."""
-        capture = self.device.type == "cuda" and (
+        capture = self.device.type == "cuda" and self.cfg.donate and (
             not self._group or dist.get_backend() == "nccl")
         # the loss, then the sentry's rows: the scalars and each of the
         # num_parts slots' loss and non-finite count
@@ -652,6 +821,18 @@ class DistTrainer:
             out["halo_rows_per_step"] = self._counts["halo_rows"] / steps
             out["exchange_mib"] = (self.exchange_bytes_per_step * steps
                                    / 2**20)
+        if self._pipelined:
+            if self._exch_stream is not None:
+                torch.cuda.synchronize(self.device)
+            ratio = self._overlap_ratio()
+            if ratio is not None:
+                out["overlap_ratio"] = ratio
+                get_obs().metrics.gauge(
+                    "train_overlap_ratio",
+                    "fraction of exchange time hidden under compute "
+                    "(epoch end)").set(ratio)
+            self.overlap.reset()
+            self._origin = self._mark()
         self._reset_counts()
         return out
 
@@ -681,6 +862,17 @@ class DistTrainer:
                 ckpt = RankZeroCheckpoints(ckpt, self.rank)
         self.timer.reset()
         self._reset_counts()
+        self.overlap.reset()
+        self._windows = []
+        stage = None
+        if self._pipelined:
+            stage = self._staged_batches
+            if self.device.type == "cuda" and not self._group:
+                self._exch_stream = torch.cuda.Stream(self.device)
+                # the stores' copies, made on the main stream, come first
+                self._exch_stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+            self._origin = self._mark()
         if self._device_mode:
             run = self._start_device_run()
 
@@ -699,9 +891,13 @@ class DistTrainer:
                 self._permute, sample, self.train_call,
                 self.evaluate, self._epoch_stats, sample_workers=1,
                 step_stats=lambda: self.last_stats,
-                parts=range(self.num_parts))
+                parts=range(self.num_parts), model=self.model,
+                overlap_ratio=(self._overlap_ratio if self._pipelined
+                               else lambda: None),
+                stage=stage)
         finally:
             self._close_sampler_pool()
+            self._exch_stream = None
             # the graph's memory pool goes with it
             self._run = None
         return {"params": self.model.state_dict(),

@@ -35,9 +35,21 @@ and Hits@{1,3,10}, raw or filtered;
 :meth:`DistKGETrainer.sharded_ranking_eval` scores each block in place
 and combines the counts.
 
+The numerics sentry (``KGETrainConfig.sentry``, on by default;
+``obs/quality.py``): every update also computes, from the step's own row
+gradients, each slot's loss and non-finite count (the loss counted when
+it is not finite) and the global gradient norm over the entity,
+negative and relation row gradients of every slot. The loop keeps its
+no-sync form: it pushes them to a ``StatsTap`` and feeds a
+``QualityMonitor`` over the slots what is ready; a fault goes through
+``halt_for_rollback``. The stats only read the step's tensors, so the
+tables' trajectory is bit-identical with the sentry on or off. The loop
+starts the live sidecar when ``TPU_OPERATOR_LIVE_PORT`` is set, and a
+tuned manifest overlays the ``kge`` and ``quality`` knobs
+(``autotune/knobs.py::apply_tuned``).
+
 Not ported (``ROADMAP.md`` Queue 1 item 8): the 2-D mesh, device-drawn
-negatives, ``num_client`` > 1, relation ``shard_rules``, the sentry and
-its ``quality_*`` fields, and the tuned-manifest overlay.
+negatives, ``num_client`` > 1 and relation ``shard_rules``.
 """
 
 from __future__ import annotations
@@ -51,10 +63,13 @@ import torch
 import torch.distributed as dist
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
+from dgl_operator_tpu_torch.autotune.knobs import apply_tuned, validate
 from dgl_operator_tpu_torch.graph.kge_sampler import (
     BidirectionalOneShotIterator, KGEBatch, TrainDataset)
 from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
                                                init_kge_params, relation_dim)
+from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.live import maybe_start_sidecar
 from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, pack_int32,
@@ -78,12 +93,12 @@ PREFETCH = 2
 
 @dataclasses.dataclass
 class KGETrainConfig:
-    """The JAX ``KGETrainConfig``'s ported fields and defaults.
+    """The JAX ``KGETrainConfig``'s fields and defaults.
     ``neg_sampler``, ``num_client`` and ``shard_rules`` take only their
-    defaults (another value raises ``NotImplementedError``); the
-    ``sentry`` and ``quality_*`` fields are not ported, so passing one is
-    a ``TypeError``. ``ckpt_dir``, ``ckpt_every`` and ``resume`` are read
-    by ``DistKGETrainer`` only, as in the JAX package."""
+    defaults (another value raises ``NotImplementedError``). ``sentry``
+    and the ``quality_*`` fields are validated against the knob registry
+    (``autotune/knobs.py``). ``ckpt_dir``, ``ckpt_every`` and ``resume``
+    are read by ``DistKGETrainer`` only, as in the JAX package."""
 
     lr: float = 0.25               # the dglke default
     max_step: int = 1000
@@ -98,8 +113,21 @@ class KGETrainConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0            # steps; 0 = only at train()'s end
     resume: str = "auto"           # "auto" | "never"
+    # the numerics sentry and its detectors (obs/quality.py), as in
+    # TrainConfig; the trajectory is bit-identical either way
+    sentry: bool = True
+    quality_action: str = "rollback"   # halt | rollback | warn
+    quality_window: int = 32
+    quality_z_max: float = 6.0
+    quality_grad_ratio_max: float = 50.0
+    quality_plateau_window: int = 0
+    quality_plateau_rel: float = 1e-3
 
     def __post_init__(self):
+        for name in ("sentry", "quality_action", "quality_window",
+                     "quality_z_max", "quality_grad_ratio_max",
+                     "quality_plateau_window", "quality_plateau_rel"):
+            setattr(self, name, validate(name, getattr(self, name)))
         unported = {
             "neg_sampler": (self.neg_sampler != "host", "8.2 (device "
                             "negatives)"),
@@ -147,8 +175,13 @@ class DistKGETrainer:
     def __init__(self, cfg: KGEConfig, tcfg: KGETrainConfig,
                  num_slots: int = 1, device: DeviceLike = None):
         self.device = resolve_device(device)
+        # the tuned manifest's kge and quality knobs, where tcfg keeps
+        # the default
+        tcfg = apply_tuned(apply_tuned(tcfg, layer="kge"), layer="quality")
         self.cfg, self.tcfg = cfg, tcfg
         self.model = KGEModel(cfg)
+        # the last update's stats (device tensors), with the sentry
+        self.last_stats: Optional[Dict[str, torch.Tensor]] = None
         self.nslots = int(num_slots)
         self._group = self._uses_group and collectives.group_active()
         self.rank, self.world_size = (collectives.world() if self._group
@@ -275,7 +308,13 @@ class DistKGETrainer:
         return self.update(hs, self.ship(hs))
 
     def update(self, hs: _HostStep, arrs: List[torch.Tensor]) -> torch.Tensor:
-        """The update of a shipped host step (:meth:`ship`)."""
+        """The update of a shipped host step (:meth:`ship`); with the
+        sentry its stats are left in :attr:`last_stats`: ``grad_norm``
+        (the norm over every slot's entity, negative and relation row
+        gradients), ``nonfinite`` (their non-finite elements and the
+        non-finite losses), and per slot ``part_loss`` and
+        ``part_nonfinite`` (``[num_slots]``), as the JAX step returns
+        them."""
         cfg, t = self.cfg, self.tcfg
         ent_rt = hs.ent_route.rebuilt(arrs[:hs.n_ent])
         rel_ids, union = arrs[hs.n_ent:hs.n_ent + 2]
@@ -285,6 +324,7 @@ class DistKGETrainer:
         ent_rows = sharded_lookup(self.entity, ent_rt)
         rel_rows = gather_rows(self.relation, rel_ids)
         g_ent, losses, rel_acc = [], [], None
+        sq, nonfinite = [], []
         k = 1 + len(ScatterPlan.FIELDS)
         for i in range(len(self.my_slots)):
             e = ent_rows[i * M:(i + 1) * M].detach().requires_grad_()
@@ -296,6 +336,11 @@ class DistKGETrainer:
             ge, gr = torch.autograd.grad(loss, (e, r))
             g_ent.append(ge)
             losses.append(loss.detach())
+            if t.sentry:
+                # read-only: the update below does not see these
+                sq.append(ge.square().sum() + gr.square().sum())
+                nonfinite.append(Q.nonfinite_count([ge, gr,
+                                                    loss.reshape(1)]))
             inv, *plan = rel_plans[i * k:(i + 1) * k]
             acc = scatter_add_rows(gr.contiguous(), inv, None, len(union),
                                    mean=False, plan=ScatterPlan(*plan))
@@ -316,7 +361,28 @@ class DistKGETrainer:
                              ent_rt, t.lr)
         adagrad_rows_(self.relation, self.rel_state, union,
                       rel_acc / self.rel_divisor, t.lr)
+        if t.sentry:
+            self.last_stats = self._slot_stats(loss_vec, sq, nonfinite)
         return loss_vec.mean()
+
+    def _slot_stats(self, loss_vec: torch.Tensor, sq: List[torch.Tensor],
+                    nonfinite: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The sentry's stats of one update from its slots' squared
+        gradient sums and non-finite counts; in a group one more
+        ``all_reduce`` (its own, so the update's bucket is the same with
+        the sentry on or off) gathers every slot's."""
+        vecs = torch.stack([torch.stack(sq),
+                            torch.stack(nonfinite).float()])
+        if self._group:
+            full = vecs.new_zeros(2, self.nslots)
+            full[:, self.my_slots[0]:self.my_slots[-1] + 1] = vecs
+            dist.all_reduce(full)
+            vecs = full
+        part_nonfinite = vecs[1].round().long()
+        return {"grad_norm": vecs[0].sum().sqrt(),
+                "nonfinite": part_nonfinite.sum(),
+                "part_loss": loss_vec.float(),
+                "part_nonfinite": part_nonfinite}
 
     # -- training --------------------------------------------------------
     def _iterators(self, dataset: TrainDataset, ranks: Sequence[int],
@@ -369,6 +435,19 @@ class DistKGETrainer:
             for it in iters:
                 next(it)
         self.timer.reset()
+        maybe_start_sidecar()
+        tap = Q.StatsTap() if t.sentry else None
+        monitor = (Q.QualityMonitor.from_config(
+            t, parts=list(range(self.nslots))) if t.sentry else None)
+
+        def observe(recs) -> None:
+            for rec in recs:
+                try:
+                    monitor.observe(*rec)
+                except Q.NumericsFault as fault:
+                    Q.halt_for_rollback(fault, ckpt=ckpt,
+                                        action=monitor.action)
+
         pipeline = prefetch_map(
             lambda: self.host_step([next(it) for it in iters]),
             [()] * (t.max_step - start), PREFETCH, 1)
@@ -383,6 +462,9 @@ class DistKGETrainer:
                     losses.append(self.device_step(hs))
                 h2d += hs.buf.nbytes
                 step_s.append(time.perf_counter() - t_step)
+                if tap is not None:
+                    tap.push(step, losses[-1], self.last_stats)
+                    observe(tap.poll_all())
                 if step % t.log_interval == 0:
                     window = torch.stack(losses[-t.log_interval:])
                     print(f"[{self.rank}][Train]({step}/{t.max_step}) "
@@ -391,6 +473,8 @@ class DistKGETrainer:
                 if ckpt is not None and t.ckpt_every and \
                         step % t.ckpt_every == 0:
                     ckpt.save(step, self.state_dict(), wait=False)
+            if tap is not None:
+                observe(tap.drain_all())
             values = torch.stack(losses).tolist() if losses else []
             train_s = time.perf_counter() - t0      # waited for the device
             # the final state, unless the cadence has just written it

@@ -47,14 +47,27 @@ the checkpoints at or past it (``halt_for_rollback``). The stats only
 read the step's tensors, so the trajectory is bit-identical with the
 sentry on or off.
 
-What the JAX trainer also carries and this one does not yet: the live
-plane and chaos hooks (``ROADMAP.md`` Queue 1).
+The live, chaos and preemption planes (:func:`run_epochs`, around
+every call, in the JAX loop's order): the chaos ``step:slow`` drag
+before the call (:class:`StepSlowInjector`), then the periodic
+checkpoint, the stats tap, :func:`heartbeat` (a tick into the live feed
+that the ``TPU_OPERATOR_LIVE_PORT`` sidecar serves, ``obs/live.py``),
+:class:`PreemptionGuard` (a SIGTERM, or the chaos ``train:kill`` and
+``host:die``, flushes a final checkpoint and raises :class:`Preempted`,
+or hard-exits) and last the chaos ``numerics:nan`` injector
+(``obs/quality.py``). The heartbeat's profiler, communication and
+flight-recorder riders, and the critical-path gauge, are not ported
+(``ROADMAP.md`` item 7). A tuned manifest (``TPU_OPERATOR_TUNED_MANIFEST``)
+overlays the ``train`` and ``quality`` knobs of ``TrainConfig``
+(``autotune/knobs.py::apply_tuned``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -63,7 +76,7 @@ import numpy as np
 import torch
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
-from dgl_operator_tpu_torch.autotune.knobs import validate
+from dgl_operator_tpu_torch.autotune.knobs import apply_tuned, validate
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
                                                  build_fanout_blocks,
                                                  calibrate_caps, fanout_caps,
@@ -71,8 +84,10 @@ from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
 from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models import (flax_params, full_graph_inference,
                                            state_dict_from_flax)
-from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.launcher import chaos
+from dgl_operator_tpu_torch.obs import get_obs, tracectx
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.live import get_feed, maybe_start_sidecar
 from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                       device_csr, draw_key)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
@@ -95,17 +110,18 @@ NUM_SAMPLERS_ENV = "TPU_OPERATOR_NUM_SAMPLERS"
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX ``TrainConfig``'s fields and defaults for the knobs the
-    two trainers honour. ``sampler`` is ``"host"`` or ``"device"``;
-    ``steps_per_call`` is any K >= 1 (``DistTrainer`` takes K > 1 with
-    the device sampler only, as the JAX trainer does). ``feat_dtype``,
-    ``shard_update``, ``shard_rules``, ``zero_stage`` and
-    ``tp_axis_size`` take only their defaults (another value raises
-    ``NotImplementedError``); the JAX fields not listed here are not
-    ported, so passing one is a ``TypeError``. ``feats_layout`` and
-    ``halo_cache_frac`` are read by ``DistTrainer`` only. ``sentry``
-    and the ``quality_*`` fields are validated against the knob
-    registry (``autotune/knobs.py``)."""
+    """The JAX ``TrainConfig``'s fields and defaults. ``sampler`` is
+    ``"host"`` or ``"device"``; ``steps_per_call`` is any K >= 1
+    (``DistTrainer`` takes K > 1 with the device sampler only, as the
+    JAX trainer does). ``feat_dtype``, ``shard_update``,
+    ``shard_rules``, ``zero_stage`` and ``tp_axis_size`` take only
+    their defaults (another value raises ``NotImplementedError``,
+    ``ROADMAP.md`` items 3 and 6.6). ``feats_layout``,
+    ``halo_cache_frac``, ``donate``, ``pipeline_mode``,
+    ``pipeline_depth`` and ``gather_depth`` are read by ``DistTrainer``
+    only; ``gather_depth``'s reader is ``zero_stage=3``. ``sentry``, the
+    ``quality_*`` fields and the pipeline's knobs are validated against
+    the knob registry (``autotune/knobs.py``)."""
 
     num_epochs: int = 10
     batch_size: int = 1000             # reference default (dglrun:35)
@@ -147,6 +163,19 @@ class TrainConfig:
     shard_rules: Optional[tuple] = None
     zero_stage: int = 1
     tp_axis_size: int = 1
+    # DistTrainer: True updates the parameters and Adam's state in
+    # place; False rebinds them to fresh copies before every call, so a
+    # tensor a caller took stays as it was (the calls then run eagerly;
+    # the trajectory is the same)
+    donate: bool = True
+    # DistTrainer, owner layout, host sampler: "fused" enqueues batch
+    # t+K's exchange (K = pipeline_depth) before step t's compute, into
+    # a ring of K receive buffers; "staged" enqueues batch t+1's right
+    # after step t is dispatched
+    pipeline_mode: str = "fused"
+    pipeline_depth: int = 1
+    # the ZeRO-3 gather window (read by zero_stage=3, not ported)
+    gather_depth: int = 2
     # the numerics sentry (obs/quality.py): in-step stats and the
     # rolling model-health detectors over them; the trajectory is
     # bit-identical either way
@@ -167,7 +196,9 @@ class TrainConfig:
     def __post_init__(self):
         for name in ("sentry", "quality_action", "quality_window",
                      "quality_z_max", "quality_grad_ratio_max",
-                     "quality_plateau_window", "quality_plateau_rel"):
+                     "quality_plateau_window", "quality_plateau_rel",
+                     "donate", "pipeline_mode", "pipeline_depth",
+                     "gather_depth"):
             setattr(self, name, validate(name, getattr(self, name)))
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r} (expected "
@@ -175,16 +206,16 @@ class TrainConfig:
         if int(self.steps_per_call) < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
                              f"{self.steps_per_call}")
-        unported = {"feat_dtype": self.feat_dtype != "float32",
-                    "shard_update": bool(self.shard_update),
-                    "shard_rules": self.shard_rules is not None,
-                    "zero_stage": self.zero_stage != 1,
-                    "tp_axis_size": self.tp_axis_size != 1}
-        for name, set_ in unported.items():
+        unported = {"feat_dtype": (self.feat_dtype != "float32", "3"),
+                    "shard_update": (bool(self.shard_update), "6.6"),
+                    "shard_rules": (self.shard_rules is not None, "6.6"),
+                    "zero_stage": (self.zero_stage != 1, "6.6"),
+                    "tp_axis_size": (self.tp_axis_size != 1, "6.6")}
+        for name, (set_, item) in unported.items():
             if set_:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: only the default is "
-                    f"ported ({_ROADMAP})")
+                    f"ported ({_ROADMAP} item {item})")
         if self.feats_layout not in FEATS_LAYOUTS:
             raise ValueError(f"unknown feats_layout {self.feats_layout!r} "
                              f"(expected {FEATS_LAYOUTS})")
@@ -215,6 +246,184 @@ def resolve_num_samplers(cfg: TrainConfig) -> int:
     if ns == 0:
         ns = int(os.environ.get(NUM_SAMPLERS_ENV, "0") or 0)
     return max(ns, 1)
+
+
+class Preempted(RuntimeError):
+    """SIGTERM arrived mid-training. With a checkpoint manager the final
+    checkpoint was flushed before this was raised, so a relaunched
+    trainer resumes from it. Entry scripts exit with a retryable status
+    (75, EX_TEMPFAIL)."""
+
+
+class PreemptionGuard:
+    """SIGTERM -> checkpoint flush for the training loops.
+
+    Installed (main thread only: the interpreter delivers signals
+    there), the handler only sets a flag; the loop polls it once a call
+    and, when set, flushes a final synchronous checkpoint and raises
+    :class:`Preempted` (:func:`flush_and_preempt`).
+
+    The chaos plan (``launcher/chaos.py``): ``train:kill:<step>`` makes
+    :meth:`poll` send a real SIGTERM to this process at that global
+    step, and ``host:die:<step>`` (scoped to this trainer's hostfile
+    host) makes it hard-exit there: a ``host_died`` event and the
+    workspace's dead-host marker, then ``os._exit(113)`` with no
+    checkpoint flush. Either fires only when the run started below its
+    step, so the resumed run survives."""
+
+    def __init__(self, start_step: int = 0):
+        plan = chaos.proc_plan()
+        kill = plan.train_kill_step() if plan else None
+        self.kill_at = (kill if kill is not None and kill > start_step
+                        else None)
+        self._host = chaos.my_host_name()
+        die = plan.host_die_step(self._host) if plan else None
+        self.die_at = die if die is not None and die > start_step else None
+        self._triggered = False
+        self._installed = False
+        self._prev = None
+
+    def install(self) -> "PreemptionGuard":
+        if threading.current_thread() is threading.main_thread():
+            self._prev = signal.signal(signal.SIGTERM, self._on_term)
+            self._installed = True
+        return self
+
+    def uninstall(self) -> None:
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._installed = False
+
+    def _on_term(self, signum, frame) -> None:
+        self._triggered = True
+
+    @property
+    def triggered(self) -> bool:
+        return self._triggered
+
+    def poll(self, gstep: int) -> bool:
+        """Once a call: deliver the chaos host death or kill when due,
+        then report whether a SIGTERM has arrived."""
+        if self.die_at is not None and gstep >= self.die_at:
+            self._die(gstep)            # never returns
+        if (self.kill_at is not None and gstep >= self.kill_at
+                and self._installed):
+            self.kill_at = None
+            obs = get_obs()
+            obs.metrics.counter(
+                "chaos_train_kills_total",
+                "chaos-plan SIGTERMs delivered to training loops").inc()
+            obs.emit("chaos_train_kill", step=gstep)
+            os.kill(os.getpid(), signal.SIGTERM)
+            # the handler runs at the interpreter's next check; wait for
+            # it (bounded) so the injected kill lands at this step
+            deadline = time.time() + 2.0
+            while not self._triggered and time.time() < deadline:
+                time.sleep(0.001)
+        return self._triggered
+
+    def _die(self, gstep: int) -> None:
+        """``host:die``: record the death, then vanish (``os._exit``
+        runs no ``finally`` block, as a machine that is gone)."""
+        obs = get_obs()
+        obs.metrics.counter(
+            "chaos_host_deaths_total",
+            "chaos host:die hard-exits delivered to training loops").inc()
+        obs.emit("host_died", step=gstep, host_name=self._host or "?",
+                 exit_code=chaos.HOST_DIED_EXIT)
+        obs.flush()
+        if self._host:
+            chaos.mark_host_dead(self._host)
+        os._exit(chaos.HOST_DIED_EXIT)
+
+
+def flush_and_preempt(guard: PreemptionGuard, ckpt, gstep: int,
+                      state) -> None:
+    """The trainers' epilogue for a caught SIGTERM: a synchronous final
+    checkpoint of ``state`` at ``gstep`` (the background write in flight
+    is drained first), then :class:`Preempted`."""
+    obs = get_obs()
+    obs.metrics.counter("train_preemptions_total",
+                        "SIGTERMs absorbed by the preemption guard").inc()
+    obs.emit("preempted", step=gstep, flushed=ckpt is not None)
+    obs.flush()
+    if ckpt is not None:
+        ckpt.save(gstep, state, wait=True)
+        raise Preempted(f"SIGTERM at step {gstep}: final checkpoint "
+                        f"flushed to {ckpt.directory}")
+    raise Preempted(f"SIGTERM at step {gstep} (no ckpt_dir configured; "
+                    "nothing flushed)")
+
+
+class StepSlowInjector:
+    """The chaos ``step:slow:<s>`` drag: when the plan drags this
+    trainer's hostfile host, every call starts with ``sleep(<s>)``,
+    billed to the ``stall`` phase and recorded as a ``chaos_step_slow``
+    span."""
+
+    def __init__(self):
+        plan = chaos.proc_plan()
+        self._host = chaos.my_host_name()
+        slow = plan.step_slow_seconds(self._host) if plan else None
+        self.seconds = float(slow) if slow else None
+        self._announced = False
+
+    def maybe_drag(self, timer: Optional[PhaseTimer], gstep: int) -> None:
+        """Once a call, before its dispatch."""
+        if not self.seconds:
+            return
+        obs = get_obs()
+        if not self._announced:
+            self._announced = True
+            obs.emit("chaos_step_slow", host=self._host or "?",
+                     seconds=self.seconds, step=gstep)
+        t0 = time.perf_counter()
+        if timer is not None:
+            with timer.phase("stall"):
+                time.sleep(self.seconds)
+        else:
+            time.sleep(self.seconds)
+        obs.complete("chaos_step_slow", t0, time.perf_counter(),
+                     cat="chaos", step=gstep, host=self._host or "?")
+        obs.metrics.counter(
+            "chaos_step_slow_seconds",
+            "seconds of chaos step:slow straggler drag injected"
+        ).inc(self.seconds)
+
+
+def heartbeat(gstep: int, epoch: int, timer: Optional[PhaseTimer] = None,
+              sps: Optional[float] = None,
+              overlap_ratio: Optional[float] = None,
+              loss: Optional[float] = None,
+              grad_norm: Optional[float] = None) -> None:
+    """Per-call liveness of both trainers: the ``train_heartbeat_step``
+    and ``train_heartbeat_ts`` gauges (and ``train_seeds_per_sec`` and
+    ``train_loss`` when given), a ``heartbeat`` event and one tick into
+    the process's live feed (``obs/live.py``), which ``/livez`` reads.
+    ``overlap_ratio`` is the pipeline's hidden-exchange share,
+    ``loss`` and ``grad_norm`` the sentry's last fetched values."""
+    obs = get_obs()
+    m = obs.metrics
+    m.gauge("train_heartbeat_step",
+            "last global step this worker dispatched").set(gstep)
+    m.gauge("train_heartbeat_ts",
+            "wall-clock of this worker's last heartbeat").set(time.time())
+    if sps is not None:
+        m.gauge("train_seeds_per_sec",
+                "throughput of the last epoch").set(round(sps, 3))
+    if loss is not None:
+        m.gauge("train_loss", "loss at the last epoch end").set(
+            round(loss, 6))
+    obs.emit("heartbeat", step=gstep, epoch=epoch)
+    get_feed().tick(gstep, timer=timer, overlap_ratio=overlap_ratio,
+                    loss=loss, grad_norm=grad_norm)
+
+
+def train_teardown_live(gstep: int) -> None:
+    """The terminal marker: a ``train_done`` event and the live feed's
+    done flag, so the sidecar's later answers read as completion."""
+    get_obs().emit("train_done", step=gstep)
+    get_feed().mark_done()
 
 
 def _eval_due(cfg: TrainConfig, epoch: int) -> bool:
@@ -320,7 +529,11 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                epoch_stats: Callable[[int], Dict] = lambda steps: {},
                sample_workers: int = 1,
                step_stats: Callable[[], Optional[Dict]] = lambda: None,
-               parts: Sequence[int] = (0,)) -> Tuple[List[Dict], int]:
+               parts: Sequence[int] = (0,),
+               model: Optional[torch.nn.Module] = None,
+               overlap_ratio: Callable[[], Optional[float]] = lambda: None,
+               stage: Optional[Callable[[Iterator], Iterator]] = None
+               ) -> Tuple[List[Dict], int]:
     """The epoch loop both trainers run, from global step
     ``start_step`` to ``cfg.num_epochs`` epochs; returns the per-epoch
     records and the final global step.
@@ -344,10 +557,21 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     With ``cfg.sentry`` each call's last loss and ``step_stats()`` (its
     last step's stats, device tensors) are pushed to a
     :class:`~dgl_operator_tpu_torch.obs.quality.StatsTap` at the call's
-    end global step, after the checkpoint, and whatever the tap has
+    end global step, after the checkpoint, and every entry the tap has
     ready goes to a ``QualityMonitor`` over ``parts`` (the partitions
     the stats' rows name); the tap is drained at each epoch's end. A
-    fault goes through ``halt_for_rollback`` and is raised."""
+    fault goes through ``halt_for_rollback`` and is raised.
+
+    Around each call, in the JAX loop's order: the chaos ``step:slow``
+    drag before it; after it the checkpoint, the tap, the
+    :func:`heartbeat` (with ``overlap_ratio()``), the
+    :class:`PreemptionGuard` (a SIGTERM drains the tap and flushes
+    ``state()`` at the call's end step, then raises :class:`Preempted`)
+    and last the chaos ``numerics:nan`` injector, which poisons
+    ``model``. ``stage``, when given, wraps the stream of prepared
+    calls (``DistTrainer``'s exchange pipeline enqueues device work for
+    batches ahead of their step there). The run is a ``train`` trace span; the live sidecar
+    starts when ``TPU_OPERATOR_LIVE_PORT`` is set."""
     rng = np.random.default_rng(cfg.seed)
     start_epoch = start_step // steps_per_epoch
     for _ in range(start_epoch):
@@ -359,84 +583,113 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     # inline sampling is sampling work; with a pipeline, time spent
     # waiting for a batch is a stall
     wait_bucket = "sample" if depth <= 0 else "stall"
+    maybe_start_sidecar()
     tap = Q.StatsTap() if cfg.sentry else None
     monitor = (Q.QualityMonitor.from_config(cfg, parts=list(parts))
                if cfg.sentry else None)
+    inj = Q.maybe_injector(start_step) if model is not None else None
+    # the sentry's last fetched loss and gradient norm, for the heartbeat
+    seen_vals = {"loss": None, "grad_norm": None}
 
-    def observe(rec) -> None:
-        if rec is None:
-            return
-        try:
-            monitor.observe(*rec)
-        except Q.NumericsFault as fault:
-            Q.halt_for_rollback(fault, ckpt=ckpt, action=monitor.action)
-
-    try:
-        for epoch in range(start_epoch, cfg.num_epochs):
-            perm = permute(rng)
-            skip = start_step % steps_per_epoch if epoch == start_epoch else 0
-            calls = chunk_calls([(b, gstep + b - skip)
-                                 for b in range(skip, steps_per_epoch)],
-                                cfg.steps_per_call)
-            t_epoch = time.time()
-            losses, step_s = [], []
-            seen = 0
-            pipeline = prefetch_map(lambda c: sample(perm, c),
-                                    [(c,) for c in calls], depth,
-                                    sample_workers)
+    def observe(recs) -> None:
+        for rec in recs:
             try:
-                for call in calls:
-                    t_step = time.perf_counter()
-                    with timer.phase(wait_bucket):
-                        batch, n_seeds = next(pipeline)
-                    with timer.phase("dispatch"):
-                        loss, acc = step(batch)
-                    k = len(call)
-                    step_s += [(time.perf_counter() - t_step) / k] * k
-                    losses.append(loss)
-                    seen += n_seeds
-                    prev_gstep, gstep = gstep, gstep + k
-                    if gstep // cfg.log_every != prev_gstep // cfg.log_every:
-                        obs.emit("train_step", epoch=epoch, step=gstep,
-                                 loss=float(loss[-1]),
-                                 train_acc=None if acc is None
-                                 else float(acc[-1]),
-                                 seeds_per_sec=seen / max(
-                                     time.time() - t_epoch, 1e-9))
-                    if ckpt is not None and cfg.ckpt_every and (
-                            gstep // cfg.ckpt_every
-                            != prev_gstep // cfg.ckpt_every):
-                        ckpt.save(gstep, state(), wait=False)
-                    if tap is not None:
-                        tap.push(gstep, loss[-1], step_stats())
-                        observe(tap.poll())
-            finally:
-                pipeline.close()
-            if tap is not None:
-                # the epoch's last calls must not escape the sentry
-                observe(tap.drain())
-            loss_values = torch.cat(losses).tolist()    # waits for the card
-            dt = time.time() - t_epoch
-            rec = {"epoch": epoch, "loss": loss_values[-1],
-                   "losses": loss_values, "step_s": step_s,
-                   "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
-                   "calls": len(calls), **timer.as_dict(),
-                   **epoch_stats(len(loss_values))}
-            if _eval_due(cfg, epoch):
-                t_eval = time.perf_counter()
-                accs = evaluate()
-                rec["val_acc"] = accs.get("val_mask")
-                rec["test_acc"] = accs.get("test_mask")
-                rec["eval_s"] = time.perf_counter() - t_eval
-            obs.emit("epoch", **{k: v for k, v in rec.items()
-                                 if not isinstance(v, list)})
-            history.append(rec)
-            timer.reset()
+                v = monitor.observe(*rec)
+            except Q.NumericsFault as fault:
+                Q.halt_for_rollback(fault, ckpt=ckpt, action=monitor.action)
+            for key in seen_vals:
+                x = v.get(key)
+                if x is not None and np.isfinite(x):
+                    seen_vals[key] = float(x)
+
+    guard = PreemptionGuard(start_step)
+    slow = StepSlowInjector()
+    with tracectx.span("train", cat="train"):
+        guard.install()
+        try:
+            for epoch in range(start_epoch, cfg.num_epochs):
+                perm = permute(rng)
+                skip = (start_step % steps_per_epoch
+                        if epoch == start_epoch else 0)
+                calls = chunk_calls([(b, gstep + b - skip)
+                                     for b in range(skip, steps_per_epoch)],
+                                    cfg.steps_per_call)
+                t_epoch = time.time()
+                losses, step_s = [], []
+                seen = 0
+                pipeline = prefetch_map(lambda c: sample(perm, c),
+                                        [(c,) for c in calls], depth,
+                                        sample_workers)
+                if stage is not None:
+                    pipeline = stage(pipeline)
+                try:
+                    for call in calls:
+                        slow.maybe_drag(timer, gstep)
+                        t_step = time.perf_counter()
+                        with timer.phase(wait_bucket):
+                            batch, n_seeds = next(pipeline)
+                        with timer.phase("dispatch"):
+                            loss, acc = step(batch)
+                        k = len(call)
+                        step_s += [(time.perf_counter() - t_step) / k] * k
+                        losses.append(loss)
+                        seen += n_seeds
+                        prev_gstep, gstep = gstep, gstep + k
+                        sps = seen / max(time.time() - t_epoch, 1e-9)
+                        if (gstep // cfg.log_every
+                                != prev_gstep // cfg.log_every):
+                            obs.emit("train_step", epoch=epoch, step=gstep,
+                                     loss=float(loss[-1]),
+                                     train_acc=None if acc is None
+                                     else float(acc[-1]),
+                                     seeds_per_sec=sps)
+                        if ckpt is not None and cfg.ckpt_every and (
+                                gstep // cfg.ckpt_every
+                                != prev_gstep // cfg.ckpt_every):
+                            ckpt.save(gstep, state(), wait=False)
+                        if tap is not None:
+                            tap.push(gstep, loss[-1], step_stats())
+                            observe(tap.poll_all())
+                        heartbeat(gstep, epoch, timer, sps=sps,
+                                  overlap_ratio=overlap_ratio(),
+                                  loss=seen_vals["loss"],
+                                  grad_norm=seen_vals["grad_norm"])
+                        if guard.poll(gstep):
+                            if tap is not None:
+                                # the calls in flight, before the flush
+                                observe(tap.drain_all())
+                            flush_and_preempt(guard, ckpt, gstep, state())
+                        if inj is not None:
+                            inj.maybe_poison(gstep, model)
+                finally:
+                    pipeline.close()
+                if tap is not None:
+                    # the epoch's last calls must not escape the sentry
+                    observe(tap.drain_all())
+                loss_values = torch.cat(losses).tolist()  # waits for the card
+                dt = time.time() - t_epoch
+                rec = {"epoch": epoch, "loss": loss_values[-1],
+                       "losses": loss_values, "step_s": step_s,
+                       "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
+                       "calls": len(calls), **timer.as_dict(),
+                       **epoch_stats(len(loss_values))}
+                if _eval_due(cfg, epoch):
+                    t_eval = time.perf_counter()
+                    accs = evaluate()
+                    rec["val_acc"] = accs.get("val_mask")
+                    rec["test_acc"] = accs.get("test_mask")
+                    rec["eval_s"] = time.perf_counter() - t_eval
+                obs.emit("epoch", **{k: v for k, v in rec.items()
+                                     if not isinstance(v, list)})
+                history.append(rec)
+                timer.reset()
+                if ckpt is not None:
+                    ckpt.save(gstep, state(), wait=False)
+            train_teardown_live(gstep)
+        finally:
+            guard.uninstall()
             if ckpt is not None:
-                ckpt.save(gstep, state(), wait=False)
-    finally:
-        if ckpt is not None:
-            ckpt.close()
+                ckpt.close()
     return history, gstep
 
 
@@ -460,6 +713,9 @@ class SampledTrainer:
             raise ValueError(f"the model's parameters are on "
                              f"{sorted(map(str, param_devices))}, the "
                              f"trainer's device is {self.device}")
+        # the tuned manifest's train and quality knobs, where cfg keeps
+        # the default
+        cfg = apply_tuned(apply_tuned(cfg), layer="quality")
         model.dropout = float(cfg.dropout)
         self.model = model
         self.g = g
@@ -693,7 +949,7 @@ class SampledTrainer:
                 lambda steps: graph_stats(self._run),
                 sample_workers=resolve_num_samplers(cfg),
                 step_stats=lambda: self.last_stats,
-                parts=[Q.my_partition()])
+                parts=[Q.my_partition()], model=self.model)
         finally:
             # the graph's memory pool goes with it
             self._run = None

@@ -25,7 +25,10 @@ replicas over one partition book become one endpoint:
   divergence from the incumbent's replies: it commits the promotion
   through the fence or rolls it back with the incumbent untouched.
 
-The JAX package's endpoint registry and chaos hooks are not ported.
+The chaos drills of the fleet are the replicas' ``replica:die``
+(``serve/server.py``) and the staged candidate's ``promote:bad``
+(``runtime/checkpoint.py``). The JAX package's endpoint registry needs
+the obs file plane and is not ported (``ROADMAP.md`` item 7).
 """
 
 from __future__ import annotations

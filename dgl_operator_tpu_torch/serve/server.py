@@ -20,6 +20,10 @@ under the caller's span. An SLO breach (``obs/slo.py``) flips the
 micro-batcher to load shedding: requests below the shed floor get 503
 until the burn rate recovers.
 
+A chaos plan's ``replica:die:<n>`` rule (``launcher/chaos.py``) scoped to
+a plane's name kills that plane after it accepts ``<n>`` predict
+requests, the last of them dropped unanswered.
+
 The server is a ``ThreadingHTTPServer``: each handler thread only waits
 on its request's future, while the batcher's thread drives the engine
 on the engine's device.
@@ -46,6 +50,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from dgl_operator_tpu_torch._device import resolve_device
+from dgl_operator_tpu_torch.launcher import chaos
 from dgl_operator_tpu_torch.obs import get_obs, tracectx
 from dgl_operator_tpu_torch.obs.live import LiveFeed
 from dgl_operator_tpu_torch.obs.metrics import render_quantile_gauges
@@ -207,6 +212,10 @@ class ServingPlane:
         self.dead = False
         self._accepted = 0
         self._lock = threading.Lock()
+        # the chaos replica:die threshold of this replica's name
+        plan = chaos.proc_plan()
+        self._die_after = (plan.replica_die_after(self.name)
+                           if plan is not None else None)
         self._thread: Optional[threading.Thread] = None
         self._slo_thread: Optional[threading.Thread] = None
         self._stop_slo = threading.Event()
@@ -222,13 +231,25 @@ class ServingPlane:
         return out
 
     def note_accept(self) -> bool:
-        """Count one accepted ``/predict``; True when the plane is dead
-        and the request must be dropped unanswered."""
+        """Count one accepted ``/predict``; True when the request must be
+        dropped unanswered: the plane is dead, or the chaos
+        ``replica:die:<n>`` threshold fires on it (the plane then dies
+        mid-request, as a crash would)."""
         with self._lock:
             if self.dead:
                 return True
             self._accepted += 1
-            return False
+            if (self._die_after is None
+                    or self._accepted < self._die_after):
+                return False
+            self._die_after = None
+        chaos.count_fault("replica", "die", replica=self.name,
+                          after=self._accepted)
+        # killed from a side thread: shutdown() joins serve_forever, and
+        # this handler thread must return, dropping its connection, for
+        # the router to see the failure at once
+        threading.Thread(target=self.kill, daemon=True).start()
+        return True
 
     def kill(self) -> None:
         """Abrupt replica death: close the listening socket without

@@ -263,6 +263,7 @@ def test_unported_dist_knobs_raise(book, field, value):
 def test_unknown_layout_and_pipeline_knobs_raise(book):
     with pytest.raises(ValueError, match="unknown feats_layout"):
         _port(book, "onwer")
-    for field, value in (("pipeline_mode", "fused"), ("pipeline_depth", 1)):
-        with pytest.raises(TypeError):
+    for field, value in (("pipeline_mode", "overlapped"),
+                         ("pipeline_depth", 0)):
+        with pytest.raises(ValueError, match=field):
             _port(book, "owner", **{field: value})

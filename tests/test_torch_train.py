@@ -203,8 +203,16 @@ def test_unported_knobs_raise(port_graph, field, value):
 @pytest.mark.parametrize("field", ["pipeline_mode", "pipeline_depth",
                                    "donate", "gather_depth"])
 def test_jax_only_fields_are_not_fields(field):
-    with pytest.raises(TypeError):
-        TrainConfig(**{field: JaxTrainConfig().__dict__[field]})
+    """The fields the port once lacked are fields now: the JAX default
+    is the port's, and a value the knob registry refuses raises
+    ``ValueError``."""
+    want = JaxTrainConfig().__dict__[field]
+    assert getattr(TrainConfig(), field) == want
+    assert getattr(TrainConfig(**{field: want}), field) == want
+    bad = {"pipeline_mode": "eager", "pipeline_depth": 0,
+           "donate": "yes", "gather_depth": 0}[field]
+    with pytest.raises(ValueError):
+        TrainConfig(**{field: bad})
 
 
 def test_trainer_checks_model_device_and_dropout(port_graph):
