@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, KGE, GAT,
 full-graph, RGCN and GIN paths, the numerics sentry, the serving
-fleet, and the chaos, preemption and live planes.
+fleet, the chaos, preemption and live planes, and the data plane
+(quantized and out-of-core books, bfloat16 compute, remat).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Each phase prints JSON lines:
@@ -288,17 +289,46 @@ Each phase prints JSON lines:
    steps each, bit-equal, launches checked, each run's step time and
    ``overlap_ratio``).
 
+20. ``dataplane`` — quantized and out-of-core books, bfloat16 compute
+   and remat on phase 3's graph and widths: ``book`` (the graph written
+   again by ``partition_graph(ooc=True, ooc_budget_mb=64,
+   feat_dtype="int8")``: maps, every ``graph.npz`` array, labels, masks
+   and JSON byte-equal to phase 6's book; the spill MiB, both
+   partitions' seconds, the code files' bytes against the float32
+   features'); ``train`` (``DistTrainer`` on an int8 book of phase 10's
+   cut: the owner layout with the host sampler and with the device
+   sampler at K = 4, an int8 store against a float32 store of the
+   host-dequantized codes, bit-equal; the replicated layout on int8; a
+   bfloat16 store; each run's store MiB a slot, exchange bytes a step
+   and step ms; the int8 losses within 10% of phase 10's float32
+   owner run); ``kernel`` lines of ``gather_rows`` on the int8 stores
+   (the slot inputs, the owner's local rows, the exchange, a D = 602
+   table; untimed uint8, D = 37 and D = 1,024 edges), bit for bit;
+   ``serve`` (``ServeEngine`` on the int8 book: phase 6's requests,
+   logits bit-equal to an engine on a float32 book of the dequantized
+   codes, p50 and p99, the stores' MiB and rows paged); ``bf16``
+   (``DistSAGE`` and ``DistGAT`` with ``compute_dtype="bfloat16"``:
+   one batch's logits within 4 · 2 layers · 2^-8 of the float32
+   logits' largest, 16 ``SampledTrainer`` steps host and device K = 4
+   beside float32 from the same weights, the loss falling, then
+   ``examples/train_dist.py --bf16`` over phase 10's book);
+   ``remat`` (one step's loss and gradients bit-equal to the plain
+   stack's; host K = 1 and device K = 4 runs bit-equal, the peak device
+   memory and steady ms of each).
+
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, gat, message_passing, rgcn_gin, sentry, fleet and chaos phases
+kge, gat, message_passing, rgcn_gin, sentry, fleet, chaos and dataplane
+phases
 (both ranks of each
 two-rank run and every graph replay included), split by path, worst
 error, the times of its calls in one SAGE training step and, under
 ``kge``, in one KGE step, under ``device_sampler``, in one
 device-sampled step, under ``gat`` and ``gatv2``, in one device-sampled
 step of that stack, under ``full_graph``, in one edge gather or
-segment sum of the Cora loop and, under ``rgcn_gin``, in one call at
-each RGCN and pool shape), a ``total`` line with the run's seconds, the
+segment sum of the Cora loop, under ``rgcn_gin``, in one call at
+each RGCN and pool shape and, under ``dataplane``, in one call at the
+int8 slot-input and exchange shapes), a ``total`` line with the run's seconds, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -524,13 +554,14 @@ def gather_path(table) -> str:
     """The path ``csrc/gather_rows.cu`` takes for ``table`` (its output
     is 16-byte aligned): TMA bulk copies for rows of at least 512 bytes,
     a multiple of 16, at a 16-byte aligned address; registers otherwise,
-    with the widest access (16, 8, 4 or 2 bytes) that the row and the
+    with the widest access (16, 8, 4, 2 or 1 bytes) that the row and the
     address allow."""
     row = table.shape[1] * table.element_size()
     addr = table.data_ptr()
     if row >= 512 and row % 16 == 0 and addr % 16 == 0:
         return "bulk"
-    width = next(w for w in (16, 8, 4, 2) if row % w == 0 and addr % w == 0)
+    width = next(w for w in (16, 8, 4, 2, 1)
+                 if row % w == 0 and addr % w == 0)
     return f"registers{width}"
 
 
@@ -1755,7 +1786,8 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
                  lambda **fields: make(eval_every=0, **fields), w0, want,
                  steps // 2, os.path.join(work, "ckpt_dist"), card)
     ctx = dict(book=book, w0=w0, make=make, perm=perm, own=own,
-               seed=args.seed, pair_cap=own.pair_cap, want={
+               seed=args.seed, pair_cap=own.pair_cap, cut=cut,
+               node_map=node_map, want={
         "replicated": (want[0], losses, (rec["val_acc"], rec["test_acc"])),
         "owner": (own_params, own_losses, (out_own["history"][0]["val_acc"],
                                out_own["history"][0]["test_acc"]))})
@@ -6036,10 +6068,524 @@ def chaos_phase(torch, args, wrappers, g, trainer, ctx, kg, work: str,
     return total
 
 
+DP_BUDGET_MB = 64      # the ooc book's working-set budget (MiB)
+DP_STEPS = 16          # bf16 and remat SampledTrainer runs: 16 steps
+DP_LOSS_REL = 0.10     # int8 losses against the float32 book's, relative
+# bfloat16 keeps 8 significant bits (unit roundoff 2^-8); a sampled
+# layer rounds its input, its aggregate, its two GEMM outputs and their
+# sum: about 4 roundings a layer, so an L-layer bfloat16 forward may part
+# from the float32 one by up to 4 * L * 2^-8 of the largest logit
+BF16_U = 2.0 ** -8
+
+
+def bf16_tol(num_layers: int, ref_max: float) -> float:
+    return 4 * num_layers * BF16_U * max(1.0, ref_max)
+
+
+def same_npz(a: str, b: str, drop=()) -> bool:
+    """Two npz files hold the same arrays, dtypes included (but the
+    keys in ``drop``)."""
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        fa = sorted(set(za.files) - set(drop))
+        return fa == sorted(set(zb.files) - set(drop)) and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+            for k in fa)
+
+
+def dataplane_book(torch, args, g, work: str, card: str) -> str:
+    """The serve phase's graph written again by ``partition_graph(ooc=
+    True, ooc_budget_mb=64, feat_dtype="int8")``: the same multilevel
+    assignment at the same seed, so its maps, every ``graph.npz`` array
+    (the halo manifest among them), its labels and masks and its JSON
+    but the feature entries must equal the serve phase's book byte for
+    byte. Returns the int8 book's JSON path."""
+    import filecmp
+
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.partition import partition_graph
+
+    base, book = os.path.join(work, "book"), os.path.join(work, "book_int8")
+    t0 = time.perf_counter()
+    cfg = partition_graph(g, "ogbn-products", 2, book, ooc=True,
+                          ooc_budget_mb=DP_BUDGET_MB, feat_dtype="int8")
+    ooc_s = time.perf_counter() - t0
+    for name in ("node_map.npy", "edge_map.npy"):
+        check(filecmp.cmp(os.path.join(base, name), os.path.join(book, name),
+                          shallow=False), f"dataplane book: {name} differs")
+    metas = []
+    for d in (base, book):
+        with open(os.path.join(d, "ogbn-products.json")) as f:
+            m = json.load(f)
+        for key in ("feat_quant", "feat_files", "ooc_spill_mib"):
+            m.pop(key, None)
+        for p in range(2):
+            m[f"part-{p}"].pop("node_feat_files", None)
+        metas.append(m)
+    check(metas[0] == metas[1], "dataplane book: the JSON differs")
+    code_bytes, float_bytes = 0, 0
+    for p in range(2):
+        for name in ("graph.npz", "edge_feat.npz"):
+            check(same_npz(os.path.join(base, f"part{p}", name),
+                           os.path.join(book, f"part{p}", name)),
+                  f"dataplane book: part{p}/{name} differs")
+        check(same_npz(os.path.join(base, f"part{p}", "node_feat.npz"),
+                       os.path.join(book, f"part{p}", "node_feat.npz"),
+                       drop=("feat",)),
+              f"dataplane book: part{p} labels or masks differ")
+        codes = np.load(os.path.join(book, f"part{p}", "node_feat.feat.npy"),
+                        mmap_mode="r")
+        check(codes.dtype == np.int8 and codes.shape[1] == FEAT,
+              f"dataplane book: part{p} codes {codes.dtype} {codes.shape}")
+        code_bytes += os.path.getsize(os.path.join(
+            book, f"part{p}", "node_feat.feat.npy"))
+        with np.load(os.path.join(base, f"part{p}", "node_feat.npz")) as z:
+            float_bytes += int(z["feat"].nbytes)
+    with open(cfg) as f:
+        meta = json.load(f)
+    emit(phase="dataplane", part="book", card=card, parts=2,
+         ooc_budget_mb=DP_BUDGET_MB, feat_dtype="int8",
+         byte_equal_to_serve_book=True, ooc_partition_s=ooc_s,
+         serve_partition_s=LAST["serve"]["partition_s"],
+         ooc_spill_mib=meta["ooc_spill_mib"],
+         code_file_bytes=code_bytes, float32_feat_bytes=float_bytes,
+         bytes_ratio=float_bytes / code_bytes)
+    return cfg
+
+
+def dataplane_train(torch, args, ops, wrappers, ctx, work: str, card: str):
+    """``DistTrainer`` on an int8 book of the dist phase's cut (the same
+    assignment): the owner layout with the host sampler (the fused
+    exchange pipeline) and the device sampler at K = 4 (captured), each
+    with an int8 store and with a float32 store of the host-dequantized
+    codes, bit-equal; the replicated layout with an int8 store (its
+    losses within 1e-6 of the owner's, as in the dist phase); a
+    bfloat16 store of the float book; the int8 losses within 10% of the
+    float book's float32 run; ``kernel`` lines of the gather on the int8
+    store. Returns the launches and the kernel records."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.partition import partition_graph
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.parallel.halo import exchange_index
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import TrainConfig
+
+    t0 = time.perf_counter()
+    book8 = partition_graph(ctx["cut"], "ogbn-products", 2,
+                            os.path.join(work, "dist_book_int8"),
+                            parts=ctx["node_map"], feat_dtype="int8")
+    book_s = time.perf_counter() - t0
+    P, w0, total = 2, ctx["w0"], {}
+
+    def make(book, layout, fdt, **fields):
+        cfg = TrainConfig(**{**dict(
+            num_epochs=1, batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+            eval_every=0, seed=args.seed, cap_policy="auto",
+            feats_layout=layout, halo_cache_frac=0.25, feat_dtype=fdt),
+            **fields})
+        return DistTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
+                           book, cfg, device="cuda")
+
+    def run(name, book, layout, fdt, k=1):
+        fields = (dict(sampler="device", steps_per_call=k) if k > 1
+                  else {})
+        tr = make(book, layout, fdt, **fields)
+        # the main path: every kernel count starts at 0 here
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = tr.train(init_params=w0)
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        steps, rec = out["step"], out["history"][0]
+        gathers = (P if layout == "replicated" else
+                   1 if k > 1 else P + 1)
+        check(launches == {"fanout_agg": 2 * P * steps,
+                           "gather_rows": gathers * steps,
+                           "scatter_add_rows": P * steps},
+              f"dataplane {name}: {launches} in {steps} steps")
+        check(steps == DIST_IDS_PER_PART // BATCH_TRAIN, f"{name}: {steps}")
+        check(bool(np.isfinite(rec["losses"]).all()), f"{name}: losses")
+        add_counts(total, launches)
+        step_ms = np.asarray(rec["step_s"]) * 1e3
+        numbers = (device_run_record(rec, steps, k) if k > 1 else dict(
+            step_ms_mean=float(step_ms.mean()),
+            step_ms_p50=float(np.percentile(step_ms, 50)),
+            stall_ms_per_step=rec.get("stall", 0.0) * 1e3 / steps))
+        return tr, out, dict(
+            layout=layout, feat_dtype=fdt, store_dtype=str(tr.feats.dtype),
+            sampler="device" if k > 1 else "host", steps_per_call=k,
+            steps=steps, launches=launches,
+            data_feat_mib_per_slot=tr.data_feat_mib_per_slot,
+            exchange_bytes_per_step=tr.exchange_bytes_per_step,
+            halo_rows_per_step=rec.get("halo_rows_per_step"),
+            h2d_bytes_per_step=rec["h2d_bytes_per_step"],
+            overlap_ratio=rec.get("overlap_ratio"), losses=rec["losses"],
+            train_call_s=wall, **numbers)
+
+    runs = {}
+    for name, book, layout, fdt, k in (
+            ("owner_int8_host", book8, "owner", "int8", 1),
+            ("owner_float32_host", book8, "owner", "float32", 1),
+            ("owner_int8_device_k4", book8, "owner", "int8", DEV_K),
+            ("owner_float32_device_k4", book8, "owner", "float32", DEV_K),
+            ("replicated_int8_host", book8, "replicated", "int8", 1),
+            ("owner_bfloat16_host", ctx["book"], "owner", "bfloat16", 1)):
+        runs[name] = run(name, book, layout, fdt, k)
+    gaps = {}
+    for a, b in (("owner_int8_host", "owner_float32_host"),
+                 ("owner_int8_device_k4", "owner_float32_device_k4")):
+        oa, ob = runs[a][1], runs[b][1]
+        la, lb = oa["history"][0]["losses"], ob["history"][0]["losses"]
+        gaps[a] = float(np.max(np.abs(np.subtract(la, lb))))
+        check(la == lb and all(torch.equal(v, ob["params"][k])
+                               for k, v in oa["params"].items()),
+              f"dataplane {a} against {b}: largest loss gap {gaps[a]}")
+    own, rep = (runs[n][1]["history"][0]["losses"]
+                for n in ("owner_int8_host", "replicated_int8_host"))
+    rep_rel = float(np.max(np.abs(np.subtract(own, rep)) / np.abs(own)))
+    check(rep_rel <= 1e-6, f"dataplane: replicated int8 {rep_rel} from owner")
+    flat = ctx["want"]["owner"][1]
+    flat_rel = float(np.max(np.abs(np.subtract(own, flat)) / np.abs(flat)))
+    check(flat_rel <= DP_LOSS_REL, f"dataplane: int8 losses {own} vs the "
+          f"float32 book's {flat}: relative {flat_rel} > {DP_LOSS_REL}")
+    bf = runs["owner_bfloat16_host"][1]["history"][0]["losses"]
+    check(np.mean(bf[-5:]) < np.mean(bf[:5]), f"bfloat16 store: {bf}")
+    for name, (_, _, rec) in runs.items():
+        emit(phase="dataplane", part="train", run=name, card=card, **rec)
+    emit(phase="dataplane", part="train_compare", card=card, book_s=book_s,
+         int8_vs_float32_store_max_loss_gap=gaps, bit_equal=True,
+         replicated_vs_owner_rel=rep_rel,
+         int8_vs_float32_book_max_rel=flat_rel, limit=DP_LOSS_REL,
+         float32_book_losses=flat)
+
+    # the gather on the int8 stores at this path's shapes
+    fanout, gather, scatter = ops
+    rep8, own8 = (runs[n][0] for n in ("replicated_int8_host",
+                                       "owner_int8_host"))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    rng = np.random.default_rng(args.seed + 5)
+    perm = [rng.permutation(t) for t in rep8.train_ids]
+    rslots, _ = rep8.ship(rep8._sample_all(perm, 0, 20_000)[0])
+    oslots, serve = own8.ship(own8._sample_all(perm, 0, 20_000)[0])
+    inputs = rslots[0]["inputs"]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+    wide = torch.randint(-127, 128, (rep8.n_pad, 602), device="cuda",
+                         generator=gen, dtype=torch.int8)
+    check(rep8.feats.dtype == own8._flat.dtype == torch.int8,
+          "dataplane: int8 stores")
+    records = gather_records(torch, gather, [
+        ("dataplane_slot_inputs", rep8.feats[0], inputs),
+        ("dataplane_owner_local", own8.feats[0], oslots[0]["exch_loc"]),
+        ("dataplane_exchange", own8._flat,
+         exchange_index(serve, own8._rows_per_slot)),
+        ("dataplane_d602", wide, inputs),
+    ], flush, args.iters, card)
+    records += gather_records(torch, gather, [
+        ("dataplane_uint8_d100", rep8.feats[0].view(torch.uint8), inputs),
+        ("dataplane_uint8_d602", wide.view(torch.uint8), inputs),
+        ("dataplane_d37", wide[:, :37].contiguous(), inputs),
+        ("dataplane_d1024", torch.randint(
+            -127, 128, (4096, 1024), device="cuda", generator=gen,
+            dtype=torch.int8), inputs % 4096),
+    ], flush, args.iters, card, timed=False)
+    return total, records
+
+
+def dataplane_serve(torch, args, wrappers, g, cfg8: str, node_map,
+                    work: str, card: str) -> dict:
+    """``ServeEngine`` on the int8 book answers the serve phase's
+    requests: every request's logits bit-equal to an engine on a float32
+    book of the dequantized codes (the same sample seeds), then the
+    requests through the ``MicroBatcher`` for p50 and p99, with the
+    stores' resident and backing MiB and the rows paged. Returns the
+    launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph import quant
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.graph.partition import (GraphPartition,
+                                                         partition_graph)
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.runtime.checkpoint import export_for_serving
+    from dgl_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine
+
+    sc = GraphPartition(cfg8, 0).feat_sidecar("feat")
+    deq = Graph(g.src, g.dst, g.num_nodes)
+    deq.ndata = {**g.ndata, "feat": quant.dequantize(quant.quantize(
+        g.ndata["feat"], sc["scale"], sc["zero"], "int8"), sc["scale"],
+        sc["zero"])}
+    cfgf = partition_graph(deq, "ogbn-products", 2,
+                           os.path.join(work, "book_dequant"),
+                           parts=node_map)
+    del deq
+    model = DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda",
+                     generator=torch.Generator().manual_seed(args.seed))
+    export = export_for_serving(os.path.join(work, "export_dp") + os.sep,
+                                state_dict_to_flax(model.state_dict()))
+    cfg = ServeConfig(fanouts=FANOUTS, batch_size=BATCH,
+                      halo_cache_frac=0.25, cap_policy="worst")
+    eng8, engf = (ServeEngine(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
+                              c, params_path=export, cfg=cfg, device="cuda")
+                  for c in (cfg8, cfgf))
+    check(eng8.feat_dtype == "int8" and engf.feat_dtype == "float32",
+          f"dataplane serve: stores {eng8.feat_dtype}, {engf.feat_dtype}")
+    requests = fleet_requests(args, g)
+    for i, ids in enumerate(requests):
+        a = eng8.predict_logits(ids, sample_seed=i)
+        b = engf.predict_logits(ids, sample_seed=i)
+        check(np.array_equal(a, b) and np.isfinite(a).all(),
+              f"dataplane serve: request {i} logits differ, max "
+              f"{float(np.abs(a - b).max())}")
+    lat_ms = []
+    # the main path: every kernel count starts at 0 here
+    reset_counts(wrappers)
+    forwards0 = eng8.forward_calls
+    batcher = eng8.make_batcher()
+    try:
+        for ids in requests:
+            t = time.perf_counter()
+            pred = batcher.submit(ids).result(timeout=120)
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+            check(pred.shape == ids.shape and pred.min() >= 0
+                  and pred.max() < CLASSES, "dataplane serve: classes")
+    finally:
+        batcher.stop()
+    launches = read_counts(wrappers)
+    forwards = eng8.forward_calls - forwards0
+    check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
+                       "scatter_add_rows": 0},
+          f"dataplane serve: {launches} in {forwards} forwards")
+    st8, stf = eng8.stats(), engf.stats()
+    lat = np.asarray(lat_ms)
+    emit(phase="dataplane", part="serve", card=card, requests=len(requests),
+         logits_bit_equal_to_dequantized_float32_book=True,
+         forwards=forwards, launches=launches, feat_dtype=st8["feat_dtype"],
+         resident_mib=st8["feat_resident_mib"],
+         backing_mib=st8["feat_backing_mib"],
+         paged_rows=st8["feat_paged_rows"],
+         float32_resident_mib=stf["feat_resident_mib"],
+         float32_backing_mib=stf["feat_backing_mib"],
+         p50_ms=float(np.percentile(lat, 50)),
+         p99_ms=float(np.percentile(lat, 99)),
+         serve_phase_p50_ms=LAST["serve"]["p50_ms"],
+         serve_phase_p99_ms=LAST["serve"]["p99_ms"])
+    return launches
+
+
+def dp_model(torch, kind: str, seed: int, **kw):
+    """A full-width ``DistSAGE`` or ``DistGAT`` on the card."""
+    from dgl_operator_tpu_torch.models import DistGAT, DistSAGE
+
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "gat":
+        return DistGAT(FEAT, HIDDEN, CLASSES, num_heads=GAT_HEADS,
+                       device="cuda", generator=gen, **kw)
+    return DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda", generator=gen, **kw)
+
+
+def dp_launches(kind: str, steps: int, slots: int = 1, warm: int = 1):
+    if kind == "gat":
+        return gat_launches(kind, steps, slots=slots, warm=warm)
+    return {"fanout_agg": 2 * (steps * slots + warm),
+            "gather_rows": steps * slots + warm,
+            "scatter_add_rows": steps * slots}
+
+
+def dataplane_bf16(torch, args, wrappers, g, trainer, ctx, work: str,
+                   card: str) -> dict:
+    """``compute_dtype="bfloat16"`` against float32 from the same
+    weights: ``DistSAGE`` and ``DistGAT`` through ``SampledTrainer``
+    (host sampler, and the device sampler at K = 4), 16 steps each, the
+    loss falling and the steady ms a step of both; one batch's logits
+    within the bfloat16 bound (:func:`bf16_tol`) of the float32
+    logits; then ``examples/train_dist.py --bf16`` for both stacks over
+    the dist phase's book. Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.examples import train_dist
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    ids = trainer.train_ids[:DP_STEPS * BATCH_TRAIN]
+    mb = trainer.sample(ids[:BATCH_TRAIN], 0)
+    h = torch.from_numpy(g.ndata["feat"][mb.input_nodes]).to("cuda")
+    blocks = [b.to("cuda") for b in mb.blocks]
+    total = {}
+    for kind in ("sage", "gat"):
+        sd = dp_model(torch, kind, args.seed + 11).state_dict()
+        logits = {}
+        for dtype in (None, "bfloat16"):
+            m = dp_model(torch, kind, args.seed, compute_dtype=dtype)
+            m.load_state_dict(sd)
+            m.eval()
+            with torch.no_grad():
+                logits[dtype] = m(blocks, h)
+        ref = logits[None]
+        gap = float((logits["bfloat16"] - ref).abs().max())
+        tol = bf16_tol(2, float(ref.abs().max()))
+        check(logits["bfloat16"].dtype == torch.float32 and gap <= tol,
+              f"bf16 {kind}: logits {gap} from float32 > {tol}")
+        check(gap > 0, f"bf16 {kind}: no bfloat16 rounding seen")
+        rows = {}
+        for sampler, k in (("host", 1), ("device", DEV_K)):
+            for dtype in (None, "bfloat16"):
+                m = dp_model(torch, kind, args.seed, compute_dtype=dtype)
+                m.load_state_dict(sd)
+                cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS,
+                                  lr=LR, num_epochs=1, eval_every=0,
+                                  seed=args.seed, sampler=sampler,
+                                  steps_per_call=k)
+                tr = SampledTrainer(m, g, cfg, train_ids=ids, device="cuda")
+                reset_counts(wrappers)
+                out = tr.train()
+                launches = read_counts(wrappers)
+                steps, rec = out["step"], out["history"][0]
+                losses = rec["losses"]
+                check(steps == DP_STEPS and launches == dp_launches(
+                    kind, steps), f"bf16 {kind} {sampler} {dtype}: "
+                    f"{launches} in {steps} steps")
+                check(bool(np.isfinite(losses).all())
+                      and np.mean(losses[-4:]) < np.mean(losses[:4]),
+                      f"bf16 {kind} {sampler} {dtype}: losses {losses}")
+                add_counts(total, launches)
+                rows[f"{sampler}_k{k}_{dtype or 'float32'}"] = dict(
+                    loss_first4=float(np.mean(losses[:4])),
+                    loss_last4=float(np.mean(losses[-4:])),
+                    **device_run_record(rec, steps, k))
+        emit(phase="dataplane", part="bf16", kind=kind, card=card,
+             steps=DP_STEPS, logits_max_abs_gap=gap, logits_tol=tol,
+             runs=rows)
+    hostfile = os.path.join(work, "hostfile_dp")
+    with open(hostfile, "w") as f:
+        f.write(f"127.0.0.1 {free_port()} worker-0 slots=1\n")
+    for kind in ("sage", "gat"):
+        argv = ["--graph_name", "ogbn-products", "--ip_config", hostfile,
+                "--part_config", ctx["book"], "--num_epochs", "1",
+                "--batch_size", str(BATCH_TRAIN), "--fan_out", "10,25",
+                "--num_hidden", str(HIDDEN), "--eval_every", "0",
+                "--model", kind, "--bf16", "--device", "cuda"]
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = train_dist.main(argv)
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        steps, losses = out["step"], out["history"][0]["losses"]
+        want = (dp_launches(kind, steps, slots=2, warm=0) if kind == "gat"
+                else {"fanout_agg": 4 * steps, "gather_rows": 2 * steps,
+                      "scatter_add_rows": 2 * steps})
+        check(launches == want, f"train_dist --bf16 {kind}: {launches}")
+        check(bool(np.isfinite(losses).all())
+              and np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"train_dist --bf16 {kind}: losses {losses}")
+        add_counts(total, launches)
+        emit(phase="dataplane", part="bf16_entry_point", kind=kind,
+             card=card, steps=steps, launches=launches, losses=losses,
+             step_ms_mean=float(np.mean(out["history"][0]["step_s"]))
+             * 1e3, train_call_s=wall)
+    return total
+
+
+def dataplane_remat(torch, args, wrappers, g, trainer, card: str) -> dict:
+    """``remat=True`` on ``DistSAGE``: one step's loss and gradients
+    (dropout 0.5, the masks from one seeded generator) bit-equal to the
+    plain stack's; then ``SampledTrainer`` at host K = 1 and device
+    K = 4 (captured: the recompute runs inside the graph), remat off and
+    on, bit-equal (the remat runs launch two more aggregations a step,
+    the recompute), with the peak device memory and steady ms of each.
+    Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.runtime.forward import masked_loss
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    ids = trainer.train_ids[:DP_STEPS * BATCH_TRAIN]
+    sd = dp_model(torch, "sage", args.seed + 13).state_dict()
+    mb = trainer.sample(ids[:BATCH_TRAIN], 1)
+    h = torch.from_numpy(g.ndata["feat"][mb.input_nodes]).to("cuda")
+    labels = torch.from_numpy(np.asarray(g.ndata["label"],
+                                         np.int64)).to("cuda")
+    seeds = torch.from_numpy(np.asarray(mb.seeds, np.int64)).to("cuda")
+    grads = []
+    for remat in (False, True):
+        m = dp_model(torch, "sage", args.seed, remat=remat)
+        m.load_state_dict(sd)
+        m.train()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+        loss = masked_loss(m([b.to("cuda") for b in mb.blocks], h, gen),
+                           labels, seeds)[0]
+        loss.backward()
+        grads.append((loss.detach(), {k: p.grad for k, p in
+                                      m.named_parameters()}))
+    (l0, g0), (l1, g1) = grads
+    check(torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k])
+                                      for k in g0),
+          "remat: one step's loss or gradients differ from the plain stack")
+    total, rows = {}, {}
+    for sampler, k in (("host", 1), ("device", DEV_K)):
+        outs = []
+        for remat in (False, True):
+            m = dp_model(torch, "sage", args.seed, remat=remat)
+            m.load_state_dict(sd)
+            cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                              num_epochs=1, eval_every=0, seed=args.seed,
+                              sampler=sampler, steps_per_call=k)
+            tr = SampledTrainer(m, g, cfg, train_ids=ids, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            out = tr.train()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = read_counts(wrappers)
+            steps, rec = out["step"], out["history"][0]
+            want = dp_launches("sage", steps)
+            if remat:
+                # the backward recomputes both layers' aggregations
+                want["fanout_agg"] += 2 * steps
+            check(launches == want,
+                  f"remat {sampler} {remat}: {launches} in {steps} steps")
+            check(rec["graph"] is (k > 1), f"remat {sampler}: graph")
+            add_counts(total, launches)
+            outs.append(out)
+            rows[f"{sampler}_k{k}_remat_{'on' if remat else 'off'}"] = dict(
+                peak_memory_bytes=peak, **device_run_record(rec, steps, k))
+        check(same_run(outs[0], outs[1]),
+              f"remat {sampler} K={k}: the run differs from the plain one")
+    emit(phase="dataplane", part="remat", card=card, steps=DP_STEPS,
+         one_step_bit_equal=True, runs_bit_equal=True, runs=rows)
+    return total
+
+
+def dataplane_phase(torch, args, ops, wrappers, g, trainer, ctx, work: str,
+                    card: str):
+    """Quantized and out-of-core books through ``DistTrainer`` and
+    ``ServeEngine``, bfloat16 compute and remat, on the SAGE cell's
+    graph and widths. Returns the launches of its card runs and its
+    kernel records."""
+    t0 = time.perf_counter()
+    cfg8 = dataplane_book(torch, args, g, work, card)
+    total, records = dataplane_train(torch, args, ops, wrappers, ctx, work,
+                                     card)
+    add_counts(total, dataplane_serve(torch, args, wrappers, g, cfg8,
+                                      ctx["node_map"], work, card))
+    add_counts(total, dataplane_bf16(torch, args, wrappers, g, trainer, ctx,
+                                     work, card))
+    add_counts(total, dataplane_remat(torch, args, wrappers, g, trainer,
+                                      card))
+    emit(phase="dataplane", part="done", card=card,
+         seconds=time.perf_counter() - t0, launches=total)
+    return total, records
+
+
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
                  gat_shapes=None, gat_launches=0, mp_launches=0,
-                 rgcn_launches=0, chaos_launches=0):
+                 rgcn_launches=0, chaos_launches=0, dataplane_launches=0):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
     ``kge``, of one KGE training step; under ``device_sampler``, of one
@@ -6050,7 +6596,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
     every path (``mp_launches``: the full-graph and message-passing
     runs and ``examples/graphsage.py``; ``rgcn_launches``: the
     ``rgcn_gin`` phase's runs; ``chaos_launches``: the ``chaos``
-    phase's runs)."""
+    phase's runs; ``dataplane_launches``: the ``dataplane`` phase's
+    runs)."""
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -6067,7 +6614,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "source": f"dgl_operator_tpu_torch/csrc/{name}.cu",
              "replaces": replaces,
              "launches": launches + kge_launches + gat_launches
-             + mp_launches + rgcn_launches + chaos_launches,
+             + mp_launches + rgcn_launches + chaos_launches
+             + dataplane_launches,
              "max_abs_err": max(r["max_abs_err"] for r in mine),
              "ms": total["ms"], "plain_ms": total["plain_ms"],
              "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
@@ -6076,7 +6624,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "launches_gat": gat_launches,
              "launches_message_passing": mp_launches,
              "launches_rgcn_gin": rgcn_launches,
-             "launches_chaos": chaos_launches}
+             "launches_chaos": chaos_launches,
+             "launches_dataplane": dataplane_launches}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
     if tree_shapes:
@@ -6170,10 +6719,12 @@ def main(argv=None) -> int:
         fleet = fleet_phase(torch, args, wrappers, g, trainer, work, smi)
         chaos = chaos_phase(torch, args, wrappers, g, trainer, ctx, kg, work,
                             smi)
+        dplane, dplane_records = dataplane_phase(torch, args, ops, wrappers,
+                                                 g, trainer, ctx, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
-                + gat_records + mpass_records + rgin_records)
+                + gat_records + mpass_records + rgin_records + dplane_records)
     # the full-graph and message-passing paths, and the standalone
     # sampled entry point
     for k, v in full.items():
@@ -6188,6 +6739,9 @@ def main(argv=None) -> int:
     def f32(*names):
         return {(n, "float32") for n in names}
 
+    def i8(*names):
+        return {(n, "int8") for n in names}
+
     emit(kernels=[
         kernel_entry(records, "fanout_agg",
                      f32("train_block0", "train_block1"),
@@ -6196,7 +6750,8 @@ def main(argv=None) -> int:
                      gat_launches=gat["fanout_agg"],
                      mp_launches=mpass["fanout_agg"],
                      rgcn_launches=rgin["fanout_agg"],
-                     chaos_launches=chaos.get("fanout_agg", 0)),
+                     chaos_launches=chaos.get("fanout_agg", 0),
+                     dataplane_launches=dplane.get("fanout_agg", 0)),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -6211,11 +6766,14 @@ def main(argv=None) -> int:
                          "rgcn_gin": f32("rgcn_hb_src", "rgcn_coef_etype",
                                          "rgcn_distmult_head",
                                          "rgcn_distmult_rel",
-                                         "pool_block0")},
+                                         "pool_block0"),
+                         "dataplane": i8("dataplane_slot_inputs",
+                                         "dataplane_exchange")},
                      gat_launches=gat["gather_rows"],
                      mp_launches=mpass["gather_rows"],
                      rgcn_launches=rgin["gather_rows"],
-                     chaos_launches=chaos.get("gather_rows", 0)),
+                     chaos_launches=chaos.get("gather_rows", 0),
+                     dataplane_launches=dplane.get("gather_rows", 0)),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -6235,7 +6793,8 @@ def main(argv=None) -> int:
                      gat_launches=gat["scatter_add_rows"],
                      mp_launches=mpass["scatter_add_rows"],
                      rgcn_launches=rgin["scatter_add_rows"],
-                     chaos_launches=chaos.get("scatter_add_rows", 0)),
+                     chaos_launches=chaos.get("scatter_add_rows", 0),
+                     dataplane_launches=dplane.get("scatter_add_rows", 0)),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

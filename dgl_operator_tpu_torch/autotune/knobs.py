@@ -107,7 +107,7 @@ REGISTRY: Dict[str, Knob] = dict((
           "feature storage dtype: float storage exchanges its own "
           "bytes and upcasts at the gather; int8/uint8 store affine "
           "codes with per-column scale/zero sidecars, dequantized at "
-          "the gather (only float32 is ported)",
+          "the gather (graph/quant.py, runtime/forward.py)",
           choices=("float32", "bfloat16", "int8", "uint8"),
           probe_values=("float32", "bfloat16", "int8")),
     _knob("halo_cache_frac", "float", "train", 0.25,

@@ -26,8 +26,8 @@
 // block, not one per row.
 //
 // Register path (every row the bulk path does not take). The block's
-// rows x packs (a pack: W bytes moved as one access, W = 16, 8, 4 or 2,
-// the widest that the row and both pointers allow) are one flat range;
+// rows x packs (a pack: W bytes moved as one access, W = 16, 8, 4, 2 or
+// 1, the widest that the row and both pointers allow) are one flat range;
 // thread t takes packs t, t + 256, ..., at most K of them, issues all K
 // loads and only then its K stores. K (1, 2, 4 or 8) is a template
 // constant, so the loads are unrolled and issued before the first
@@ -48,6 +48,17 @@
 // barrier completes one bulk store writes the block's contiguous output
 // range from shared memory. At 1,600-byte rows it beat the register
 // path by 0.1-0.35 us in two A/B calls (PERF.md).
+//
+// Element sizes: 4 (float32), 2 (bfloat16) and 1 (int8 and uint8 codes
+// of a quantized feature store, graph/quant.py). The kernel copies
+// bytes and never reads a value, so one code serves both code types, as
+// the Pallas kernel's row DMA serves every dtype. A row of codes has
+// any length: ogbn-products' D = 100 gives 100-byte rows (4-byte
+// aligned, not 16), D = 602 rows that start on 2-byte boundaries, an
+// odd D rows of single bytes; the pack width above follows the row and
+// the pointers, so no vector width is assumed, and rows of at least
+// kBulkMinRowBytes, a multiple of 16, take the bulk path as float rows
+// do.
 //
 // Offsets are int64, so a table of more than 2^31 elements (ogbn-products
 // at full size is 245M, Wikidata5M's entities 1.8G) is addressed
@@ -89,6 +100,10 @@ struct Word<4> {
 template <>
 struct Word<2> {
   using type = uint16_t;
+};
+template <>
+struct Word<1> {
+  using type = uint8_t;
 };
 
 // Block blockIdx.x's rows [*row0, *row0 + *rows) of m: the first
@@ -246,13 +261,17 @@ cudaError_t launch_index(const void* table, const void* idx, void* out,
   if (row_bytes % 4 == 0 && addr % 4 == 0)
     return launch_regs<I, 4>(table, idx, out, m, row_bytes, dev, sms, optin,
                              stream);
-  return launch_regs<I, 2>(table, idx, out, m, row_bytes, dev, sms, optin,
+  if (row_bytes % 2 == 0 && addr % 2 == 0)
+    return launch_regs<I, 2>(table, idx, out, m, row_bytes, dev, sms, optin,
+                             stream);
+  return launch_regs<I, 1>(table, idx, out, m, row_bytes, dev, sms, optin,
                            stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; idx_bytes: 4 (int32) or 8 (int64).
+// dtype: 0 = float32, 1 = bfloat16, 2 = one-byte codes (int8 or uint8);
+// idx_bytes: 4 (int32) or 8 (int64).
 // Launches on `stream` and does not synchronise; returns the first CUDA
 // error of configuring or launching (0 = ok). The device and occupancy
 // queries behind a launch's configuration are made once and kept.
@@ -261,8 +280,8 @@ extern "C" int gather_rows_launch(const void* table, const void* idx,
                                   int64_t dtype, int64_t idx_bytes,
                                   void* stream) {
   if (m <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t row_bytes = d * (dtype == 0 ? 4 : 2);
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = d * (dtype == 0 ? 4 : dtype == 1 ? 2 : 1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 4)
     return static_cast<int>(

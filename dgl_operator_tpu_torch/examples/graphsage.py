@@ -5,8 +5,8 @@ The counterpart of the JAX package's ``examples/GraphSAGE/train.py``:
 minibatch training of ``DistSAGE`` (or, with ``--model gat|gatv2``,
 ``DistGAT`` / ``DistGATv2`` with 2 heads of ``--num_hidden``) on the
 synthetic ogbn-products graph cut to ``--dataset_scale``, through
-``SampledTrainer``, with the JAX example's flags. ``--remat`` raises:
-it is not ported. Run it as ``python -m
+``SampledTrainer``, with the JAX example's flags; ``--remat`` recomputes
+each layer in the backward. Run it as ``python -m
 dgl_operator_tpu_torch.examples.graphsage``; it trains on the card
 unless ``--device cpu`` is given. The weights, the shuffles and the
 sampling streams are drawn from ``--seed``; ``init_params`` (a flax
@@ -36,7 +36,8 @@ def main(argv=None, init_params=None):
     ap.add_argument("--dataset_scale", type=float, default=1.0)
     ap.add_argument("--model", choices=["sage", "gat", "gatv2"],
                     default="sage")
-    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches sampled ahead of the step (0 = inline)")
     ap.add_argument("--sampler", choices=["host", "device"], default="host")
@@ -46,10 +47,6 @@ def main(argv=None, init_params=None):
                     help="TrainConfig.seed: the weights, the shuffles and "
                          "the sampling streams")
     args, _ = ap.parse_known_args(argv)
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: not ported (ROADMAP.md Queue 1 item 1.6 (the "
-            "remaining dist knobs))")
     device = resolve_device(args.device)
 
     ds = datasets.ogbn_products(scale=args.dataset_scale)
@@ -64,10 +61,11 @@ def main(argv=None, init_params=None):
     if args.model in ("gat", "gatv2"):
         cls = DistGATv2 if args.model == "gatv2" else DistGAT
         model = cls(feat_dim, args.num_hidden, n_cls, num_heads=2,
-                    dropout=0.5, device=device, generator=gen)
+                    dropout=0.5, device=device, generator=gen,
+                    remat=args.remat)
     else:
         model = DistSAGE(feat_dim, args.num_hidden, n_cls, dropout=0.5,
-                         device=device, generator=gen)
+                         device=device, generator=gen, remat=args.remat)
     out = SampledTrainer(model, ds.graph, cfg, device=device).train(
         init_params=init_params)
     print(f"final loss {out['history'][-1]['loss']:.4f}")

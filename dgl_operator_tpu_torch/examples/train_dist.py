@@ -20,8 +20,13 @@ Two execution shapes:
 ``--model sage|gat|gatv2`` builds ``DistSAGE``, or ``DistGAT`` or
 ``DistGATv2`` with 2 heads of ``--num_hidden`` each, as the JAX entry
 point does. It trains on the card unless ``--device cpu`` is given.
-``--bf16`` and ``--remat`` raise: their features are not ported. The
-backend is ``--backend``, else NCCL on a card and gloo on the CPU. The
+``--bf16`` runs the layers in bfloat16 with float32 parameters
+(``compute_dtype="bfloat16"``), ``--remat`` recomputes each layer in
+the backward, and ``--feat_dtype`` sets the feature store's dtype
+(``TrainConfig.feat_dtype``; a book of int8 or uint8 codes written by
+``partition_graph(feat_dtype=...)`` is read as it is under that dtype).
+``--shard_update`` and ``--shard_rules`` raise (``ROADMAP.md`` item
+6.6). The backend is ``--backend``, else NCCL on a card and gloo on the CPU. The
 model's weights are drawn from ``--seed`` (``TrainConfig.seed``)
 through an explicit generator, so every process and a single-process
 run start from the same weights. :func:`main` returns the trainer's
@@ -47,10 +52,6 @@ from dgl_operator_tpu_torch.runtime.dist import DistTrainer
 from dgl_operator_tpu_torch.runtime.loop import NUM_SAMPLERS_ENV, TrainConfig
 
 DIST_ENV = "TPU_OPERATOR_DIST"
-# flags of the JAX entry point whose feature the port lacks, and the
-# ROADMAP item that ports it
-_UNPORTED = {"bf16": "Queue 1 item 5 (bf16 compute)",
-             "remat": "Queue 1 item 1.6 (the remaining dist knobs)"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -71,8 +72,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="0 = infer from partition labels")
     ap.add_argument("--model", choices=["sage", "gat", "gatv2"],
                     default="sage")
-    ap.add_argument("--bf16", action="store_true")
-    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 layer compute with float32 parameters")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches sampled ahead of the step (0 = inline)")
     ap.add_argument("--shard_update", action="store_true")
@@ -94,16 +97,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _check_ported(args: argparse.Namespace) -> None:
-    for flag, set_ in (("bf16", args.bf16), ("remat", args.remat)):
-        if set_:
-            raise NotImplementedError(
-                f"--{flag}: not ported (ROADMAP.md {_UNPORTED[flag]})")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
     device = resolve_device(args.device)
     rank = int(os.environ.get(RANK_ENV, "0"))
     entries = parse_hostfile(args.ip_config)
@@ -151,13 +146,15 @@ def _train(args: argparse.Namespace, rank: int, num_parts: int, device):
             max(int(p.graph.ndata["label"].max()) for p in parts), np.max)
     feat_dim = int(parts[0].graph.ndata["feat"].shape[1])
     gen = torch.Generator().manual_seed(cfg.seed)
+    knobs = dict(compute_dtype="bfloat16" if args.bf16 else None,
+                 remat=args.remat)
     if args.model in ("gat", "gatv2"):
         cls = DistGATv2 if args.model == "gatv2" else DistGAT
         model = cls(feat_dim, args.num_hidden, n_cls, num_heads=2,
-                    dropout=0.5, device=device, generator=gen)
+                    dropout=0.5, device=device, generator=gen, **knobs)
     else:
         model = DistSAGE(feat_dim, args.num_hidden, n_cls, dropout=0.5,
-                         device=device, generator=gen)
+                         device=device, generator=gen, **knobs)
     tr = DistTrainer(model, args.part_config, cfg, device=device)
     out = tr.train()
     print(f"rank {rank}: done, final loss "

@@ -30,6 +30,9 @@ class NodeClfDataset:
     graph: Graph
     num_classes: int
     name: str = "synthetic"
+    # the generator's shape parameters of a synthetic_scale_graph: the
+    # graph is reproducible from them alone
+    gen_params: Optional[dict] = None
 
 
 # ----------------------------------------------------------------------
@@ -147,6 +150,100 @@ def _power_law_edges(rng: np.random.Generator, num_nodes: int,
     return src[keep], dst[keep]
 
 
+def _power_law_dst(rng: np.random.Generator, num_nodes: int,
+                   size: int, alpha: float) -> np.ndarray:
+    """``size`` destination draws with P(rank) ~ rank^-alpha, by the
+    inverse CDF of the bounded continuous Pareto on [1, N + 1): O(size)
+    time and O(1) memory in ``num_nodes`` (``rng.choice(p=...)``'s
+    [N] float64 table is 800 MB at papers100M's node count)."""
+    u = rng.random(size)
+    if abs(alpha - 1.0) < 1e-9:
+        x = np.exp(u * np.log(num_nodes + 1.0))
+    else:
+        b = (num_nodes + 1.0) ** (1.0 - alpha)
+        x = (1.0 - u * (1.0 - b)) ** (1.0 / (1.0 - alpha))
+    return np.minimum(x.astype(np.int64) - 1, num_nodes - 1)
+
+
+def power_law_edge_stream(num_nodes: int, num_edges: int,
+                          alpha: float = 1.2, seed: int = 0,
+                          chunk_edges: int = 1 << 22):
+    """Yield the ``(src, dst)`` int32 chunks of a seeded power-law
+    graph, the feed of ``graph/ooc.py::ChunkedEdgeWriter``. Self-loops
+    are dropped a chunk at a time, so slightly fewer than ``num_edges``
+    edges come out. Deterministic in every argument."""
+    rng = np.random.default_rng(seed)
+    remaining = int(num_edges)
+    while remaining > 0:
+        m = min(int(chunk_edges), remaining)
+        dst = _power_law_dst(rng, num_nodes, m, alpha)
+        src = rng.integers(0, num_nodes, size=m, dtype=np.int64)
+        keep = src != dst
+        yield src[keep].astype(np.int32), dst[keep].astype(np.int32)
+        remaining -= m
+
+
+def synthetic_scale_graph(num_nodes: int, num_edges: int,
+                          feat_dim: int = 0, num_classes: int = 2,
+                          alpha: float = 1.2, seed: int = 0,
+                          out_dir: Optional[str] = None,
+                          chunk_edges: int = 1 << 22) -> NodeClfDataset:
+    """A power-law graph at papers100M-like shapes, generated a chunk
+    at a time. With ``out_dir`` the edges stream through
+    ``ooc.ChunkedEdgeWriter`` into memmap-backed files and the
+    ``[N, feat_dim]`` features are written chunk by chunk to a mappable
+    ``.npy``, so nothing edge- or feature-scale is resident; without
+    it everything is. Features are class-centred gaussians, labels
+    uniform; ``feat_dim=0`` draws none. ``gen_params`` records every
+    shape parameter and the realized edge count."""
+    params = {"num_nodes": int(num_nodes), "num_edges": int(num_edges),
+              "feat_dim": int(feat_dim), "num_classes": int(num_classes),
+              "alpha": float(alpha), "seed": int(seed),
+              "chunk_edges": int(chunk_edges)}
+    stream = power_law_edge_stream(num_nodes, num_edges, alpha, seed,
+                                   chunk_edges)
+    if out_dir is not None:
+        from dgl_operator_tpu_torch.graph import ooc
+        w = ooc.ChunkedEdgeWriter(os.path.join(out_dir, "edges"))
+        for src, dst in stream:
+            w.append(src, dst)
+        g = w.finalize(num_nodes=num_nodes)
+    else:
+        chunks = list(stream)
+        g = Graph(np.concatenate([c[0] for c in chunks])
+                  if chunks else np.zeros(0, np.int32),
+                  np.concatenate([c[1] for c in chunks])
+                  if chunks else np.zeros(0, np.int32), num_nodes)
+    params["num_edges_realized"] = int(g.num_edges)
+    rng = np.random.default_rng(seed + 1)
+    labels = rng.integers(0, num_classes, size=num_nodes)
+    g.ndata["label"] = labels.astype(np.int32)
+    if feat_dim > 0:
+        centers = rng.normal(size=(num_classes, feat_dim)) \
+            .astype(np.float32)
+        chunk_rows = max(1, int(chunk_edges) // max(feat_dim, 1))
+        if out_dir is not None:
+            from numpy.lib.format import open_memmap
+            feat = open_memmap(os.path.join(out_dir, "feat.npy"),
+                               mode="w+", dtype=np.float32,
+                               shape=(num_nodes, feat_dim))
+        else:
+            feat = np.empty((num_nodes, feat_dim), np.float32)
+        for i0 in range(0, num_nodes, chunk_rows):
+            sel = slice(i0, min(i0 + chunk_rows, num_nodes))
+            feat[sel] = (centers[labels[sel]] + 0.8 * rng.normal(
+                size=(sel.stop - sel.start, feat_dim))
+                .astype(np.float32))
+        if out_dir is not None:
+            feat.flush()
+            feat = np.load(os.path.join(out_dir, "feat.npy"),
+                           mmap_mode="r")
+        g.ndata["feat"] = feat
+    _make_splits(g, rng)
+    return NodeClfDataset(g, num_classes, "synthetic-scale",
+                          gen_params=params)
+
+
 def _make_splits(g: Graph, rng: np.random.Generator,
                  train_frac=0.6, val_frac=0.2) -> None:
     n = g.num_nodes
@@ -160,11 +257,17 @@ def _make_splits(g: Graph, rng: np.random.Generator,
 
 
 def _clustered_node_clf(name: str, num_nodes: int, num_edges: int,
-                        feat_dim: int, num_classes: int, seed: int
-                        ) -> NodeClfDataset:
+                        feat_dim: int, num_classes: int, seed: int,
+                        with_feats: bool = True) -> NodeClfDataset:
     """Node-classification graph with label-correlated structure and
     class-dependent gaussian features (homophily like citation
-    networks)."""
+    networks).
+
+    ``with_feats=False`` draws no ``[N, feat_dim]`` feature block (the
+    largest cost at ogbn scale) and installs a zero broadcast view of
+    its shape and dtype. The structure and labels are drawn first, so
+    they are the same either way; the splits come from a later point
+    of the stream and differ."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, num_classes, size=num_nodes)
     src, dst = _power_law_edges(rng, num_nodes, num_edges)
@@ -177,10 +280,15 @@ def _clustered_node_clf(name: str, num_nodes: int, num_edges: int,
         if len(sel) and len(by_label[c]):
             dst[sel] = rng.choice(by_label[c], size=len(sel))
     g = Graph(src, dst, num_nodes).add_reverse_edges()
-    centers = rng.normal(size=(num_classes, feat_dim)).astype(np.float32)
-    feat = centers[labels] + 0.8 * rng.normal(
-        size=(num_nodes, feat_dim)).astype(np.float32)
-    g.ndata["feat"] = feat.astype(np.float32)
+    if with_feats:
+        centers = rng.normal(size=(num_classes, feat_dim)).astype(
+            np.float32)
+        feat = centers[labels] + 0.8 * rng.normal(
+            size=(num_nodes, feat_dim)).astype(np.float32)
+        g.ndata["feat"] = feat.astype(np.float32)
+    else:
+        g.ndata["feat"] = np.broadcast_to(
+            np.zeros((feat_dim,), np.float32), (num_nodes, feat_dim))
     g.ndata["label"] = labels.astype(np.int32)
     _make_splits(g, rng)
     return NodeClfDataset(g, num_classes, name)
@@ -207,15 +315,16 @@ def cora(root: Optional[str] = None, seed: int = 0) -> NodeClfDataset:
 
 
 def ogbn_products(root: Optional[str] = None, seed: int = 0,
-                  scale: float = 1.0, strict: bool = False
-                  ) -> NodeClfDataset:
+                  scale: float = 1.0, strict: bool = False,
+                  with_feats: bool = True) -> NodeClfDataset:
     """ogbn-products (2.45M nodes, 61.9M edges, 100-dim features, 47
     classes): the extracted OGB layout under ``root`` when present
     (:func:`_load_ogb_node_prop`); otherwise a synthetic graph of its
     schema, ``scale`` shrinking the node and edge counts (30M generated
     edges, doubled by reversal, at scale 1). With ``strict`` a ``root``
     without that layout raises instead: a dataset the caller staged on
-    purpose is never replaced by synthetic data."""
+    purpose is never replaced by synthetic data. ``with_feats=False``
+    draws no feature block (:func:`_clustered_node_clf`)."""
     if root:
         ds = _load_ogb_node_prop(root, "ogbn-products")
         if ds is not None:
@@ -228,7 +337,8 @@ def ogbn_products(root: Optional[str] = None, seed: int = 0,
                 "staged dataset")
     n = max(1000, int(2_449_029 * scale))
     e = max(5000, int(30_000_000 * scale))
-    return _clustered_node_clf("ogbn-products", n, e, 100, 47, seed)
+    return _clustered_node_clf("ogbn-products", n, e, 100, 47, seed,
+                               with_feats=with_feats)
 
 
 def link_pred_graph(num_nodes: int = 2708, num_edges: int = 5278,

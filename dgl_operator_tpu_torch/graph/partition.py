@@ -26,9 +26,14 @@ package reads in the other::
 Each part owns its *core* nodes (assignment == part id) plus the
 one-hop *halo* source nodes of its in-edges; local ids are ordered
 ``[core | halo]`` and the halo ownership manifest (owner part and core
-row there) rides in ``graph.npz``. Out-of-core partitioning and
-quantized feature storage are not ported yet (``ROADMAP.md`` Queue 1
-item 3).
+row there) rides in ``graph.npz``.
+
+``partition_graph(ooc=True)`` bounds the writer's resident working set
+(``graph/ooc.py``): coarsening levels spill to disk and node features
+are written in chunks to file-referenced ``.npy`` files. Its
+``feat_dtype`` ``"int8"`` or ``"uint8"`` stores the features as
+per-column affine codes (``graph/quant.py``) with one global sidecar,
+``feat_quant.npz``, for every part.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from dgl_operator_tpu_torch.graph import _native
+from dgl_operator_tpu_torch.autotune.knobs import validate
+from dgl_operator_tpu_torch.graph import _native, quant
+from dgl_operator_tpu_torch.graph import ooc as _ooc
 from dgl_operator_tpu_torch.graph.graph import Graph
 
 PART_METHODS = ("multilevel", "flat")
@@ -454,7 +461,8 @@ def multilevel_partition(g: Graph, num_parts: int, seed: int = 0,
                          communities: Optional[np.ndarray] = None,
                          coarsen_to: Optional[int] = None,
                          slack: float = 1.1,
-                         max_levels: int = 24) -> np.ndarray:
+                         max_levels: int = 24,
+                         spill_dir: Optional[str] = None) -> np.ndarray:
     """Multilevel node->part assignment:
 
     1. **Coarsen**: heavy-edge-matching levels (matched pairs contract,
@@ -470,6 +478,13 @@ def multilevel_partition(g: Graph, num_parts: int, seed: int = 0,
     ``balance_ntypes`` and ``balance_edges`` are restored at the finest
     level by :func:`enforce_type_quotas`, a degree-weighted boundary
     pass and capped label-propagation refinement.
+
+    ``spill_dir``: every coarsening level's arrays and its fine-to-
+    coarse map are spilled there as they are made (``graph/ooc.py``)
+    and read back as memmaps while uncoarsening, their pages dropped
+    after each level's refinement, so one level is resident at a time.
+    ``np.save`` keeps the bits, so the assignment is the resident
+    run's.
     """
     n, k = g.num_nodes, num_parts
     if k <= 1 or n == 0:
@@ -492,8 +507,15 @@ def multilevel_partition(g: Graph, num_parts: int, seed: int = 0,
             u, v, w, vw, cur_n, seed + 17 * len(maps) + 1)
         if nc >= 0.98 * cur_n:
             break   # matching stalled (e.g. star graph): stop here
-        levels.append((u, v, w, vw))
-        maps.append(cid)
+        if spill_dir is not None:
+            lvl = len(maps)
+            levels.append(tuple(
+                _ooc.spill(spill_dir, f"lvl{lvl}_{nm}", arr)
+                for nm, arr in zip(("u", "v", "w", "vw"), (u, v, w, vw))))
+            maps.append(_ooc.spill(spill_dir, f"lvl{lvl}_map", cid))
+        else:
+            levels.append((u, v, w, vw))
+            maps.append(cid)
         u, v, w, vw, cur_n = cu, cv, cw, cvw, nc
 
     # ---- coarsest-level partition: seed competition + weighted polish
@@ -525,6 +547,9 @@ def multilevel_partition(g: Graph, num_parts: int, seed: int = 0,
         cap_l = slack * float(lvw.sum()) / k
         parts = _native.refine_boundary(lu, lv, lw, lvw, len(lvw), k,
                                         cap_l, refine_iters, parts)
+        if spill_dir is not None:
+            # the spilled level's pages the refinement faulted in
+            _ooc.release_pages(lu, lv, lw, lvw, cid)
 
     # ---- finest-level balance invariants
     if balance_ntypes is not None:
@@ -543,6 +568,8 @@ def multilevel_partition(g: Graph, num_parts: int, seed: int = 0,
                                  slack=slack,
                                  balance_ntypes=balance_ntypes,
                                  balance_edges=balance_edges, seed=seed)
+    if spill_dir is not None:
+        _ooc.release_pages(*(levels[0] if levels else ()), g.src, g.dst)
     return parts.astype(np.int32)
 
 
@@ -555,9 +582,10 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
                     communities: Optional[np.ndarray] = None,
                     part_method: str = "multilevel",
                     refine_iters: Optional[int] = None,
-                    ooc: bool = False, feat_dtype: str = "float32") -> str:
-    """Partition ``g`` and write its book with float32 in-memory feature
-    storage; returns the book's JSON path.
+                    ooc: bool = False,
+                    ooc_budget_mb: Optional[int] = None,
+                    feat_dtype: str = "float32") -> str:
+    """Partition ``g`` and write its book; returns the book's JSON path.
 
     Without ``parts`` the assignment is computed by ``part_method``:
     ``"multilevel"`` (:func:`multilevel_partition`) or ``"flat"``
@@ -565,11 +593,30 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
     ``balance_edges``, ``communities`` and ``seed``; ``refine_iters``
     overrides the method's refinement pass count. ``parts`` (one part
     id per node) is used as given.
+
+    ``ooc=True`` bounds the writer's resident working set: the
+    multilevel coarsening spills to ``out_path/.ooc_spill`` level by
+    level (removed after; its bytes are the book's ``ooc_spill_mib``),
+    and 2-D float node features are written in chunks of
+    ``ooc_budget_mb`` (the knob's default when None) into standalone
+    mappable ``.npy`` files that each part names under
+    ``node_feat_files``. The assignment, the halo manifest and every
+    graph and map array are the in-memory run's, byte for byte.
+
+    ``feat_dtype`` is the storage dtype of 2-D float node features:
+    ``"float32"`` and ``"bfloat16"`` store float32 values, ``"int8"``
+    and ``"uint8"`` per-column affine codes (``graph/quant.py``) with
+    one global scale and zero per key in ``feat_quant.npz``, calibrated
+    on the whole feature matrix, since an exchanged halo row is
+    dequantized with the receiver's sidecar. A quantized book always
+    stores its features in files.
     """
-    if ooc or feat_dtype != "float32":
-        raise NotImplementedError(
-            "only in-memory float32 feature storage is ported "
-            "(ROADMAP.md Queue 1 item 3)")
+    feat_dtype = validate("feat_dtype", feat_dtype)
+    if ooc:
+        ooc_budget_mb = validate(
+            "ooc_budget_mb",
+            512 if ooc_budget_mb is None else ooc_budget_mb)
+    spill_dir = os.path.join(out_path, ".ooc_spill") if ooc else None
     if parts is None:
         if part_method not in PART_METHODS:
             raise ValueError(f"unknown part_method {part_method!r}; "
@@ -583,7 +630,8 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
                                  f"{int(refine_iters)}")
             kwargs["refine_iters"] = int(refine_iters)
         if part_method == "multilevel":
-            parts = multilevel_partition(g, num_parts, seed, **kwargs)
+            parts = multilevel_partition(g, num_parts, seed,
+                                         spill_dir=spill_dir, **kwargs)
         else:
             parts = partition_assignment(g, num_parts, seed, **kwargs)
     else:
@@ -597,6 +645,11 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
                 f"[{parts.min()}, {parts.max()}] — a node outside the "
                 "range would silently land in no partition")
         parts = parts.astype(np.int32)
+    spill_mib = None
+    if spill_dir is not None and os.path.isdir(spill_dir):
+        import shutil
+        spill_mib = round(_ooc.spilled_bytes(spill_dir) / 2**20, 1)
+        shutil.rmtree(spill_dir, ignore_errors=True)
     os.makedirs(out_path, exist_ok=True)
 
     # an edge belongs to its destination's part (in-edges of core nodes
@@ -616,6 +669,37 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
         "halo_hops": 1,
         "halo_manifest": 1,
     }
+    if spill_mib is not None:
+        meta["ooc_spill_mib"] = spill_mib
+
+    # 2-D float node features go to file-referenced .npy files when the
+    # book is out-of-core or quantized; labels, masks and ids stay in
+    # node_feat.npz
+    quantized = quant.is_quantized_dtype(feat_dtype)
+    fkeys = sorted(k for k, v_ in g.ndata.items()
+                   if getattr(v_, "ndim", 0) == 2
+                   and np.dtype(v_.dtype).kind == "f")
+    file_keys = fkeys if (ooc or quantized) else []
+    codecs = {}
+    if quantized and fkeys:
+        # one global calibration per key, shared by every part
+        sidecars = {}
+        for k_ in fkeys:
+            scale, zero = quant.merge_column_stats(
+                _ooc.column_stats(g.ndata[k_], ooc_budget_mb), feat_dtype)
+            sidecars[k_] = {"scale": scale, "zero": zero,
+                            "dtype": feat_dtype}
+            codecs[k_] = (lambda rows, s=scale, z=zero:
+                          quant.quantize(rows, s, z, feat_dtype))
+        quant.save_sidecar(os.path.join(out_path, "feat_quant.npz"),
+                           sidecars)
+        meta["feat_quant"] = {k_: {"dtype": feat_dtype,
+                                   "sidecar": "feat_quant.npz"}
+                              for k_ in fkeys}
+    if file_keys:
+        meta["feat_files"] = 1
+    store_dtype = np.dtype(feat_dtype) if quantized else np.float32
+
     for p in range(num_parts):
         pdir = os.path.join(out_path, f"part{p}")
         os.makedirs(pdir, exist_ok=True)
@@ -637,7 +721,15 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
                  halo_owner_local=core_rank[halo].astype(np.int32))
         np.savez(os.path.join(pdir, "node_feat.npz"),
                  **{k: np.asarray(v)[local_nodes]
-                    for k, v in g.ndata.items()})
+                    for k, v in g.ndata.items() if k not in file_keys})
+        feat_paths = {}
+        for k_ in file_keys:
+            rel = f"part{p}/node_feat.{k_}.npy"
+            _ooc.write_part_feature(
+                os.path.join(out_path, rel), g.ndata[k_], local_nodes,
+                budget_mb=ooc_budget_mb, codec=codecs.get(k_),
+                dtype=store_dtype)
+            feat_paths[k_] = rel
         np.savez(os.path.join(pdir, "edge_feat.npz"),
                  **{k: v[own_edges] for k, v in g.edata.items()})
         meta[f"part-{p}"] = {
@@ -648,6 +740,11 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
             "num_local_nodes": int(len(local_nodes)),
             "num_edges": int(len(own_edges)),
         }
+        if feat_paths:
+            meta[f"part-{p}"]["node_feat_files"] = feat_paths
+        if ooc:
+            # the source pages this part's gathers faulted in
+            _ooc.release_pages(g.src, g.dst, *g.ndata.values())
     cfg = os.path.join(out_path, f"{graph_name}.json")
     with open(cfg, "w") as f:
         json.dump(meta, f, sort_keys=True, indent=4)
@@ -685,6 +782,18 @@ class GraphPartition:
         ef = np.load(os.path.join(base, info["edge_feats"]))
         self.graph.edata.update({k: ef[k] for k in ef.files})
         self.node_map = np.load(os.path.join(base, self.meta["node_map"]))
+        self._base = base
+        self._sidecars = None
+        # codes without their scales are meaningless: a quantized book
+        # whose sidecar is missing fails at open, naming the key
+        for k, q in self.meta.get("feat_quant", {}).items():
+            if not os.path.exists(os.path.join(base, q["sidecar"])):
+                raise ValueError(
+                    f"partition book stores node feature {k!r} as "
+                    f"{q['dtype']} codes but its scales sidecar "
+                    f"{q['sidecar']!r} is missing next to the book "
+                    "JSON — copy the book with its sidecar or "
+                    "re-partition")
 
     @property
     def num_inner(self) -> int:
@@ -718,10 +827,15 @@ class GraphPartition:
             self._build_halo_manifest()
         return self._halo_owner_local
 
-    def check_float_features(self, key: str) -> None:
-        """Raise unless the book stores ``key`` as float values: the
-        port does not read quantized feature codes yet."""
-        if key in self.meta.get("feat_quant", {}):
-            raise NotImplementedError(
-                f"node feature {key!r} is stored as quantized codes; "
-                "quantized books are not ported yet")
+    def feat_sidecar(self, key: str) -> Optional[dict]:
+        """The quantization sidecar of node feature ``key``:
+        ``{"scale": [D] f32, "zero": [D] f32, "dtype": str}`` when the
+        book stores ``key`` as codes, None for float storage. The
+        scales are global, the same for every part."""
+        q = self.meta.get("feat_quant", {})
+        if key not in q:
+            return None
+        if self._sidecars is None:
+            self._sidecars = quant.load_sidecar(
+                os.path.join(self._base, q[key]["sidecar"]))
+        return self._sidecars[key]

@@ -28,6 +28,8 @@ from torch import nn
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
 from dgl_operator_tpu_torch.graph.graph import DeviceGraph, Graph
+from dgl_operator_tpu_torch.models.sage import (call_layer,
+                                                compute_dtype_of)
 from dgl_operator_tpu_torch.models.sage import dropout as drop
 from dgl_operator_tpu_torch.nn.conv import (FanoutGATConv, FanoutGATv2Conv,
                                             GATConv, gat_projection_raw,
@@ -38,10 +40,12 @@ from dgl_operator_tpu_torch.nn.conv import (FanoutGATConv, FanoutGATv2Conv,
 def _attention_stack(conv_cls, in_feats: int, hidden_feats: int,
                      out_feats: int, num_heads: int, num_layers: int,
                      negative_slope: float,
-                     generator: Optional[torch.Generator]) -> nn.ModuleList:
+                     generator: Optional[torch.Generator],
+                     dtype: Optional[torch.dtype] = None) -> nn.ModuleList:
     """``num_layers`` attention layers: ``num_heads`` concatenated heads
     of ``hidden_feats`` each but the last, which has one averaged head
-    of ``out_feats``; drawn on the CPU from ``generator``."""
+    of ``out_feats``; drawn on the CPU from ``generator``, computing in
+    ``dtype``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     layers = []
@@ -52,7 +56,7 @@ def _attention_stack(conv_cls, in_feats: int, hidden_feats: int,
             out_feats if last else hidden_feats,
             num_heads=1 if last else num_heads,
             negative_slope=negative_slope, concat_heads=not last,
-            device="cpu", generator=generator))
+            device="cpu", generator=generator, dtype=dtype))
     return nn.ModuleList(layers)
 
 
@@ -64,7 +68,8 @@ class DistGAT(nn.Module):
 
     ``slot_plans = True``: every block's backward gathers need their
     transposes on the card (the attention logits of block 0 depend on
-    the weights), and each gather is per slot."""
+    the weights), and each gather is per slot. ``compute_dtype`` and
+    ``remat`` are ``DistSAGE``'s."""
 
     conv_cls = FanoutGATConv
     flax_prefix = "FanoutGATConv"
@@ -74,7 +79,8 @@ class DistGAT(nn.Module):
                  num_heads: int = 4, num_layers: int = 2,
                  dropout: float = 0.5, negative_slope: float = 0.2,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[str] = None, remat: bool = False):
         super().__init__()
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
@@ -82,9 +88,12 @@ class DistGAT(nn.Module):
         self.num_heads = int(num_heads)
         self.negative_slope = float(negative_slope)
         self.dropout = float(dropout)
+        self.compute_dtype = compute_dtype
+        self.remat = bool(remat)
         self.layers = _attention_stack(
             type(self).conv_cls, in_feats, hidden_feats, out_feats,
-            num_heads, num_layers, negative_slope, generator)
+            num_heads, num_layers, negative_slope, generator,
+            compute_dtype_of(compute_dtype))
         self.to(device)
 
     def forward(self, blocks: Sequence[FanoutBlock], x: torch.Tensor,
@@ -97,7 +106,7 @@ class DistGAT(nn.Module):
                              f"blocks, got {len(blocks)}")
         h = x
         for i, (layer, blk) in enumerate(zip(self.layers, blocks)):
-            h = layer(blk, h)
+            h = call_layer(layer, blk, h, self.remat)
             if i < len(self.layers) - 1:
                 h = F.elu(h)
                 if self.training and self.dropout > 0:

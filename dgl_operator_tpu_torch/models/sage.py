@@ -22,6 +22,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
@@ -30,6 +31,37 @@ from dgl_operator_tpu_torch.models import flax_layout
 from dgl_operator_tpu_torch.nn.conv import (FanoutSAGEConv, SAGEConv,
                                             WeightedSAGEConv)
 from dgl_operator_tpu_torch.ops.spmm import gspmm
+
+
+# the compute dtypes of the sampled stacks (``compute_dtype``)
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
+    """The layers' compute dtype for a stack's ``compute_dtype``: None
+    (or ``"float32"``) keeps float32, ``"bfloat16"`` is mixed
+    precision."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(k for k in COMPUTE_DTYPES if k)} or None, "
+                         f"got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def call_layer(layer: nn.Module, blk, h: torch.Tensor,
+               remat: bool) -> torch.Tensor:
+    """``layer(blk, h)``; with ``remat`` and gradients on, under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``), so the
+    layer's activations are recomputed in the backward instead of
+    kept (``nn.remat`` around the JAX layer). The layer draws no random
+    numbers (dropout runs between layers, from an explicit generator),
+    so no RNG state is stashed: the recompute is the forward, also
+    inside a captured CUDA graph, where reading the RNG state is not
+    allowed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, blk, h, use_reentrant=False,
+                          preserve_rng_state=False)
+    return layer(blk, h)
 
 
 def dropout(h: torch.Tensor, p: float,
@@ -46,6 +78,10 @@ class DistSAGE(nn.Module):
     """Sampled-path SAGE stack; ``forward`` returns float32 logits for
     the seed rows of the innermost block. ``dropout`` is the rate
     applied after each inner ReLU in ``train()`` mode.
+    ``compute_dtype="bfloat16"`` runs the layers in bfloat16 with
+    float32 parameters (:func:`compute_dtype_of`); ``remat`` recomputes
+    each layer in the backward (:func:`call_layer`). Neither changes
+    the parameters or their names.
 
     ``slot_plans`` tells the trainers which blocks' backward needs a
     transpose plan on the card. For the mean and sum (False): every
@@ -60,7 +96,8 @@ class DistSAGE(nn.Module):
     def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
                  num_layers: int = 2, aggregator: str = "mean",
                  dropout: float = 0.5, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[str] = None, remat: bool = False):
         super().__init__()
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
@@ -70,10 +107,13 @@ class DistSAGE(nn.Module):
         self.aggregator = aggregator
         self.slot_plans = aggregator == "pool"
         self.dropout = float(dropout)
+        self.compute_dtype = compute_dtype
+        self.remat = bool(remat)
+        dtype = compute_dtype_of(compute_dtype)
         dims = [in_feats] + [hidden_feats] * (num_layers - 1) + [out_feats]
         self.layers = nn.ModuleList(
             FanoutSAGEConv(dims[i], dims[i + 1], aggregator, device="cpu",
-                           generator=generator)
+                           generator=generator, dtype=dtype)
             for i in range(num_layers))
         self.to(device)
 
@@ -87,7 +127,7 @@ class DistSAGE(nn.Module):
                              f"blocks, got {len(blocks)}")
         h = x
         for i, (layer, blk) in enumerate(zip(self.layers, blocks)):
-            h = layer(blk, h)
+            h = call_layer(layer, blk, h, self.remat)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
                 if self.training and self.dropout > 0:

@@ -15,6 +15,12 @@ segment ops of ``ops/segment.py`` and ``gspmm``, so their backward is
 the attention's full-graph inference over a ``Graph``'s sparse
 adjacency, which holds no ``[E, H * D]`` message table.
 
+The sampled layers take a compute ``dtype`` (None: float32; bfloat16:
+mixed precision, the JAX layers' ``dtype``): the parameters stay
+float32 and are cast for the compute, ``fanout_agg`` and ``gather_rows``
+move bfloat16 rows (the aggregation sums in float32), the GEMMs run in
+bfloat16, and the attention logits and their softmax stay float32.
+
 Submodule and parameter names follow the flax layers' (``self``,
 ``neigh``, ``pool``; ``fc``, ``attn_l``, ``attn_r``; ``fc_src``,
 ``fc_dst``, ``attn``; ``weight``, ``bias``), so weights map one to one,
@@ -27,6 +33,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
@@ -111,21 +118,47 @@ class _SAGE(nn.Module):
         _materialize(self, device, generator)
 
 
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (flax's ``Dense(dtype=...)``):
+    the input and the float32 weight and bias cast to it; ``layer(x)``
+    itself when ``dtype`` is None."""
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
 class FanoutSAGEConv(_SAGE):
     """GraphSAGE layer on a sampled ``FanoutBlock``:
     ``self(h_dst) + neigh(agg)`` with ``h_dst = h_src[:num_dst]`` (the
-    dst nodes are a prefix of the src nodes)."""
+    dst nodes are a prefix of the src nodes). ``dtype`` is the compute
+    dtype (None: float32)."""
+
+    def __init__(self, in_feats: int, out_feats: int,
+                 aggregator: str = "mean", device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_feats, out_feats, aggregator, device, generator)
+        self.dtype = dtype
 
     def forward(self, block: FanoutBlock, h_src: torch.Tensor
                 ) -> torch.Tensor:
+        dt = self.dtype
+        if dt is not None:
+            h_src = h_src.to(dt)
         h_dst = h_src[: block.num_dst]
         if self.aggregator == "mean":
             agg = fanout.fanout_mean(block, h_src)
         elif self.aggregator == "sum":
             agg = fanout.fanout_sum(block, h_src)
         else:
-            agg = fanout.fanout_max(block, torch.relu(self.pool(h_src)))
-        return self.self(h_dst) + self.neigh(agg)
+            agg = fanout.fanout_max(block,
+                                    torch.relu(dense(self.pool, h_src, dt)))
+        if dt is None:
+            return self.self(h_dst) + self.neigh(agg)
+        return dense(self.self, h_dst, dt) + dense(self.neigh, agg.to(dt),
+                                                   dt)
 
 
 # ----------------------------------------------------------------------
@@ -166,8 +199,12 @@ class _Attention(nn.Module):
     def __init__(self, in_feats: int, out_feats: int, num_heads: int = 1,
                  negative_slope: float = 0.2, concat_heads: bool = True,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        # the sampled layers' compute dtype (the full-graph layers run
+        # in float32)
+        self.dtype = dtype
         self.num_heads = int(num_heads)
         self.out_feats = int(out_feats)
         self.negative_slope = float(negative_slope)
@@ -258,7 +295,11 @@ class FanoutGATConv(_Attention):
     the α-weighted sum runs over the raw neighbour rows, projected once
     per head. Both neighbour gathers (``el[nbr]``, ``x[nbr]``) go
     through ``gather_rows`` with the block's per-slot plan. Parameters
-    as :class:`GATConv`'s, so its weights drive full-graph inference."""
+    as :class:`GATConv`'s, so its weights drive full-graph inference.
+    In bfloat16 (``dtype``) ``cl`` is summed from the float32 weights,
+    the logits ``el`` and ``er`` are summed in float32 and the softmax
+    runs in float32; α, the gathered rows and the two products are
+    bfloat16."""
 
     linears = ("fc",)
     vectors = ("attn_l", "attn_r")
@@ -268,16 +309,24 @@ class FanoutGATConv(_Attention):
         H, D = self.num_heads, self.out_feats
         b = block.to(h_src.device)
         nd, f = b.nbr.shape
-        x = h_src.contiguous()
+        dt = self.dtype
+        x = (h_src if dt is None else h_src.to(dt)).contiguous()
         k3 = self.fc.weight.t().reshape(-1, H, D)            # [Din, H, D]
-        feat_dst = self.fc(x[:nd]).view(nd, H, D)
+        feat_dst = dense(self.fc, x[:nd], dt).view(nd, H, D)
         cl = (k3 * self.attn_l[0]).sum(-1)                    # [Din, H]
-        el = x @ cl                                           # [N, H]
-        er = (feat_dst * self.attn_r).sum(-1)                 # [nd, H]
+        if dt is None:
+            el = x @ cl                                       # [N, H]
+            er = (feat_dst * self.attn_r).sum(-1)             # [nd, H]
+        else:
+            el = x.float() @ cl
+            er = (feat_dst * self.attn_r.to(dt)).float().sum(-1)
+            k3 = k3.to(dt)
         idx = b.nbr.view(-1)
         el_n = gather_rows(el, idx, b.plan).view(nd, f, H)
         alpha = masked_fanout_softmax(
             self.act(el_n + er.unsqueeze(1)), b.mask)        # [nd, F, H]
+        if dt is not None:
+            alpha = alpha.to(dt)
         g = gather_rows(x, idx, b.plan).view(nd, f, -1)       # [nd, F, Din]
         z = torch.bmm(alpha.transpose(1, 2), g)               # [nd, H, Din]
         out = torch.bmm(z.transpose(0, 1), k3.transpose(0, 1))  # [H, nd, D]
@@ -288,7 +337,10 @@ class FanoutGATv2Conv(_Attention):
     """GATv2 on a sampled ``FanoutBlock``, the parameters of
     :class:`GATv2Conv`. The score is not linear in the projections, so
     the ``[nd, F, H, D]`` combine of the gathered ``fs[nbr]`` (one
-    ``gather_rows`` over the block's per-slot plan) is the model's."""
+    ``gather_rows`` over the block's per-slot plan) is the model's. In
+    bfloat16 (``dtype``) the projections, the combine and the
+    α-weighted sum are bfloat16; the logits are summed and the softmax
+    taken in float32."""
 
     linears = ("fc_src", "fc_dst")
     vectors = ("attn",)
@@ -298,13 +350,20 @@ class FanoutGATv2Conv(_Attention):
         H, D = self.num_heads, self.out_feats
         b = block.to(h_src.device)
         nd, f = b.nbr.shape
-        x = h_src.contiguous()
-        fs = self.fc_src(x)                                   # [N, H * D]
-        fd = self.fc_dst(x[:nd]).view(nd, 1, H, D)
+        dt = self.dtype
+        x = (h_src if dt is None else h_src.to(dt)).contiguous()
+        fs = dense(self.fc_src, x, dt)                        # [N, H * D]
+        fd = dense(self.fc_dst, x[:nd], dt).view(nd, 1, H, D)
         fs_n = gather_rows(fs, b.nbr.view(-1), b.plan).view(nd, f, H, D)
-        logits = torch.einsum("nfhd,hd->nfh", self.act(fs_n + fd),
-                              self.attn[0])
+        e = self.act(fs_n + fd)
+        if dt is None:
+            logits = torch.einsum("nfhd,hd->nfh", e, self.attn[0])
+        else:
+            logits = torch.einsum("nfhd,hd->nfh", e.float(),
+                                  self.attn[0].to(dt).float())
         alpha = masked_fanout_softmax(logits, b.mask)         # [nd, F, H]
+        if dt is not None:
+            alpha = alpha.to(dt)
         out = torch.einsum("nfh,nfhd->nhd", alpha, fs_n)
         return _heads_out(out, self.concat_heads)
 

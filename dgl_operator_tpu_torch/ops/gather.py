@@ -7,7 +7,9 @@ backward the segmented-sum kernel (``ops/scatter.py``, over the plan
 both run their plain torch versions (:func:`gather_rows_plain`,
 ``scatter_add_rows_plain``), which are also what the kernels are held
 against on the card. Unlike the JAX package's Pallas gather, it takes
-every row width.
+every row width. Like it, it moves rows of any dtype: a float32 or
+bfloat16 table, or the int8 and uint8 codes of a quantized feature
+store (``graph/quant.py``), which carry no gradient.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from dgl_operator_tpu_torch.ops import _build
 from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
 
 _SOURCE = "gather_rows.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's element size codes: 4-byte, 2-byte and 1-byte rows
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.uint8: 2}
 _INDEX_DTYPES = (torch.int32, torch.int64)
 
 
@@ -70,18 +74,26 @@ class _GatherRows(torch.autograd.Function):
     """Forward: the row gather. Backward: the transpose, a scatter-add
     of the cotangent over ``plan`` into a float32 table (every index
     counts, repeated and padded ones included), cast to the table's
-    dtype."""
+    dtype. The rows of an integer table (codes) are marked
+    non-differentiable, and a backward through them raises."""
 
     @staticmethod
     def forward(ctx, table, idx, plan):
         ctx.save_for_backward(idx)
         ctx.plan = plan
         ctx.num_rows = table.shape[0]
-        return _gather(table, idx)
+        ctx.codes = not table.is_floating_point()
+        out = _gather(table, idx)
+        if ctx.codes:
+            ctx.mark_non_differentiable(out)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
+        if ctx.codes:
+            raise TypeError("gather_rows: an integer table (codes) has "
+                            "no gradient")
         if not ctx.needs_input_grad[0]:
             return None, None, None
         (idx,) = ctx.saved_tensors
@@ -94,8 +106,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """``out[i] = table[idx[i]]``, differentiable in ``table``.
 
-    table [N, D] float32 or bfloat16, contiguous (a CPU tensor may also
-          be float64: the plain version takes it, no kernel does).
+    table [N, D] float32, bfloat16, int8 or uint8 (codes: no
+          gradient), contiguous (a CPU tensor may also be float64: the
+          plain version takes it, no kernel does).
     idx   [M] int32 or int64; every entry indexes a row of ``table``.
     plan  ``scatter_plan(idx[:, None], None, N)``, read only by the
           backward on the card (which raises without it).
@@ -110,8 +123,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(idx.shape)}")
     if table.dtype not in _DTYPE_CODE and not (
             table.dtype == torch.float64 and table.device.type == "cpu"):
-        raise TypeError(f"table must be float32 or bfloat16 (or float64 "
-                        f"on the CPU), got {table.dtype}")
+        raise TypeError(f"table must be float32, bfloat16, int8 or uint8 "
+                        f"(or float64 on the CPU), got {table.dtype}")
     if idx.dtype not in _INDEX_DTYPES:
         raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
     if table.device != idx.device:

@@ -7,7 +7,11 @@ that every part keeps resident. Rows cross between slots in one of two
 functions: :func:`alltoall_serve_rows` when every slot lives in one
 process (one row gather), :func:`alltoall_request_rows` across the
 processes of a ``torch.distributed`` group (the requests out and the
-rows back by ``all_to_all_single``, one row gather in between).
+rows back by ``all_to_all_single``, one row gather in between). Rows
+move in the store's own dtype: a bfloat16 store sends bfloat16, a store
+of int8 or uint8 codes sends the raw codes (the receive buffers are made
+in that dtype), and the receiver reconstructs them with the global
+sidecar (``runtime/forward.py::dequant_rows``).
 """
 
 from __future__ import annotations
@@ -156,7 +160,8 @@ def exchange_bytes_per_step(num_slots: int, rows: int, feat_dim: int,
     """Analytic per-slot bytes of the device sampler's exchange
     (``DistTrainer.owner_rows``): the request all-gather (owner and
     local, int32 each, from every slot) plus the row payload every owner
-    returns for every request."""
+    returns for every request, ``itemsize`` bytes an element (the
+    store's: 1 for codes)."""
     request = num_slots * rows * 2 * 4
     payload = num_slots * rows * feat_dim * itemsize
     return request + payload
@@ -167,5 +172,6 @@ def alltoall_bytes_per_step(num_slots: int, pair_cap: int,
     """Analytic per-slot bytes of one compacted exchange
     (:func:`alltoall_serve_rows`): the request rows out (int32) plus
     the payload back — each requested row crosses once, so the bill
-    scales with the calibrated pair cap, not the input width."""
+    scales with the calibrated pair cap, not the input width; ``itemsize``
+    is the store's element size."""
     return num_slots * pair_cap * (4 + feat_dim * itemsize)

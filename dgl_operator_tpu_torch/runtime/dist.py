@@ -52,6 +52,17 @@ sampler (as in JAX); on the card a call of K steps is one replay of a
 CUDA graph (``runtime/graphs.py``), under a gloo group, which cannot be
 captured, K eager steps.
 
+Feature storage (``TrainConfig.feat_dtype``): the store holds float32,
+bfloat16, or the int8 or uint8 codes of ``graph/quant.py``, in both
+layouts; the exchange moves the store's own bytes, and the rows are
+reconstructed to float32 once, after the gather and the merge
+(``runtime/forward.py::dequant_rows``), with one global per-column
+``scale`` and ``zero`` made on the device at construction. A quantized
+book read into the same dtype passes its codes through; a float book
+read into codes is calibrated on every rank's core rows; a quantized
+book read into a float store is dequantized on the host; a quantized
+book read into other codes raises (:meth:`DistTrainer._build_feat_codec`).
+
 The loss runs the model in inference mode (no dropout), as the JAX
 trainer's ``seed_loss`` does. Checkpoints and resume follow
 ``SampledTrainer`` (``runtime/loop.py::run_epochs``); in a group rank 0
@@ -102,9 +113,11 @@ import torch.distributed as dist
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.autotune.knobs import apply_tuned
+from dgl_operator_tpu_torch.graph import quant
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock,
                                                  build_fanout_blocks,
                                                  calibrate_caps, fanout_caps)
+from dgl_operator_tpu_torch.graph.featstore import emit_dataplane_gauges
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import (inference_layer,
                                            state_dict_from_flax)
@@ -131,6 +144,10 @@ from dgl_operator_tpu_torch.runtime.loop import (TrainConfig, make_adam,
                                                  resolve_num_samplers,
                                                  run_epochs)
 from dgl_operator_tpu_torch.runtime.timers import OverlapTracker, PhaseTimer
+
+# the store's torch dtype for each TrainConfig.feat_dtype
+STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8, "uint8": torch.uint8}
 
 
 class DistTrainer:
@@ -182,8 +199,6 @@ class DistTrainer:
         self.parts: List[GraphPartition] = [
             GraphPartition(part_cfg, p) for p in self.my_parts]
         L = len(self.parts)
-        for p in self.parts:
-            p.check_float_features(feat_key)
         self.cscs = [p.graph.csc() for p in self.parts]
         self.num_nodes = int(meta["num_nodes"])
         # static shapes common to every slot, from the book's metadata
@@ -193,6 +208,18 @@ class DistTrainer:
         self.h_pad = max(1, max(m["num_local_nodes"] - m["num_inner_nodes"]
                                 for m in info))
         feat_dim = self.parts[0].graph.ndata[feat_key].shape[1]
+        # the store's dtype, how a book row becomes a store row, and the
+        # global sidecar of a store of codes
+        fdt = cfg.feat_dtype
+        self._feat_quantized = quant.is_quantized_dtype(fdt)
+        self._store_dtype = STORE_DTYPES[fdt]
+        host_dtype = np.dtype(fdt) if self._feat_quantized else np.float32
+        store_rows, scale, zero = self._build_feat_codec(fdt, feat_dim)
+        # made once, before any call: a captured graph reads them in place
+        self._feat_scale, self._feat_zero = (
+            (None, None) if scale is None else
+            tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                  for a in (scale, zero)))
         labels = np.zeros((L, self.n_pad), np.int64)
         for i, p in enumerate(self.parts):
             labels[i, :p.graph.num_nodes] = p.graph.ndata[label_key]
@@ -203,7 +230,7 @@ class DistTrainer:
             # zero row after every slot answers a -1 exchange request
             H = self.cache_rows = int(round(cfg.halo_cache_frac * self.h_pad))
             R = self._rows_per_slot = self.c_pad + H
-            flat = np.zeros((L * R + 1, feat_dim), np.float32)
+            flat = np.zeros((L * R + 1, feat_dim), host_dtype)
             store = flat[:-1].reshape(L, R, feat_dim)
             owner_m = np.full((L, self.h_pad), -1, np.int32)
             local_m = np.zeros((L, self.h_pad), np.int32)
@@ -211,14 +238,14 @@ class DistTrainer:
             for i, p in enumerate(self.parts):
                 ni = p.num_inner
                 feat = p.graph.ndata[feat_key]
-                store[i, :ni] = feat[:ni]
+                store[i, :ni] = store_rows(feat[:ni])
                 nh = p.graph.num_nodes - ni
                 owner_m[i, :nh] = p.halo_owner_part
                 local_m[i, :nh] = p.halo_owner_local
                 cache_idx, slot_of = build_halo_cache(
                     p.graph.src, p.graph.num_nodes, ni, H)
                 if len(cache_idx):
-                    store[i, self.c_pad:] = feat[ni + cache_idx]
+                    store[i, self.c_pad:] = store_rows(feat[ni + cache_idx])
                 self._cache_slot.append(slot_of)
             self._host_halo = (owner_m, local_m)
             if self._device_mode:
@@ -238,14 +265,19 @@ class DistTrainer:
                 self._dev_parts = torch.tensor(
                     [[p] for p in self.my_parts], dtype=torch.int32,
                     device=self.device)
-            self._flat = torch.from_numpy(flat).to(self.device)
+            self._flat = torch.from_numpy(flat).to(self.device,
+                                                   self._store_dtype)
             self.feats = self._flat[:-1].view(L, R, feat_dim)
         else:
             self.cache_rows = 0
-            feats = np.zeros((L, self.n_pad, feat_dim), np.float32)
+            feats = np.zeros((L, self.n_pad, feat_dim), host_dtype)
             for i, p in enumerate(self.parts):
-                feats[i, :p.graph.num_nodes] = p.graph.ndata[feat_key]
-            self.feats = torch.from_numpy(feats).to(self.device)
+                feats[i, :p.graph.num_nodes] = store_rows(
+                    p.graph.ndata[feat_key])
+            self.feats = torch.from_numpy(feats).to(self.device,
+                                                    self._store_dtype)
+        self.data_feat_mib_per_slot = (self.feats[0].numel()
+                                       * self.feats.element_size() / 2**20)
         self.train_ids = [p.node_split("train_mask") for p in self.parts]
         # every part's train count, on every rank: the shuffle stream
         # runs over all of them (_permute)
@@ -274,11 +306,11 @@ class DistTrainer:
             # every input row's request, answered by every owner
             self.pair_cap = 0
             self.exchange_bytes_per_step = exchange_bytes_per_step(
-                P, int(self.caps[-1]), feat_dim)
+                P, int(self.caps[-1]), feat_dim, self.feats.element_size())
         elif self._owner_layout:
             self.pair_cap = self._calibrate_exchange_cap()
             self.exchange_bytes_per_step = alltoall_bytes_per_step(
-                P, self.pair_cap, feat_dim)
+                P, self.pair_cap, feat_dim, self.feats.element_size())
         else:
             self.pair_cap = 0
             self.exchange_bytes_per_step = 0
@@ -310,6 +342,53 @@ class DistTrainer:
         self._windows: List[tuple] = []
         self._origin = None
         self.overlap = OverlapTracker()
+
+    def _build_feat_codec(self, fdt: str, feat_dim: int):
+        """How a book row becomes a store row, and the global sidecar
+        ``(scale, zero)`` of a store of codes (None for a float store).
+        Four cases: a float book into a float store (as it is; a
+        bfloat16 store rounds when it is copied to the device); a float
+        book into codes (calibrated on the global per-column extrema of
+        every rank's core rows, then quantized); a quantized book into
+        its own dtype (the codes pass through); a quantized book into a
+        float store (dequantized on the host). A quantized book into
+        another code dtype raises: re-coding stacks rounding error."""
+        book = self.parts[0].feat_sidecar(self.feat_key)
+        if book is not None:
+            b_scale = np.asarray(book["scale"], np.float32)
+            b_zero = np.asarray(book["zero"], np.float32)
+            if self._feat_quantized:
+                if str(book["dtype"]) != fdt:
+                    raise ValueError(
+                        f"feat_dtype={fdt!r} but the partition book "
+                        f"stores {self.feat_key!r} as "
+                        f"{book['dtype']!r} codes — match the book's "
+                        "dtype (re-coding stacks rounding error)")
+                return (lambda rows: rows), b_scale, b_zero
+            return (lambda rows: quant.dequantize(
+                rows, b_scale, b_zero)), None, None
+        if not self._feat_quantized:
+            return (lambda rows: rows), None, None
+        # part cores tile the node set: every rank derives the same
+        # sidecar from the gathered extrema
+        lo = np.full(feat_dim, np.inf, np.float64)
+        hi = np.full(feat_dim, -np.inf, np.float64)
+        for p in self.parts:
+            rows = np.asarray(p.graph.ndata[self.feat_key][:p.num_inner])
+            if len(rows):
+                lo = np.minimum(lo, rows.min(axis=0))
+                hi = np.maximum(hi, rows.max(axis=0))
+        lo_g = collectives.host_gather_rows(lo[None])
+        hi_g = collectives.host_gather_rows(hi[None])
+        scale, zero = quant.merge_column_stats(
+            [(lo_g.min(axis=0), hi_g.max(axis=0))], fdt)
+        return (lambda rows: quant.quantize(rows, scale, zero, fdt)), \
+            scale, zero
+
+    def _rows_f32(self, rows: torch.Tensor) -> torch.Tensor:
+        """Store rows reconstructed to float32 with the store's
+        sidecar (``runtime/forward.py::dequant_rows``)."""
+        return forward.dequant_rows(rows, self._feat_scale, self._feat_zero)
 
     def _sampler_pool(self) -> Optional[ThreadPoolExecutor]:
         """The pool that samples a batch's slots, None at width 1
@@ -581,7 +660,8 @@ class DistTrainer:
         def loss_of(i):
             sb = slots[i]
             h = forward.gather_input_rows(self.feats[i], sb,
-                                          self._owner_layout)
+                                          self._owner_layout,
+                                          self._feat_scale, self._feat_zero)
             return forward.seed_loss(self.model, sb["blocks"], h,
                                      sb["seeds"], self.labels[i])
 
@@ -704,8 +784,8 @@ class DistTrainer:
 
         def loss_of(i):
             blocks, inputs = sampled[i]
-            h = (rows[i] if rows is not None
-                 else gather_rows(self.feats[i], inputs))
+            h = self._rows_f32(rows[i] if rows is not None
+                               else gather_rows(self.feats[i], inputs))
             return forward.seed_loss(self.model, blocks, h, seeds[i],
                                      self.labels[i])
 
@@ -860,6 +940,13 @@ class DistTrainer:
                                    "read the same checkpoint directory")
             if ckpt is not None:
                 ckpt = RankZeroCheckpoints(ckpt, self.rank)
+        # the feature plane's bill: the store a slot holds on the device
+        # in its storage dtype, and the book's backing bytes
+        emit_dataplane_gauges(
+            "dist", cfg.feat_dtype, round(self.data_feat_mib_per_slot, 3),
+            backing_mib=round(sum(
+                int(p.graph.ndata[self.feat_key].nbytes)
+                for p in self.parts) / 2**20, 3))
         self.timer.reset()
         self._reset_counts()
         self.overlap.reset()
@@ -961,9 +1048,10 @@ class DistTrainer:
             return buf
 
         with torch.no_grad():
-            buf = self.feats.new_zeros(self.num_nodes, self.feats.shape[-1])
+            buf = torch.zeros(self.num_nodes, self.feats.shape[-1],
+                              device=self.device)
             for i, ni in enumerate(n_inner):
-                buf[orig[i][:ni]] = self.feats[i, :ni]
+                buf[orig[i][:ni]] = self._rows_f32(self.feats[i, :ni])
             buf = joined(buf)
             for li in range(len(self.model.layers)):
                 nxt = None
@@ -1012,8 +1100,11 @@ class DistTrainer:
                 self.n_pad,
                 cfg.batch_size,
                 forward.part_sample_seed(sample_seed + ci, part))
+            sc = p.feat_sidecar(self.feat_key)
             h = torch.from_numpy(forward.gather_host_rows(
-                p.graph.ndata[self.feat_key], mb)).to(self.device)
+                p.graph.ndata[self.feat_key], mb,
+                None if sc is None else sc["scale"],
+                None if sc is None else sc["zero"])).to(self.device)
             blocks = [b.to(self.device) for b in mb.blocks]
             logits = self._predict_fn(weights, blocks, h).cpu().numpy()
             if out is None:

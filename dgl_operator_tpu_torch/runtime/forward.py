@@ -5,7 +5,10 @@ Seed ids are routed to their owner partition (:func:`route_by_owner`),
 sampled and padded on the host (:func:`sample_padded`), their input rows
 gathered (:func:`gather_host_rows`, the engine's owner-sharded gather,
 or on the card :func:`gather_input_rows`) and run through the model
-(:func:`build_predict_fn`, or :func:`seed_loss` in training). The
+(:func:`build_predict_fn`, or :func:`seed_loss` in training). A store
+holds its storage dtype (float32, bfloat16, or the int8 and uint8
+codes of ``graph/quant.py``); rows are merged in that dtype and
+reconstructed to float32 once, by :func:`dequant_rows`. The
 sampling stream of every chunk derives from one formula
 (:func:`part_sample_seed`), so the same request and seed draw the same
 neighborhoods in this package and in the JAX package.
@@ -13,12 +16,13 @@ neighborhoods in this package and in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dgl_operator_tpu_torch.graph import quant
 from dgl_operator_tpu_torch.graph.blocks import (FanoutBlock, MiniBatch,
                                                  build_fanout_blocks,
                                                  pad_minibatch)
@@ -73,13 +77,29 @@ def seed_loss(model: torch.nn.Module, blocks: Sequence[FanoutBlock],
     return masked_loss(model(blocks, h), labels, seeds)[0]
 
 
+def dequant_rows(rows: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                 zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The one point where the storage dtype becomes float32: codes
+    with their per-column sidecar ``scale`` and ``zero`` (``[D]``
+    float32 tensors) give ``(rows.float() - zero) * scale``, the
+    algebra of ``graph/quant.py::dequantize``, so an int8 store and a
+    float32 store filled with the host-dequantized codes give the same
+    bits (a subtraction and a product: nothing to contract into a
+    multiply-add); float rows are upcast."""
+    if scale is not None:
+        return (rows.float() - zero) * scale
+    return rows if rows.dtype == torch.float32 else rows.float()
+
+
 def apply_exchanged_rows(rows: torch.Tensor, recv: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
     """The local half of the owner-layout gather: ``rows`` ``[n, D]``
     holds the slot's core rows and cache hits (a miss holds a junk row),
     and every answered halo row ``recv[o, j]`` lands at ``pos[o, j]``.
     Positions are unique; a pad points past the buffer (at ``n``) and
-    is dropped: it lands in a spare row that is cut off."""
+    is dropped: it lands in a spare row that is cut off. The merge runs
+    in the storage dtype (an owner's codes arrive raw); the caller
+    reconstructs once after it."""
     n, d = rows.shape
     buf = torch.cat([rows, rows.new_zeros(1, d)])
     buf.index_copy_(0, pos.reshape(-1).long().clamp_max(n),
@@ -88,17 +108,24 @@ def apply_exchanged_rows(rows: torch.Tensor, recv: torch.Tensor,
 
 
 def gather_input_rows(store: torch.Tensor, batch: Dict[str, torch.Tensor],
-                      owner_layout: bool) -> torch.Tensor:
-    """One slot's input rows on its device — the feature-layout seam.
-    Replicated: ``gather_rows`` of ``batch["inputs"]`` from the slot's
-    ``[n_pad, D]`` store. Owner: ``gather_rows`` of ``batch["exch_loc"]``
-    from its ``[c_pad + H, D]`` core and hot-cache store, then the halo
-    rows the exchange answered (``batch["recv"]``, ``[P, pair_cap, D]``)
-    scattered to ``batch["exch_pos"]``."""
+                      owner_layout: bool,
+                      scale: Optional[torch.Tensor] = None,
+                      zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One slot's float32 input rows on its device — the feature-layout
+    seam. Replicated: ``gather_rows`` of ``batch["inputs"]`` from the
+    slot's ``[n_pad, D]`` store. Owner: ``gather_rows`` of
+    ``batch["exch_loc"]`` from its ``[c_pad + H, D]`` core and
+    hot-cache store, then the halo rows the exchange answered
+    (``batch["recv"]``, ``[P, pair_cap, D]``) scattered to
+    ``batch["exch_pos"]``. Either way the rows are reconstructed once,
+    after the merge (:func:`dequant_rows`; ``scale`` and ``zero`` for a
+    store of codes)."""
     if not owner_layout:
-        return gather_rows(store, batch["inputs"])
-    return apply_exchanged_rows(gather_rows(store, batch["exch_loc"]),
-                                batch["recv"], batch["exch_pos"])
+        rows = gather_rows(store, batch["inputs"])
+    else:
+        rows = apply_exchanged_rows(gather_rows(store, batch["exch_loc"]),
+                                    batch["recv"], batch["exch_pos"])
+    return dequant_rows(rows, scale, zero)
 
 
 def build_predict_fn(model: torch.nn.Module):
@@ -138,8 +165,14 @@ def route_by_owner(node_ids: np.ndarray, node_map: np.ndarray,
     return out
 
 
-def gather_host_rows(feats: np.ndarray, mb: MiniBatch) -> np.ndarray:
+def gather_host_rows(feats: np.ndarray, mb: MiniBatch,
+                     scale: Optional[np.ndarray] = None,
+                     zero: Optional[np.ndarray] = None) -> np.ndarray:
     """The padded minibatch's input rows from a [N, D] feature table, as
-    float32."""
+    float32. A table of codes passes its sidecar ``(scale, zero)`` and
+    only the gathered rows are dequantized (the table may be a
+    demand-paged mmap)."""
     rows = np.asarray(feats[np.asarray(mb.input_nodes)])
+    if scale is not None:
+        return quant.dequantize(rows, scale, zero)
     return rows.astype(np.float32, copy=False)

@@ -113,15 +113,16 @@ class TrainConfig:
     """The JAX ``TrainConfig``'s fields and defaults. ``sampler`` is
     ``"host"`` or ``"device"``; ``steps_per_call`` is any K >= 1
     (``DistTrainer`` takes K > 1 with the device sampler only, as the
-    JAX trainer does). ``feat_dtype``, ``shard_update``,
-    ``shard_rules``, ``zero_stage`` and ``tp_axis_size`` take only
-    their defaults (another value raises ``NotImplementedError``,
-    ``ROADMAP.md`` items 3 and 6.6). ``feats_layout``,
-    ``halo_cache_frac``, ``donate``, ``pipeline_mode``,
-    ``pipeline_depth`` and ``gather_depth`` are read by ``DistTrainer``
-    only; ``gather_depth``'s reader is ``zero_stage=3``. ``sentry``, the
-    ``quality_*`` fields and the pipeline's knobs are validated against
-    the knob registry (``autotune/knobs.py``)."""
+    JAX trainer does). ``shard_update``, ``shard_rules``,
+    ``zero_stage`` and ``tp_axis_size`` take only their defaults
+    (another value raises ``NotImplementedError``, ``ROADMAP.md`` item
+    6.6). ``feats_layout``, ``halo_cache_frac``, ``feat_dtype``,
+    ``donate``, ``pipeline_mode``, ``pipeline_depth`` and
+    ``gather_depth`` are read by ``DistTrainer`` only (``SampledTrainer``
+    ignores them, as in JAX); ``gather_depth``'s reader is
+    ``zero_stage=3``. ``sentry``, the ``quality_*`` fields,
+    ``feat_dtype`` and the pipeline's knobs are validated against the
+    knob registry (``autotune/knobs.py``)."""
 
     num_epochs: int = 10
     batch_size: int = 1000             # reference default (dglrun:35)
@@ -158,6 +159,8 @@ class TrainConfig:
     # of the halo and exchanges the rest each step
     feats_layout: str = "replicated"
     halo_cache_frac: float = 0.25
+    # DistTrainer: the feature store's dtype, float32, bfloat16, or the
+    # int8 / uint8 codes of graph/quant.py
     feat_dtype: str = "float32"
     shard_update: bool = False
     shard_rules: Optional[tuple] = None
@@ -198,7 +201,7 @@ class TrainConfig:
                      "quality_z_max", "quality_grad_ratio_max",
                      "quality_plateau_window", "quality_plateau_rel",
                      "donate", "pipeline_mode", "pipeline_depth",
-                     "gather_depth"):
+                     "gather_depth", "feat_dtype"):
             setattr(self, name, validate(name, getattr(self, name)))
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r} (expected "
@@ -206,8 +209,7 @@ class TrainConfig:
         if int(self.steps_per_call) < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
                              f"{self.steps_per_call}")
-        unported = {"feat_dtype": (self.feat_dtype != "float32", "3"),
-                    "shard_update": (bool(self.shard_update), "6.6"),
+        unported = {"shard_update": (bool(self.shard_update), "6.6"),
                     "shard_rules": (self.shard_rules is not None, "6.6"),
                     "zero_stage": (self.zero_stage != 1, "6.6"),
                     "tp_axis_size": (self.tp_axis_size != 1, "6.6")}

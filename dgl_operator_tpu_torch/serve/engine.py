@@ -10,6 +10,10 @@ feature rows plus a degree-ranked hot-halo cache
 order: core row → cache hit → its owner's core row through the halo
 ownership manifest; hits and owner fetches are counted
 (``serve_halo_cache_hits_total`` / ``serve_halo_remote_rows_total``).
+A book of int8 or uint8 codes opens into quantized stores
+(``graph/featstore.py``, with the book's sidecar): the rows are
+dequantized on the host as they are read, so the server reads the
+reconstructed rows the trainer reads.
 
 Params arrive as a flax-layout tree (an export from either package's
 ``export_for_serving``) and are converted to the model's state dict on
@@ -32,7 +36,8 @@ import torch
 
 from dgl_operator_tpu_torch._device import DeviceLike, resolve_device
 from dgl_operator_tpu_torch.graph.blocks import calibrate_caps, fanout_caps
-from dgl_operator_tpu_torch.graph.featstore import PagedFeatureStore
+from dgl_operator_tpu_torch.graph.featstore import (PagedFeatureStore,
+                                                    emit_dataplane_gauges)
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import state_dict_from_flax
 from dgl_operator_tpu_torch.obs import LATENCY_BUCKETS, get_obs, tracectx
@@ -134,7 +139,6 @@ class ServeEngine:
         caps_auto = None
         for pid in range(self.num_parts):
             p = GraphPartition(part_cfg, pid)
-            p.check_float_features(cfg.feat_key)
             ni = p.num_inner
             nh = p.graph.num_nodes - ni
             cache_rows = int(round(float(cfg.halo_cache_frac) * nh))
@@ -142,7 +146,8 @@ class ServeEngine:
                 p.graph.src, p.graph.num_nodes, ni, cache_rows)
             self._csc.append(p.graph.csc())
             self._stores.append(PagedFeatureStore(
-                p.graph.ndata[cfg.feat_key], ni, cache_idx))
+                p.graph.ndata[cfg.feat_key], ni, cache_idx,
+                sidecar=p.feat_sidecar(cfg.feat_key)))
             self._slot_of.append(slot_of)
             self._owner_m.append(np.asarray(p.halo_owner_part))
             self._local_m.append(np.asarray(p.halo_owner_local))
@@ -181,6 +186,16 @@ class ServeEngine:
                  batch_size=cfg.batch_size, device=str(self.device),
                  load_s=round(self.load_seconds, 3),
                  warmup_s=round(self.warmup_seconds, 3))
+        # the feature plane: what one part pins against its backing
+        # bytes in the storage dtype
+        if self._stores:
+            emit_dataplane_gauges(
+                "serve", self.feat_dtype,
+                round(max(s.resident_bytes for s in self._stores)
+                      / 2**20, 3),
+                backing_mib=round(sum(s.backing_bytes
+                                      for s in self._stores) / 2**20, 3),
+                paged_rows=int(sum(s.paged_rows for s in self._stores)))
 
     def _device_weights(self, params) -> dict:
         """``params`` (flax layout) as the model's state dict on the
@@ -343,6 +358,13 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     @property
+    def feat_dtype(self) -> str:
+        """The stores' storage dtype (``int8`` for a book of int8
+        codes)."""
+        return (self._stores[0].stats()["dtype"] if self._stores
+                else "float32")
+
+    @property
     def ready(self) -> bool:
         """The warm-up has run (the stores are resident once the
         constructor returns)."""
@@ -371,4 +393,5 @@ class ServeEngine:
                                       / 2**20, 3),
             "feat_paged_rows": int(sum(s.paged_rows
                                        for s in self._stores)),
+            "feat_dtype": self.feat_dtype,
         }

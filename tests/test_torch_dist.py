@@ -241,10 +241,20 @@ def test_empty_slot_counts_in_the_gradient_mean():
     ("shard_update", True), ("shard_rules", ((".*", "dp"),)),
     ("zero_stage", 3), ("tp_axis_size", 2)])
 def test_unported_dist_knobs_raise(book, field, value):
-    """The knobs the port lacked. ``sampler="device"`` is ported: it is
-    accepted and trains. ``steps_per_call > 1`` is ported for the device
-    sampler only: with the host sampler it is the JAX trainer's
-    ``ValueError``. The others still raise ``NotImplementedError``."""
+    """The knobs the port lacked. ``sampler="device"`` and
+    ``feat_dtype="bfloat16"`` are ported: they are accepted and train
+    (the store then holds bfloat16). ``steps_per_call > 1`` is ported
+    for the device sampler only: with the host sampler it is the JAX
+    trainer's ``ValueError``. The others still raise
+    ``NotImplementedError``."""
+    if field == "feat_dtype":
+        tr = _port(book, "replicated", **{field: value})
+        assert tr.feats.dtype == torch.bfloat16
+        out = tr.train()
+        assert out["step"] == 2 * tr.steps_per_epoch
+        assert np.isfinite([x for r in out["history"]
+                            for x in r["losses"]]).all()
+        return
     if field == "sampler":
         tr = _port(book, "replicated", **{field: value})
         out = tr.train()

@@ -194,8 +194,9 @@ def _hostfile(tmp):
 def test_entry_point_trains_attention_models(book, tmp_path, monkeypatch,
                                              model, sampler):
     """``--model gat|gatv2`` builds the stack the JAX entry point builds
-    (2 heads of ``--num_hidden``) and trains it; ``--bf16`` and
-    ``--remat`` still raise, naming their roadmap items."""
+    (2 heads of ``--num_hidden``) and trains it, and with ``--bf16``
+    and ``--remat`` as well (bfloat16 layers, recomputed in the
+    backward; the parameters stay float32 under their names)."""
     monkeypatch.delenv("TPU_OPERATOR_DIST", raising=False)
     monkeypatch.delenv(RANK_ENV, raising=False)
     argv = ["--graph_name", "synth", "--ip_config", _hostfile(tmp_path),
@@ -212,9 +213,14 @@ def test_entry_point_trains_attention_models(book, tmp_path, monkeypatch,
     assert layers == {"0", "1"}
     key = "layers.0.attn_l" if model == "gat" else "layers.0.attn"
     assert tuple(out["params"][key].shape) == (1, 2, HIDDEN)
-    for flag, item in (("--bf16", "item 5"), ("--remat", "item 1.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_dist.main(argv + [flag])
+    for flag in ("--bf16", "--remat"):
+        knob = train_dist.main(argv + [flag])
+        assert knob["step"] == out["step"]
+        assert np.isfinite([x for r in knob["history"]
+                            for x in r["losses"]]).all()
+        assert {k: (v.dtype, tuple(v.shape))
+                for k, v in knob["params"].items()} == \
+            {k: (v.dtype, tuple(v.shape)) for k, v in out["params"].items()}
 
 
 @pytest.mark.parametrize("kind", list(STACKS))

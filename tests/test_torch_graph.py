@@ -227,29 +227,56 @@ def test_port_book_reads_in_jax(graphs, tmp_path):
 
 def test_partition_graph_refuses_what_is_not_ported(graphs, tmp_path):
     """Computing the assignment is ported (``parts=None`` writes a
-    multilevel book); out-of-core and quantized storage are not."""
+    multilevel book), and so are quantized and out-of-core storage:
+    ``feat_dtype="int8"`` writes codes with a sidecar, ``ooc=True``
+    file-referenced features; an out-of-range assignment, an unknown
+    storage dtype and a negative budget are refused."""
     _, b = graphs
     cfg = partition.partition_graph(b.graph, "g", 2, str(tmp_path / "ml"))
     with open(cfg) as f:
         assert json.load(f)["part_method"] == "multilevel-native"
     assert sorted(set(np.load(tmp_path / "ml" / "node_map.npy"))) == [0, 1]
-    with pytest.raises(NotImplementedError):
-        partition.partition_graph(b.graph, "g", 2, str(tmp_path),
+    q = partition.partition_graph(b.graph, "g", 2, str(tmp_path / "q"),
                                   parts=_parts(300, 2), feat_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        partition.partition_graph(b.graph, "g", 2, str(tmp_path), ooc=True)
+    p = partition.GraphPartition(q, 0)
+    assert p.graph.ndata["feat"].dtype == np.int8
+    assert p.feat_sidecar("feat")["dtype"] == "int8"
+    o = partition.partition_graph(b.graph, "g", 2, str(tmp_path / "o"),
+                                  ooc=True)
+    with open(o) as f:
+        assert "ooc_spill_mib" in json.load(f)
+    assert isinstance(partition.GraphPartition(o, 1).graph.ndata["feat"],
+                      np.memmap)
     with pytest.raises(ValueError, match="parts values"):
         partition.partition_graph(b.graph, "g", 2, str(tmp_path),
                                   parts=_parts(300, 3))
+    with pytest.raises(ValueError):
+        partition.partition_graph(b.graph, "g", 2, str(tmp_path),
+                                  parts=_parts(300, 2), feat_dtype="int4")
+    with pytest.raises(ValueError):
+        partition.partition_graph(b.graph, "g", 2, str(tmp_path), ooc=True,
+                                  ooc_budget_mb=-1)
 
 
 def test_quantized_jax_book_is_refused(graphs, tmp_path):
+    """A JAX int8 book reads in the port: its codes and sidecar, and a
+    store that dequantizes them (codes without their sidecar are still
+    refused)."""
     a, _ = graphs
     cfg = jax_partition.partition_graph(a.graph, "g", 2, str(tmp_path),
                                         parts=_parts(300, 2),
                                         feat_dtype="int8")
     p = partition.GraphPartition(cfg, 0)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        p.check_float_features("feat")
-    with pytest.raises(NotImplementedError):
+    sc = p.feat_sidecar("feat")
+    want = jax_partition.GraphPartition(cfg, 0).feat_sidecar("feat")
+    np.testing.assert_array_equal(sc["scale"], want["scale"])
+    store = PagedFeatureStore(p.graph.ndata["feat"], p.num_inner,
+                              np.arange(2), sidecar=sc)
+    rows = store.core_rows(np.arange(4))
+    assert rows.dtype == np.float32
+    np.testing.assert_allclose(rows, a.graph.ndata["feat"][p.orig_id[:4]],
+                               atol=float(sc["scale"].max()) / 2 + 1e-6)
+    with pytest.raises(ValueError, match="sidecar"):
         PagedFeatureStore(p.graph.ndata["feat"], p.num_inner, np.arange(2))
+
+

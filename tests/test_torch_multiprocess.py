@@ -339,14 +339,16 @@ def test_entry_point_trains_two_ranks_from_the_hostfile(books, tmp_path,
     ["--sampler", "device"], ["--feat_dtype", "bfloat16"]])
 def test_entry_point_flags_not_ported_raise(books, tmp_path, monkeypatch,
                                             flags):
-    """The entry point's flags whose features the port lacked raise;
-    ``--sampler device`` and ``--model gat|gatv2`` are ported, so one
-    process trains both parts with the device sampler or the attention
-    stack."""
+    """The entry point's flags whose features the port lacked:
+    ``--sampler device``, ``--model gat|gatv2``, ``--bf16``, ``--remat``
+    and ``--feat_dtype bfloat16`` are ported, so one process trains both
+    parts with each; ``--shard_update`` and ``--shard_rules`` still
+    raise."""
     monkeypatch.delenv("TPU_OPERATOR_DIST", raising=False)
     monkeypatch.delenv(RANK_ENV, raising=False)
     argv = _entry_argv(books[2], str(tmp_path)) + flags
-    if flags[0] in ("--sampler", "--model"):
+    if flags[0] in ("--sampler", "--model", "--bf16", "--remat",
+                    "--feat_dtype"):
         out = train_dist.main(argv)
         assert out["step"] > 0 and out["history"][-1]["val_acc"] >= 0
         assert np.isfinite([x for r in out["history"]
