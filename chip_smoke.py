@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, KGE, GAT,
+"""Drive the PyTorch/CUDA port's serving, training, KGE (its grid and
+its launcher included), GAT,
 full-graph, RGCN and GIN paths, the numerics sentry, the serving
 fleet, the chaos, preemption and live planes, and the data plane
 (quantized and out-of-core books, bfloat16 compute, remat).
@@ -148,6 +149,33 @@ Each phase prints JSON lines:
    resumed, bit-exact; ``full_ranking_eval`` and
    ``sharded_ranking_eval`` raw and filtered on 500 test triples against
    each other and the CPU.
+13a. ``kge_grid`` — ``DistKGETrainer`` at the job's width on 4 slots
+   over synthetic FB15k cut into 4 ranks: a 2 x 2 grid
+   (``make_mesh_2d``) against a 1-D mesh of 4 slots, 20 steps on the
+   same batches (loss within 2e-4 relative, tables within 2e-5;
+   ``grid_vs_line``, with launches a step: 2 gathers, 5 scatters); 3
+   updates of the grid on the card and the CPU, synced
+   (``grid_cpu``); device negatives (``device_negatives``): the
+   counter-hash draws of 6 ``(seed_u, slot)`` keys bit-equal card and
+   CPU, 50 steps twice bit-equal, one update with
+   ``torch.cuda.set_sync_debug_mode`` reporting no host sync, 3 synced
+   updates against the CPU; two clients a slot (``clients``: 2 steps,
+   4 updates, card against CPU, then 20 steps on the card timed);
+   ``step_ms`` of the grid with host and device negatives, with two
+   clients a slot and of 1-D, in one call; ``kernel`` lines
+   ``kge_grid_entity``, ``kge_grid_relation``, ``kge_grid_entity_push``
+   (the host plan of 9,216 ids), ``kge_device_entity`` and
+   ``kge_device_entity_push`` (the device-drawn ids and the plan built
+   on the card; its bound counts the distinct rows, its padded targets'
+   bytes are ``padding_bytes``).
+13b. ``kgejob`` — ``launcher/tpukerun.py`` in this process with a
+   one-entry hostfile over ``LocalFabric``: phases 1-2 run the port's
+   ``partition_kg.py`` by path on FB15k, phases 3-5 dispatch, revise
+   and start ``train_kge.py --num_dp 2 --num_mp 2 --neg_sampler
+   device`` on the card for 100 steps, under a chaos plan whose one
+   ``exec`` fault the retry layer absorbs; the saved tables' shapes and
+   the child's summary (its card, updates and launches) are checked,
+   and the same driver run again skips all three phases by its ledger.
 
 14. ``gat`` — ``DistGAT`` and ``DistGATv2`` at the entry point's width
    (2 heads of 256 concatenated, then one head of 47; fanouts 10 and 25,
@@ -318,8 +346,8 @@ Each phase prints JSON lines:
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, gat, message_passing, rgcn_gin, sentry, fleet, chaos and dataplane
-phases
+kge, kge_grid, kgejob (the child's own count), gat, message_passing,
+rgcn_gin, sentry, fleet, chaos and dataplane phases
 (both ranks of each
 two-rank run and every graph replay included), split by path, worst
 error, the times of its calls in one SAGE training step and, under
@@ -327,8 +355,9 @@ error, the times of its calls in one SAGE training step and, under
 device-sampled step, under ``gat`` and ``gatv2``, in one device-sampled
 step of that stack, under ``full_graph``, in one edge gather or
 segment sum of the Cora loop, under ``rgcn_gin``, in one call at
-each RGCN and pool shape and, under ``dataplane``, in one call at the
-int8 slot-input and exchange shapes), a ``total`` line with the run's seconds, the
+each RGCN and pool shape, under ``dataplane``, in one call at the
+int8 slot-input and exchange shapes and, under ``kge_grid`` and
+``kge_device``, in one grid update's entity lookup and push), a ``total`` line with the run's seconds, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -507,15 +536,18 @@ def gather_bound(idx, d: int, itemsize: int):
     return (*bound_ms(nbytes, 0), uniq, nbytes)
 
 
-def scatter_bound(idx, mask, n: int, d: int, itemsize: int):
+def scatter_bound(idx, mask, n: int, d: int, itemsize: int,
+                  padded: bool = False):
     """A scatter-add must write the [n, d] float32 output once and read
     g, idx and mask once; it adds (and divides) each valid slot's row.
     The kernel reads the plan, the same table transposed, instead of
-    idx and mask (its bytes are reported apart)."""
+    idx and mask (its bytes are reported apart). Where the plan's
+    targets are ``padded`` past the distinct ids (a plan built on the
+    device), the function needs only the distinct rows written."""
     nd, f = idx.shape
     valid = (mask > 0) if mask is not None else idx >= 0
     uniq = int(idx[valid].unique().numel()) if nd else 0
-    nbytes = (n * d * 4 + nd * d * itemsize
+    nbytes = ((uniq if padded else n) * d * 4 + nd * d * itemsize
               + nd * f * (idx.element_size() + (mask is not None)))
     return (*bound_ms(nbytes, int(valid.sum()) * d + nd * d), uniq, nbytes)
 
@@ -677,7 +709,8 @@ def gather_records(torch, gather, cases, flush, iters: int, card: str,
     return records
 
 
-def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
+def scatter_records(torch, scatter, cases, flush, iters: int, card: str,
+                    padded=frozenset()):
     """``scatter_add_rows`` over its plan against its plain version on
     each case (the backward of an aggregation, or of a gather when
     ``mask`` is None), run on the CPU in float64: the float32 plain
@@ -686,7 +719,10 @@ def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
     limit. Two launches must give the same bits, and the line says
     whether they equal the CPU's sequential float32 ``index_add_``.
     The backward of ``F.embedding_bag`` (or ``index_add_`` for the
-    gather's) is the yardstick."""
+    gather's) is the yardstick. The cases named in ``padded`` have a
+    plan whose targets are padded past the distinct ids: their bound
+    counts the distinct rows, and the line gives the padded rows' bytes
+    as ``padding_bytes``."""
     import torch.nn.functional as F
 
     records = []
@@ -734,8 +770,10 @@ def scatter_records(torch, scatter, cases, flush, iters: int, card: str):
                    deterministic=True,
                    bitwise_equal_to_cpu=bool(torch.equal(got.cpu(), cpu)))
         if nd:
-            b_ms, b_by, uniq, nbytes = scatter_bound(idx, mask, n, d,
-                                                     g.element_size())
+            b_ms, b_by, uniq, nbytes = scatter_bound(
+                idx, mask, n, d, g.element_size(), name in padded)
+            if name in padded:
+                rec["padding_bytes"] = (n - uniq) * d * 4
             if mask is None:
                 flat = idx[:, 0].long()
 
@@ -3363,6 +3401,360 @@ def kge_phase(torch, args, ops, wrappers, work: str, card: str):
     tr_a, dist_launches = kge_dist(torch, args, wrappers, ds, work, card)
     kge_eval(torch, tr_a, ds, card)
     return records, {k: launches[k] + dist_launches[k] for k in launches}, ds
+
+
+# ------------------------------------------------------------- kge_grid
+KGE_GRID_STEPS = 20      # the grid against 1-D, host negatives
+KGE_GRID_SYNCED = 3      # card-against-CPU updates on the grid
+KGE_DEVICE_STEPS = 50    # the grid with device negatives, run twice
+KGE_CLIENT_STEPS = 2     # num_client=2: 4 updates, card and CPU
+KGE_CLIENT_TIMED = 20    # num_client=2 on the card, steps timed
+KGEJOB_STEPS = 100       # train_kge.py under tpukerun
+
+
+def kge_grid_trainer(ds, seed: int, shape, device, **fields):
+    """``DistKGETrainer`` of the job on a ``(dp, mp)`` grid or a 1-D
+    mesh of ``shape``."""
+    from dgl_operator_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from dgl_operator_tpu_torch.runtime.kge import DistKGETrainer
+
+    cfg, tcfg = kge_configs(ds, seed, log_interval=1000, **fields)
+    mesh = make_mesh(*shape) if len(shape) == 1 else make_mesh_2d(*shape)
+    return DistKGETrainer(cfg, tcfg, device=device, mesh=mesh)
+
+
+def grid_run(torch, wrappers, tr, td, what: str, updates: int):
+    """``tr.train(td)`` with the launches counted from 0; every update
+    on 4 slots gathers twice (the entity rows, negatives included, and
+    the relation rows) and scatters 5 times (the entity push and one
+    relation push a slot)."""
+    import numpy as np
+
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out = tr.train(td)
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    check(launches == {"fanout_agg": 0, "gather_rows": 2 * updates,
+                       "scatter_add_rows": 5 * updates},
+          f"{what}: {launches} launches in {updates} updates")
+    losses = np.asarray(out["losses"])
+    check(len(losses) == updates and bool(np.isfinite(losses).all()),
+          f"{what}: {len(losses)} finite losses of {updates}")
+    step_ms = np.asarray(out["step_s"][1:]) * 1e3
+    return out, launches, dict(
+        steps=out["steps"], updates=out["updates"], train_call_s=wall,
+        step_ms_mean=float(step_ms.mean()),
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        stall_ms_per_step=out["stall_s"] * 1e3 / out["steps"],
+        dispatch_ms_per_step=out["dispatch_s"] * 1e3 / out["steps"],
+        h2d_bytes_per_update=out["h2d_bytes_per_step"],
+        loss_last=float(losses[-5:].mean()))
+
+
+def grid_sync_check(torch, ds, td, seed: int, what: str, updates: int,
+                    **fields):
+    """``updates`` updates of the grid on the card and on the CPU from
+    the CPU's host steps, the card taking the CPU's state before each:
+    each loss within 1e-5 relative, each table within 1e-4 of its
+    largest entry."""
+    card_tr, cpu_tr = (kge_grid_trainer(ds, seed, (2, 2), d, **fields)
+                       for d in ("cuda", "cpu"))
+    iters = cpu_tr.iterators(td)
+    rel, gaps = [], []
+    for i in range(updates):
+        hs = cpu_tr.host_step([next(it) for it in iters], 1000 + i)
+        card_tr.load_state_dict(cpu_tr.state_dict())
+        losses = [float(tr.device_step(hs)) for tr in (card_tr, cpu_tr)]
+        rel.append(abs(losses[0] - losses[1]) / abs(losses[1]))
+        gaps.append(kge_state_gaps(card_tr.state_dict(),
+                                   cpu_tr.state_dict()))
+        check(rel[-1] <= 1e-5, f"{what} update {i + 1}: loss card "
+              f"{losses[0]} vs CPU {losses[1]}")
+        for name, e in gaps[-1].items():
+            check(e <= 1e-4, f"{what} update {i + 1} {name}: {e} x max")
+    return rel, gaps
+
+
+def kge_grid_records(torch, args, ops, grid, dev, td, card: str):
+    """Both kernels at the grid's new call sites: the entity lookup of
+    4 slots' ``h || t || neg`` (9,216 ids) and its push over the host
+    plan; with device negatives, the lookup of the same count of ids,
+    the negatives drawn on the card, and the push over the plan built
+    on the card (9,217 targets)."""
+    from dgl_operator_tpu_torch.ops.adagrad import device_push_plan
+    from dgl_operator_tpu_torch.ops.kge_negatives import update_seed
+
+    _, gather, scatter = ops
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    batches = [next(it) for it in grid.iterators(td)]
+    hs = grid.host_step(batches)
+    arrs = grid.ship(hs)
+    rt = hs.ent_route.rebuilt(arrs[:hs.n_ent])
+    seed_u = update_seed(args.seed, 7, 1, 0)
+    dbatches = [next(it) for it in dev.iterators(td)]
+    dhs = dev.host_step(dbatches, seed_u)
+    darrs = dev.ship(dhs)
+    ids = torch.cat([darrs[0].view(4, -1),
+                     dev.negatives(seed_u).reshape(4, -1)], 1).reshape(-1)
+    plan = device_push_plan(ids)
+    records = gather_records(torch, gather, [
+        ("kge_grid_entity", grid.entity, rt.serve),
+        ("kge_grid_relation", grid.relation, arrs[hs.n_ent]),
+        ("kge_device_entity", dev.entity, ids)], flush, args.iters, card)
+    records += scatter_records(torch, scatter, [
+        ("kge_grid_entity_push",
+         torch.randn(rt.serve.numel(), KGE_DIM, device="cuda", generator=gen),
+         rt.push.inverse, None, rt.push.num_rows, False, rt.push.scatter),
+        ("kge_device_entity_push",
+         torch.randn(ids.numel(), KGE_DIM, device="cuda", generator=gen),
+         plan.inverse, None, plan.num_rows, False, plan.scatter)],
+        flush, args.iters, card, padded={"kge_device_entity_push"})
+    return records
+
+
+def update_syncs(torch, tr, td, seed_u: int) -> list:
+    """The host syncs one device-negatives update makes
+    (the warnings ``torch.cuda.set_sync_debug_mode`` raises at a
+    synchronizing call), its host step and copy made before."""
+    import warnings
+
+    hs = tr.host_step([next(it) for it in tr.iterators(td)], seed_u)
+    arrs = tr.ship(hs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.update(hs, arrs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # the mode's own notice that it is a prototype is not a sync
+    return [str(w.message)[:200] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def kge_grid_phase(torch, args, ops, wrappers, ds, card: str):
+    """The 2 x 2 grid, device negatives and two clients a slot on
+    synthetic FB15k at its real size, at the job's width. Returns the
+    kernel records and the launches of the grid's main-path runs (host
+    and device negatives, two clients a slot)."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.ops.kge_negatives import (draw_counters,
+                                                          draw_negatives,
+                                                          update_seed)
+
+    t0 = time.perf_counter()
+    ne, nr = ds.n_entities, ds.n_relations
+    td4 = TrainDataset(ds.train, ne, nr, ranks=4)
+    steps = KGE_GRID_STEPS
+    # (a) the grid against 1-D, host negatives, identical batches
+    grid = kge_grid_trainer(ds, args.seed, (2, 2), "cuda", max_step=steps)
+    out_g, l_grid, rec_g = grid_run(torch, wrappers, grid, td4, "kge grid",
+                                    steps)
+    line = kge_grid_trainer(ds, args.seed, (4,), "cuda", max_step=steps)
+    out_l, _, rec_l = grid_run(torch, wrappers, line, td4, "kge 1-D", steps)
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(out_g["losses"], out_l["losses"]))
+    sg, sl = grid.state_dict(), line.state_dict()
+    table_gap = {k: float(np.abs(sg[k] - sl[k]).max()) for k in sg}
+    check(loss_rel <= 2e-4, f"kge grid against 1-D: loss rel {loss_rel}")
+    check(max(table_gap.values()) <= 2e-5,
+          f"kge grid against 1-D: table gaps {table_gap}")
+    emit(phase="kge_grid", part="grid_vs_line", card=card, steps=steps,
+         grid=rec_g, line=rec_l, num_shards=[grid.spec.num_shards,
+                                             line.spec.num_shards],
+         loss_rel_max=loss_rel, table_abs_gap=table_gap, loss_rtol=2e-4,
+         table_atol=2e-5, bit_equal=bool(loss_rel == 0 and not any(
+             table_gap.values())))
+    # (b) card against CPU, synced, host negatives
+    rel, gaps = grid_sync_check(torch, ds, td4, args.seed, "kge grid cpu",
+                                KGE_GRID_SYNCED, max_step=steps)
+    emit(phase="kge_grid", part="grid_cpu", card=card,
+         updates=KGE_GRID_SYNCED, synced=True, loss_rel_err=rel,
+         state_rel_err=gaps, loss_tol=1e-5, state_tol=1e-4)
+    # (c) device negatives: the draws card against CPU, two runs
+    n_chunks = KGE_BATCH // KGE_BATCH
+    cnt = {d: draw_counters(n_chunks, KGE_NEG, d) for d in ("cuda", "cpu")}
+    keys = [(update_seed(args.seed, s, k, c), slot)
+            for s, k, c in ((0, 1, 0), (13, 1, 0), (999, 2, 1))
+            for slot in (0, 3)]
+    draws_equal = all(torch.equal(
+        draw_negatives(u, [sl], cnt["cuda"], n_chunks, ne).cpu(),
+        draw_negatives(u, [sl], cnt["cpu"], n_chunks, ne))
+        for u, sl in keys)
+    check(draws_equal, "kge device negatives: card and CPU draws differ")
+    dsteps = KGE_DEVICE_STEPS
+    dev = kge_grid_trainer(ds, args.seed, (2, 2), "cuda", max_step=dsteps,
+                           neg_sampler="device")
+    out_a, l_dev, rec_a = grid_run(torch, wrappers, dev, td4,
+                                   "kge device negatives", dsteps)
+    twin = kge_grid_trainer(ds, args.seed, (2, 2), "cuda", max_step=dsteps,
+                            neg_sampler="device")
+    out_b = twin.train(td4)
+    sa, sb = dev.state_dict(), twin.state_dict()
+    check(out_a["losses"] == out_b["losses"]
+          and all(np.array_equal(sa[k], sb[k]) for k in sa),
+          "kge device negatives: two runs differ")
+    syncs = update_syncs(torch, twin, td4, update_seed(args.seed, 77, 1, 0))
+    check(not syncs, f"a device-negatives update syncs the host: {syncs}")
+    drel, dgaps = grid_sync_check(torch, ds, td4, args.seed,
+                                  "kge device negatives cpu",
+                                  KGE_GRID_SYNCED, max_step=dsteps,
+                                  neg_sampler="device")
+    emit(phase="kge_grid", part="device_negatives", card=card,
+         draw_keys=len(keys), draws_bit_equal=draws_equal, steps=dsteps,
+         run=rec_a, two_runs_bit_equal=True, host_syncs=len(syncs),
+         cpu_loss_rel_err=drel, cpu_state_rel_err=dgaps)
+    # (d) two clients a slot, card against CPU
+    td8 = TrainDataset(ds.train, ne, nr, ranks=8)
+    csteps = KGE_CLIENT_STEPS
+    outs = []
+    for d in ("cuda", "cpu"):
+        tr = kge_grid_trainer(ds, args.seed, (2, 2), d, max_step=csteps,
+                              num_client=2)
+        outs.append((tr.train(td8), tr.state_dict()))
+    (oc, sc), (op, sp) = outs
+    check(oc["updates"] == 2 * csteps and len(oc["losses"]) == 2 * csteps,
+          f"num_client=2: {oc['updates']} updates in {csteps} steps")
+    crel = max(abs(a - b) / abs(b) for a, b in zip(oc["losses"],
+                                                   op["losses"]))
+    cgaps = kge_state_gaps(sc, sp)
+    check(crel <= 1e-4 and max(cgaps.values()) <= 1e-4,
+          f"num_client=2 card against CPU: loss {crel}, tables {cgaps}")
+    timed = kge_grid_trainer(ds, args.seed, (2, 2), "cuda",
+                             max_step=KGE_CLIENT_TIMED, num_client=2)
+    _, l_cli, rec_c = grid_run(torch, wrappers, timed, td8,
+                               "kge num_client=2", 2 * KGE_CLIENT_TIMED)
+    emit(phase="kge_grid", part="clients", card=card, num_client=2,
+         steps=csteps, updates=oc["updates"], loss_rel_err=crel,
+         state_rel_err=cgaps, loss_tol=1e-4, state_tol=1e-4, run=rec_c)
+    # (e) ms a step, one call: host against device negatives, 1-D
+    # against the grid, 2 clients a slot against 1
+    emit(phase="kge_grid", part="step_ms", card=card,
+         grid_host=rec_g["step_ms_p50"], line_host=rec_l["step_ms_p50"],
+         grid_device=rec_a["step_ms_p50"],
+         grid_clients=rec_c["step_ms_p50"],
+         device_over_host=rec_a["step_ms_p50"] / rec_g["step_ms_p50"],
+         grid_over_line=rec_g["step_ms_p50"] / rec_l["step_ms_p50"],
+         clients_over_grid=rec_c["step_ms_p50"] / rec_g["step_ms_p50"],
+         h2d_bytes_host=rec_g["h2d_bytes_per_update"],
+         h2d_bytes_device=rec_a["h2d_bytes_per_update"])
+    records = kge_grid_records(torch, args, ops, grid, dev, td4, card)
+    emit(phase="kge_grid", part="done", card=card,
+         seconds=time.perf_counter() - t0)
+    return records, {k: l_grid[k] + l_dev[k] + l_cli[k] for k in l_grid}
+
+
+# --------------------------------------------------------------- kgejob
+def kgejob_phase(torch, work: str, card: str):
+    """``tpukerun`` with one card: phases 1-2 (``Partitioner``) run the
+    port's ``partition_kg.py`` on FB15k at its real size, phases 3-5
+    train ``train_kge.py --num_dp 2 --num_mp 2 --neg_sampler device``
+    on the card for ``KGEJOB_STEPS`` steps through ``LocalFabric``, one
+    ``exec`` fault of a chaos plan absorbed by the retry layer; then the
+    same driver again, which skips every phase by its ledger. Returns
+    the child's launches."""
+    import io
+
+    import numpy as np
+
+    from dgl_operator_tpu_torch.examples.train_kge import SUMMARY_ENV
+    from dgl_operator_tpu_torch.launcher import tpukerun
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+    from dgl_operator_tpu_torch.models.kge import KGEConfig, relation_dim
+    from dgl_operator_tpu_torch.obs import get_obs
+    from dgl_operator_tpu_torch.parallel.bootstrap import (PHASE_ENV,
+                                                           HostEntry,
+                                                           write_hostfile)
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "kgejob")
+    ws, conf, save = (os.path.join(root, d) for d in ("ws", "conf", "save"))
+    os.makedirs(conf)
+    port = free_port()
+    for name in ("hostfile", "leadfile"):
+        write_hostfile(os.path.join(conf, name),
+                       [HostEntry("127.0.0.1", port, "kge-worker-0", 1)])
+    examples = os.path.join(REPO, "dgl_operator_tpu_torch", "examples")
+    common = ["--graph-name", "FB15k", "--num-partitions", "1",
+              "--workspace", ws, "--conf-dir", conf, "--fabric", "local",
+              "--dataset", "FB15k"]
+    saved_env = {k: os.environ.get(k) for k in (
+        PHASE_ENV, CHAOS_ENV, "TPU_OPERATOR_RETRY_BASE_S", SUMMARY_ENV)}
+
+    def driver(argv, **env):
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        out = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                tpukerun.main(argv)
+        except SystemExit as exc:
+            check(False, f"tpukerun exited {exc.code}:\n{out.getvalue()}")
+        finally:
+            for k, v in saved_env.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        return out.getvalue(), time.perf_counter() - t
+
+    part_log, part_s = driver(
+        common + ["--partition-entry-point",
+                  os.path.join(examples, "partition_kg.py")],
+        **{PHASE_ENV: "Partitioner"})
+    check(part_log.count("finished") == 2, "kgejob: phases 1-2")
+    obs = get_obs()
+    since = time.time()
+    train = common + [
+        "--train-entry-point", os.path.join(examples, "train_kge.py"),
+        "--max-step", str(KGEJOB_STEPS), "--log-interval", "50",
+        "--save-path", save,
+        "--train-args", "--num_dp 2 --num_mp 2 --neg_sampler device"]
+    summaries = os.path.join(root, "summary")
+    log, first_s = driver(train, **{CHAOS_ENV: "exec:fail:1",
+                                    "TPU_OPERATOR_RETRY_BASE_S": "0.05",
+                                    SUMMARY_ENV: summaries})
+    events = [e for e in list(obs.events) if e["ts"] >= since]
+    retries = [e for e in events if e["kind"] == "fabric_retry"]
+    faults = [e for e in events if e["kind"] == "chaos_fault"]
+    check(log.count("finished") == 3, f"kgejob: phases 3-5:\n{log}")
+    check(len(faults) == 1 and len(retries) == 1
+          and "injected" in retries[0]["error"],
+          f"kgejob: faults {faults}, retries {retries}")
+    check(os.path.exists(os.path.join(ws, "hostfile_revised")),
+          "kgejob: hostfile_revised")
+    with open(os.path.join(summaries, "rank0.json")) as f:
+        summary = json.load(f)
+    cfg = KGEConfig(model_name="ComplEx", n_entities=14_951,
+                    n_relations=1_345, hidden_dim=KGE_DIM)
+    with np.load(os.path.join(save, "FB15k_ComplEx_rank0.npz")) as z:
+        shapes = {k: z[k].shape for k in z.files}
+        finite = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+    check(shapes == {"entity": (14_951, KGE_DIM),
+                     "relation": (1_345, relation_dim(cfg))} and finite,
+          f"kgejob: saved tables {shapes}, finite {finite}")
+    check(summary["device"] == torch.cuda.get_device_name(0),
+          f"kgejob: the child trained on {summary['device']}")
+    updates = KGEJOB_STEPS
+    check(summary["updates"] == updates and summary["launches"] == {
+        "fanout_agg": 0, "gather_rows": 2 * updates,
+        "scatter_add_rows": 5 * updates},
+        f"kgejob: the child's run {summary}")
+    again_log, again_s = driver(train)
+    skipped = again_log.count("skipped (ledger)")
+    check(skipped == 3, f"kgejob relaunch: {skipped} phases skipped")
+    emit(phase="kgejob", card=card, partition_s=part_s, first_s=first_s,
+         relaunch_s=again_s, relaunch_skipped=skipped,
+         faults=len(faults), retries=len(retries), child=summary,
+         saved=shapes, seconds=time.perf_counter() - t0)
+    return summary["launches"]
 
 
 # ------------------------------------------------------------------ gat
@@ -6585,7 +6977,8 @@ def dataplane_phase(torch, args, ops, wrappers, g, trainer, ctx, work: str,
 def kernel_entry(records, name, main_shapes, launches, replaces,
                  kge_shapes=(), kge_launches=0, tree_shapes=(),
                  gat_shapes=None, gat_launches=0, mp_launches=0,
-                 rgcn_launches=0, chaos_launches=0, dataplane_launches=0):
+                 rgcn_launches=0, chaos_launches=0, dataplane_launches=0,
+                 more_launches=None):
     """The kernels line's entry: worst error over every shape, times
     summed over the calls of one SAGE training step (and, under
     ``kge``, of one KGE training step; under ``device_sampler``, of one
@@ -6597,7 +6990,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
     runs and ``examples/graphsage.py``; ``rgcn_launches``: the
     ``rgcn_gin`` phase's runs; ``chaos_launches``: the ``chaos``
     phase's runs; ``dataplane_launches``: the ``dataplane`` phase's
-    runs)."""
+    runs; ``more_launches``: ``launches_<key>`` of each later phase)."""
+    more_launches = more_launches or {}
     mine = [r for r in records if r["kernel"] == name]
 
     def step_sums(shapes):
@@ -6615,7 +7009,7 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "replaces": replaces,
              "launches": launches + kge_launches + gat_launches
              + mp_launches + rgcn_launches + chaos_launches
-             + dataplane_launches,
+             + dataplane_launches + sum(more_launches.values()),
              "max_abs_err": max(r["max_abs_err"] for r in mine),
              "ms": total["ms"], "plain_ms": total["plain_ms"],
              "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
@@ -6625,7 +7019,8 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
              "launches_message_passing": mp_launches,
              "launches_rgcn_gin": rgcn_launches,
              "launches_chaos": chaos_launches,
-             "launches_dataplane": dataplane_launches}
+             "launches_dataplane": dataplane_launches,
+             **{f"launches_{k}": v for k, v in more_launches.items()}}
     if kge_shapes:
         entry["kge"] = step_sums(kge_shapes)
     if tree_shapes:
@@ -6708,6 +7103,9 @@ def main(argv=None) -> int:
             torch, args, ops, wrappers, g, trainer, ctx, work, smi)
         kge_records, kge, kg = kge_phase(torch, args, ops, wrappers, work,
                                          smi)
+        grid_records, grid = kge_grid_phase(torch, args, ops, wrappers, kg,
+                                            smi)
+        job = kgejob_phase(torch, work, smi)
         gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
@@ -6724,7 +7122,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records += (dist_records + mp_records + device_records + kge_records
-                + gat_records + mpass_records + rgin_records + dplane_records)
+                + grid_records + gat_records + mpass_records + rgin_records
+                + dplane_records)
     # the full-graph and message-passing paths, and the standalone
     # sampled entry point
     for k, v in full.items():
@@ -6751,7 +7150,9 @@ def main(argv=None) -> int:
                      mp_launches=mpass["fanout_agg"],
                      rgcn_launches=rgin["fanout_agg"],
                      chaos_launches=chaos.get("fanout_agg", 0),
-                     dataplane_launches=dplane.get("fanout_agg", 0)),
+                     dataplane_launches=dplane.get("fanout_agg", 0),
+                     more_launches={"kge_grid": grid["fanout_agg"],
+                                    "kgejob": job["fanout_agg"]}),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -6768,12 +7169,18 @@ def main(argv=None) -> int:
                                          "rgcn_distmult_rel",
                                          "pool_block0"),
                          "dataplane": i8("dataplane_slot_inputs",
-                                         "dataplane_exchange")},
+                                         "dataplane_exchange"),
+                         "kge_grid": f32("kge_grid_entity",
+                                         "kge_grid_relation"),
+                         "kge_device": f32("kge_device_entity",
+                                           "kge_grid_relation")},
                      gat_launches=gat["gather_rows"],
                      mp_launches=mpass["gather_rows"],
                      rgcn_launches=rgin["gather_rows"],
                      chaos_launches=chaos.get("gather_rows", 0),
-                     dataplane_launches=dplane.get("gather_rows", 0)),
+                     dataplane_launches=dplane.get("gather_rows", 0),
+                     more_launches={"kge_grid": grid["gather_rows"],
+                                    "kgejob": job["gather_rows"]}),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -6789,12 +7196,16 @@ def main(argv=None) -> int:
                                          "rgcn_coef_etype_bwd",
                                          "rgcn_segment_mean",
                                          "rgcn_distmult_rel_bwd",
-                                         "pool_block0_bwd")},
+                                         "pool_block0_bwd"),
+                         "kge_grid": f32("kge_grid_entity_push"),
+                         "kge_device": f32("kge_device_entity_push")},
                      gat_launches=gat["scatter_add_rows"],
                      mp_launches=mpass["scatter_add_rows"],
                      rgcn_launches=rgin["scatter_add_rows"],
                      chaos_launches=chaos.get("scatter_add_rows", 0),
-                     dataplane_launches=dplane.get("scatter_add_rows", 0)),
+                     dataplane_launches=dplane.get("scatter_add_rows", 0),
+                     more_launches={"kge_grid": grid["scatter_add_rows"],
+                                    "kgejob": job["scatter_add_rows"]}),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

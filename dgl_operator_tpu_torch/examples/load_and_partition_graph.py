@@ -16,6 +16,11 @@ the host alone. :func:`main` returns the book's JSON path.
 
 from __future__ import annotations
 
+# the repo root on sys.path, so the launcher can start this file by path
+import os as _os, sys as _sys  # noqa: E401
+_sys.path.insert(0, _os.path.abspath(_os.path.join(
+    _os.path.dirname(__file__), "..", "..")))
+
 import argparse
 import os
 import shutil

@@ -12,6 +12,11 @@ wrote. Run it as ``python -m dgl_operator_tpu_torch.examples.partition_kg``.
 
 from __future__ import annotations
 
+# the repo root on sys.path, so the launcher can start this file by path
+import os as _os, sys as _sys  # noqa: E401
+_sys.path.insert(0, _os.path.abspath(_os.path.join(
+    _os.path.dirname(__file__), "..", "..")))
+
 import argparse
 import os
 

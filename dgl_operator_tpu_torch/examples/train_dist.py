@@ -27,6 +27,10 @@ the backward, and ``--feat_dtype`` sets the feature store's dtype
 ``partition_graph(feat_dtype=...)`` is read as it is under that dtype).
 ``--shard_update`` and ``--shard_rules`` raise (``ROADMAP.md`` item
 6.6). The backend is ``--backend``, else NCCL on a card and gloo on the CPU. The
+``--ckpt_dir`` checkpoints there at every epoch's end and resumes
+from the newest good checkpoint
+(``TrainConfig.ckpt_dir``); a run preempted by SIGTERM flushes one and
+exits 75 (EX_TEMPFAIL), the status the launcher's driver requeues. The
 model's weights are drawn from ``--seed`` (``TrainConfig.seed``)
 through an explicit generator, so every process and a single-process
 run start from the same weights. :func:`main` returns the trainer's
@@ -34,6 +38,11 @@ result.
 """
 
 from __future__ import annotations
+
+# the repo root on sys.path, so the launcher can start this file by path
+import os as _os, sys as _sys  # noqa: E401
+_sys.path.insert(0, _os.path.abspath(_os.path.join(
+    _os.path.dirname(__file__), "..", "..")))
 
 import argparse
 import json
@@ -49,7 +58,8 @@ from dgl_operator_tpu_torch.parallel import collectives
 from dgl_operator_tpu_torch.parallel.bootstrap import (
     RANK_ENV, initialize_from_hostfile, parse_hostfile)
 from dgl_operator_tpu_torch.runtime.dist import DistTrainer
-from dgl_operator_tpu_torch.runtime.loop import NUM_SAMPLERS_ENV, TrainConfig
+from dgl_operator_tpu_torch.runtime.loop import (NUM_SAMPLERS_ENV, Preempted,
+                                                 TrainConfig)
 
 DIST_ENV = "TPU_OPERATOR_DIST"
 
@@ -93,6 +103,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0,
                     help="TrainConfig.seed: the weights, the shuffles and "
                          "the sampling streams")
+    ap.add_argument("--ckpt_dir", type=str, default=None,
+                    help="checkpoint and resume here (TrainConfig.ckpt_dir)")
     args, _ = ap.parse_known_args(argv)
     return args
 
@@ -132,7 +144,7 @@ def _train(args: argparse.Namespace, rank: int, num_parts: int, device):
         shard_rules=(tuple((p, a) for p, a in json.loads(args.shard_rules))
                      if args.shard_rules else None),
         sampler=args.sampler, feats_layout=args.feats_layout,
-        feat_dtype=args.feat_dtype, seed=args.seed)
+        feat_dtype=args.feat_dtype, seed=args.seed, ckpt_dir=args.ckpt_dir)
     # this process's parts: all of them, or its block in a group
     r, world = collectives.world()
     per = num_parts // world
@@ -156,7 +168,11 @@ def _train(args: argparse.Namespace, rank: int, num_parts: int, device):
         model = DistSAGE(feat_dim, args.num_hidden, n_cls, dropout=0.5,
                          device=device, generator=gen, **knobs)
     tr = DistTrainer(model, args.part_config, cfg, device=device)
-    out = tr.train()
+    try:
+        out = tr.train()
+    except Preempted as exc:
+        print(f"rank {rank}: preempted ({exc})", flush=True)
+        raise SystemExit(75)
     print(f"rank {rank}: done, final loss "
           f"{out['history'][-1]['loss']:.4f}", flush=True)
     return out

@@ -21,9 +21,10 @@ reference's DGL-KE sampler stack (``examples/DGL-KE/hotfix/sampler.py``):
 
 Samplers emit fixed-shape int32 numpy batches (the ragged tail batch is
 dropped), and negatives are uniform entity draws on the host.
-``draw_negatives=False`` exists for a device-side negative sampler,
-which the port does not have (``ROADMAP.md`` Queue 1 item 6); no trainer
-of the port sets it.
+``draw_negatives=False`` skips that draw for the device negatives of
+``DistKGETrainer(neg_sampler="device")`` (``ROADMAP.md`` Queue 1 item
+8.2; ``ops/kge_negatives.py``), which sets it on every sampler it
+creates.
 """
 
 from __future__ import annotations

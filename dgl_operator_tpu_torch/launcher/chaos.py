@@ -13,10 +13,12 @@ Plan grammar — ``;``-separated directives, each
     exec:timeout:<n>      (or time them out), the first n copy calls,
     copy:fail:<n>         any call, each call with probability p, or
     any:fail:<n>          sleep s seconds before each call. They parse
-    exec:flaky:<p>        here exactly as in the JAX package; the
-    copy:flaky:<p>        fabric that applies them (``ChaosPlan.before``
-    exec:delay:<s>        and ``ChaosFabric``) waits for the launcher's
-                          fabric (ROADMAP.md item 7)
+    exec:flaky:<p>        (flakiness drawn from the plan's seeded RNG).
+    copy:flaky:<p>        ``get_fabric`` wraps the environment's plan
+    exec:delay:<s>        in a :class:`ChaosFabric`, which calls
+                          :meth:`ChaosPlan.before` ahead of every verb;
+                          an injected fault is transient, so the retry
+                          layer (``launcher/retry.py``) absorbs it
     train:kill:<step>     the training loops deliver a real SIGTERM to
                           themselves at global step <step>
                           (runtime/loop.py ``PreemptionGuard``): the
@@ -51,10 +53,15 @@ Plan grammar — ``;``-separated directives, each
 from __future__ import annotations
 
 import os
+import random
 import re
 import threading
+import time
 from typing import List, Optional
 
+from dgl_operator_tpu_torch.launcher.fabric import (Fabric, FabricError,
+                                                    FabricHostLost,
+                                                    FabricTimeout)
 from dgl_operator_tpu_torch.obs import get_obs
 from dgl_operator_tpu_torch.parallel.bootstrap import (HOSTFILE_ENV,
                                                        RANK_ENV,
@@ -98,6 +105,15 @@ class ChaosRule:
         self.value = value
         self.host = host
         self.fired = False
+        # fail/timeout budgets count down; delay/flaky never exhaust
+        self.remaining = int(value) if action in ("fail", "timeout") \
+            else None
+
+    def matches(self, verb: str, host: str) -> bool:
+        """A fabric rule's match of one fabric call."""
+        if self.verb not in ("any", verb):
+            return False
+        return self.host is None or self.host == host
 
     def _scoped_to(self, host: Optional[str]) -> bool:
         """An unscoped rule matches every host; a scoped one only its
@@ -115,8 +131,8 @@ class ChaosPlan:
 
     def __init__(self, rules: List[ChaosRule], seed: int = 0):
         self.rules = rules
-        # the fabric's flakiness seed, kept for the fabric (item 7)
         self.seed = seed
+        self._rng = random.Random(seed)
         self._lock = threading.Lock()
         self.injected: List[tuple] = []
 
@@ -150,6 +166,47 @@ class ChaosPlan:
             rules.append(ChaosRule(verb, action,
                                    float(m["value"] or 0), m["host"]))
         return cls(rules, seed=seed)
+
+    def before(self, verb: str, host: str) -> None:
+        """Apply every matching fabric rule to one fabric call: sleep
+        the delays (outside the lock, so injected latency does not
+        serialize the batch fan-out), then raise the first due fault
+        (transient, so the retry layer owns recovery)."""
+        delay, fault, fired = 0.0, None, None
+        with self._lock:
+            for rule in self.rules:
+                if rule.verb in ("train", "host", "ckpt", "numerics",
+                                 "replica", "promote", "step") \
+                        or not rule.matches(verb, host):
+                    continue
+                if rule.action == "delay":
+                    delay += rule.value
+                elif rule.action == "flaky":
+                    if self._rng.random() < rule.value:
+                        self.injected.append((repr(rule), verb, host))
+                        fired = rule
+                        fault = FabricError(
+                            f"chaos: injected flaky {verb} failure on "
+                            f"{host} ({rule})", transient=True)
+                        break
+                elif rule.remaining and rule.remaining > 0:
+                    rule.remaining -= 1
+                    self.injected.append((repr(rule), verb, host))
+                    fired = rule
+                    exc_cls = (FabricTimeout if rule.action == "timeout"
+                               else FabricError)
+                    fault = exc_cls(
+                        f"chaos: injected {verb} failure on {host} "
+                        f"({rule}, {rule.remaining} left)",
+                        transient=True)
+                    break
+        if delay:
+            time.sleep(delay)
+        if fault is not None:
+            count_fault(verb, fired.action)
+            get_obs().emit("chaos_fault", verb=verb, host=host,
+                           action=fired.action, rule=repr(fired))
+            raise fault
 
     def _first(self, verb: str, action: str,
                host: Optional[str] = None, scoped: bool = False
@@ -309,3 +366,44 @@ def count_fault(verb: str, action: str, **event) -> None:
         "faults the chaos plan actually delivered",
         labels=("verb", "action")).inc(verb=verb, action=action)
     obs.emit(f"chaos_{verb}_{action}", **event)
+
+
+class ChaosFabric(Fabric):
+    """Any fabric with a fault plan in front of it. Batch verbs use the
+    base fan-out, so each host's call passes :meth:`ChaosPlan.before`
+    on its own (a rule scoped to a host hits exactly that host's
+    thread)."""
+
+    def __init__(self, inner: Fabric, plan: ChaosPlan):
+        self.inner = inner
+        self.plan = plan
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _check_dead(self, verb: str, host: str) -> None:
+        """Any verb against a host with a dead marker (``host:die``)
+        fails fatally: no retry revives it."""
+        if host not in dead_hosts():
+            return
+        count_fault(verb, "die")
+        get_obs().emit("chaos_dead_host", verb=verb, host=host)
+        raise FabricHostLost(
+            f"chaos: host {host} is dead (host:die) — permanent "
+            "failure, no retry revives it", host=host)
+
+    def exec(self, host, cmd, env=None, container=None):
+        self._check_dead("exec", host)
+        self.plan.before("exec", host)
+        self.inner.exec(host, cmd, env=env, container=container)
+
+    def copy(self, src, host, target_dir, container=None):
+        self._check_dead("copy", host)
+        self.plan.before("copy", host)
+        self.inner.copy(src, host, target_dir, container=container)
+
+    def fetch(self, host, src, target_dir, container=None):
+        # the pull direction is the same data-plane verb
+        self._check_dead("copy", host)
+        self.plan.before("copy", host)
+        self.inner.fetch(host, src, target_dir, container=container)

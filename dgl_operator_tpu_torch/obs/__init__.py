@@ -23,6 +23,10 @@ from dgl_operator_tpu_torch.obs.metrics import (DEFAULT_BUCKETS,  # noqa: F401
 
 # records kept per in-memory list; the oldest are dropped beyond it
 MAX_RECORDS = 10_000
+# the JAX package's names: its file plane's directory, and the role a
+# launcher gives each trainer (host:pid:trainer-<rank>)
+OBS_DIR_ENV = "TPU_OPERATOR_OBS_DIR"
+OBS_ROLE_ENV = "TPU_OPERATOR_OBS_ROLE"
 
 
 class Obs:

@@ -16,6 +16,14 @@ order into ``[U, D]`` (on a card, the hand-written kernel), and plain
 torch ops update those ``U`` rows of the table and of the state through
 the unique ids, so the update is deterministic and every other row
 keeps its bits. Id ``-1`` is a null entry that adds nothing.
+
+Where the ids are drawn on the device (the KGE trainer's device
+negatives), :func:`device_push_plan` builds the same plan there, with
+static shapes and no host sync: a stable sort stands in for the host's
+``argsort``, the targets are the sorted run of distinct ids padded to
+``M + 1`` (the last always empty), and the long-target pieces are padded
+to their most. A padding target's row is 0 and its sum exact zeros, so
+:func:`adagrad_rows_` adds nothing to it.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, scatter_add_rows,
-                                                scatter_plan, ship_int32)
+from dgl_operator_tpu_torch.ops.scatter import (CHUNK, ScatterPlan,
+                                                scatter_add_rows, scatter_plan,
+                                                ship_int32)
 
 EPS = 1e-10
 
@@ -83,6 +92,67 @@ def push_plan(ids) -> PushPlan:
                     scatter_plan(inverse, mask, len(rows)))
 
 
+def device_push_plan(ids: torch.Tensor) -> PushPlan:
+    """:func:`push_plan` of ``ids`` (``[M]`` int32 or int64 on any device,
+    ``-1`` a null entry) built on their device from tensors alone: no
+    host sync, and every shape fixed by ``M``.
+
+    Targets are the distinct ids in ascending order, then empty ones up
+    to ``M + 1``; target ``u``'s entries are its ids' positions in entry
+    order (a stable sort), so a target's sum adds what the host plan's
+    adds in the same order. ``rows`` is 0 for an empty target, whose sum
+    is zero. The long targets (more than ``CHUNK`` entries) are listed
+    first and padded with the last target (always empty) to ``M // (CHUNK
+    + 1)``, and their pieces padded with empty ones to the most they can
+    need, so the kernel's grid does not depend on the ids."""
+    dev = ids.device
+    i32 = torch.int32
+    ids = ids.reshape(-1).long()
+    m = ids.numel()
+    r = m + 1
+    valid = ids >= 0
+    key = torch.where(valid, ids, torch.iinfo(torch.int64).max)
+    sorted_ids, order = torch.sort(key, stable=True)
+    head = torch.ones(m, dtype=torch.bool, device=dev)
+    head[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(head, 0) - 1
+    # the null entries sort last and fall outside every target
+    offsets = torch.minimum(
+        torch.searchsorted(seg, torch.arange(r + 1, device=dev)),
+        valid.sum())
+    lens = offsets[1:] - offsets[:-1]
+    rows = torch.where(lens > 0, sorted_ids[offsets[:-1].clamp(max=m - 1)],
+                       0)
+    inverse = torch.where(valid, torch.empty_like(seg).scatter_(
+        0, order, seg), r - 1)
+    cap_long = m // (CHUNK + 1)
+    is_long = lens > CHUNK
+    dest = torch.where(is_long, torch.cumsum(is_long, 0) - 1, cap_long)
+    long_rows = torch.full((cap_long + 1,), r - 1, dtype=torch.int64,
+                           device=dev).scatter_(
+        0, dest, torch.arange(r, device=dev))[:cap_long]
+    pieces = (lens[long_rows] + CHUNK - 1) // CHUNK
+    long_part = torch.cat([pieces.new_zeros(1), torch.cumsum(pieces, 0)])
+    cap_chunks = (m + (CHUNK - 1) * cap_long) // CHUNK
+    w = torch.arange(cap_chunks, device=dev)
+    q = torch.searchsorted(long_part[1:], w, right=True).clamp(
+        max=max(cap_long - 1, 0))
+    if cap_long:
+        tgt = long_rows[q]
+        begin = offsets[tgt] + CHUNK * (w - long_part[q])
+        end = torch.minimum(begin + CHUNK, offsets[tgt + 1])
+        real = w < long_part[-1]
+        chunks = torch.stack([torch.where(real, begin, 0),
+                              torch.where(real, end, 0)], 1)
+    else:
+        chunks = torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    plan = ScatterPlan(offsets.to(i32), order.to(i32), valid.to(i32),
+                       chunks.to(i32).contiguous(), long_rows.to(i32),
+                       long_part.to(i32))
+    return PushPlan(rows, inverse.to(i32)[:, None],
+                    valid.to(torch.uint8)[:, None], plan)
+
+
 def accumulate(grads: torch.Tensor, plan: PushPlan) -> torch.Tensor:
     """``[U, D]`` float32: each distinct row's gradient rows summed in
     entry order (``scatter_add_rows`` over the plan)."""
@@ -97,11 +167,13 @@ def adagrad_rows_(table: torch.Tensor, state: torch.Tensor,
     """Adagrad on the distinct ``rows`` of ``table`` and ``state`` in
     place, ``acc`` ``[U, D]`` their accumulated gradients:
     ``state[u] += mean(acc^2)``, ``table[u] -= lr * acc /
-    sqrt(state[u] + eps)``."""
-    st = state[rows] + (acc * acc).mean(-1)
-    state.index_put_((rows,), st)
+    sqrt(state[u] + eps)``. A row may repeat where its other entries'
+    ``acc`` is exact zeros (a device plan's empty targets): those adds
+    leave its bits as they are."""
+    state.index_add_(0, rows, (acc * acc).mean(-1))
+    st = state[rows]
     step = acc * (lr / torch.sqrt(st + eps))[:, None]
-    # the rows are distinct: one add per row, table - step exactly
+    # one non-zero add per row: table - step exactly
     table.index_add_(0, rows, step, alpha=-1)
 
 

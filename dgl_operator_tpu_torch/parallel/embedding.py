@@ -27,6 +27,28 @@ cross processes. The owner sums the gradient rows of a target in slot
 order, as the JAX package's tiled ``all_gather`` + ``segment_sum`` does,
 so two ranks equal one process bit for bit.
 
+Two more forms serve the ``dp x mp`` grid and device-drawn ids:
+
+- **the dp-replica reduction** (JAX's
+  ``sharded_push_adagrad(reduce_axis=)``): ``sparse_adagrad_`` of
+  :func:`all_gather_rows` over the push plan of every slot's ids. On a
+  grid the table is sharded over ``mp`` and replicated over ``dp``;
+  each shard sums the gradient rows of every dp replica before its
+  Adagrad row update, so every replica stays identical. In one process
+  the replicas are one table and the sum is the push of every slot's
+  rows. In a group whose processes each hold whole dp rows (every block
+  of the table) the processes' gradient rows are gathered in slot order
+  first, so every replica sums the same rows in the same order.
+- **ids the host never sees** (:func:`device_lookup`,
+  :func:`device_push_adagrad`), the KGE trainer's device negatives. A
+  :class:`Route` cannot be built for them, so they take JAX's form:
+  every process sees every process's fixed-size id list, keeps the rows
+  it owns, and one exchange returns each process its rows; a push
+  gathers every process's ids and gradient rows and each owner sums its
+  rows over :func:`~dgl_operator_tpu_torch.ops.adagrad.device_push_plan`,
+  built on the device. In one process each is one ``gather_rows`` and
+  one push.
+
 :func:`dense_lookup` and :func:`dense_push_adagrad` are the unsharded
 forms, where id ``-1`` is a null row (zeros in a lookup, nothing in a
 push).
@@ -41,7 +63,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dgl_operator_tpu_torch.ops.adagrad import (EPS, PushPlan, push_plan,
+from dgl_operator_tpu_torch.ops.adagrad import (EPS, PushPlan,
+                                                device_push_plan, push_plan,
                                                 sparse_adagrad_)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import ship_int32
@@ -200,6 +223,63 @@ def sharded_push_adagrad(table: torch.Tensor, state: torch.Tensor,
         grads = _exchange(gather_rows(grads, rt.order), rt.recv_counts,
                           rt.serve_counts)
     sparse_adagrad_(table, state, grads, rt.push, lr, eps)
+
+
+def all_gather_rows(t: torch.Tensor, group: bool) -> torch.Tensor:
+    """Every process's rows of ``t`` (the same shape on each) in rank
+    order; ``t`` itself when ``group`` is False."""
+    if not group:
+        return t
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t.contiguous())
+    return torch.cat(out)
+
+
+def _owned(ids: torch.Tensor, spec: ShardedTableSpec, rank: int,
+           world: int):
+    """``(local row, owned by rank)`` of global ``ids`` under the blocks
+    of ``world`` processes."""
+    block = spec.padded_rows // world
+    local = ids.long() - rank * block
+    return local, (local >= 0) & (local < block)
+
+
+def device_lookup(table: torch.Tensor, ids: torch.Tensor,
+                  spec: ShardedTableSpec, rank: int, world: int
+                  ) -> torch.Tensor:
+    """The rows of ``ids`` (``[n]`` on the device, the same ``n`` on every
+    process) from a table split in blocks over ``world`` processes, with
+    no host sync: every process gathers every process's ids, reads the
+    rows it owns (zeros elsewhere), one ``all_to_all_single`` sends each
+    requester its rows from every owner, and each request takes its
+    owner's. One process: one ``gather_rows``."""
+    if world == 1:
+        return gather_rows(table, ids)
+    local, mine = _owned(all_gather_rows(ids, True), spec, rank, world)
+    rows = gather_rows(table, torch.where(mine, local, 0))
+    rows = torch.where(mine[:, None], rows, 0.0)
+    recv = torch.empty_like(rows)
+    dist.all_to_all_single(recv, rows)
+    n = ids.numel()
+    owner = ids.long() // (spec.padded_rows // world)
+    return gather_rows(recv, owner * n + torch.arange(n, device=ids.device))
+
+
+def device_push_adagrad(table: torch.Tensor, state: torch.Tensor,
+                        ids: torch.Tensor, grads: torch.Tensor,
+                        spec: ShardedTableSpec, rank: int, world: int,
+                        lr: float, group: bool, eps: float = EPS) -> None:
+    """Row-sparse Adagrad of gradient rows ``grads`` to ``ids`` (both on
+    the device) into this process's rows, in place, over a plan built on
+    the device: with ``group``, every process's ids and rows gathered in
+    slot order first, and, where the table is split over ``world`` > 1
+    processes, the rows another process owns left out."""
+    all_ids = all_gather_rows(ids, group)
+    if world > 1:
+        local, mine = _owned(all_ids, spec, rank, world)
+        all_ids = torch.where(mine, local, -1)
+    sparse_adagrad_(table, state, all_gather_rows(grads, group),
+                    device_push_plan(all_ids), lr, eps)
 
 
 def gather_blocks(block: torch.Tensor) -> np.ndarray:

@@ -14,20 +14,34 @@ KVStore RPC.
   sums each row's gradients over a plan the host builds next to the
   sampler, and only the touched rows change.
 
-:class:`DistKGETrainer` trains ``num_slots`` slots, each with its own
-relation-aware edge partition and sampler streams, the entity table
-sharded over them (slot ``s`` owns a block of rows). In one process
-every slot lives on one device; in a ``torch.distributed`` group each
-process holds the slots of its rank (``my_slots``) and their blocks.
-Every process draws every slot's batch on its host (cheap), so it builds
-its exchange routes and push plans with no exchange of ids; only rows,
-gradients and one ``all_reduce`` a step (the relation accumulator and
-the slots' losses) cross processes. Per update: one corruption side for
-every slot; the entity push summed over the slots in slot order; the
-relation gradient summed over the slots and divided by their count; the
-loss the slots' mean. :class:`KGETrainer` is the single-device trainer:
-one slot, whose relation gradient is not divided (dividing by 1 is
-exact).
+:class:`DistKGETrainer` trains the slots of a mesh
+(``parallel/mesh.py``), each with its own relation-aware edge partition
+and sampler streams. On a 1-D ``(dp,)`` mesh the entity table is sharded
+over every slot (slot ``s`` owns a block of rows); on a ``dp x mp`` grid
+it is sharded over ``mp`` and replicated over ``dp``, and each shard
+sums the gradient rows of every dp replica before its update
+(the dp-replica reduction of ``parallel/embedding.py``). In one process every
+slot lives on one device; in a ``torch.distributed`` group each process
+holds the slots of its rank (``my_slots``; on a grid, whole dp rows and
+so the whole table). Every process draws every slot's batch on its host
+(cheap), so it builds its exchange routes and push plans with no
+exchange of ids; only rows, gradients and one ``all_reduce`` a step
+(the relation accumulator and the slots' losses) cross processes. Per
+update: one corruption side for every slot; the entity push summed over
+the slots in slot order; the relation gradient summed over the slots
+and divided by their count; the loss the slots' mean.
+:class:`KGETrainer` is the single-device trainer: one slot, whose
+relation gradient is not divided (dividing by 1 is exact).
+
+``neg_sampler="device"``: the host step carries no negative ids. Each
+slot's ``[C, N]`` negatives are drawn on the device from the update's
+seed and the slot (``ops/kge_negatives.py``); their lookup and the
+entity push go through ``device_lookup`` and ``device_push_adagrad``,
+whose push plan is built on the device, so no update waits for the
+card on the draws. ``num_client`` = K > 1: each slot runs K logical
+clients over a dataset partitioned into ``num_slots * K`` ranks
+(logical rank ``slot * K + c``), and a step makes K interleaved
+updates, as the reference's clients interleave through the KVStore.
 
 :func:`full_ranking_eval` scores every entity as the corruption of each
 side in one ``[B, D] x [D, Ne]`` product per batch and reports MR, MRR
@@ -48,8 +62,8 @@ starts the live sidecar when ``TPU_OPERATOR_LIVE_PORT`` is set, and a
 tuned manifest overlays the ``kge`` and ``quality`` knobs
 (``autotune/knobs.py::apply_tuned``).
 
-Not ported (``ROADMAP.md`` Queue 1 item 8): the 2-D mesh, device-drawn
-negatives, ``num_client`` > 1 and relation ``shard_rules``.
+Not ported (``ROADMAP.md`` Queue 1 item 8.4): relation
+``shard_rules``, which needs the ZeRO sharding of item 6.6.
 """
 
 from __future__ import annotations
@@ -70,17 +84,21 @@ from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
                                                init_kge_params, relation_dim)
 from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.obs.live import maybe_start_sidecar
-from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_
+from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_, sparse_adagrad_
 from dgl_operator_tpu_torch.ops.gather import gather_rows
+from dgl_operator_tpu_torch.ops.kge_negatives import (draw_counters,
+                                                      draw_negatives,
+                                                      negatives_from_draws,
+                                                      update_seed)
 from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, pack_int32,
                                                 scatter_add_rows, scatter_plan,
                                                 ship_int32, unpack)
 from dgl_operator_tpu_torch.parallel import collectives
-from dgl_operator_tpu_torch.parallel.embedding import (ShardedTableSpec,
-                                                       gather_blocks, my_block,
-                                                       pad_rows, route,
-                                                       sharded_lookup,
-                                                       sharded_push_adagrad)
+from dgl_operator_tpu_torch.parallel.embedding import (
+    ShardedTableSpec, all_gather_rows, device_lookup, device_push_adagrad,
+    gather_blocks, my_block, pad_rows, route, sharded_lookup,
+    sharded_push_adagrad)
+from dgl_operator_tpu_torch.parallel.mesh import SlotMesh, make_mesh, my_slots
 from dgl_operator_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                        RankZeroCheckpoints)
 from dgl_operator_tpu_torch.runtime.loop import prefetch_map
@@ -93,12 +111,13 @@ PREFETCH = 2
 
 @dataclasses.dataclass
 class KGETrainConfig:
-    """The JAX ``KGETrainConfig``'s fields and defaults.
-    ``neg_sampler``, ``num_client`` and ``shard_rules`` take only their
-    defaults (another value raises ``NotImplementedError``). ``sentry``
-    and the ``quality_*`` fields are validated against the knob registry
-    (``autotune/knobs.py``). ``ckpt_dir``, ``ckpt_every`` and ``resume``
-    are read by ``DistKGETrainer`` only, as in the JAX package."""
+    """The JAX ``KGETrainConfig``'s fields and defaults. ``shard_rules``
+    takes only its default (another value raises
+    ``NotImplementedError``). ``neg_sampler``, ``num_client``,
+    ``sentry`` and the ``quality_*`` fields are validated against the
+    knob registry (``autotune/knobs.py``). ``neg_sampler``,
+    ``num_client``, ``ckpt_dir``, ``ckpt_every`` and ``resume`` are read
+    by ``DistKGETrainer`` only, as in the JAX package."""
 
     lr: float = 0.25               # the dglke default
     max_step: int = 1000
@@ -124,21 +143,16 @@ class KGETrainConfig:
     quality_plateau_rel: float = 1e-3
 
     def __post_init__(self):
-        for name in ("sentry", "quality_action", "quality_window",
-                     "quality_z_max", "quality_grad_ratio_max",
-                     "quality_plateau_window", "quality_plateau_rel"):
+        for name in ("neg_sampler", "num_client", "sentry",
+                     "quality_action", "quality_window", "quality_z_max",
+                     "quality_grad_ratio_max", "quality_plateau_window",
+                     "quality_plateau_rel"):
             setattr(self, name, validate(name, getattr(self, name)))
-        unported = {
-            "neg_sampler": (self.neg_sampler != "host", "8.2 (device "
-                            "negatives)"),
-            "num_client": (self.num_client != 1, "8.3 (num_client)"),
-            "shard_rules": (self.shard_rules is not None, "8.4 (relation "
-                            "shard_rules)")}
-        for name, (set_, item) in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: only the default is "
-                    f"ported (ROADMAP.md Queue 1 item {item})")
+        if self.shard_rules is not None:
+            raise NotImplementedError(
+                f"shard_rules={self.shard_rules!r}: only the default is "
+                "ported (ROADMAP.md Queue 1 item 8.4 (relation "
+                "shard_rules))")
         if self.resume not in ("auto", "never"):
             raise ValueError(f"unknown resume policy {self.resume!r}")
         if self.ckpt_every < 0 or self.log_interval < 1:
@@ -155,25 +169,31 @@ class _HostStep:
     """One update's host side: the corruption side, every array the
     device step needs packed into one int32 buffer (in pinned memory for
     a card, so its copy does not wait for the card), and the entity
-    route whose exchange counts stay on the host."""
+    route whose exchange counts stay on the host (None with device
+    negatives, whose seed ``seed_u`` the step carries instead)."""
     mode: str
     buf: torch.Tensor
     shapes: list
     ent_route: object
     n_ent: int                    # entity arrays in the buffer
+    seed_u: Optional[int] = None
 
 
 class DistKGETrainer:
-    """KGE training over ``num_slots`` slots with the entity table sharded
-    over them: all on ``device`` (the current card when None), or, in a
-    process group, this process's ``my_slots``. Tables are drawn from
-    ``tcfg.seed`` (``init_kge_params``), so every process and a
-    single-process run start from the same tables."""
+    """KGE training over the slots of ``mesh`` (a :class:`SlotMesh`;
+    default ``make_mesh(num_slots)``, a 1-D mesh of ``num_slots`` slots,
+    1 when neither is given): all on ``device`` (the current card when
+    None), or, in a process group, this process's ``my_slots``. Tables
+    are drawn from ``tcfg.seed`` (``init_kge_params``), so every process,
+    every mesh shape and a single-process run start from the same
+    tables."""
 
     _uses_group = True
+    _device_negs_ok = True
 
     def __init__(self, cfg: KGEConfig, tcfg: KGETrainConfig,
-                 num_slots: int = 1, device: DeviceLike = None):
+                 num_slots: Optional[int] = None, device: DeviceLike = None,
+                 mesh: Optional[SlotMesh] = None):
         self.device = resolve_device(device)
         # the tuned manifest's kge and quality knobs, where tcfg keeps
         # the default
@@ -182,28 +202,44 @@ class DistKGETrainer:
         self.model = KGEModel(cfg)
         # the last update's stats (device tensors), with the sentry
         self.last_stats: Optional[Dict[str, torch.Tensor]] = None
-        self.nslots = int(num_slots)
+        if mesh is None:
+            mesh = make_mesh(1 if num_slots is None else int(num_slots))
+        elif num_slots is not None and int(num_slots) != mesh.size:
+            raise ValueError(f"num_slots={num_slots} but the mesh "
+                             f"{mesh.shape} has {mesh.size} slots")
+        self.mesh = mesh
+        self.nslots = mesh.size
+        self.device_negs = (self._device_negs_ok
+                            and tcfg.neg_sampler == "device")
+        self.num_client = tcfg.num_client if self._device_negs_ok else 1
         self._group = self._uses_group and collectives.group_active()
         self.rank, self.world_size = (collectives.world() if self._group
                                       else (0, 1))
-        if self.nslots < 1 or self.nslots % self.world_size:
-            raise ValueError(f"num_slots={self.nslots} does not split over "
-                             f"{self.world_size} processes")
-        L = self.nslots // self.world_size
-        self.my_slots = list(range(self.rank * L, (self.rank + 1) * L))
+        if self.nslots < 1:
+            raise ValueError(f"a mesh of {self.nslots} slots")
+        self.my_slots = my_slots(mesh, self.rank, self.world_size)
         self.spec = ShardedTableSpec(cfg.n_entities, cfg.hidden_dim,
-                                     self.nslots)
+                                     mesh.num_shards)
+        # the processes the table's blocks are split over: each holds the
+        # whole table on a grid (its replicas are across processes)
+        self.block_world = 1 if mesh.replicas > 1 else self.world_size
+        self.block_rank = self.rank if self.block_world > 1 else 0
         # the relation accumulator is the slots' sum over their count,
         # as the JAX step's psum / nslots
         self.rel_divisor = self.nslots
         if self._group:
-            mine = [self.nslots, cfg.n_entities, cfg.n_relations,
-                    cfg.hidden_dim, tcfg.batch_size, tcfg.neg_sample_size,
-                    tcfg.max_step, tcfg.seed]
+            mine = [self.nslots, mesh.num_shards, cfg.n_entities,
+                    cfg.n_relations, cfg.hidden_dim, tcfg.batch_size,
+                    tcfg.neg_sample_size, tcfg.max_step, tcfg.seed,
+                    int(self.device_negs), self.num_client]
             if collectives.allreduce_host(mine, np.min) != \
                     collectives.allreduce_host(mine, np.max):
                 raise ValueError("the processes of the group disagree on "
                                  "the KGE configuration")
+        if self.device_negs:
+            self._counters = draw_counters(
+                tcfg.batch_size // tcfg.chunk, tcfg.neg_sample_size,
+                self.device)
         init = init_kge_params(cfg, torch.Generator().manual_seed(tcfg.seed))
         self.load_state_dict({
             "entity": init["entity"].numpy(),
@@ -213,20 +249,28 @@ class DistKGETrainer:
         self.timer = PhaseTimer()
 
     # -- state -----------------------------------------------------------
+    def _host_table(self, block: torch.Tensor) -> np.ndarray:
+        """The whole padded table on the host from this process's block
+        (a collective where the blocks are split over processes)."""
+        if self.block_world == 1:
+            return block.detach().cpu().numpy().copy()
+        return gather_blocks(block)
+
     def state_dict(self) -> Dict[str, np.ndarray]:
         """Logical (de-padded) host arrays of the whole training state:
-        ``entity``, ``entity_state``, ``relation``, ``relation_state``.
-        In a group every process gathers every block (a collective)."""
+        ``entity``, ``entity_state``, ``relation``, ``relation_state``,
+        the same on every mesh shape. Where the blocks are split over a
+        group every process gathers every block (a collective)."""
         ne = self.cfg.n_entities
-        return {"entity": gather_blocks(self.entity)[:ne],
-                "entity_state": gather_blocks(self.ent_state)[:ne],
+        return {"entity": self._host_table(self.entity)[:ne],
+                "entity_state": self._host_table(self.ent_state)[:ne],
                 "relation": self.relation.cpu().numpy().copy(),
                 "relation_state": self.rel_state.cpu().numpy().copy()}
 
     def load_state_dict(self, sd) -> None:
-        """Take a :meth:`state_dict` (numpy arrays or tensors, e.g. from
-        ``kge_state_from_numpy``): pad the entity arrays to the slots'
-        blocks and keep this process's."""
+        """Take a :meth:`state_dict` of any mesh shape (numpy arrays or
+        tensors, e.g. from ``kge_state_from_numpy``): pad the entity
+        arrays to this mesh's blocks and keep this process's."""
         cfg = self.cfg
         want = {"entity": (cfg.n_entities, cfg.hidden_dim),
                 "entity_state": (cfg.n_entities,),
@@ -246,7 +290,7 @@ class DistKGETrainer:
         def block(a):
             full = pad_rows(a, self.spec.padded_rows)
             return torch.from_numpy(np.ascontiguousarray(my_block(
-                full, self.rank, self.world_size))).to(self.device)
+                full, self.block_rank, self.block_world))).to(self.device)
 
         self.entity = block(host["entity"])
         self.ent_state = block(host["entity_state"])
@@ -257,31 +301,47 @@ class DistKGETrainer:
     def gathered_params(self) -> Dict[str, torch.Tensor]:
         """``{"entity": [Ne, D], "relation": [Nr, Dr]}`` on the trainer's
         device, the entity table gathered from every block (a collective
-        in a group)."""
-        ent = gather_blocks(self.entity)[:self.cfg.n_entities]
+        where the blocks are split over a group)."""
+        ent = self._host_table(self.entity)[:self.cfg.n_entities]
         return {"entity": torch.from_numpy(np.ascontiguousarray(ent)).to(
             self.device), "relation": self.relation.clone()}
 
     # -- one update ------------------------------------------------------
-    def host_step(self, batches: Sequence[KGEBatch]) -> _HostStep:
+    def host_step(self, batches: Sequence[KGEBatch],
+                  seed_u: Optional[int] = None) -> _HostStep:
         """The host side of one update from every slot's batch (slot
-        order): the entity route of this process's requests
-        (``h || t || neg`` of each of its slots) with its push plan, the
-        relation ids of its slots, the union of every slot's relation ids
-        and each of its slots' relation push plan into that union."""
+        order): the entity route of this process's requests (``h || t ||
+        neg`` of each of its slots) with its push plan, the relation ids
+        of its slots, the union of every slot's relation ids and each of
+        its slots' relation push plan into that union. With device
+        negatives the entity arrays are its slots' ``h || t`` alone and
+        ``seed_u`` the update's seed (``ops/kge_negatives.py``)."""
         if len(batches) != self.nslots:
             raise ValueError(f"{len(batches)} batches for {self.nslots} "
                              "slots")
         modes = {b.neg_mode for b in batches}
         if len(modes) != 1:
             raise ValueError(f"one corruption side an update, got {modes}")
-        ent = [np.concatenate([b.h, b.t, b.neg_ids.reshape(-1)])
-               for b in batches]
         L = len(self.my_slots)
-        reqs = [np.concatenate(ent[p * L:(p + 1) * L])
-                for p in range(self.world_size)]
-        ent_route = route(reqs, self.spec, self.rank)
-        arrays = ent_route.arrays()
+        if self.device_negs:
+            if seed_u is None:
+                raise ValueError("device negatives need the update's seed")
+            ent_route = None
+            arrays = [np.concatenate([np.concatenate([batches[s].h,
+                                                      batches[s].t])
+                                      for s in self.my_slots])]
+        else:
+            ent = [np.concatenate([b.h, b.t, b.neg_ids.reshape(-1)])
+                   for b in batches]
+            if self.block_world == 1:
+                # every slot's requests: a whole-table process looks up
+                # its own and pushes every slot's (the dp reduction)
+                ent_route = route([np.concatenate(ent)], self.spec, 0)
+            else:
+                reqs = [np.concatenate(ent[p * L:(p + 1) * L])
+                        for p in range(self.world_size)]
+                ent_route = route(reqs, self.spec, self.rank)
+            arrays = ent_route.arrays()
         n_ent = len(arrays)
         union = np.unique(np.concatenate([b.r for b in batches]))
         arrays += [np.concatenate([batches[s].r for s in self.my_slots]),
@@ -295,7 +355,7 @@ class DistKGETrainer:
         buf = torch.from_numpy(buf)
         if self.device.type == "cuda":
             buf = buf.pin_memory()
-        return _HostStep(modes.pop(), buf, shapes, ent_route, n_ent)
+        return _HostStep(modes.pop(), buf, shapes, ent_route, n_ent, seed_u)
 
     def ship(self, hs: _HostStep) -> List[torch.Tensor]:
         """A host step's arrays on the device, in one copy that does not
@@ -307,21 +367,68 @@ class DistKGETrainer:
         slots' mean loss (a device scalar, no sync)."""
         return self.update(hs, self.ship(hs))
 
-    def update(self, hs: _HostStep, arrs: List[torch.Tensor]) -> torch.Tensor:
-        """The update of a shipped host step (:meth:`ship`); with the
-        sentry its stats are left in :attr:`last_stats`: ``grad_norm``
-        (the norm over every slot's entity, negative and relation row
-        gradients), ``nonfinite`` (their non-finite elements and the
-        non-finite losses), and per slot ``part_loss`` and
-        ``part_nonfinite`` (``[num_slots]``), as the JAX step returns
-        them."""
+    def device_step_from_draws(self, hs: _HostStep, draws) -> torch.Tensor:
+        """:meth:`device_step` with this process's slots' negatives
+        ``draws`` (``[len(my_slots), C, N]``) made elsewhere, e.g. JAX's
+        ``jax.random.randint`` draws, in place of the device's own."""
+        return self.update(hs, self.ship(hs), negatives_from_draws(
+            draws, self.cfg.n_entities, self.device))
+
+    def negatives(self, seed_u: int) -> torch.Tensor:
+        """This process's slots' ``[L, C, N]`` device negatives of the
+        update seeded ``seed_u``."""
+        t = self.tcfg
+        return draw_negatives(seed_u, self.my_slots, self._counters,
+                              t.batch_size // t.chunk, self.cfg.n_entities)
+
+    def _lookup(self, hs: _HostStep, arrs, negs):
+        """This process's slots' entity rows ``h || t || neg`` a slot, the
+        route or the device ids they came by, and the relation arrays."""
+        t = self.tcfg
+        B, L = t.batch_size, len(self.my_slots)
+        if not self.device_negs:
+            rt = hs.ent_route.rebuilt(arrs[:hs.n_ent])
+            if self.block_world == 1:
+                m = 2 * B + t.batch_size // t.chunk * t.neg_sample_size
+                lo = self.my_slots[0] * m
+                return gather_rows(self.entity, rt.serve[lo:lo + L * m]), rt
+            return sharded_lookup(self.entity, rt), rt
+        if negs is None:
+            negs = self.negatives(hs.seed_u)
+        ids = torch.cat([arrs[0].view(L, 2 * B), negs.reshape(L, -1)],
+                        1).reshape(-1)
+        return device_lookup(self.entity, ids, self.spec, self.block_rank,
+                             self.block_world), ids
+
+    def _push(self, g: torch.Tensor, how) -> None:
+        t = self.tcfg
+        if self.device_negs:
+            device_push_adagrad(self.entity, self.ent_state, how, g,
+                                self.spec, self.block_rank, self.block_world,
+                                t.lr, self._group)
+        elif self.block_world == 1:
+            # the dp-replica reduction: every replica's rows in slot order
+            sparse_adagrad_(self.entity, self.ent_state,
+                            all_gather_rows(g, self._group), how.push, t.lr)
+        else:
+            sharded_push_adagrad(self.entity, self.ent_state, g, how, t.lr)
+
+    def update(self, hs: _HostStep, arrs: List[torch.Tensor],
+               negs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The update of a shipped host step (:meth:`ship`), with device
+        negatives ``negs`` (``[len(my_slots), C, N]``; drawn from the
+        step's seed when None). With the sentry its stats are left in
+        :attr:`last_stats`: ``grad_norm`` (the norm over every slot's
+        entity, negative and relation row gradients), ``nonfinite``
+        (their non-finite elements and the non-finite losses), and per
+        slot ``part_loss`` and ``part_nonfinite`` (``[num_slots]``), as
+        the JAX step returns them."""
         cfg, t = self.cfg, self.tcfg
-        ent_rt = hs.ent_route.rebuilt(arrs[:hs.n_ent])
+        ent_rows, how = self._lookup(hs, arrs, negs)
         rel_ids, union = arrs[hs.n_ent:hs.n_ent + 2]
         rel_plans = arrs[hs.n_ent + 2:]
         B, C = t.batch_size, t.batch_size // t.chunk
         M = 2 * B + C * t.neg_sample_size
-        ent_rows = sharded_lookup(self.entity, ent_rt)
         rel_rows = gather_rows(self.relation, rel_ids)
         g_ent, losses, rel_acc = [], [], None
         sq, nonfinite = [], []
@@ -357,8 +464,7 @@ class DistKGETrainer:
             rel_acc = flat[:rel_acc.numel()].view_as(rel_acc)
             loss_vec = flat[rel_acc.numel():]
         g = g_ent[0] if len(g_ent) == 1 else torch.cat(g_ent)
-        sharded_push_adagrad(self.entity, self.ent_state, g.contiguous(),
-                             ent_rt, t.lr)
+        self._push(g.contiguous(), how)
         adagrad_rows_(self.relation, self.rel_state, union,
                       rel_acc / self.rel_divisor, t.lr)
         if t.sentry:
@@ -392,10 +498,12 @@ class DistKGETrainer:
         for rank, (hs, ts) in zip(ranks, seeds):
             head = dataset.create_sampler(t.batch_size, t.neg_sample_size,
                                           t.chunk, mode="head", rank=rank,
-                                          seed=hs)
+                                          seed=hs,
+                                          draw_negatives=not self.device_negs)
             tail = dataset.create_sampler(t.batch_size, t.neg_sample_size,
                                           t.chunk, mode="tail", rank=rank,
-                                          seed=ts)
+                                          seed=ts,
+                                          draw_negatives=not self.device_negs)
             out.append(BidirectionalOneShotIterator(head, tail))
         return out
 
@@ -425,10 +533,11 @@ class DistKGETrainer:
         return ckpt, start
 
     def _run(self, iters, checkpoints: bool = True) -> Dict:
-        """Steps ``[start, max_step)`` over the slots' iterators (every
-        slot's, on every process), host steps built ``PREFETCH`` ahead on
-        one thread; ``checkpoints`` reads and writes ``tcfg.ckpt_dir``."""
-        t = self.tcfg
+        """Steps ``[start, max_step)`` over the logical ranks' iterators
+        (every slot's K clients, slot-major, on every process), K updates
+        a step, host steps built ``PREFETCH`` ahead on one thread;
+        ``checkpoints`` reads and writes ``tcfg.ckpt_dir``."""
+        t, K, S = self.tcfg, self.num_client, self.nslots
         ckpt, start = self._open_checkpoints(checkpoints)
         # fast-forward the streams the completed steps consumed
         for _ in range(start):
@@ -448,25 +557,34 @@ class DistKGETrainer:
                     Q.halt_for_rollback(fault, ckpt=ckpt,
                                         action=monitor.action)
 
+        def build(step_i: int, c: int) -> _HostStep:
+            # update c of a step: client c of every slot
+            return self.host_step(
+                [next(iters[s * K + c]) for s in range(S)],
+                update_seed(t.seed, step_i, K, c) if self.device_negs
+                else None)
+
         pipeline = prefetch_map(
-            lambda: self.host_step([next(it) for it in iters]),
-            [()] * (t.max_step - start), PREFETCH, 1)
+            build, [(i, c) for i in range(start, t.max_step)
+                    for c in range(K)], PREFETCH, 1)
         losses, step_s, h2d = [], [], 0
         t0 = time.perf_counter()
         try:
             for step in range(start + 1, t.max_step + 1):
                 t_step = time.perf_counter()
-                with self.timer.phase("stall"):
-                    hs = next(pipeline)
-                with self.timer.phase("dispatch"):
-                    losses.append(self.device_step(hs))
-                h2d += hs.buf.nbytes
+                for c in range(K):
+                    with self.timer.phase("stall"):
+                        hs = next(pipeline)
+                    with self.timer.phase("dispatch"):
+                        losses.append(self.device_step(hs))
+                    h2d += hs.buf.nbytes
+                    if tap is not None:
+                        tap.push((step - 1) * K + c + 1, losses[-1],
+                                 self.last_stats)
+                        observe(tap.poll_all())
                 step_s.append(time.perf_counter() - t_step)
-                if tap is not None:
-                    tap.push(step, losses[-1], self.last_stats)
-                    observe(tap.poll_all())
                 if step % t.log_interval == 0:
-                    window = torch.stack(losses[-t.log_interval:])
+                    window = torch.stack(losses[-t.log_interval * K:])
                     print(f"[{self.rank}][Train]({step}/{t.max_step}) "
                           f"average loss: {float(window.mean()):.6f}",
                           flush=True)
@@ -486,7 +604,8 @@ class DistKGETrainer:
             if ckpt is not None:
                 ckpt.close()
         n = max(len(values), 1)
-        return {"steps": t.max_step, "start_step": start, "losses": values,
+        return {"steps": t.max_step, "updates": t.max_step * K,
+                "start_step": start, "losses": values,
                 "loss": float(np.mean(values[-50:])) if values
                 else float("nan"),
                 "train_time_s": train_s, "step_s": step_s,
@@ -497,20 +616,29 @@ class DistKGETrainer:
     def train(self, dataset: TrainDataset) -> Dict:
         """Train from the current tables (or, with ``ckpt_dir`` and
         ``resume="auto"``, the newest good checkpoint) to ``max_step``.
-        ``dataset`` must be partitioned into ``num_slots`` ranks; slot
-        ``s`` samples rank ``s`` with head seed ``seed + s`` and tail
-        seed ``seed + s + num_slots``. Returns ``{"steps",
-        "loss" (mean of the last 50), "losses" (every step's),
+        ``dataset`` must be partitioned into ``num_slots * num_client``
+        ranks; client ``c`` of slot ``s`` samples logical rank ``lr = s *
+        K + c`` with head seed ``seed + lr`` and tail seed ``seed + lr +
+        num_slots * K``. Returns ``{"steps", "updates" (K a step),
+        "loss" (mean of the last 50 updates), "losses" (every update's),
         "start_step", "train_time_s", "step_s", "stall_s", "dispatch_s",
-        "h2d_bytes_per_step"}``."""
-        S, seed = self.nslots, self.tcfg.seed
-        if len(dataset.edge_parts) != S:
+        "h2d_bytes_per_step" (an update's)}``."""
+        return self._run(self.iterators(dataset))
+
+    def iterators(self, dataset: TrainDataset) -> List:
+        """:meth:`train`'s iterators, one a logical rank in rank order
+        (client ``c`` of slot ``s`` at ``s * K + c``); each yields once a
+        step."""
+        S, K, seed = self.nslots, self.num_client, self.tcfg.seed
+        if len(dataset.edge_parts) != S * K:
             raise ValueError(
                 f"TrainDataset was partitioned into "
-                f"{len(dataset.edge_parts)} ranks but num_slots = {S}; "
-                "build it with ranks=num_slots")
-        return self._run(self._iterators(
-            dataset, range(S), [(seed + s, seed + s + S) for s in range(S)]))
+                f"{len(dataset.edge_parts)} ranks but num_slots * "
+                f"num_client = {S}*{K} = {S * K}; build it with "
+                "ranks=num_slots*num_client")
+        return self._iterators(
+            dataset, range(S * K),
+            [(seed + lr, seed + lr + S * K) for lr in range(S * K)])
 
     # -- ranking evaluation ----------------------------------------------
     @torch.no_grad()
@@ -523,7 +651,8 @@ class DistKGETrainer:
         subtracted) and the counts are summed over the processes."""
         h_all, r_all, t_all = (np.asarray(a) for a in eval_triples)
         rows = self.entity.shape[0]
-        base = self.rank * rows
+        base = self.block_rank * rows
+        split = self.block_world > 1
         gid = base + torch.arange(rows, device=self.device)
         valid = gid < self.cfg.n_entities
         ranks = []
@@ -533,8 +662,8 @@ class DistKGETrainer:
                 h, r, t = h_all[sel], r_all[sel], t_all[sel]
                 fixed_ids, target = (h, t) if mode == "tail" else (t, h)
                 known = _known(filters, h, r, t, mode)
-                rt = route([fixed_ids] * self.world_size, self.spec,
-                           self.rank)
+                rt = route([fixed_ids] * self.block_world, self.spec,
+                           self.block_rank)
                 shipped = ship_int32(rt.arrays() + [r, target, known],
                                      self.device)
                 r_d, tgt, kn = shipped[-3:]
@@ -548,7 +677,7 @@ class DistKGETrainer:
                 pos = torch.where(own, scores.gather(
                     1, local.clamp(0, rows - 1)[:, None])[:, 0],
                     scores.new_zeros(()))
-                if self._group:
+                if split:
                     dist.all_reduce(pos)
                 count = ((scores > pos[:, None]) & valid).sum(1)
                 k_local = kn.long() - base
@@ -556,7 +685,7 @@ class DistKGETrainer:
                 k_scores = scores.gather(1, k_local.clamp(0, rows - 1))
                 k_gt = (k_mine & (k_scores > pos[:, None])).sum(1)
                 counts = torch.stack([count, k_gt])
-                if self._group:
+                if split:
                     dist.all_reduce(counts)
                 ranks.append(1 + counts[0] - counts[1])
         return _metrics(torch.cat(ranks))
@@ -566,9 +695,13 @@ class KGETrainer(DistKGETrainer):
     """Single-device KGE trainer (the JAX ``KGETrainer``): one slot, every
     table on ``device`` (the current card when None), relation gradients
     not divided. ``params`` and ``opt_state`` are the tables and their
-    Adagrad sums. A process group, if any, is not used."""
+    Adagrad sums. A process group, if any, is not used. Negatives are
+    drawn on the host by one client, whatever ``neg_sampler`` and
+    ``num_client`` say, as in the JAX package."""
 
     _uses_group = False
+    # the JAX KGETrainer draws negatives on the host, one client a slot
+    _device_negs_ok = False
 
     def __init__(self, cfg: KGEConfig, tcfg: KGETrainConfig,
                  device: DeviceLike = None):

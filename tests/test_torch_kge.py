@@ -442,8 +442,12 @@ def test_full_ranking_eval_matches_jax(filtered):
 
 # --------------------------------------------------------- configuration
 @pytest.mark.parametrize("field,value,error", [
-    ("neg_sampler", "device", NotImplementedError),
-    ("num_client", 2, NotImplementedError),
+    # device negatives and clients are ported: an invalid value is
+    # refused by the knob registry (the cases keep their earlier ids)
+    pytest.param("neg_sampler", "Device", ValueError,
+                 id="neg_sampler-device-NotImplementedError"),
+    pytest.param("num_client", 0, ValueError,
+                 id="num_client-2-NotImplementedError"),
     ("shard_rules", (("relation", "dp"),), NotImplementedError),
     # the sentry fields are ported: an invalid value is refused by the
     # knob registry (the cases keep their earlier ids)
@@ -477,10 +481,15 @@ def test_entry_point_parses_the_launchers_flags():
 @pytest.mark.parametrize("flags", [["--num_mp", "2"],
                                    ["--neg_sampler", "device"]])
 def test_entry_point_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                       "item 8"):
-        train_kge.main(["--part_config", "no-such.json", "--device", "cpu"]
-                       + flags)
+    """Both flags are ported: with ``--num_dp`` they pass to the data
+    (here a missing book); ``--neg_sampler device`` without ``--num_dp``
+    is refused as the JAX entry point refuses it."""
+    base = ["--part_config", "no-such.json", "--device", "cpu"]
+    with pytest.raises(FileNotFoundError):
+        train_kge.main(base + ["--num_dp", "2"] + flags)
+    if "--neg_sampler" in flags:
+        with pytest.raises(SystemExit):
+            train_kge.main(base + flags)
 
 
 def test_entry_point_trains_and_saves_like_jax(tmp_path):
