@@ -176,6 +176,26 @@ Each phase prints JSON lines:
    ``exec`` fault the retry layer absorbs; the saved tables' shapes and
    the child's summary (its card, updates and launches) are checked,
    and the same driver run again skips all three phases by its ledger.
+   The driver runs under ``obs_run``: the chaos fault and the retry are
+   read from the run's ``events.jsonl``, and a ``kgejob_obs`` line
+   checks the collected ``obs/job/`` view (the driver's phases 3-5, the
+   child's sentry records and its process's metrics).
+13c. ``obs`` — the obs file and job planes: ``obsjob`` runs ``tpurun``
+   phases 3-5 over ``LocalFabric`` under ``obs_run`` (phase 10's 2-part
+   book, two local hostfile entries since the launcher starts one
+   process a partition; rank 0 trains both parts) with
+   ``examples/train_dist.py`` started by path through a child wrapper
+   at full width (device sampler, owner layout, one epoch of 20 steps),
+   then ``collect_obs``: ``obs/job/`` holds one ``heartbeat`` a call
+   and the ``train_done``, the epoch span, the phase histograms,
+   ``prof_peak_flops`` equal to the peak table's H100 float32 entry,
+   ``0 < train_mfu <= 1`` from the counted cost, compiles and none
+   ``steady``, the comm ledger's ops; ``python -m
+   dgl_operator_tpu_torch.obs.doctor`` exits 0, the critical-path
+   fractions sum to 1, ``prof_summary`` has the pinned keys and the
+   child launched all three kernels. ``overhead`` times
+   ``SampledTrainer`` (device sampler, K = 4, 40 steps) with an obs
+   directory and without, off, on, on, off, bit-equal.
 
 14. ``gat`` — ``DistGAT`` and ``DistGATv2`` at the entry point's width
    (2 heads of 256 concatenated, then one head of 47; fanouts 10 and 25,
@@ -298,14 +318,16 @@ Each phase prints JSON lines:
    K = 4 (captured, dropout 0) over 20 steps: the flush at step 8, a
    fresh trainer resuming there and ending bit-equal to the
    uninterrupted run; ``DistTrainer`` (owner layout, host sampler,
-   sampler width 2) killed mid-epoch with no sampler, exchange or
-   writer thread left; ``numerics:nan`` at K = 4: the card faulting at
+   sampler width 2) killed mid-epoch with no sampler, exchange, writer
+   or comm-watcher thread left; ``numerics:nan`` at K = 4: the card faulting at
    the CPU's step and partition, the checkpoints at or past it
    quarantined, a relaunch on the same workspace not poisoned again and
    finishing; ``ckpt:corrupt`` (the restore falls back past the stomped
    archive); ``step:slow:0.05`` (the stall phase grows by the drag a
    call); ``host:die`` in a child process on the card (exit 113, the
-   dead-host marker, no checkpoint past the last periodic one); the
+   dead-host marker, no checkpoint past the last periodic one; with an
+   obs directory, its ``flight-<pid>.json`` of reason ``host_died``
+   holding the heartbeats up to the death, the ``flight`` line); the
    live sidecar (``TPU_OPERATOR_LIVE_PORT=0``) polled from a thread
    during a 40-step run and read done after it; the KGE sentry
    (``KGETrainer`` on synthetic FB15k at the job's width, 50 steps with
@@ -346,7 +368,8 @@ Each phase prints JSON lines:
 
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
-kge, kge_grid, kgejob (the child's own count), gat, message_passing,
+kge, kge_grid, kgejob (the child's own count), obs (the obsjob
+child's and the overhead runs'), gat, message_passing,
 rgcn_gin, sentry, fleet, chaos and dataplane phases
 (both ranks of each
 two-rank run and every graph replay included), split by path, worst
@@ -368,6 +391,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -381,9 +405,10 @@ from typing import Tuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks: HBM bandwidth and float32 (non-tensor-core)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# the port's peak table (H100 SXM data sheet), which the MFU gauge reads
+# too: loaded by path, so that a timer of another checkout's kernels
+# (kernel_ab.py) takes this one's
+PEAKS_FILE = os.path.join(REPO, "dgl_operator_tpu_torch", "obs", "peaks.py")
 L2_FLUSH_BYTES = 256 << 20      # > the 50 MB L2
 # a spin kernel (~0.5 ms) that keeps the card busy while the host runs a
 # wrapper's Python and enqueues its launch, so that timing events
@@ -508,11 +533,24 @@ def time_warm_ms(torch, fn, iters: int) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+@functools.lru_cache(maxsize=None)
+def card_peaks() -> Tuple[float, float]:
+    """HBM bytes/s and float32 (CUDA-core) operations/s of the H100, from
+    the port's peak table."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("port_peaks", PEAKS_FILE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.H100_PEAKS["hbm_gbps"] * 1e9, mod.H100_PEAKS["fp32"]
+
+
 def bound_ms(nbytes: int, ops: int):
     """The least time for a call: the larger of its bytes over HBM
     bandwidth and its operations over the float32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    hbm_bytes_per_s, fp32_ops_per_s = card_peaks()
+    t_bytes = nbytes / hbm_bytes_per_s * 1e3
+    t_ops = ops / fp32_ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -3651,6 +3689,36 @@ def kge_grid_phase(torch, args, ops, wrappers, ds, card: str):
 
 
 # --------------------------------------------------------------- kgejob
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def kgejob_obs(obs_dir: str, since: float, card: str) -> None:
+    """The KGE job's view (``obs/job/``, which ``tpukerun`` collected
+    after phase 5): the driver's phases 3-5 and what the child recorded,
+    its sentry's ``model_health`` records and its process's metrics."""
+    job = os.path.join(obs_dir, "job")
+    events = [e for e in read_jsonl(os.path.join(job, "events.jsonl"))
+              if e["ts"] >= since]
+    phases = sorted({e["phase"] for e in events
+                     if e.get("role") == "tpukerun"
+                     and e["event"] == "phase_finish"})
+    health = [e for e in events if e.get("role") == "trainer-0"
+              and e["event"] == "model_health"]
+    with open(os.path.join(job, "metrics.json")) as f:
+        procs = sorted(json.load(f)["procs"])
+    child = [p for p in procs if p.endswith(":trainer-0")]
+    check(phases == [3, 4, 5] and health and child,
+          f"kgejob_obs: phases {phases}, {len(health)} model_health "
+          f"records, procs {procs}")
+    emit(phase="kgejob_obs", card=card, job_dir=job, phases=phases,
+         model_health_records=len(health), procs=procs,
+         events=len(events),
+         files=sorted(f for f in os.listdir(job)
+                      if not f.startswith(".")))
+
+
 def kgejob_phase(torch, work: str, card: str):
     """``tpukerun`` with one card: phases 1-2 (``Partitioner``) run the
     port's ``partition_kg.py`` on FB15k at its real size, phases 3-5
@@ -3667,7 +3735,6 @@ def kgejob_phase(torch, work: str, card: str):
     from dgl_operator_tpu_torch.launcher import tpukerun
     from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
     from dgl_operator_tpu_torch.models.kge import KGEConfig, relation_dim
-    from dgl_operator_tpu_torch.obs import get_obs
     from dgl_operator_tpu_torch.parallel.bootstrap import (PHASE_ENV,
                                                            HostEntry,
                                                            write_hostfile)
@@ -3710,7 +3777,8 @@ def kgejob_phase(torch, work: str, card: str):
                   os.path.join(examples, "partition_kg.py")],
         **{PHASE_ENV: "Partitioner"})
     check(part_log.count("finished") == 2, "kgejob: phases 1-2")
-    obs = get_obs()
+    # the driver runs under obs_run: its events land in the run's files
+    obs_dir = os.path.join(ws, "obs")
     since = time.time()
     train = common + [
         "--train-entry-point", os.path.join(examples, "train_kge.py"),
@@ -3721,9 +3789,10 @@ def kgejob_phase(torch, work: str, card: str):
     log, first_s = driver(train, **{CHAOS_ENV: "exec:fail:1",
                                     "TPU_OPERATOR_RETRY_BASE_S": "0.05",
                                     SUMMARY_ENV: summaries})
-    events = [e for e in list(obs.events) if e["ts"] >= since]
-    retries = [e for e in events if e["kind"] == "fabric_retry"]
-    faults = [e for e in events if e["kind"] == "chaos_fault"]
+    events = [e for e in read_jsonl(os.path.join(obs_dir, "events.jsonl"))
+              if e["ts"] >= since]
+    retries = [e for e in events if e["event"] == "fabric_retry"]
+    faults = [e for e in events if e["event"] == "chaos_fault"]
     check(log.count("finished") == 3, f"kgejob: phases 3-5:\n{log}")
     check(len(faults) == 1 and len(retries) == 1
           and "injected" in retries[0]["error"],
@@ -3747,6 +3816,7 @@ def kgejob_phase(torch, work: str, card: str):
         "fanout_agg": 0, "gather_rows": 2 * updates,
         "scatter_add_rows": 5 * updates},
         f"kgejob: the child's run {summary}")
+    kgejob_obs(obs_dir, since, card)
     again_log, again_s = driver(train)
     skipped = again_log.count("skipped (ledger)")
     check(skipped == 3, f"kgejob relaunch: {skipped} phases skipped")
@@ -3755,6 +3825,266 @@ def kgejob_phase(torch, work: str, card: str):
          faults=len(faults), retries=len(retries), child=summary,
          saved=shapes, seconds=time.perf_counter() - t0)
     return summary["launches"]
+
+
+# ------------------------------------------------------------------ obs
+OBS_TRAIN_ARGS = ("--device cuda:0 --sampler device --feats_layout owner "
+                  "--eval_every 0 --log_every 5")
+OBS_BEATS = 500     # heartbeats timed alone, with a directory and without
+# the obsjob child: examples/train_dist.py started by path by tpurun's
+# phase 5, then its launches, card and counted cost into a summary
+OBSJOB_CHILD = """
+import json, os, sys
+sys.path.insert(0, os.environ["OBSJOB_REPO"])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dgl_operator_tpu_torch.examples.train_dist import main
+from dgl_operator_tpu_torch.obs.prof import get_profiler
+from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows)
+for w in wrappers:
+    w.launches = 0
+out = main(sys.argv[1:])
+if out is not None:
+    prof = get_profiler()
+    rec = out["history"][0]
+    with open(os.environ["OBSJOB_SUMMARY"], "w") as f:
+        json.dump({"device": torch.cuda.get_device_name(0),
+                   "steps": out["step"], "losses": rec["losses"],
+                   "cost_source": prof.cost_source(),
+                   "programs": prof._programs, "peaks": prof.peaks,
+                   "last": prof.last, "time": rec["time"],
+                   "launches": {w.__name__: w.launches for w in wrappers}},
+                  f)
+"""
+
+
+def prom_values(path: str) -> dict:
+    """A ``metrics.prom`` file as {sample with labels: value}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                out[key] = float(value)
+    return out
+
+
+def obsjob(torch, ctx, work: str, card: str) -> dict:
+    """``tpurun`` phases 3-5 over ``LocalFabric`` on the card, under
+    ``obs_run``: the 2-part book of phase 10, ``examples/train_dist.py``
+    at full width (``DistSAGE`` 100 -> 256 -> 47, fanouts 10,25, batch
+    1000, the device sampler, the owner layout, one epoch of 20 steps)
+    started by path through :data:`OBSJOB_CHILD`, then ``collect_obs``.
+    The launcher starts one process a partition, so the hostfile has
+    two local entries: rank 0 trains both parts, rank 1 loads its part
+    and exits. Checks the job view, the doctor, the critical path, the
+    utilization gauges from the counted cost and the child's launches.
+    Returns them."""
+    import io
+
+    from dgl_operator_tpu_torch.benchkeys import PROF_KEYS
+    from dgl_operator_tpu_torch.launcher import tpurun
+    from dgl_operator_tpu_torch.launcher.chaos import CHAOS_ENV
+    from dgl_operator_tpu_torch.obs import OBS_DIR_ENV
+    from dgl_operator_tpu_torch.obs import prof as P
+    from dgl_operator_tpu_torch.obs import xray
+    from dgl_operator_tpu_torch.obs.peaks import H100_PEAKS
+    from dgl_operator_tpu_torch.parallel.bootstrap import (PHASE_ENV,
+                                                           HostEntry,
+                                                           write_hostfile)
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "obsjob")
+    ws, conf = os.path.join(root, "ws"), os.path.join(root, "conf")
+    os.makedirs(conf)
+    write_hostfile(os.path.join(conf, "hostfile"),
+                   [HostEntry("127.0.0.1", free_port(), f"obs-worker-{i}", 1)
+                    for i in range(2)])
+    entry = os.path.join(root, "train_obsjob.py")
+    with open(entry, "w") as f:
+        f.write(OBSJOB_CHILD)
+    summary_path = os.path.join(root, "summary.json")
+    argv = ["--graph-name", "ogbn-products", "--num-partitions", "2",
+            "--partition-config-path", ctx["book"],
+            "--train-entry-point", entry, "--workspace", ws,
+            "--conf-dir", conf, "--num-epochs", "1",
+            "--batch-size", str(BATCH_TRAIN), "--fabric", "local",
+            "--train-args",
+            f"{OBS_TRAIN_ARGS} --fan_out {','.join(map(str, FANOUTS))} "
+            f"--num_hidden {HIDDEN} --num_classes {CLASSES} --lr {LR} "
+            f"--seed {ctx['seed']}"]
+    with chaos_env(**{PHASE_ENV: None, CHAOS_ENV: None, OBS_DIR_ENV: None,
+                      "OBSJOB_REPO": REPO, "OBSJOB_SUMMARY": summary_path}):
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                tpurun.main(argv)
+        except SystemExit as exc:
+            check(False, f"obsjob: tpurun exited {exc.code}:\n"
+                  f"{log.getvalue()[-3000:]}")
+    driver_s = time.perf_counter() - t0
+    check(log.getvalue().count("finished") == 3,
+          f"obsjob: phases 3-5:\n{log.getvalue()[-2000:]}")
+    with open(summary_path) as f:
+        child = json.load(f)
+    obs_dir = os.path.join(ws, "obs")
+    job = os.path.join(obs_dir, "job")
+    events = read_jsonl(os.path.join(job, "events.jsonl"))
+    trainer = [e for e in events if e.get("role") == "trainer-0"]
+    beats = [e["step"] for e in trainer if e["event"] == "heartbeat"]
+    done = [e for e in trainer if e["event"] == "train_done"]
+    steps = child["steps"]
+    check(steps == DIST_IDS_PER_PART // BATCH_TRAIN
+          and beats == list(range(1, steps + 1)) and len(done) == 1,
+          f"obsjob: {steps} steps, heartbeats {beats}, train_done {done}")
+    with open(os.path.join(job, "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    spans = {e["name"] for e in trace if e.get("ph") == "X"}
+    check("epoch 0" in spans and "train" in spans,
+          f"obsjob: the trainer's spans in the trace {sorted(spans)[:20]}")
+    prom = prom_values(os.path.join(job, "metrics.prom"))
+    mfu = prom.get("train_mfu")
+    comm_ops = sorted({k.split('op="')[1].split('"')[0] for k in prom
+                       if k.startswith("comm_bytes_total{")})
+    compiles = [e for e in events if e["event"] == "jit_compile"]
+    check(any(k.startswith("train_phase_seconds_bucket") for k in prom)
+          and prom.get("prof_peak_flops") == H100_PEAKS["fp32"]
+          and mfu is not None and 0 < mfu <= 1
+          and child["cost_source"] == "flop_counter"
+          and any(k.startswith("jit_compiles_total{") for k in prom)
+          and not [e for e in compiles if e.get("steady")]
+          and {"grad_pmean", "halo_ring"} <= set(comm_ops),
+          f"obsjob: metrics mfu {mfu}, peak {prom.get('prof_peak_flops')}, "
+          f"cost {child['cost_source']}, compiles {compiles}, comm "
+          f"{comm_ops}")
+    doctor = subprocess.run(
+        [sys.executable, "-m", "dgl_operator_tpu_torch.obs.doctor", obs_dir],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    check(doctor.returncode == 0
+          and os.path.exists(os.path.join(job, "report.json")),
+          f"obsjob: doctor exit {doctor.returncode}:\n{doctor.stdout}"
+          f"{doctor.stderr[-2000:]}")
+    xr = xray.xray_summary(obs_dir)
+    fracs = {c: xr[f"critpath_frac_{c}"] for c in xray.CATEGORIES}
+    check(abs(sum(fracs.values()) - 1.0) <= 1e-6,
+          f"obsjob: critical-path fractions {fracs}")
+    summary = P.prof_summary(obs_dir)
+    keys = tuple(k for k in summary if k not in ("peak_flops",
+                                                  "peak_hbm_gbps"))
+    check(keys == PROF_KEYS, f"obsjob: prof summary keys {keys}")
+    launches = child["launches"]
+    check(child["device"] == torch.cuda.get_device_name(0)
+          and all(v > 0 for v in launches.values()),
+          f"obsjob: the child ran on {child['device']}, launches {launches}")
+    step_prog = child["programs"].get("dp_train_step", {})
+    emit(phase="obs", part="obsjob", card=card, steps=steps,
+         heartbeats=len(beats), events=len(events),
+         files=sorted(os.listdir(job)), trace_events=len(trace),
+         train_mfu=mfu, cost_source=child["cost_source"],
+         counted_flops_per_step=step_prog.get("flops"),
+         counted_bytes_per_step=step_prog.get("bytes"),
+         peaks=child["peaks"], roofline=child["last"].get("fracs"),
+         compiles=[{k: e.get(k) for k in ("fn", "call", "seconds",
+                                           "steady", "nvcc_seconds")}
+                   for e in compiles],
+         comm_ops=comm_ops,
+         comm_bytes={k: v for k, v in prom.items()
+                     if k.startswith("comm_bytes_total{")},
+         doctor_rc=doctor.returncode,
+         doctor_findings=json.load(open(os.path.join(
+             job, "report.json")))["findings"],
+         critpath=fracs, prof_summary=summary, launches=launches,
+         epoch_s=child["time"], driver_s=driver_s,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def obs_overhead(torch, args, wrappers, g, trainer, work: str,
+                 card: str) -> dict:
+    """The file plane's cost: ``SampledTrainer`` with the device sampler
+    at K = 4 over the train phase's 40 steps, with an obs directory
+    (``obs_run``) and without, in the order off, on, on, off; the runs
+    bit-equal, the steady ms a step of each side and their ratio, and
+    the ``train_mfu`` of the K = 4 step; then the µs of one heartbeat
+    alone each way. Returns the launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_to_flax)
+    from dgl_operator_tpu_torch.obs import obs_run
+    from dgl_operator_tpu_torch.obs import prof as P
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig, heartbeat)
+
+    w0 = state_dict_to_flax(DistSAGE(
+        FEAT, HIDDEN, CLASSES, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 17)).state_dict())
+    runs = {False: [], True: []}
+    total, mfus, ref = {}, [], None
+    for i, on in enumerate((False, True, True, False)):
+        cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                          num_epochs=1, eval_every=0, seed=args.seed,
+                          sampler="device", steps_per_call=DEV_K)
+        tr = SampledTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
+                            g, cfg, train_ids=trainer.train_ids,
+                            device="cuda")
+        obs_dir = os.path.join(work, f"obs_overhead{i}")
+        reset_counts(wrappers)
+        with (obs_run(obs_dir, role="trainer-0") if on
+              else contextlib.nullcontext()):
+            out = tr.train(init_params=w0)
+        launches = read_counts(wrappers)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        steps = out["step"]
+        check(launches == sage_launches(steps),
+              f"obs overhead on={on}: {launches} in {steps} steps")
+        if ref is None:
+            ref = out
+        check(same_run(out, ref), f"obs overhead: the run with the obs "
+              f"directory {'on' if on else 'off'} differs from the first")
+        rec = device_run_record(out["history"][0], steps, DEV_K)
+        runs[on].append(rec["steady_ms_per_step"])
+        if on:
+            mfus.append(P.prof_summary(obs_dir)["train_mfu"])
+            check(0 < mfus[-1] <= 1, f"obs overhead: train_mfu {mfus[-1]}")
+    off, on_ms = float(np.mean(runs[False])), float(np.mean(runs[True]))
+    # the host's cost of one heartbeat (the profiler's tick with its
+    # CUDA event, the events line with a directory), alone
+    beat_us = {False: [], True: []}
+    timer = tr.timer
+    for i, on in enumerate((False, True, True, False)):
+        with (obs_run(os.path.join(work, f"obs_beats{i}"),
+                      role="trainer-0") if on
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            for b in range(OBS_BEATS):
+                heartbeat(b, 0, timer, sps=1.0, loss=1.0, grad_norm=1.0)
+            beat_us[on].append((time.perf_counter() - t0) / OBS_BEATS
+                               * 1e6)
+    emit(phase="obs", part="overhead", card=card, steps_per_call=DEV_K,
+         steps=ref["step"], order="off,on,on,off", bit_equal=True,
+         steady_ms_per_step_off=runs[False],
+         steady_ms_per_step_on=runs[True], off_ms_mean=off,
+         on_ms_mean=on_ms, ratio=on_ms / off, overhead=(on_ms - off) / off,
+         train_mfu_k4=mfus, cost_source=P.get_profiler().cost_source(),
+         heartbeat_us_off=beat_us[False], heartbeat_us_on=beat_us[True])
+    return total
+
+
+def obs_phase(torch, args, wrappers, g, trainer, ctx, work: str,
+              card: str) -> dict:
+    """The obs file and job planes on the card (:func:`obsjob`) and the
+    file plane's cost (:func:`obs_overhead`). Returns their launches."""
+    t0 = time.perf_counter()
+    job = obsjob(torch, ctx, work, card)
+    over = obs_overhead(torch, args, wrappers, g, trainer, work, card)
+    total = {k: job[k] + over[k] for k in job}
+    emit(phase="obs", part="done", card=card, launches=total,
+         seconds=time.perf_counter() - t0)
+    return total
 
 
 # ------------------------------------------------------------------ gat
@@ -5896,8 +6226,9 @@ CHAOS_KGE_STEPS = 50       # KGETrainer steps of each sentry run
 CHAOS_PIPE_MODES = (("synchronous", None, 1), ("staged", "staged", 1),
                     ("fused_k1", "fused", 1), ("fused_k2", "fused", 2))
 # the threads a run may start: sampler pipelines, the sampler pool, the
-# checkpoint writer and the live sidecar
-CHAOS_THREADS = ("sampler", "slot-sampler", "ckpt-writer", "tpu-livez")
+# checkpoint writer, the live sidecar and the comm watcher
+CHAOS_THREADS = ("sampler", "slot-sampler", "ckpt-writer", "tpu-livez",
+                 "tpu-commwatch")
 # the host:die child: the setup phase's graph and a device-sampler
 # SampledTrainer at the SAGE widths that checkpoints every 2 steps
 CHAOS_DIE_CHILD = """
@@ -6185,7 +6516,9 @@ def chaos_step_slow(torch, wrappers, g, trainer, card: str) -> dict:
 def chaos_host_die(args, work: str, card: str) -> None:
     """``host:die`` in a child process on the card: it exits with 113
     after the dead-host marker, and no checkpoint is published past the
-    last periodic one."""
+    last periodic one. With an obs directory the child leaves its flight
+    recorder's dump (``flight-<pid>.json``, reason ``host_died``), the
+    ``flight`` line."""
     from dgl_operator_tpu_torch.launcher.chaos import (CHAOS_ENV,
                                                        HOST_DIED_EXIT,
                                                        dead_hosts)
@@ -6199,9 +6532,11 @@ def chaos_host_die(args, work: str, card: str) -> None:
         f.write("127.0.0.1 30050 w0 slots=1\n127.0.0.1 30051 w1 slots=1\n")
     spec = dict(repo=REPO, seed=args.seed, scale=args.scale, ckpt=ckpt,
                 ids=10 * BATCH_TRAIN, batch=BATCH_TRAIN)
+    obs_dir = os.path.join(work, "chaos_die_obs")
     env = dict(os.environ, TPU_OPERATOR_CHAOS=f"host:die:{CHAOS_DIE_AT}"
                "@host=w1", TPU_OPERATOR_WORKSPACE=ws,
-               TPU_OPERATOR_HOSTFILE_PATH=hostfile, TPU_OPERATOR_RANK="1")
+               TPU_OPERATOR_HOSTFILE_PATH=hostfile, TPU_OPERATOR_RANK="1",
+               TPU_OPERATOR_OBS_DIR=obs_dir)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CHAOS_DIE_CHILD,
                            json.dumps(spec)], env=env, capture_output=True,
@@ -6218,6 +6553,24 @@ def chaos_host_die(args, work: str, card: str) -> None:
     emit(phase="chaos", part="host_die", card=card, die_at=CHAOS_DIE_AT,
          exit_code=proc.returncode, dead_hosts=dead_hosts(ws),
          latest_checkpoint=latest, child_s=child_s)
+    flights = sorted(f for f in os.listdir(obs_dir)
+                     if f.startswith("flight-"))
+    check(len(flights) == 1, f"flight: the host:die child's dumps {flights}")
+    with open(os.path.join(obs_dir, flights[0])) as f:
+        dump = json.load(f)
+    beats = [x for x in dump["samples"] if x["kind"] == "heartbeat"]
+    check(dump["reason"] == "host_died" and beats
+          and beats[-1]["step"] == CHAOS_DIE_AT,
+          f"flight: reason {dump['reason']}, heartbeats "
+          f"{[x['step'] for x in beats]}")
+    died = [e for e in read_jsonl(os.path.join(obs_dir, "events.jsonl"))
+            if e["event"] == "host_died"]
+    check(len(died) == 1 and died[0]["pid"] == dump["pid"],
+          f"flight: host_died events {died}")
+    emit(phase="flight", card=card, file=flights[0], reason=dump["reason"],
+         pid=dump["pid"], samples=len(dump["samples"]),
+         last_heartbeat_step=beats[-1]["step"], inflight=dump["inflight"],
+         window_s=dump["window_s"])
 
 
 def chaos_live(torch, wrappers, g, trainer, card: str) -> dict:
@@ -7106,6 +7459,7 @@ def main(argv=None) -> int:
         grid_records, grid = kge_grid_phase(torch, args, ops, wrappers, kg,
                                             smi)
         job = kgejob_phase(torch, work, smi)
+        obs = obs_phase(torch, args, wrappers, g, trainer, ctx, work, smi)
         gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
@@ -7152,7 +7506,8 @@ def main(argv=None) -> int:
                      chaos_launches=chaos.get("fanout_agg", 0),
                      dataplane_launches=dplane.get("fanout_agg", 0),
                      more_launches={"kge_grid": grid["fanout_agg"],
-                                    "kgejob": job["fanout_agg"]}),
+                                    "kgejob": job["fanout_agg"],
+                                    "obs": obs["fanout_agg"]}),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -7180,7 +7535,8 @@ def main(argv=None) -> int:
                      chaos_launches=chaos.get("gather_rows", 0),
                      dataplane_launches=dplane.get("gather_rows", 0),
                      more_launches={"kge_grid": grid["gather_rows"],
-                                    "kgejob": job["gather_rows"]}),
+                                    "kgejob": job["gather_rows"],
+                                    "obs": obs["gather_rows"]}),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -7205,7 +7561,8 @@ def main(argv=None) -> int:
                      chaos_launches=chaos.get("scatter_add_rows", 0),
                      dataplane_launches=dplane.get("scatter_add_rows", 0),
                      more_launches={"kge_grid": grid["scatter_add_rows"],
-                                    "kgejob": job["scatter_add_rows"]}),
+                                    "kgejob": job["scatter_add_rows"],
+                                    "obs": obs["scatter_add_rows"]}),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

@@ -22,9 +22,9 @@ starts the port's ``examples/train_kge.py`` (by path, as given in
 JAX ``tpukerun`` has none and retrains on every relaunch, while this
 one keeps the ``tpurun`` ledger (:class:`~.tpurun.PhaseLedger`), so a
 relaunch whose flags are all unchanged skips the phases a previous
-driver completed (``TPU_OPERATOR_NO_RESUME=1`` re-runs them). The obs file
-plane's ``obs_run`` and ``collect_obs`` wait for ``ROADMAP.md`` Queue 1
-item 7b; the driver records into the in-memory ``Obs``.
+driver completed (``TPU_OPERATOR_NO_RESUME=1`` re-runs them). The driver
+runs under ``obs_run`` (``<workspace>/obs``) and collects the job view
+after phase 5 (``tpurun.collect_obs``), as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -44,9 +44,10 @@ from dgl_operator_tpu_torch.launcher.launch import (launch_train,
                                                     run_copy_batch,
                                                     run_exec_batch)
 from dgl_operator_tpu_torch.launcher.tpurun import (NO_RESUME_ENV,
-                                                    PhaseLedger, _phase,
-                                                    _PhaseClock, _run)
-from dgl_operator_tpu_torch.obs import get_obs
+                                                    OBS_SUBDIR, PhaseLedger,
+                                                    _phase, _PhaseClock,
+                                                    _run, collect_obs)
+from dgl_operator_tpu_torch.obs import OBS_DIR_ENV, obs_run
 from dgl_operator_tpu_torch.parallel.bootstrap import PHASE_ENV
 
 DEFAULT_WORKSPACE = "/tpu_workspace"
@@ -140,10 +141,11 @@ def signature_of(args: argparse.Namespace, phase: Optional[str]) -> str:
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     ws = args.workspace
-    get_obs().emit("tpukerun_start", phase_env=os.environ.get(PHASE_ENV),
-                   graph=args.graph_name, dataset=args.dataset,
-                   workspace=ws)
-    _workflow(args, ws)
+    obs_dir = os.environ.get(OBS_DIR_ENV) or os.path.join(ws, OBS_SUBDIR)
+    with obs_run(obs_dir, role="tpukerun") as obs:
+        obs.emit("tpukerun_start", phase_env=os.environ.get(PHASE_ENV),
+                 graph=args.graph_name, dataset=args.dataset, workspace=ws)
+        _workflow(args, ws)
 
 
 def _workflow(args: argparse.Namespace, ws: str) -> None:
@@ -212,6 +214,8 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
     _phase(clock, ledger, 5, "launch the KGE training",
            lambda: launch_train(hostfile, train_cmd, args.num_partitions,
                                 worker_part_cfg, ws, fabric=fabric))
+    # the job's telemetry view (best-effort, as in tpurun)
+    collect_obs(hostfile, fabric)
 
 
 if __name__ == "__main__":

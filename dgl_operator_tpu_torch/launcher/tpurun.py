@@ -28,11 +28,13 @@ serve phase the port's ``serve.server``. What waits:
 - ``--elastic`` and ``--placement`` raise ``NotImplementedError``: the
   elastic control plane (``launcher/elastic.py``) and the placement it
   reads (``autotune/placement.py``) are ``ROADMAP.md`` Queue 1 item 7c.
-- The obs file plane is item 7b: the JAX driver's ``obs_run`` (one
-  telemetry directory a run, exported to every process) and
-  ``collect_obs`` (the merged job view) have no counterpart. The driver
-  records its phases, retries and faults in the in-memory ``Obs``
-  (``obs/__init__.py``) and prints the reference's console lines.
+
+Telemetry: the driver runs under ``obs_run`` (one ``obs/`` directory a
+run, ``<workspace>/obs`` unless ``TPU_OPERATOR_OBS_DIR`` names one,
+exported to every process it starts), and after phase 5, or when the
+launcher phases fail, :func:`collect_obs` merges every host's files
+into ``obs/job/``, which ``python -m dgl_operator_tpu_torch.obs.doctor``
+reads.
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ from dgl_operator_tpu_torch.launcher import console
 from dgl_operator_tpu_torch.launcher.launch import (launch_train,
                                                     run_copy_batch,
                                                     run_exec_batch)
-from dgl_operator_tpu_torch.obs import get_obs, tracectx
-from dgl_operator_tpu_torch.parallel.bootstrap import PHASE_ENV
+from dgl_operator_tpu_torch.obs import (OBS_DIR_ENV, get_obs, obs_run,
+                                        tracectx)
+from dgl_operator_tpu_torch.parallel.bootstrap import PHASE_ENV, parse_hostfile
 
 DEFAULT_WORKSPACE = "/tpu_workspace"
 DEFAULT_CONF_DIR = "/etc/tpugraph"   # /etc/dgl equivalent
 LEDGER_NAME = ".tpurun_state.json"
+OBS_SUBDIR = "obs"   # per-run telemetry artifacts, next to the workspace
 NO_RESUME_ENV = "TPU_OPERATOR_NO_RESUME"
 
 
@@ -202,6 +206,7 @@ def _phase(clock: _PhaseClock, ledger: Optional[PhaseLedger], n: int,
         labels=("phase",)).observe(time.time() - t, phase=n)
     if ledger is not None:
         ledger.mark(n, title, time.time() - t)
+    obs.flush()
 
 
 def _run(cmd: List[str]) -> None:
@@ -335,18 +340,62 @@ def check_unported(args: argparse.Namespace) -> None:
             "placement are not ported (ROADMAP.md Queue 1 item 7c)")
 
 
+def collect_obs(hostfile: str, fabric,
+                failure_reason: Optional[str] = None) -> None:
+    """Pull every host's obs files back over the fabric (so chaos and
+    retry cover collection) and merge them into ``obs/job/``, the view
+    the doctor reads. Best-effort: a failed collection is logged and the
+    job's outcome stands. ``failure_reason`` marks a collection on the
+    failure path (an ``obs_collect_on_failure`` event: the view may be
+    partial)."""
+    obs = get_obs()
+    if not obs.directory:
+        return
+    try:
+        from dgl_operator_tpu_torch.obs.collect import collect_job
+        # one fetch a host, however many partitions it holds
+        hosts = list(dict.fromkeys(
+            e.name for e in parse_hostfile(hostfile)))
+        obs.flush()   # the driver's own counters first
+        with obs.span("collect obs", cat="tpurun"):
+            man = collect_job(obs.directory, hosts, fabric=fabric)
+        if failure_reason:
+            console.log(
+                f"obs job view collected on FAILURE ({failure_reason})"
+                f" from {len(hosts)} host(s): {man['events']} events "
+                f"-> {man['job_dir']}",
+                event="obs_collect_on_failure", hosts=hosts,
+                reason=failure_reason, events=man["events"],
+                procs=man["procs"])
+        else:
+            console.log(
+                f"obs job view collected from {len(hosts)} host(s): "
+                f"{man['events']} events, {man['procs']} procs -> "
+                f"{man['job_dir']}", event="obs_collected", hosts=hosts,
+                events=man["events"], procs=man["procs"])
+    except Exception as exc:  # noqa: BLE001 — never fail the job
+        console.log(f"obs collection failed ({exc}); per-host artifacts "
+                    "remain usable", event="obs_collect_failed",
+                    error=str(exc)[:300])
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     check_unported(args)
     ws = args.workspace
-    get_obs().emit("tpurun_start", phase_env=os.environ.get(PHASE_ENV),
-                   graph=args.graph_name,
-                   num_partitions=args.num_partitions, workspace=ws)
-    # the run's trace root: every phase span (and through the exported
-    # environment, every worker process's spans) hangs under it
-    with tracectx.span("tpurun", cat="tpurun", export_env=True,
-                       graph=args.graph_name):
-        _workflow(args, ws)
+    # the run's telemetry next to the workspace (an inherited
+    # TPU_OPERATOR_OBS_DIR wins); obs_run exports it to every process
+    obs_dir = os.environ.get(OBS_DIR_ENV) or os.path.join(ws, OBS_SUBDIR)
+    with obs_run(obs_dir, role="tpurun") as obs:
+        obs.emit("tpurun_start", phase_env=os.environ.get(PHASE_ENV),
+                 graph=args.graph_name,
+                 num_partitions=args.num_partitions, workspace=ws)
+        # the run's trace root: every phase span (and through the
+        # exported environment, every worker process's spans) hangs
+        # under it
+        with tracectx.span("tpurun", cat="tpurun", export_env=True,
+                           graph=args.graph_name):
+            _workflow(args, ws)
 
 
 def _workflow(args: argparse.Namespace, ws: str) -> None:
@@ -432,7 +481,7 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
                 _launcher_phases(args, ws, clock, ledger, hostfile,
                                  worker_part_cfg, part_cfg, fabric, py)
                 break
-            except (Exception, SystemExit):
+            except (Exception, SystemExit) as exc:
                 if numerics_retries < getattr(args, "numerics_retries",
                                               0) \
                         and _numerics_rollback(ws):
@@ -445,7 +494,15 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
                     numerics_retries += 1
                     clock = _PhaseClock(5)
                     continue
+                # the runs that need the doctor most died mid-workflow:
+                # collect what the workers left before re-raising
+                collect_obs(hostfile, fabric,
+                            failure_reason=f"{type(exc).__name__} "
+                                           "during launcher phases")
                 raise
+        # the job's telemetry view (not a numbered phase: the five
+        # phases are the reference's console shape)
+        collect_obs(hostfile, fabric)
 
 
 def _numerics_rollback(ws: str) -> bool:

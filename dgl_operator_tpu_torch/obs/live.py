@@ -16,9 +16,12 @@ The port's copy of the JAX package's ``obs/live.py``:
   :func:`maybe_start_sidecar` when ``TPU_OPERATOR_LIVE_PORT`` is set
   (``0`` for an ephemeral port).
 
-Endpoint registration under the obs directory, ``live_endpoints``,
-``fetch_livez`` and ``live_job_health`` need the obs file plane, which
-is not ported (``ROADMAP.md`` item 7).
+- discovery — every sidecar and serving plane drops its endpoint under
+  ``<obs_dir>/live/`` (:func:`register_endpoint`); readers list them
+  (:func:`live_endpoints`), fetch each ``/livez``
+  (:func:`fetch_livez`) and judge the job from the live feeds, falling
+  back to the event files (:func:`live_job_health`, what
+  ``obs/top.py`` shows).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import socket
 import statistics
 import threading
 import time
+import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple
@@ -36,14 +40,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 from dgl_operator_tpu_torch.obs.metrics import quantile_from_counts
 
 LIVE_PORT_ENV = "TPU_OPERATOR_LIVE_PORT"
+LIVE_SUBDIR = "live"
 DEFAULT_WINDOW_S = 10.0
 _LAT_FAMILY = "serve_request_seconds"
-# PhaseTimer bucket -> critical-path category of the rolling
-# critpath_frac: dispatch is the step's enqueue (a compute proxy),
-# exchange the halo stage, stall the blocked loop thread, sample host
-# work
-_LIVE_PHASE_CAT = {"dispatch": "compute", "exchange": "comm",
-                   "stall": "stall", "sample": "other"}
 
 
 def _delta(end: float, start: float) -> float:
@@ -51,21 +50,6 @@ def _delta(end: float, start: float) -> float:
     down restarted from 0, so the window's delta is the end value."""
     d = end - start
     return d if d >= 0 else end
-
-
-def live_critpath(totals: Optional[Dict[str, float]]
-                  ) -> Optional[Dict[str, float]]:
-    """Category fractions of a PhaseTimer totals dict; None while the
-    timer holds nothing."""
-    acc: Dict[str, float] = {}
-    for phase, v in (totals or {}).items():
-        cat = _LIVE_PHASE_CAT.get(phase)
-        if cat is not None and v and v > 0:
-            acc[cat] = acc.get(cat, 0.0) + float(v)
-    tot = sum(acc.values())
-    if tot <= 0:
-        return None
-    return {k: round(v / tot, 4) for k, v in sorted(acc.items())}
 
 
 class LiveFeed:
@@ -102,8 +86,9 @@ class LiveFeed:
         stall share and the critical-path split from its cumulative
         buckets), the pipeline's ``overlap_ratio`` and the sentry's
         ``loss`` and ``grad_norm``. ``mfu``, ``hbm_mib`` and
-        ``comm_bytes`` are the profiler's and the communication plane's
-        riders, which the port does not feed yet."""
+        ``comm_bytes`` are the profiler's (``obs/prof.py``) and the
+        communication plane's (``obs/comm.py::axis_bytes_total``)
+        riders."""
         snap = timer.snapshot() if timer is not None else {}
         total = snap.get("total", {})
         busy = (total.get("stall", 0.0) + total.get("sample", 0.0)
@@ -225,6 +210,7 @@ class LiveFeed:
                 out["comm_mib_per_s"] = round(sum(axes.values()), 4)
         timed = [t for t in ticks if t[11] is not None]
         if len(timed) >= 2:
+            from dgl_operator_tpu_torch.obs.xray import live_critpath
             first, last = timed[0], timed[-1]
             out["critpath_frac"] = live_critpath(
                 {ph: _delta(last[11].get(ph, 0.0), first[11].get(ph, 0.0))
@@ -329,7 +315,8 @@ class _LiveHandler(BaseHTTPRequestHandler):
 class LiveServer:
     """The trainer's live sidecar: ``/livez`` (the feed's snapshot over
     the metrics registry, and the process's identity) and ``/metrics``
-    on a loopback port (``port=0``: ephemeral; ``.port`` reports it)."""
+    on a loopback port (``port=0``: ephemeral; ``.port`` reports it),
+    registered under ``<obs_dir>/live/`` while it runs."""
 
     def __init__(self, feed: Optional[LiveFeed] = None,
                  host: str = "127.0.0.1", port: int = 0,
@@ -340,6 +327,7 @@ class LiveServer:
         self.httpd.live = self
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+        self._endpoint_path: Optional[str] = None
 
     def payload(self) -> Dict:
         from dgl_operator_tpu_torch.obs import get_obs
@@ -353,6 +341,7 @@ class LiveServer:
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         name="tpu-livez", daemon=True)
         self._thread.start()
+        self._endpoint_path = register_endpoint(self.port, self.role)
         get_obs().emit("live_listening", port=self.port, role=self.role)
         return self
 
@@ -362,6 +351,161 @@ class LiveServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+        if self._endpoint_path:
+            try:
+                os.remove(self._endpoint_path)
+            except OSError:
+                pass
+            self._endpoint_path = None
+
+
+# ---------------------------------------------- discovery + health
+def _live_dir(obs_dir: str) -> str:
+    return os.path.join(obs_dir, LIVE_SUBDIR)
+
+
+def register_endpoint(port: int, role: str,
+                      obs_dir: Optional[str] = None) -> Optional[str]:
+    """Drop this process's live endpoint into the run's discovery
+    directory (``<obs_dir>/live/``). Best-effort: a read-only obs dir
+    costs the run discovery, never the job."""
+    from dgl_operator_tpu_torch.obs import get_obs
+    obs = get_obs()
+    obs_dir = obs_dir or obs.directory
+    if not obs_dir:
+        return None
+    try:
+        d = _live_dir(obs_dir)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(
+            d, f"{obs.host}-{obs.pid}-{role}.json".replace("/", "_"))
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"host": obs.host, "pid": obs.pid, "role": role,
+                       "addr": "127.0.0.1", "port": int(port),
+                       "ts": round(time.time(), 3)}, f)
+        os.replace(tmp, path)
+        return path
+    except OSError:
+        return None
+
+
+def live_endpoints(obs_dir: str) -> List[Dict]:
+    """Registered live endpoints of a run, oldest first."""
+    d = _live_dir(obs_dir)
+    out: List[Dict] = []
+    try:
+        names = sorted(os.listdir(d))
+    except OSError:
+        return out
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        try:
+            with open(os.path.join(d, name)) as f:
+                ep = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if isinstance(ep, dict) and ep.get("port"):
+            out.append(ep)
+    return out
+
+
+def fetch_livez(ep: Dict, timeout: float = 1.0) -> Optional[Dict]:
+    """One endpoint's /livez snapshot, or ``None`` (dead process,
+    recycled port) — callers treat unreachable as 'fall back'."""
+    url = f"http://{ep.get('addr', '127.0.0.1')}:{ep['port']}/livez"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            snap = json.load(r)
+        return snap if isinstance(snap, dict) else None
+    except (OSError, ValueError):
+        return None
+
+
+def live_job_health(obs_dir: str, now: Optional[float] = None,
+                    stall_factor: Optional[float] = None,
+                    stall_grace_s: Optional[float] = None,
+                    timeout: float = 1.0) -> Dict:
+    """Job health from the live feeds, file fallback. Same shape as
+    :func:`~.analyze.job_health` plus ``source``: ``"live"`` when at
+    least one sidecar answered (each answering worker judged from its
+    feed's own heartbeat ages — a wedged loop thread cannot stop the
+    sidecar from truthfully reporting the growing silence), ``"file"``
+    when none did (the events file's verdict)."""
+    from dgl_operator_tpu_torch.obs.analyze import (DEFAULT_STALL_FACTOR,
+                                              DEFAULT_STALL_GRACE_S,
+                                              job_health)
+    stall_factor = (DEFAULT_STALL_FACTOR if stall_factor is None
+                    else stall_factor)
+    stall_grace_s = (DEFAULT_STALL_GRACE_S if stall_grace_s is None
+                     else stall_grace_s)
+    snaps = [(ep, fetch_livez(ep, timeout=timeout))
+             for ep in live_endpoints(obs_dir)]
+    live = [(ep, s) for ep, s in snaps if s]
+    if not live:
+        out = job_health(obs_dir, now=now, stall_factor=stall_factor,
+                         stall_grace_s=stall_grace_s)
+        out["source"] = "file"
+        return out
+    now = time.time() if now is None else now
+    workers: Dict[str, Dict] = {}
+    stalled: List[str] = []
+    for ep, s in live:
+        w = f"{s.get('host', ep.get('host', '?'))}:" \
+            f"{s.get('pid', ep.get('pid', '?'))}:" \
+            f"{s.get('role', ep.get('role', '?'))}"
+        last = s.get("last_heartbeat_ts")
+        if last is None:
+            continue   # serving/driver feeds carry no heartbeat
+        med = s.get("median_interval_s") or stall_grace_s
+        window = max(stall_factor * med, stall_grace_s)
+        silent = max(now - float(last), 0.0)
+        if s.get("done"):
+            status = "done"
+        elif silent > window:
+            status = "stalled"
+            stalled.append(w)
+        else:
+            status = "ok"
+        workers[w] = {"status": status, "last_step": s.get("step"),
+                      "last_heartbeat_ts": last,
+                      "silent_s": round(silent, 3),
+                      "stall_window_s": round(window, 3),
+                      "terminal": ({"event": "train_done"}
+                                   if s.get("done") else None)}
+    # dead workers (host_died — the elastic shrink trigger) and
+    # numerics-faulted workers (the sentry halted them, obs/quality.py)
+    # can only come from the FILE plane: a dead host's sidecar is gone
+    # with the process and a halted trainer's sidecar stops with it,
+    # so the live view alone would misread permanent loss as mere
+    # silence. Merge the events-file verdict in.
+    dead: List[str] = []
+    dead_hosts: List[str] = []
+    numerics: List[str] = []
+    try:
+        fsnap = job_health(obs_dir, now=now, stall_factor=stall_factor,
+                           stall_grace_s=stall_grace_s)
+        dead = list(fsnap.get("dead") or [])
+        dead_hosts = list(fsnap.get("dead_hosts") or [])
+        numerics = list(fsnap.get("numerics") or [])
+        for w in dead:
+            workers.setdefault(w, fsnap["workers"].get(w) or
+                               {"status": "dead"})
+            workers[w]["status"] = "dead"
+        for w in numerics:
+            workers.setdefault(w, fsnap["workers"].get(w) or
+                               {"status": "numerics_fault"})
+            workers[w]["status"] = "numerics_fault"
+        stalled = [w for w in stalled
+                   if w not in dead and w not in numerics]
+    except Exception:  # noqa: BLE001 — the live view stands alone
+        pass
+    return {"checked_ts": now, "workers": workers, "stalled": stalled,
+            "dead": dead, "dead_hosts": dead_hosts,
+            "numerics": numerics,
+            "healthy": not stalled and not dead and not numerics,
+            "source": "live"}
 
 
 # -------------------------------------------------- env-gated startup

@@ -1,17 +1,27 @@
 """Metrics registry — counters, gauges and fixed-bucket histograms with
 labels, held in memory, with a JSON-able :meth:`MetricsRegistry.snapshot`
 and its Prometheus text exposition (:func:`render_prometheus`, what the
-serving plane's ``/metrics`` answers). Writing snapshots to files and
-merging them across processes is not ported yet.
+serving plane's ``/metrics`` answers).
+
+The file half: every process of a run flushes its snapshot under its
+``proc_id`` into ``metrics.json`` (:func:`write_files`), which also
+holds the merged view (:func:`merge_snapshots`: counters and histograms
+summed, gauges last-write) that ``metrics.prom`` renders. A process
+re-flushing replaces its own contribution, so flushes never
+double-count.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import os
 import re
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from dgl_operator_tpu_torch.obs._io import atomic_write, dir_lock, read_json
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -27,6 +37,9 @@ DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
 LATENCY_BUCKETS = (0.0005, 0.001, 0.002, 0.003, 0.005, 0.0075, 0.01,
                    0.015, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 1.0,
                    2.5, 5.0, 10.0)
+
+METRICS_PROM = "metrics.prom"
+METRICS_JSON = "metrics.json"
 
 
 def _fmt(v: float) -> str:
@@ -322,3 +335,65 @@ def render_prometheus(snapshot: Dict[str, dict]) -> str:
                 lines.append(f"{name}{pairs(labels)} "
                              f"{_fmt(s['value'])}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _sample_key(s: dict) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((str(k), str(v))
+                 for k, v in s.get("labels", {}).items()))
+
+
+def merge_snapshots(snaps: Iterable[Dict[str, dict]]) -> Dict[str, dict]:
+    """Merge per-process snapshots into one family set: counters and
+    histograms sum, gauges last-write-wins. A family whose shape
+    (type / labels / buckets) disagrees with an earlier process is
+    replaced wholesale — telemetry merging must never raise."""
+    merged: Dict[str, dict] = {}
+    for snap in snaps:
+        for name, fam in snap.items():
+            prev = merged.get(name)
+            shape = (fam.get("type"), fam.get("label_names"),
+                     fam.get("buckets"))
+            if prev is None or shape != (prev.get("type"),
+                                         prev.get("label_names"),
+                                         prev.get("buckets")):
+                merged[name] = json.loads(json.dumps(fam))
+                continue
+            by_key = {_sample_key(s): s for s in prev["samples"]}
+            for s in fam.get("samples", []):
+                tgt = by_key.get(_sample_key(s))
+                if tgt is None:
+                    s = json.loads(json.dumps(s))
+                    prev["samples"].append(s)
+                    by_key[_sample_key(s)] = s
+                elif fam["type"] == "counter":
+                    tgt["value"] += s["value"]
+                elif fam["type"] == "histogram":
+                    tgt["counts"] = [a + b for a, b in
+                                     zip(tgt["counts"], s["counts"])]
+                    tgt["sum"] += s["sum"]
+                    tgt["count"] += s["count"]
+                else:  # gauge: last writer wins
+                    tgt["value"] = s["value"]
+            prev["samples"].sort(key=_sample_key)
+    return merged
+
+
+def write_files(directory: str, proc_id: str, snapshot: Dict[str, dict],
+                run_id: Optional[str] = None) -> None:
+    """Publish this process's snapshot into the run's shared metrics
+    artifacts: ``metrics.json`` keeps every process's latest snapshot
+    under ``procs`` plus the ``merged`` view; ``metrics.prom`` renders
+    the merged view. The whole read-merge-write runs under the obs
+    directory lock so concurrent flushes never lose an update."""
+    jpath = os.path.join(directory, METRICS_JSON)
+    with dir_lock(directory):
+        existing = read_json(jpath, {})
+        procs = dict(existing.get("procs", {}))
+        procs[proc_id] = snapshot
+        merged = merge_snapshots(procs[p] for p in sorted(procs))
+        atomic_write(jpath, json.dumps(
+            {"run": run_id or existing.get("run"),
+             "procs": procs, "merged": merged},
+            indent=2, sort_keys=True))
+        atomic_write(os.path.join(directory, METRICS_PROM),
+                     render_prometheus(merged))

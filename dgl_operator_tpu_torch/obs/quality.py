@@ -32,8 +32,9 @@ the halt → rollback response, as the JAX package's ``obs/quality.py``.
   the next step's backward produces non-finite gradients through the
   real kernels; it fires once per workspace.
 
-The analytics roll-up (``model_health_summary``) needs the obs file
-plane and is not ported (``ROADMAP.md`` item 7).
+- **The analytics roll-up** (:func:`model_health_summary`): a job
+  view's faults, divergences, rollbacks and last quality gauges, which
+  ``obs/analyze.py`` reports.
 """
 
 from __future__ import annotations
@@ -705,3 +706,46 @@ def maybe_injector(start_step: int = 0) -> Optional[NumericsInjector]:
     ``numerics:nan`` rule."""
     inj = NumericsInjector(start_step)
     return inj if inj.at is not None else None
+
+
+# ---------------------------------------------------------------------
+# the analytics' face (obs/analyze.py reads it)
+# ---------------------------------------------------------------------
+def model_health_summary(events: List[Dict],
+                         procs: Dict[str, dict]) -> Optional[Dict]:
+    """The model-health roll-up of a job view: numerics faults (with
+    step/partition attribution), divergence/explosion/plateau counts,
+    rollbacks, and the last observed quality gauges. None when the
+    run never carried the sentry (pre-quality runs are unchanged)."""
+    faults = [e for e in events if e.get("event") == "numerics_fault"]
+    div = [e for e in events if e.get("event") == "loss_divergence"]
+    exp = [e for e in events if e.get("event") == "grad_explosion"]
+    plat = [e for e in events if e.get("event") == "loss_plateau"]
+    rb = [e for e in events if e.get("event") == "numerics_rollback"]
+
+    def gauge(name: str) -> Optional[float]:
+        best = None
+        for snap in (procs or {}).values():
+            for s in ((snap or {}).get(name) or {}).get("samples", []):
+                v = float(s["value"])
+                best = v if best is None else max(best, v)
+        return best
+
+    gnorm = gauge("train_quality_grad_norm")
+    uratio = gauge("train_quality_update_ratio")
+    loss = gauge("train_loss")
+    if not (faults or div or exp or plat or rb) and gnorm is None:
+        return None
+    return {
+        "faults": [{"step": e.get("step"),
+                    "partition": e.get("partition"),
+                    "kind": e.get("kind"),
+                    "action": e.get("action")} for e in faults],
+        "divergences": len(div),
+        "grad_explosions": len(exp),
+        "plateaus": len(plat),
+        "rollbacks": len(rb),
+        "last_loss": loss,
+        "last_grad_norm": gnorm,
+        "last_update_ratio": uratio,
+    }

@@ -143,12 +143,22 @@ def build_host(source: str) -> BuildResult:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built on first use."""
+    """The loaded library of ``csrc/<source>``, built on first use; that
+    first load is the kernel's compile in the obs plane
+    (``obs/prof.py::record_compile``, ``fn`` the source's stem, with the
+    nvcc seconds, 0 for a build found on disk)."""
     with _lock:
         lib = _libs.get(source)
-        if lib is None:
-            lib = _libs[source] = ctypes.CDLL(build(source).path)
-        return lib
+        if lib is not None:
+            return lib
+        t0 = time.perf_counter()
+        res = build(source)
+        lib = _libs[source] = ctypes.CDLL(res.path)
+    from dgl_operator_tpu_torch.obs import prof
+    prof.record_compile(os.path.splitext(source)[0], 0,
+                        time.perf_counter() - t0, False,
+                        nvcc_seconds=round(res.seconds, 3))
+    return lib
 
 
 def load_host(source: str,

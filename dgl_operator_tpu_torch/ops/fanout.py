@@ -25,6 +25,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
+from dgl_operator_tpu_torch.obs import prof
 from dgl_operator_tpu_torch.ops import _build
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
@@ -82,6 +83,12 @@ def _aggregate(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
         raise RuntimeError(f"fanout_agg kernel launch failed: CUDA error "
                            f"{err}")
     fanout_agg.launches += 1
+    # the launch's work for a step's cost count (no sync: every slot's
+    # add, and each source row read at most once)
+    size = h.element_size()
+    prof.note_kernel(nd * f * h.shape[1],
+                     (min(h.shape[0], nd * f) + nd) * h.shape[1] * size
+                     + nd * f * (nbr.element_size() + mask.element_size()))
     return out
 
 

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from dgl_operator_tpu_torch.obs import prof
 from dgl_operator_tpu_torch.ops import _build
 from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, scatter_add_rows
 
@@ -67,6 +68,10 @@ def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{err}")
     gather_rows.launches += 1
+    # the launch's bytes for a step's cost count (no sync: each source
+    # row read at most once)
+    prof.note_kernel(0, (min(table.shape[0], m) + m) * d
+                     * table.element_size() + m * idx.element_size())
     return out
 
 

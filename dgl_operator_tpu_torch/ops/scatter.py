@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dgl_operator_tpu_torch.obs import prof
 from dgl_operator_tpu_torch.ops import _build
 
 _SOURCE = "scatter_add_rows.cu"
@@ -346,6 +347,11 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA "
                            f"error {err}")
     scatter_add_rows.launches += 1
+    # the launch's work for a step's cost count: every source row's add
+    # (and the mean's divide), the plan read, the output written
+    prof.note_kernel(g.shape[0] * d + (num_rows * d if mean else 0),
+                     num_rows * d * 4 + g.numel() * g.element_size()
+                     + plan.nbytes())
     return out
 
 

@@ -7,7 +7,8 @@ slots (``pmean``) and one optimizer step applies the mean. This module
 is the one place that reduction lives. Every process accumulates
 ``grad / P`` over its own slots in slot order, ``P`` the global slot
 count; in a ``torch.distributed`` group one ``all_reduce`` then sums the
-processes' gradients, as the reference's DDP does.
+processes' gradients, as the reference's DDP does. The mean registers
+its bytes (``grad_pmean``) with the comm ledger (``obs/comm.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 import torch.distributed as dist
 
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.comm import register_collective
 from dgl_operator_tpu_torch.parallel.collectives import group_active, world
+from dgl_operator_tpu_torch.parallel.mesh import DP_AXIS
 
 
 def slot_mean_step(optimizer: torch.optim.Optimizer,
@@ -70,6 +73,10 @@ def slot_mean_step(optimizer: torch.optim.Optimizer,
     loss_vec = torch.stack(losses)
     nonfinite_vec = (torch.stack(nonfinite).float() if nonfinite
                      else torch.zeros_like(loss_vec))
+    # the comm ledger's bill of the gradient mean (the JAX pmean's)
+    register_collective("grad_pmean", DP_AXIS,
+                        sum(2 * p.numel() * p.element_size()
+                            for p in params))
     if group_active():
         loss_vec, nonfinite_vec = _all_reduce_bucket(
             params, loss_vec, nonfinite_vec, P)

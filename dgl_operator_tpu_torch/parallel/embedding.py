@@ -63,12 +63,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dgl_operator_tpu_torch.obs.comm import register_collective
 from dgl_operator_tpu_torch.ops.adagrad import (EPS, PushPlan,
                                                 device_push_plan, push_plan,
                                                 sparse_adagrad_)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import ship_int32
 from dgl_operator_tpu_torch.parallel.collectives import host_gather_rows
+from dgl_operator_tpu_torch.parallel.mesh import DP_AXIS
 
 
 @dataclasses.dataclass
@@ -197,13 +199,17 @@ def _exchange(rows: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
     return out
 
 
-def sharded_lookup(table: torch.Tensor, rt: Route) -> torch.Tensor:
+def sharded_lookup(table: torch.Tensor, rt: Route,
+                   axis: str = DP_AXIS) -> torch.Tensor:
     """This process's requested rows, in request order. ``table`` is its
     block of the table (the whole padded table in one process); ``rt``
     its :class:`Route` on the table's device. One ``gather_rows`` in one
     process; in a group the owner's ``gather_rows``, one
     ``all_to_all_single`` of rows and a ``gather_rows`` back into request
-    order."""
+    order. Registers ``emb_lookup`` on ``axis`` with the comm ledger."""
+    register_collective("emb_lookup", axis,
+                        len(rt.serve) * (4 + table.shape[1]
+                                         * table.element_size()))
     rows = gather_rows(table, rt.serve)
     if rt.world == 1:
         return rows
@@ -213,12 +219,15 @@ def sharded_lookup(table: torch.Tensor, rt: Route) -> torch.Tensor:
 
 def sharded_push_adagrad(table: torch.Tensor, state: torch.Tensor,
                          grads: torch.Tensor, rt: Route, lr: float,
-                         eps: float = EPS) -> None:
+                         eps: float = EPS, axis: str = DP_AXIS) -> None:
     """Row-sparse Adagrad of this process's gradient rows ``grads`` (in
     request order) into their owners' blocks, in place. In a group the
     rows go to their owners in one ``all_to_all_single``; each owner sums
     a row's gradients in slot order (``rt.push``) and updates its
-    block."""
+    block. Registers ``emb_push`` on ``axis`` with the comm ledger."""
+    register_collective("emb_push", axis,
+                        grads.shape[0] * (4 + grads.shape[1]
+                                          * grads.element_size()))
     if rt.world > 1:
         grads = _exchange(gather_rows(grads, rt.order), rt.recv_counts,
                           rt.serve_counts)
@@ -245,14 +254,19 @@ def _owned(ids: torch.Tensor, spec: ShardedTableSpec, rank: int,
 
 
 def device_lookup(table: torch.Tensor, ids: torch.Tensor,
-                  spec: ShardedTableSpec, rank: int, world: int
-                  ) -> torch.Tensor:
+                  spec: ShardedTableSpec, rank: int, world: int,
+                  axis: str = DP_AXIS) -> torch.Tensor:
     """The rows of ``ids`` (``[n]`` on the device, the same ``n`` on every
     process) from a table split in blocks over ``world`` processes, with
     no host sync: every process gathers every process's ids, reads the
     rows it owns (zeros elsewhere), one ``all_to_all_single`` sends each
     requester its rows from every owner, and each request takes its
-    owner's. One process: one ``gather_rows``."""
+    owner's. One process: one ``gather_rows``. Registers ``emb_lookup``
+    on ``axis`` with the comm ledger (the JAX bill: every owner sees
+    every id and answers each)."""
+    register_collective("emb_lookup", axis,
+                        world * ids.numel() * (4 + table.shape[1]
+                                               * table.element_size()))
     if world == 1:
         return gather_rows(table, ids)
     local, mine = _owned(all_gather_rows(ids, True), spec, rank, world)
@@ -268,12 +282,17 @@ def device_lookup(table: torch.Tensor, ids: torch.Tensor,
 def device_push_adagrad(table: torch.Tensor, state: torch.Tensor,
                         ids: torch.Tensor, grads: torch.Tensor,
                         spec: ShardedTableSpec, rank: int, world: int,
-                        lr: float, group: bool, eps: float = EPS) -> None:
+                        lr: float, group: bool, eps: float = EPS,
+                        axis: str = DP_AXIS) -> None:
     """Row-sparse Adagrad of gradient rows ``grads`` to ``ids`` (both on
     the device) into this process's rows, in place, over a plan built on
     the device: with ``group``, every process's ids and rows gathered in
     slot order first, and, where the table is split over ``world`` > 1
-    processes, the rows another process owns left out."""
+    processes, the rows another process owns left out. Registers
+    ``emb_push`` on ``axis`` with the comm ledger."""
+    register_collective("emb_push", axis,
+                        world * (ids.numel() * 4 + grads.shape[0]
+                                 * grads.shape[1] * grads.element_size()))
     all_ids = all_gather_rows(ids, group)
     if world > 1:
         local, mine = _owned(all_ids, spec, rank, world)

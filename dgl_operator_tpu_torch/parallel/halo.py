@@ -22,7 +22,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dgl_operator_tpu_torch.obs.comm import register_collective
 from dgl_operator_tpu_torch.ops.gather import gather_rows
+from dgl_operator_tpu_torch.parallel.mesh import DP_AXIS
 
 # default fraction of a partition's halo rows kept resident as the hot
 # cache: sampling draws a halo node with probability proportional to
@@ -80,6 +82,9 @@ def alltoall_serve_rows(store: torch.Tensor, serve: torch.Tensor,
                          f"P * {rows_per_slot} + 1 rows; got serve "
                          f"{tuple(serve.shape)}, store "
                          f"{tuple(store.shape)}")
+    # every slot's answer to every requester: the process's bytes
+    register_collective("halo_a2a_serve", DP_AXIS,
+                        P * P * cap * store.shape[1] * store.element_size())
     recv = gather_rows(store, exchange_index(serve, rows_per_slot))
     return recv.view(P, P, cap, store.shape[1])
 
@@ -130,6 +135,9 @@ def request_rows_start(store: torch.Tensor, req: torch.Tensor,
         raise ValueError(f"req must be [L, W * L, cap] over a store of L * "
                          f"{R} + 1 rows with W = {W}; got req "
                          f"{tuple(req.shape)}, store {tuple(store.shape)}")
+    register_collective("halo_a2a_request", DP_AXIS,
+                        L * alltoall_bytes_per_step(P, cap, store.shape[1],
+                                                    store.element_size()))
     # by destination process q: send[q, a, b] = req[a, q * L + b]
     send = req.reshape(L, W, L, cap).transpose(0, 1).contiguous()
     asked = torch.empty_like(send)
@@ -175,3 +183,12 @@ def alltoall_bytes_per_step(num_slots: int, pair_cap: int,
     scales with the calibrated pair cap, not the input width; ``itemsize``
     is the store's element size."""
     return num_slots * pair_cap * (4 + feat_dim * itemsize)
+
+
+def staging_buffer_bytes(num_slots: int, pair_cap: int, feat_dim: int,
+                         depth: int = 2, itemsize: int = 4) -> int:
+    """Per-slot memory bill of the exchange pipeline's staged receive
+    buffers: each batch's ``[num_slots, pair_cap, D]`` payload in the
+    store's dtype, ``depth`` of them in flight (the JAX package's
+    formula)."""
+    return depth * num_slots * pair_cap * feat_dim * itemsize

@@ -84,11 +84,22 @@ exchange's ``gather_rows`` runs on a side CUDA stream whose event the
 step waits on; in a group the request ``all_to_all_single`` runs with
 ``async_op=True`` until the step answers it. Each mode gives the
 synchronous exchange's bits, since the stores the exchange reads never
-change. :class:`~dgl_operator_tpu_torch.runtime.timers.OverlapTracker`
-records the exchange's and the step's windows (CUDA events on the card,
-the host clock elsewhere); an epoch's record carries its
-``overlap_ratio``, and the heartbeat the running one. The device
-sampler keeps its exchange in the step, as in JAX.
+change. The comm watcher (``obs/comm.py::CommWatcher``, one thread that
+waits only on CUDA events recorded on the work's own stream) closes the
+exchange's and the step's windows on the host clock and feeds them to
+an :class:`~dgl_operator_tpu_torch.runtime.timers.OverlapTracker`; an
+epoch's record carries its ``overlap_ratio``, and the heartbeat the
+running one. The device sampler keeps its exchange in the step, as in
+JAX.
+
+The utilization and comm planes (``obs/prof.py``, ``obs/comm.py``):
+each call is instrumented (``dp_train_step``, ``dp_train_step_multi``
+for K > 1): its program's cost is counted on its first call, the
+collective seams it runs (the gradient mean, the halo exchange) bill
+their bytes to its ledger, and the watcher turns each call's window
+into the ``comm_*`` metrics and spans. One process holds every local
+slot, so the peaks are one card's and the counted cost already covers
+every slot (``flops_scale`` 1).
 
 ``donate=True`` (the default) updates the parameters and Adam's state
 in place; ``donate=False`` rebinds each to a fresh copy before every
@@ -121,8 +132,11 @@ from dgl_operator_tpu_torch.graph.featstore import emit_dataplane_gauges
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import (inference_layer,
                                            state_dict_from_flax)
-from dgl_operator_tpu_torch.obs import get_obs
+from dgl_operator_tpu_torch.obs import get_obs, prof
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.comm import (CommWatcher, call_scope,
+                                             register_collective,
+                                             reset_ledger)
 from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import attach_plans
@@ -134,12 +148,14 @@ from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
                                                   build_halo_cache,
                                                   exchange_bytes_per_step,
                                                   request_rows_finish,
-                                                  request_rows_start)
+                                                  request_rows_start,
+                                                  staging_buffer_bytes)
 from dgl_operator_tpu_torch.runtime import forward
 from dgl_operator_tpu_torch.runtime.checkpoint import (RankZeroCheckpoints,
                                                        train_state)
 from dgl_operator_tpu_torch.runtime.graphs import DeviceRun, graph_stats
-from dgl_operator_tpu_torch.runtime.loop import (TrainConfig, make_adam,
+from dgl_operator_tpu_torch.runtime.loop import (TrainConfig, _call_steps,
+                                                 make_adam,
                                                  open_checkpoints,
                                                  resolve_num_samplers,
                                                  run_epochs)
@@ -336,12 +352,12 @@ class DistTrainer:
         # processes): built at first use, joined at the end of train()
         self._n_samplers = resolve_num_samplers(cfg)
         self._pool: Optional[ThreadPoolExecutor] = None
-        # the pipeline's side stream (one process on the card), its
-        # exchange and step windows, and the tracker they resolve into
+        # the pipeline's side stream (one process on the card), the
+        # tracker its windows resolve into, and the comm watcher that
+        # closes them, while train() runs
         self._exch_stream = None
-        self._windows: List[tuple] = []
-        self._origin = None
         self.overlap = OverlapTracker()
+        self._watcher: Optional[CommWatcher] = None
 
     def _build_feat_codec(self, fdt: str, feat_dim: int):
         """How a book row becomes a store row, and the global sidecar
@@ -635,10 +651,8 @@ class DistTrainer:
         if staged is None:
             loss, self.last_stats = self.device_step(slots, exch)
             return loss, None
-        w0 = self._mark()
         loss, self.last_stats = self.device_step(
             slots, None, recv=self._finish_exchange(staged))
-        self._windows.append(("compute", w0, self._mark()))
         return loss, None
 
     def device_step(self, slots: List[Dict], exch: Optional[torch.Tensor],
@@ -669,58 +683,78 @@ class DistTrainer:
                               self.num_parts, self._delta)
 
     # -- the exchange pipeline ------------------------------------------
-    def _mark(self):
-        """A window edge: with the side stream, an event recorded on the
-        current stream; else the host clock."""
-        if self._exch_stream is None:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
+    def _watch(self, t0: float, **kw) -> None:
+        """Hand the window from ``t0`` to now to the comm watcher: on the
+        card it closes when the event recorded here on the current
+        stream completes, elsewhere here (``obs/comm.py``)."""
+        if self._watcher is None:
+            return
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        self._watcher.watch(ev, t0, **kw)
 
     def _start_exchange(self, batch: Dict) -> Dict:
         """Enqueue a host batch's exchange ahead of its step; the batch
         keeps the handle under ``"staged"``. In one process on the card
         the table's copy and the exchange's ``gather_rows`` run on the
         side stream; in a group the request ``all_to_all_single`` is
-        left in flight (``async_op=True``)."""
+        left in flight (``async_op=True``). The exchange is the
+        ``halo_exchange_stage`` program of the comm ledger, its bytes
+        the profiler's comm work."""
         table = batch.pop("exch_req" if self._group else "exch_serve")
         self._counts["h2d_bytes"] += table.nbytes
         self._counts["halo_rows"] += int((table >= 0).sum())
         self.timer.add_bytes("exchange", self.exchange_bytes_per_step)
         table = torch.from_numpy(np.ascontiguousarray(table))
-        if self._group:
-            w0 = time.perf_counter()
-            handle = request_rows_start(self._flat, table.to(self.device),
-                                        self._rows_per_slot, async_op=True)
-            batch["staged"] = ("group", handle, w0)
-            return batch
-        if self._exch_stream is None:
-            w0 = time.perf_counter()
-            recv = alltoall_serve_rows(self._flat, table.to(self.device),
-                                       self._rows_per_slot)
-            self._windows.append(("exchange", w0, time.perf_counter()))
-            batch["staged"] = ("ready", recv, None)
-            return batch
-        main = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._exch_stream):
-            w0 = self._mark()
-            recv = alltoall_serve_rows(self._flat, table.to(self.device),
-                                       self._rows_per_slot)
-            w1 = self._mark()
+        profiler = prof.get_profiler()
+        profiler.set_program_cost("halo_exchange_stage", "exchange", 0.0,
+                                  self.exchange_bytes_per_step,
+                                  source="byte_model")
+        profiler.note_call("halo_exchange_stage")
+        w0 = time.perf_counter()
+        with call_scope("halo_exchange_stage"):
+            if self._group:
+                handle = request_rows_start(self._flat,
+                                            table.to(self.device),
+                                            self._rows_per_slot,
+                                            async_op=True)
+                batch["staged"] = ("group", handle, w0)
+                return batch
+            if self._exch_stream is None:
+                recv = alltoall_serve_rows(self._flat, table.to(self.device),
+                                           self._rows_per_slot)
+                batch["staged"] = ("ready", recv, None)
+                self._watch_exchange(w0, None)
+                return batch
+            main = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._exch_stream):
+                recv = alltoall_serve_rows(self._flat, table.to(self.device),
+                                           self._rows_per_slot)
+                done = torch.cuda.Event()
+                done.record()
         # the step reads recv on the main stream
         recv.record_stream(main)
-        self._windows.append(("exchange", w0, w1))
-        batch["staged"] = ("stream", recv, w1)
+        self._watch_exchange(w0, done)
+        batch["staged"] = ("stream", recv, done)
         return batch
+
+    def _watch_exchange(self, w0: float, done) -> None:
+        if self._watcher is not None:
+            self._watcher.watch(done, w0, spans=(("halo_exchange",
+                                                  "pipeline"),),
+                                exchange=(self.overlap,),
+                                program="halo_exchange_stage")
 
     def _finish_exchange(self, staged) -> torch.Tensor:
         """The answer of an exchange :meth:`_start_exchange` enqueued,
         ready for the current stream."""
         kind, obj, mark = staged
         if kind == "group":
-            recv = request_rows_finish(obj)
-            self._windows.append(("exchange", mark, time.perf_counter()))
+            with call_scope("halo_exchange_stage"):
+                recv = request_rows_finish(obj)
+            self._watch_exchange(mark, None)
             return recv
         if kind == "stream":
             torch.cuda.current_stream(self.device).wait_event(mark)
@@ -748,21 +782,7 @@ class DistTrainer:
 
     def _overlap_ratio(self) -> Optional[float]:
         """The share of the exchanges' time hidden under the steps' so
-        far this epoch; windows whose events have not completed wait for
-        a later call."""
-        keep = []
-        for kind, w0, w1 in self._windows:
-            if isinstance(w1, float):
-                t0, t1 = w0, w1
-            elif w1.query():
-                t0, t1 = (self._origin.elapsed_time(w) / 1e3
-                          for w in (w0, w1))
-            else:
-                keep.append((kind, w0, w1))
-                continue
-            (self.overlap.add_exchange if kind == "exchange"
-             else self.overlap.add_compute)(t0, t1)
-        self._windows = keep
+        far this epoch, over the windows the watcher has closed."""
         return self.overlap.ratio()
 
     # -- the device sampler ---------------------------------------------
@@ -814,6 +834,9 @@ class DistTrainer:
         local = torch.where(core, ids, local_m.gather(1, h))
         self._dev_halo_rows += ((owner >= 0)
                                 & (owner != self._dev_parts)).sum()
+        # every local slot's exchange
+        register_collective("halo_ring", "dp",
+                            L * self.exchange_bytes_per_step)
         D = self._flat.shape[1]
         if not self._group:
             # every part is local, slot i holding part i
@@ -902,8 +925,8 @@ class DistTrainer:
             out["exchange_mib"] = (self.exchange_bytes_per_step * steps
                                    / 2**20)
         if self._pipelined:
-            if self._exch_stream is not None:
-                torch.cuda.synchronize(self.device)
+            if self._watcher is not None:
+                self._watcher.drain()
             ratio = self._overlap_ratio()
             if ratio is not None:
                 out["overlap_ratio"] = ratio
@@ -912,11 +935,52 @@ class DistTrainer:
                     "fraction of exchange time hidden under compute "
                     "(epoch end)").set(ratio)
             self.overlap.reset()
-            self._origin = self._mark()
         self._reset_counts()
         return out
 
     # -- epoch loop -----------------------------------------------------
+    def _configure_prof(self) -> None:
+        """Arm the utilization profiler (``obs/prof.py``): one card's
+        peaks for the model's compute, the analytic cost fallback and
+        the per-slot memory bill the watermark is reconciled against
+        (:func:`~dgl_operator_tpu_torch.obs.prof.dist_hbm_bill_mib`, the
+        JAX trainer's bill with the replicated state: sharding is not
+        ported)."""
+        cfg = self.cfg
+        L = len(self.parts)
+        params = list(self.model.parameters())
+        param_count = sum(p.numel() for p in params)
+        param_mib = sum(p.numel() * p.element_size()
+                        for p in params) / 2**20
+        edges = sum(int(c) * int(f) for c, f in zip(self.caps[:-1],
+                                                    cfg.fanouts))
+        feat_dim = int(self.feats.shape[-1])
+        staging = 0
+        if self._pipelined:
+            staging = staging_buffer_bytes(
+                self.num_parts, self.pair_cap, feat_dim,
+                depth=(cfg.pipeline_depth + 1
+                       if cfg.pipeline_mode == "fused" else 2),
+                itemsize=self.feats.element_size())
+        csr = (sum(t.numel() * t.element_size() for t in self._dev_csr)
+               if self._device_mode else 0)
+        predicted = prof.dist_hbm_bill_mib(
+            feat_bytes=self.feats.numel() * self.feats.element_size(),
+            label_bytes=self.labels.numel() * self.labels.element_size(),
+            num_slots=L, params_mib=param_mib,
+            # Adam's two moments beside the weights
+            opt_state_mib=2 * param_mib, csr_bytes=csr,
+            staging_bytes=staging, edges=edges, rows=int(self.caps[-1]),
+            feat_dim=feat_dim, prefetch=cfg.prefetch)
+        compute = prof.compute_kind(getattr(self.model, "compute_dtype",
+                                            None))
+        prof.get_profiler().configure(
+            peaks=prof.resolve_peaks(device=self.device, compute=compute),
+            fallback_cost=prof.analytic_train_cost(
+                param_count, int(self.caps[-1]), feat_dim, edges),
+            predicted_hbm_mib=round(predicted, 3), flops_scale=1.0,
+            device=self.device)
+
     def train(self, init_params=None) -> Dict:
         """Train ``cfg.num_epochs`` epochs of ``steps_per_epoch`` steps
         from the model's weights, or from ``init_params`` (a flax-layout
@@ -950,7 +1014,25 @@ class DistTrainer:
         self.timer.reset()
         self._reset_counts()
         self.overlap.reset()
-        self._windows = []
+        self._configure_prof()
+        # this run's collectives register afresh
+        reset_ledger()
+        self._watcher = CommWatcher(device=self.device)
+        call = prof.instrument_call("dp_train_step", self.train_call,
+                                    multi_name="dp_train_step_multi",
+                                    steps=_call_steps)
+
+        def step(batch):
+            # the call's window, after the call committed its seams to
+            # the ledger; a pipelined step's is the overlap's compute
+            t0 = time.perf_counter()
+            staged = isinstance(batch, dict) and "staged" in batch
+            out = call(batch)
+            self._watch(t0, program=call.last_program,
+                        **(dict(spans=(("train_compute", "pipeline"),),
+                                compute=(self.overlap,)) if staged
+                           else {}))
+            return out
         stage = None
         if self._pipelined:
             stage = self._staged_batches
@@ -959,7 +1041,6 @@ class DistTrainer:
                 # the stores' copies, made on the main stream, come first
                 self._exch_stream.wait_stream(
                     torch.cuda.current_stream(self.device))
-            self._origin = self._mark()
         if self._device_mode:
             run = self._start_device_run()
 
@@ -975,7 +1056,7 @@ class DistTrainer:
             history, gstep = run_epochs(
                 cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
                 lambda: train_state(self.model, self.optimizer),
-                self._permute, sample, self.train_call,
+                self._permute, sample, step,
                 self.evaluate, self._epoch_stats, sample_workers=1,
                 step_stats=lambda: self.last_stats,
                 parts=range(self.num_parts), model=self.model,
@@ -983,6 +1064,8 @@ class DistTrainer:
                                else lambda: None),
                 stage=stage)
         finally:
+            self._watcher.shutdown()
+            self._watcher = None
             self._close_sampler_pool()
             self._exch_stream = None
             # the graph's memory pool goes with it

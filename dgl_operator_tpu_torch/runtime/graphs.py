@@ -17,7 +17,11 @@ steps would.
 
 The port's kernel wrappers count a launch in Python, which runs only
 at capture; the capture launches nothing, so its counts are taken
-back, and each replay adds the counts of one captured call.
+back, and each replay adds the counts of one captured call. A capture
+is the port's compile (``obs/prof.py::note_capture``: a
+``jit_compile`` event of the program being called); a cost count open
+around the first call takes the eager warm-up's K steps and never the
+capture (``prof.suspended``).
 
 :class:`DeviceRun` is the device sampler's run state that both trainers
 share: the epoch's seed bank, the device counters its steps read, and
@@ -26,10 +30,12 @@ the calls of K steps, replayed or eager.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from dgl_operator_tpu_torch.obs import prof
 from dgl_operator_tpu_torch.ops.fanout import fanout_agg
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
@@ -76,11 +82,15 @@ class GraphedCall:
         with torch.cuda.stream(side):
             out = self.fn().clone()
         before = _counts()
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=side):
+        # a cost count open around this call took the eager warm-up's
+        # steps; the capture is counted by nothing
+        with prof.suspended(), torch.cuda.graph(graph, stream=side):
             self._out = self.fn()
+        prof.note_capture(time.perf_counter() - t0)
         after = _counts()
         for w in KERNEL_WRAPPERS:
             w.launches = before[w]

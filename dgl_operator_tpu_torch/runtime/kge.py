@@ -83,6 +83,7 @@ from dgl_operator_tpu_torch.graph.kge_sampler import (
 from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
                                                init_kge_params, relation_dim)
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.comm import register_collective
 from dgl_operator_tpu_torch.obs.live import maybe_start_sidecar
 from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_, sparse_adagrad_
 from dgl_operator_tpu_torch.ops.gather import gather_rows
@@ -391,27 +392,37 @@ class DistKGETrainer:
             if self.block_world == 1:
                 m = 2 * B + t.batch_size // t.chunk * t.neg_sample_size
                 lo = self.my_slots[0] * m
+                register_collective("emb_lookup", self.mesh.table_axis,
+                                    L * m * (4 + self.entity.shape[1]
+                                             * self.entity.element_size()))
                 return gather_rows(self.entity, rt.serve[lo:lo + L * m]), rt
-            return sharded_lookup(self.entity, rt), rt
+            return sharded_lookup(self.entity, rt,
+                                  axis=self.mesh.table_axis), rt
         if negs is None:
             negs = self.negatives(hs.seed_u)
         ids = torch.cat([arrs[0].view(L, 2 * B), negs.reshape(L, -1)],
                         1).reshape(-1)
         return device_lookup(self.entity, ids, self.spec, self.block_rank,
-                             self.block_world), ids
+                             self.block_world,
+                             axis=self.mesh.table_axis), ids
 
     def _push(self, g: torch.Tensor, how) -> None:
         t = self.tcfg
         if self.device_negs:
             device_push_adagrad(self.entity, self.ent_state, how, g,
                                 self.spec, self.block_rank, self.block_world,
-                                t.lr, self._group)
+                                t.lr, self._group, axis=self.mesh.table_axis)
         elif self.block_world == 1:
             # the dp-replica reduction: every replica's rows in slot order
-            sparse_adagrad_(self.entity, self.ent_state,
-                            all_gather_rows(g, self._group), how.push, t.lr)
+            rows = all_gather_rows(g, self._group)
+            register_collective("emb_push", self.mesh.table_axis,
+                                rows.shape[0] * (4 + rows.shape[1]
+                                                 * rows.element_size()))
+            sparse_adagrad_(self.entity, self.ent_state, rows, how.push,
+                            t.lr)
         else:
-            sharded_push_adagrad(self.entity, self.ent_state, g, how, t.lr)
+            sharded_push_adagrad(self.entity, self.ent_state, g, how, t.lr,
+                                 axis=self.mesh.table_axis)
 
     def update(self, hs: _HostStep, arrs: List[torch.Tensor],
                negs: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -55,10 +55,15 @@ that the ``TPU_OPERATOR_LIVE_PORT`` sidecar serves, ``obs/live.py``),
 :class:`PreemptionGuard` (a SIGTERM, or the chaos ``train:kill`` and
 ``host:die``, flushes a final checkpoint and raises :class:`Preempted`,
 or hard-exits) and last the chaos ``numerics:nan`` injector
-(``obs/quality.py``). The heartbeat's profiler, communication and
-flight-recorder riders, and the critical-path gauge, are not ported
-(``ROADMAP.md`` item 7). A tuned manifest (``TPU_OPERATOR_TUNED_MANIFEST``)
-overlays the ``train`` and ``quality`` knobs of ``TrainConfig``
+(``obs/quality.py``). The heartbeat carries the JAX loop's riders: the
+``critpath_frac{category}`` gauge (``obs/xray.py::live_critpath``), a
+profiler tick (``obs/prof.py``: ``train_mfu`` from each program's
+counted cost), a flight-recorder sample (``obs/flight.py``) and the
+comm ledger's bytes (``obs/comm.py``). Each epoch ends in
+:func:`_record_epoch` (the phase histograms, ``train_steps_total``, the
+``epoch`` event and span, and a flush of the run's files). A tuned
+manifest (``TPU_OPERATOR_TUNED_MANIFEST``) overlays the ``train`` and
+``quality`` knobs of ``TrainConfig``
 (``autotune/knobs.py::apply_tuned``).
 """
 
@@ -85,8 +90,10 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models import (flax_params, full_graph_inference,
                                            state_dict_from_flax)
 from dgl_operator_tpu_torch.launcher import chaos
-from dgl_operator_tpu_torch.obs import get_obs, tracectx
+from dgl_operator_tpu_torch.obs import get_obs, prof, tracectx
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs.comm import axis_bytes_total
+from dgl_operator_tpu_torch.obs.flight import get_flight
 from dgl_operator_tpu_torch.obs.live import get_feed, maybe_start_sidecar
 from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                       device_csr, draw_key)
@@ -287,6 +294,11 @@ class PreemptionGuard:
 
     def install(self) -> "PreemptionGuard":
         if threading.current_thread() is threading.main_thread():
+            # the flight recorder first, so its chained handler becomes
+            # this guard's ``_prev``: a SIGTERM while the guard is on
+            # dumps through flush_and_preempt, one after it still hits
+            # the recorder's own hook
+            get_flight().install()
             self._prev = signal.signal(signal.SIGTERM, self._on_term)
             self._installed = True
         return self
@@ -333,7 +345,11 @@ class PreemptionGuard:
             "chaos host:die hard-exits delivered to training loops").inc()
         obs.emit("host_died", step=gstep, host_name=self._host or "?",
                  exit_code=chaos.HOST_DIED_EXIT)
+        obs.instant("host_died", cat="chaos", step=gstep)
         obs.flush()
+        # the flight recorder's black box: ``os._exit`` runs no handler,
+        # so the dump happens here
+        get_flight().dump("host_died")
         if self._host:
             chaos.mark_host_dead(self._host)
         os._exit(chaos.HOST_DIED_EXIT)
@@ -349,6 +365,7 @@ def flush_and_preempt(guard: PreemptionGuard, ckpt, gstep: int,
                         "SIGTERMs absorbed by the preemption guard").inc()
     obs.emit("preempted", step=gstep, flushed=ckpt is not None)
     obs.flush()
+    get_flight().dump("preempted")
     if ckpt is not None:
         ckpt.save(gstep, state, wait=True)
         raise Preempted(f"SIGTERM at step {gstep}: final checkpoint "
@@ -400,10 +417,15 @@ def heartbeat(gstep: int, epoch: int, timer: Optional[PhaseTimer] = None,
               grad_norm: Optional[float] = None) -> None:
     """Per-call liveness of both trainers: the ``train_heartbeat_step``
     and ``train_heartbeat_ts`` gauges (and ``train_seeds_per_sec`` and
-    ``train_loss`` when given), a ``heartbeat`` event and one tick into
-    the process's live feed (``obs/live.py``), which ``/livez`` reads.
-    ``overlap_ratio`` is the pipeline's hidden-exchange share,
-    ``loss`` and ``grad_norm`` the sentry's last fetched values."""
+    ``train_loss`` when given), the ``critpath_frac{category}`` gauge of
+    ``timer``'s totals, a ``heartbeat`` event (appended to
+    ``events.jsonl`` at once: the stall analytics read it while the run
+    goes on), a profiler tick (the rolling MFU and memory watermark), a
+    flight-recorder sample and one tick into the process's live feed
+    (``obs/live.py``), which ``/livez`` reads, with the profiler's and
+    the comm ledger's riders. ``overlap_ratio`` is the pipeline's
+    hidden-exchange share, ``loss`` and ``grad_norm`` the sentry's last
+    fetched values."""
     obs = get_obs()
     m = obs.metrics
     m.gauge("train_heartbeat_step",
@@ -416,9 +438,23 @@ def heartbeat(gstep: int, epoch: int, timer: Optional[PhaseTimer] = None,
     if loss is not None:
         m.gauge("train_loss", "loss at the last epoch end").set(
             round(loss, 6))
+    if timer is not None:
+        from dgl_operator_tpu_torch.obs.xray import live_critpath
+        cp = live_critpath(timer.snapshot().get("total"))
+        if cp:
+            g = m.gauge("critpath_frac",
+                        "fraction of accounted loop time per "
+                        "critical-path category (obs/xray.py)",
+                        labels=("category",))
+            for cat, frac in cp.items():
+                g.set(frac, category=cat)
     obs.emit("heartbeat", step=gstep, epoch=epoch)
-    get_feed().tick(gstep, timer=timer, overlap_ratio=overlap_ratio,
-                    loss=loss, grad_norm=grad_norm)
+    hw = prof.get_profiler().on_heartbeat(gstep) or {}
+    get_flight().note("heartbeat", step=gstep, epoch=epoch)
+    get_feed().tick(gstep, timer=timer, mfu=hw.get("mfu"),
+                    hbm_mib=hw.get("hbm_mib"), overlap_ratio=overlap_ratio,
+                    loss=loss, grad_norm=grad_norm,
+                    comm_bytes=axis_bytes_total() or None)
 
 
 def train_teardown_live(gstep: int) -> None:
@@ -426,6 +462,52 @@ def train_teardown_live(gstep: int) -> None:
     done flag, so the sidecar's later answers read as completion."""
     get_obs().emit("train_done", step=gstep)
     get_feed().mark_done()
+
+
+def _record_epoch(timer: PhaseTimer, rec: Dict, t0_wall: float,
+                  steps: int) -> None:
+    """The per-epoch telemetry epilogue of both trainers: fold the
+    PhaseTimer's buckets (time and bytes) into the phase histograms and
+    counters, count the steps and the epoch, set the headline gauges,
+    emit the ``epoch`` event (the record's scalar fields), record the
+    epoch as a trace span, refresh the utilization gauges and flush the
+    run's files, so a killed trainer still leaves its last completed
+    epoch on disk."""
+    obs = get_obs()
+    timer.fold_into(obs.metrics)
+    m = obs.metrics
+    m.counter("train_steps_total", "optimizer steps executed").inc(steps)
+    m.counter("train_epochs_total", "epochs completed").inc()
+    m.histogram("train_epoch_seconds", "epoch wall-clock").observe(
+        rec.get("time", 0.0))
+    m.gauge("train_loss", "loss at the last epoch end").set(rec["loss"])
+    m.gauge("train_seeds_per_sec",
+            "throughput of the last epoch").set(
+                rec.get("seeds_per_sec", 0.0))
+    if rec.get("val_acc") is not None:
+        m.gauge("train_val_acc", "last periodic-eval validation "
+                "accuracy").set(rec["val_acc"])
+    obs.emit("epoch", **{k: v for k, v in rec.items()
+                         if v is None or isinstance(v, (int, float, str))})
+    pc_now = time.perf_counter()
+    obs.complete(f"epoch {rec.get('epoch')}",
+                 pc_now - (time.time() - t0_wall), pc_now, cat="train",
+                 epoch=rec.get("epoch"), steps=steps)
+    # the epoch's losses were fetched: the card has run every call, so
+    # the utilization window reaches the last one
+    prof.get_profiler().refresh()
+    obs.flush()
+
+
+def _call_steps(batch) -> int:
+    """The steps of one trainer call: a list of host batches, or the
+    device sampler's ``(b, step, k)``; one host batch is one step."""
+    if isinstance(batch, list):
+        return len(batch)
+    if isinstance(batch, tuple) and len(batch) == 3 \
+            and all(isinstance(v, int) for v in batch):
+        return batch[2]
+    return 1
 
 
 def _eval_due(cfg: TrainConfig, epoch: int) -> bool:
@@ -681,9 +763,8 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                     rec["val_acc"] = accs.get("val_mask")
                     rec["test_acc"] = accs.get("test_mask")
                     rec["eval_s"] = time.perf_counter() - t_eval
-                obs.emit("epoch", **{k: v for k, v in rec.items()
-                                     if not isinstance(v, list)})
                 history.append(rec)
+                _record_epoch(timer, rec, t_epoch, len(loss_values))
                 timer.reset()
                 if ckpt is not None:
                     ckpt.save(gstep, state(), wait=False)
@@ -889,6 +970,34 @@ class SampledTrainer:
         return out
 
     # -- epoch loop -----------------------------------------------------
+    def _configure_prof(self) -> None:
+        """Arm the utilization profiler (``obs/prof.py``) for this run:
+        the card's peaks for the model's compute, the analytic cost
+        fallback (the instrumented call counts the real cost on its
+        first call) and the analytic memory bill the watermark is
+        reconciled against: features, labels, the weights with Adam's
+        two moments, and up to ``prefetch + 2`` minibatches."""
+        cfg = self.cfg
+        params = list(self.model.parameters())
+        param_count = sum(p.numel() for p in params)
+        state_bytes = 3 * sum(p.numel() * p.element_size() for p in params)
+        edges = sum(int(c) * int(f) for c, f in zip(self.caps[:-1],
+                                                    cfg.fanouts))
+        rows = int(self.caps[-1])
+        feat_dim = int(self.feats.shape[-1])
+        batch_bytes = edges * 8 + rows * feat_dim * 4
+        feat_bytes = sum(t.numel() * t.element_size()
+                         for t in (self.feats, self.labels))
+        predicted = (feat_bytes + state_bytes
+                     + (cfg.prefetch + 2) * batch_bytes) / 2**20
+        compute = prof.compute_kind(getattr(self.model, "compute_dtype",
+                                            None))
+        prof.get_profiler().configure(
+            peaks=prof.resolve_peaks(device=self.device, compute=compute),
+            fallback_cost=prof.analytic_train_cost(param_count, rows,
+                                                   feat_dim, edges),
+            predicted_hbm_mib=round(predicted, 3), device=self.device)
+
     def _warm_up(self) -> None:
         """The warm-up batch (the JAX trainer initialises its params on
         it): one forward without a gradient builds the kernels and
@@ -928,8 +1037,13 @@ class SampledTrainer:
         if start_step:
             self.generator.manual_seed(resume_seed(cfg.seed, start_step))
         self.timer.reset()
+        self._configure_prof()
         B = cfg.batch_size
         steps_per_epoch = max(len(self.train_ids) // B, 1)
+        suffix = "_device" if self._device_mode else ""
+        call = prof.instrument_call(
+            f"sampled_step{suffix}", self.train_call,
+            multi_name=f"sampled_multi_step{suffix}", steps=_call_steps)
 
         def permute(rng):
             perm = rng.permutation(self.train_ids)
@@ -947,7 +1061,7 @@ class SampledTrainer:
             history, gstep = run_epochs(
                 cfg, self.timer, steps_per_epoch, start_step, ckpt,
                 lambda: train_state(self.model, self.optimizer), permute,
-                sample, self.train_call, self.evaluate,
+                sample, call, self.evaluate,
                 lambda steps: graph_stats(self._run),
                 sample_workers=resolve_num_samplers(cfg),
                 step_stats=lambda: self.last_stats,

@@ -1,7 +1,9 @@
 """Per-phase timing instrumentation for the training loop.
 
-A copy of the JAX package's ``PhaseTimer`` (its wall-clock buckets and
-per-bucket byte counters; the metric-registry folding is not ported).
+A copy of the JAX package's ``PhaseTimer``: its wall-clock buckets, its
+per-bucket byte counters and :meth:`PhaseTimer.fold_into`, which folds
+an epoch's buckets into the metrics registry
+(``train_phase_seconds{phase}``, the histograms the analytics read).
 The trainer's buckets are ``sample`` (host sampling done on the loop
 thread: inline sampling), ``stall`` (time the loop thread waited on the
 sampler pipeline for a batch that was not ready, and the chaos
@@ -61,6 +63,36 @@ class PhaseTimer:
     def as_dict(self) -> Dict[str, float]:
         """Seconds per bucket."""
         return dict(self.total)
+
+    def fold_into(self, metrics, prefix: str = "train") -> None:
+        """Fold the accumulated buckets into an obs metrics registry
+        (duck-typed — anything with get-or-create ``histogram`` /
+        ``counter``): per-bucket accumulated seconds land in a
+        ``<prefix>_phase_seconds{phase=...}`` histogram (one
+        observation per fold, i.e. per epoch), call counts in
+        ``<prefix>_phase_calls_total`` and moved bytes in
+        ``<prefix>_phase_bytes_total``. Read-only."""
+        for k in sorted(set(self.total) | set(self.count)
+                        | set(self.bytes)):
+            t = self.total.get(k, 0.0)
+            c = self.count.get(k, 0)
+            b = self.bytes.get(k, 0)
+            if c or t:
+                metrics.histogram(
+                    f"{prefix}_phase_seconds",
+                    "accumulated seconds per timing bucket per fold "
+                    "(one observation per epoch)",
+                    labels=("phase",)).observe(t, phase=k)
+                metrics.counter(
+                    f"{prefix}_phase_calls_total",
+                    "timed calls per bucket",
+                    labels=("phase",)).inc(c, phase=k)
+            if b:
+                metrics.counter(
+                    f"{prefix}_phase_bytes_total",
+                    "bytes attributed per bucket (staging payloads, "
+                    "collective traffic)",
+                    labels=("phase",)).inc(b, phase=k)
 
 
 # ---------------------------------------------------------------------

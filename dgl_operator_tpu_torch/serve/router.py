@@ -27,8 +27,9 @@ replicas over one partition book become one endpoint:
 
 The chaos drills of the fleet are the replicas' ``replica:die``
 (``serve/server.py``) and the staged candidate's ``promote:bad``
-(``runtime/checkpoint.py``). The JAX package's endpoint registry needs
-the obs file plane and is not ported (``ROADMAP.md`` item 7).
+(``runtime/checkpoint.py``). A router plane registers its endpoint
+under the run's ``<obs_dir>/live/`` (``obs/live.py::register_endpoint``),
+where ``obs/top.py`` finds it.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 from dgl_operator_tpu_torch.autotune.knobs import default_of
 from dgl_operator_tpu_torch.autotune.knobs import validate as knobs_validate
 from dgl_operator_tpu_torch.obs import get_obs, tracectx
+from dgl_operator_tpu_torch.obs.live import register_endpoint
 from dgl_operator_tpu_torch.runtime.checkpoint import load_params
 from dgl_operator_tpu_torch.serve.server import (DEADLINE_HEADER,
                                                  PRIORITY_HEADER)
@@ -617,6 +619,7 @@ class RouterPlane:
         self._thread.start()
         if probe_interval_s > 0:
             self.router.start_probes(probe_interval_s)
+        register_endpoint(self.port, "router")
         get_obs().emit("fleet_listening", port=self.port,
                        replicas=len(self.router.replicas()))
         return self

@@ -35,13 +35,17 @@ Usage::
         --params ws/serving_params.npz --fanouts 10,25 --port 8378
 
 The model's widths come from the params export (:func:`infer_sage_dims`).
-The server runs on the CUDA card unless ``--device cpu`` is given.
+The server runs on the CUDA card unless ``--device cpu`` is given, under
+``obs_run(role="serve")`` in the run's obs directory (``--obs-dir``, else
+``TPU_OPERATOR_OBS_DIR``; in memory without one), and each plane
+registers its endpoint under ``<obs_dir>/live/`` (``obs/live.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -50,9 +54,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from dgl_operator_tpu_torch._device import resolve_device
-from dgl_operator_tpu_torch.launcher import chaos
-from dgl_operator_tpu_torch.obs import get_obs, tracectx
-from dgl_operator_tpu_torch.obs.live import LiveFeed
+from dgl_operator_tpu_torch.launcher import chaos, console
+from dgl_operator_tpu_torch.obs import (OBS_DIR_ENV, get_obs, obs_run,
+                                        tracectx)
+from dgl_operator_tpu_torch.obs.live import LiveFeed, register_endpoint
 from dgl_operator_tpu_torch.obs.metrics import render_quantile_gauges
 from dgl_operator_tpu_torch.obs.slo import SLOMonitor
 from dgl_operator_tpu_torch.runtime.checkpoint import load_params
@@ -298,6 +303,8 @@ class ServingPlane:
             self._slo_thread = threading.Thread(
                 target=self._slo_loop, name="serve-slo", daemon=True)
             self._slo_thread.start()
+        # discoverable by obs/top.py, as the trainers' sidecars are
+        register_endpoint(self.port, "serve")
         get_obs().emit("serve_listening", port=self.port)
         return self
 
@@ -315,6 +322,7 @@ class ServingPlane:
             self._thread = None
         if not self.dead:
             self.batcher.stop()
+        get_obs().flush()
 
     def serve_forever(self) -> None:
         try:
@@ -347,6 +355,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("worst", "auto"))
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=DEFAULT_PORT)
+    ap.add_argument("--obs-dir", default=None,
+                    help="telemetry directory (default "
+                         "$TPU_OPERATOR_OBS_DIR; none: in memory)")
     ap.add_argument("--device", default=None,
                     help="where the engine runs: the CUDA card unless "
                          "'cpu' is given")
@@ -370,15 +381,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                       max_wait_ms=args.max_wait_ms,
                       halo_cache_frac=args.halo_cache_frac,
                       cap_policy=args.cap_policy)
-    model = DistSAGE(in_feats, hidden, out_feats, num_layers=L,
-                     dropout=0.0, device=device)
-    engine = ServeEngine(model, args.part_config, params=params, cfg=cfg,
-                         device=device)
-    plane = ServingPlane(engine, host=args.host, port=args.port)
-    print(f"serving on {args.host}:{plane.port} ({engine.num_parts} "
-          f"partitions, batch {args.batch_size}, {device}, warm-up "
-          f"{engine.warmup_seconds:.2f}s)", flush=True)
-    plane.serve_forever()
+    obs_dir = args.obs_dir or os.environ.get(OBS_DIR_ENV)
+    with obs_run(obs_dir, role="serve"):
+        model = DistSAGE(in_feats, hidden, out_feats, num_layers=L,
+                         dropout=0.0, device=device)
+        engine = ServeEngine(model, args.part_config, params=params,
+                             cfg=cfg, device=device)
+        plane = ServingPlane(engine, host=args.host, port=args.port)
+        console.log(f"serving on {args.host}:{plane.port} "
+                    f"({engine.num_parts} partitions, batch "
+                    f"{args.batch_size}, {device}, warm-up "
+                    f"{engine.warmup_seconds:.2f}s)", event="serve_start",
+                    port=plane.port)
+        plane.serve_forever()
 
 
 if __name__ == "__main__":
