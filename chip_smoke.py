@@ -12,9 +12,11 @@ Each phase prints JSON lines:
    name and power limit, and the host CPU's name and core count; TF32
    is switched off for the whole run.
 2. ``build``   — every ``dgl_operator_tpu_torch/csrc/*.cu`` built by
-   nvcc for sm_90a, with ptxas' register and spill lines, and the host
+   nvcc for sm_90a, with ptxas' register and spill lines, the host
    graph core ``native/graphcore.cc`` built by the host C++ compiler,
-   with its warnings (all in parallel).
+   with its warnings, and the control plane's ``tpu-operator`` and
+   ``tpu-watcher`` (``native/controlplane/``) with their seconds (all in
+   parallel).
 3. ``setup``   — a synthetic ogbn-products graph (cut to ``--scale``),
    a full-width DistSAGE (100 -> 256 -> 47, fanouts 10 and 25, seeded
    random weights) and its ``SampledTrainer`` (batch 1000, calibrated
@@ -196,6 +198,33 @@ Each phase prints JSON lines:
    child launched all three kernels. ``overhead`` times
    ``SampledTrainer`` (device sampler, K = 4, 40 steps) with an obs
    directory and without, off, on, on, off, bit-equal.
+13d. ``tune`` — the knob search on the card: ``successive_halving``
+   (n0 4, eta 2, 8 base steps, seed 0) over ``num_samplers`` (0, 2) and
+   ``feats_layout`` (replicated, owner), every probe a ``python -m
+   dgl_operator_tpu_torch.autotune.probe`` child training ``DistTrainer``
+   (``DistSAGE`` hidden 16, batch 1000, fanouts 10,25) on a 2-part book
+   whose parts train 8 steps an epoch, scored from its obs files: the
+   rung schedule is ``rung_schedule(4, 8, 2)`` (7 probes), every
+   probe's record is ok with steps, a relaunch over the ledger runs no
+   probe, and the winner's manifest round-trips through
+   ``write_manifest``, ``load_manifest`` and ``apply_tuned``. The line
+   holds each rung's scores, the winner, each probe's seconds.
+13e. ``elastic`` — ``tpurun --elastic`` over ``LocalFabric`` with two
+   local hostfile entries: one child a partition (rank = partition), an
+   independent full-width ``SampledTrainer`` (device sampler, batch
+   1000, 2 epochs of 4 steps, a checkpoint every 2 steps, seed 100 +
+   part), chaos ``host:die:5`` on the second host. The driver shrinks
+   to the survivor (``elastic.json`` width 1, epoch 1, the fence epoch
+   in the relaunched children), and each partition's final parameter
+   digest and steps equal the undisturbed run's, taken in this process;
+   the readmitted host then regrows the plan (full width, epoch 2). The
+   line holds the driver's and the relaunch's seconds and the
+   children's launches.
+13f. ``controlplane`` — a ``FakeCluster`` job through Partitioning,
+   Partitioned, Training and Completed on the port's reconciler, the
+   watcher barrier once over the rendered partfile, and a job whose
+   health feed is the ``elastic`` phase's job view: the controller
+   fails its launcher with reason ``HostDead`` and names the dead host.
 
 14. ``gat`` — ``DistGAT`` and ``DistGATv2`` at the entry point's width
    (2 heads of 256 concatenated, then one head of 47; fanouts 10 and 25,
@@ -369,7 +398,8 @@ Each phase prints JSON lines:
 Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
 kge, kge_grid, kgejob (the child's own count), obs (the obsjob
-child's and the overhead runs'), gat, message_passing,
+child's and the overhead runs'), tune (the probes' own counts),
+elastic (the children's own counts), gat, message_passing,
 rgcn_gin, sentry, fleet, chaos and dataplane phases
 (both ranks of each
 two-rank run and every graph replay included), split by path, worst
@@ -1713,6 +1743,25 @@ def dist_run_record(torch, tr, out, launches, probe, wall_s: float):
         device_busy_share=dev["device_ms"] / float(step_ms.mean()))
 
 
+def cut_book(g, node_map, ids_per_part: int, path: str):
+    """The graph split by ``node_map`` into a 2-part book at ``path``,
+    each part's train split cut to its first ``ids_per_part`` ids.
+    Returns the book and the cut graph."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.graph.partition import partition_graph
+
+    train = np.asarray(g.ndata["train_mask"], bool)
+    mask = np.zeros(g.num_nodes, bool)
+    for p in range(2):
+        mask[np.nonzero(train & (node_map == p))[0][:ids_per_part]] = 1
+    cut = Graph(g.src, g.dst, g.num_nodes)
+    cut.ndata = {**g.ndata, "train_mask": mask}
+    return partition_graph(cut, "ogbn-products", 2, path,
+                           parts=node_map), cut
+
+
 def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
                card: str):
     """``DistTrainer`` on the card over the serving phase's 2-part
@@ -1724,8 +1773,6 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     resume. Returns the launches of the two epochs."""
     import numpy as np
 
-    from dgl_operator_tpu_torch.graph.graph import Graph
-    from dgl_operator_tpu_torch.graph.partition import partition_graph
     from dgl_operator_tpu_torch.models.sage import (DistSAGE, sage_inference,
                                                     state_dict_from_flax,
                                                     state_dict_to_flax)
@@ -1733,14 +1780,8 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     from dgl_operator_tpu_torch.runtime.loop import TrainConfig
 
     t0 = time.perf_counter()
-    train = np.asarray(g.ndata["train_mask"], bool)
-    mask = np.zeros(g.num_nodes, bool)
-    for p in range(2):
-        mask[np.nonzero(train & (node_map == p))[0][:DIST_IDS_PER_PART]] = 1
-    cut = Graph(g.src, g.dst, g.num_nodes)
-    cut.ndata = {**g.ndata, "train_mask": mask}
-    book = partition_graph(cut, "ogbn-products", 2,
-                           os.path.join(work, "dist_book"), parts=node_map)
+    book, cut = cut_book(g, node_map, DIST_IDS_PER_PART,
+                         os.path.join(work, "dist_book"))
     book_s = time.perf_counter() - t0
     # the weights the entry point draws from TrainConfig.seed
     w0 = state_dict_to_flax(DistSAGE(
@@ -4085,6 +4126,467 @@ def obs_phase(torch, args, wrappers, g, trainer, ctx, work: str,
     emit(phase="obs", part="done", card=card, launches=total,
          seconds=time.perf_counter() - t0)
     return total
+
+
+# ----------------------------------------------------------- tune
+# the knob search: successive halving over the probe entry point on the
+# card. The space's num_samplers values include the registry default
+# (0), so the draw's default candidate is a grid point and the grid's 4
+# points are the whole field: 4 -> 2 -> 1 candidates, 7 probes
+TUNE_SPACE = {"num_samplers": (0, 2), "feats_layout": ("replicated", "owner")}
+TUNE_N0, TUNE_ETA, TUNE_BASE_STEPS, TUNE_SEED = 4, 2, 8, 0
+TUNE_IDS_PER_PART = 8 * BATCH_TRAIN   # an epoch of 8 steps a part
+PROBE_TIMEOUT_S = 300
+
+
+def tune_phase(torch, args, g, ctx, work: str, card: str,
+               device: str = "cuda") -> dict:
+    """``successive_halving`` over the port's ``make_probe_fn`` on the
+    card: every probe a ``python -m dgl_operator_tpu_torch.autotune.probe``
+    child (``DistTrainer``, ``DistSAGE`` hidden 16, batch 1000, fanouts
+    10,25, both slots in the child) over a 2-part book of the products
+    graph with each part's train split cut to 8 steps an epoch, scored
+    from its own obs files. Checks the rung schedule, every probe's
+    record, that a relaunch over the ledger runs no probe, and the
+    manifest's round trip through ``apply_tuned``. Returns the probes'
+    kernel launches (each child's own count)."""
+    from dgl_operator_tpu_torch.autotune import knobs as AK
+    from dgl_operator_tpu_torch.autotune.probe import (ProbeSpec,
+                                                       make_probe_fn)
+    from dgl_operator_tpu_torch.autotune.search import (config_key,
+                                                        rung_schedule,
+                                                        successive_halving)
+    from dgl_operator_tpu_torch.runtime.loop import TrainConfig
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "tune")
+    book, _ = cut_book(g, ctx["node_map"], TUNE_IDS_PER_PART,
+                       os.path.join(root, "book"))
+    book_s = time.perf_counter() - t0
+    spec = ProbeSpec(part_config=book, num_parts=2, batch_size=BATCH_TRAIN,
+                     fanouts=FANOUTS, seed=args.seed,
+                     timeout_s=PROBE_TIMEOUT_S, device=device)
+    probe_fn = make_probe_fn(spec, os.path.join(root, "probes"))
+    probe_s = {}
+
+    def timed(knobs, steps, rung):
+        t = time.perf_counter()
+        out = probe_fn(knobs, steps, rung)
+        probe_s[f"r{rung}:s{steps}:{config_key(knobs)}"] = \
+            time.perf_counter() - t
+        return out
+
+    ledger = os.path.join(root, "ledger.json")
+    search = dict(n0=TUNE_N0, eta=TUNE_ETA, base_steps=TUNE_BASE_STEPS,
+                  seed=TUNE_SEED, ledger_path=ledger)
+    t1 = time.perf_counter()
+    res = successive_halving(TUNE_SPACE, timed, **search)
+    search_s = time.perf_counter() - t1
+    want = rung_schedule(TUNE_N0, TUNE_BASE_STEPS, TUNE_ETA)
+    check([tuple(s) for s in res["schedule"]] == want
+          and res["probes_run"] == sum(n for _, _, n in want)
+          and res["probes_skipped"] == 0,
+          f"tune: schedule {res['schedule']} against {want}, "
+          f"{res['probes_run']} probes run")
+    with open(ledger) as f:
+        probes = json.load(f)["probes"]
+    launches, records = {}, {}
+    for key, rec in sorted(probes.items()):
+        with open(rec["record"]) as f:
+            record = json.load(f)
+        records[key] = record
+        check(record.get("ok") is True and record["probe"]["steps"] > 0
+              and record["probe"]["steps"] >= rec["steps"]
+              and record["device"].startswith(device)
+              and rec["score"] > 0,
+              f"tune: probe {key}: {rec.get('error')} {record}")
+        add_counts(launches, record["probe"]["launches"])
+    if device == "cuda":
+        check(all(v > 0 for v in launches.values()),
+              f"tune: the probes' launches {launches}")
+    # a relaunch over the same ledger pays for nothing
+    calls = []
+    again = successive_halving(
+        TUNE_SPACE, lambda k, s, r: calls.append(k) or probe_fn(k, s, r),
+        **search)
+    check(calls == [] and again["probes_run"] == 0
+          and again["winner"] == res["winner"]
+          and again["rungs"] == res["rungs"],
+          f"tune: the relaunch ran {len(calls)} probes, winner "
+          f"{again['winner']} against {res['winner']}")
+    # the manifest, loaded back and applied to a default TrainConfig
+    manifest = os.path.join(root, "tuned.json")
+    # the defaults are candidate 0, scored on rung 0
+    base = res["rungs"][0]["scores"][config_key(
+        {k: AK.default_of(k) for k in TUNE_SPACE})]
+    AK.write_manifest(manifest, res["winner"], score=res["winner_score"],
+                      baseline_score=base,
+                      search={"signature": res["signature"],
+                              "probes_run": res["probes_run"]})
+    man = AK.load_manifest(manifest)
+    with chaos_env(**{AK.TUNED_MANIFEST_ENV: manifest}):
+        tuned = AK.apply_tuned(TrainConfig())
+    check(man["knobs"] == res["winner"]
+          and all(getattr(tuned, k) == v for k, v in res["winner"].items()),
+          f"tune: manifest {man['knobs']}, applied "
+          f"{ {k: getattr(tuned, k) for k in res['winner']} }")
+    emit(phase="tune", card=card, space={k: list(v) for k, v in
+                                         TUNE_SPACE.items()},
+         n0=TUNE_N0, eta=TUNE_ETA, base_steps=TUNE_BASE_STEPS,
+         schedule=res["schedule"],
+         rungs=[{"rung": r["rung"], "steps": r["steps"],
+                 "scores": r["scores"], "survivors": r["survivors"]}
+                for r in res["rungs"]],
+         winner=res["winner"], winner_score=res["winner_score"],
+         baseline_score=base, probes_run=res["probes_run"],
+         relaunch_probes_run=again["probes_run"],
+         probe_s=probe_s, probe_child_s={
+             k: r["total_s"] for k, r in records.items()},
+         probe_steps={k: r["probe"]["steps"] for k, r in records.items()},
+         probe_mfu={k: r["probe"].get("mfu") for k, r in records.items()},
+         hbm_budget={k: r["hbm_budget"] for k, r in records.items()},
+         launches=launches, book_s=book_s, search_s=search_s,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+# -------------------------------------------------------- elastic
+ELASTIC_IDS = 8 * BATCH_TRAIN   # 4,000 a part: 4 steps an epoch
+ELASTIC_EPOCHS = 2
+ELASTIC_DIE_AT = 5              # mid-run: the second epoch's first step
+# the elastic job's child: tpurun phase 5 starts it by path on every
+# hostfile line, and line i trains partition i (the rank): an
+# independent full-width SampledTrainer over its share of the cut train
+# split, checkpointing every 2 steps; one JSON line per run appended to
+# results-<part>.jsonl (its digest, steps, fence epoch and launches)
+ELASTIC_CHILD = """
+import argparse, hashlib, json, os, sys
+spec = json.loads(os.environ["ELASTIC_SPEC"])
+sys.path.insert(0, spec["repo"])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ap = argparse.ArgumentParser()
+for f in ("--graph_name", "--ip_config", "--part_config"):
+    ap.add_argument(f)
+for f in ("--num_epochs", "--batch_size", "--num_workers"):
+    ap.add_argument(f, type=int)
+a = ap.parse_args()
+from dgl_operator_tpu_torch.graph import datasets
+from dgl_operator_tpu_torch.models.sage import DistSAGE
+from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+from dgl_operator_tpu_torch.runtime.loop import (Preempted, SampledTrainer,
+                                                 TrainConfig)
+part = int(os.environ["TPU_OPERATOR_RANK"])
+ws = os.environ["TPU_OPERATOR_WORKSPACE"]
+g = getattr(datasets, spec["graph"][0])(**spec["graph"][1]).graph
+ids = np.nonzero(g.ndata["train_mask"])[0][:spec["ids"]][part::spec["parts"]]
+cfg = TrainConfig(num_epochs=a.num_epochs, batch_size=a.batch_size,
+                  fanouts=tuple(spec["fanouts"]), lr=spec["lr"],
+                  eval_every=0, log_every=1000, dropout=0.0,
+                  sampler="device", seed=100 + part,
+                  ckpt_dir=os.path.join(ws, "ckpt", f"part-{part}"),
+                  ckpt_every=2)
+model = DistSAGE(*spec["widths"], dropout=0.0, device=spec["device"],
+                 generator=torch.Generator().manual_seed(100 + part))
+tr = SampledTrainer(model, g, cfg, train_ids=ids, device=spec["device"])
+try:
+    out = tr.train()
+except Preempted:
+    raise SystemExit(75)
+h = hashlib.sha256()
+for k in sorted(out["params"]):
+    h.update(out["params"][k].detach().cpu().numpy().tobytes())
+dev = torch.device(spec["device"])
+with open(os.path.join(spec["out"], f"results-{part}.jsonl"), "a") as f:
+    f.write(json.dumps({
+        "part": part, "step": out["step"], "digest": h.hexdigest(),
+        "epoch_env": os.environ.get("TPU_OPERATOR_ELASTIC_EPOCH"),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "launches": {w.__name__: w.launches for w in (
+            fanout.fanout_agg, gather.gather_rows,
+            scatter.scatter_add_rows)}}) + "\\n")
+"""
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_baseline(torch, wrappers, g, spec: dict, part: int):
+    """The undisturbed run of partition ``part``, in this process: the
+    child's model, seeds and stream keys, no checkpoints (math-inert).
+    Returns its digest, steps and launches."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.models.sage import DistSAGE
+    from dgl_operator_tpu_torch.runtime.loop import (SampledTrainer,
+                                                     TrainConfig)
+
+    ids = np.nonzero(g.ndata["train_mask"])[0][:spec["ids"]]
+    cfg = TrainConfig(num_epochs=ELASTIC_EPOCHS, batch_size=BATCH_TRAIN,
+                      fanouts=tuple(spec["fanouts"]), lr=spec["lr"],
+                      eval_every=0, log_every=1000, dropout=0.0,
+                      sampler="device", seed=100 + part)
+    model = DistSAGE(*spec["widths"], dropout=0.0, device=spec["device"],
+                     generator=torch.Generator().manual_seed(100 + part))
+    tr = SampledTrainer(model, g, cfg, train_ids=ids[part::spec["parts"]],
+                        device=spec["device"])
+    reset_counts(wrappers)
+    out = tr.train()
+    return params_digest(out["params"]), out["step"], read_counts(wrappers)
+
+
+def elastic_phase(torch, args, wrappers, g, ctx, work: str, card: str,
+                  device: str = "cuda", graph=None) -> Tuple[dict, str]:
+    """``tpurun --elastic`` over ``LocalFabric`` with two local hostfile
+    entries: the dist book's 2 parts dispatched, :data:`ELASTIC_CHILD`
+    started by path, one process a partition, and chaos
+    ``host:die:5@host=el-worker-1`` killing partition 1's process at
+    its fifth step. The driver must shrink to the survivor (width 1,
+    epoch 1), relaunch phases 3-5 on it from the fenced checkpoints, and
+    each partition's final parameters and steps must equal the
+    undisturbed run's; then the readmitted host regrows the plan (full
+    width, epoch 2). Returns the children's launches and the run's obs
+    directory."""
+    import argparse as _argparse
+    import io
+
+    from dgl_operator_tpu_torch.launcher import elastic, tpurun
+    from dgl_operator_tpu_torch.launcher.chaos import (CHAOS_ENV,
+                                                       WORKSPACE_ENV,
+                                                       dead_hosts,
+                                                       readmit_host)
+    from dgl_operator_tpu_torch.launcher.fabric import LocalFabric
+    from dgl_operator_tpu_torch.obs import OBS_DIR_ENV
+    from dgl_operator_tpu_torch.parallel.bootstrap import (FENCE_EPOCH_ENV,
+                                                           PHASE_ENV,
+                                                           HostEntry,
+                                                           parse_hostfile,
+                                                           write_hostfile)
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "elastic")
+    ws, conf, out = (os.path.join(root, d) for d in ("ws", "conf", "out"))
+    for d in (ws, conf, out):
+        os.makedirs(d)
+    hostfile = os.path.join(conf, "hostfile")
+    hosts = [f"el-worker-{i}" for i in range(2)]
+    write_hostfile(hostfile, [HostEntry("127.0.0.1", free_port(), h, 1)
+                              for h in hosts])
+    spec = dict(repo=REPO, graph=graph or ["ogbn_products", {
+        "seed": args.seed, "scale": args.scale}], ids=ELASTIC_IDS, parts=2,
+        fanouts=list(FANOUTS), lr=LR, widths=[FEAT, HIDDEN, CLASSES],
+        device=device, out=out)
+    entry = os.path.join(root, "train_elastic.py")
+    with open(entry, "w") as f:
+        f.write(ELASTIC_CHILD)
+    base = {}
+    t1 = time.perf_counter()
+    for p in range(2):
+        base[p] = elastic_baseline(torch, wrappers, g, spec, p)
+    base_s = time.perf_counter() - t1
+    steps = base[1][1]
+    check(steps == ELASTIC_EPOCHS * (ELASTIC_IDS // 2 // BATCH_TRAIN)
+          and ELASTIC_DIE_AT < steps,
+          f"elastic: the undisturbed run's {steps} steps")
+    argv = ["--graph-name", "ogbn-products", "--num-partitions", "2",
+            "--partition-config-path", ctx["book"],
+            "--train-entry-point", entry, "--workspace", ws,
+            "--conf-dir", conf, "--num-epochs", str(ELASTIC_EPOCHS),
+            "--batch-size", str(BATCH_TRAIN), "--fabric", "local",
+            "--elastic"]
+    log = io.StringIO()
+    with chaos_env(**{PHASE_ENV: None, OBS_DIR_ENV: None,
+                      FENCE_EPOCH_ENV: None, WORKSPACE_ENV: None,
+                      CHAOS_ENV: f"host:die:{ELASTIC_DIE_AT}@host={hosts[1]}",
+                      "TPU_OPERATOR_RETRY_BASE_S": "0.05",
+                      "ELASTIC_SPEC": json.dumps(spec)}):
+        t2 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                tpurun.main(argv)
+        except SystemExit as exc:
+            check(False, f"elastic: tpurun exited {exc.code}:\n"
+                  f"{log.getvalue()[-3000:]}")
+        driver_s = time.perf_counter() - t2
+        t_end = time.time()
+        fence_exported = os.environ.get(FENCE_EPOCH_ENV)
+        runs = {p: read_jsonl(os.path.join(out, f"results-{p}.jsonl"))
+                for p in range(2)}
+        plan = elastic.load_plan(ws)
+        placed = [e.name for e in parse_hostfile(
+            os.path.join(ws, "hostfile_elastic"))]
+        obs_dir = os.path.join(ws, "obs")
+        events = read_jsonl(os.path.join(obs_dir, "events.jsonl"))
+        died = [e for e in events if e["event"] == "host_died"]
+        shrink = [e for e in events if e["event"] == "elastic_shrink"]
+        check(len(died) == 1 and died[0]["host_name"] == hosts[1]
+              and died[0]["step"] == ELASTIC_DIE_AT and len(shrink) == 1
+              and dead_hosts(ws) == [hosts[1]],
+              f"elastic: host_died {died}, shrinks {shrink}")
+        check(plan["width"] == 1 and plan["epoch"] == 1
+              and plan["dead"] == [hosts[1]]
+              and placed == [hosts[0], hosts[0]]
+              and fence_exported == "1",
+              f"elastic: plan {plan}, hostfile {placed}, fence "
+              f"{fence_exported}")
+        finals = {p: runs[p][-1] for p in range(2)}
+        for p in range(2):
+            check(finals[p]["digest"] == base[p][0]
+                  and finals[p]["step"] == base[p][1]
+                  and finals[p]["epoch_env"] == "1",
+                  f"elastic: partition {p}'s final run {finals[p]} against "
+                  f"the undisturbed {base[p][:2]}")
+        check(os.path.isdir(os.path.join(ws, "ckpt", "part-1", "epoch-1")),
+              "elastic: the relaunch checkpointed under epoch-1")
+        launches = {}
+        for p in range(2):
+            for r in runs[p]:
+                add_counts(launches, r["launches"])
+        check(device != "cuda" or (
+            all(v > 0 for v in launches.values())
+            and all(r["device"] == torch.cuda.get_device_name(0)
+                    for p in range(2) for r in runs[p])),
+            f"elastic: the children's launches {launches}")
+        # regrow at the plan level: the dead host answers again
+        readmit_host(hosts[1], ws)
+        rargs = _argparse.Namespace()
+        hf = elastic.resolve(rargs, ws, ctx["book"], hostfile, LocalFabric())
+        plan2 = elastic.load_plan(ws)
+        check(hf == hostfile and plan2["dead"] == [] and plan2["epoch"] == 2
+              and plan2["width"] == plan2["full_width"] == 2
+              and rargs.elastic_sig == "epoch-2"
+              and os.environ.get(FENCE_EPOCH_ENV) == "2",
+              f"elastic: regrow plan {plan2}, sig "
+              f"{getattr(rargs, 'elastic_sig', None)}")
+    relaunch_s = t_end - shrink[0]["ts"]
+    emit(phase="elastic", card=card, die_at=ELASTIC_DIE_AT, steps=steps,
+         dead=plan["dead"], width=plan["width"], epoch=plan["epoch"],
+         assignment=plan["assignment"], rates=plan.get("rates"),
+         hostfile_elastic=placed, regrow_epoch=plan2["epoch"],
+         regrow_width=plan2["width"],
+         runs={p: [{k: r[k] for k in ("step", "epoch_env")}
+                   for r in runs[p]] for p in range(2)},
+         bit_equal=True, launches=launches,
+         baseline_launches={p: base[p][2] for p in range(2)},
+         baseline_s=base_s, driver_s=driver_s, relaunch_s=relaunch_s,
+         seconds=time.perf_counter() - t0)
+    return launches, obs_dir
+
+
+# --------------------------------------------------- controlplane
+def controlplane_phase(elastic_obs: str, work: str, card: str,
+                       build_s: dict) -> None:
+    """The control plane on the card's host: the port's ``tpu-operator``
+    and ``tpu-watcher``, built from its sources beside the kernels
+    (``build_s``: their compile seconds) and found again here, a
+    ``FakeCluster`` job driven Partitioning -> Partitioned -> Training ->
+    Completed, the watcher's barrier run once over the rendered
+    partfile, and a second job whose health feed is the ``elastic``
+    phase's job view: the controller must fail its launcher with reason
+    ``HostDead``, naming the dead host. No ``--config``: yaml is never
+    imported."""
+    from dgl_operator_tpu_torch.controlplane import (Controller,
+                                                     FakeCluster,
+                                                     simple_job)
+    from dgl_operator_tpu_torch.controlplane import controller as C
+    from dgl_operator_tpu_torch.controlplane.api import (
+        DEFAULT_LAUNCHER_COMMAND)
+    from dgl_operator_tpu_torch.obs import get_obs
+
+    t0 = time.perf_counter()
+    with chaos_env(**{C.BIN_DIR_ENV: None}):
+        again = C.ensure_built()
+        built = (C.operator_binary(), C.watcher_binary())
+        check(all(os.path.dirname(b) == os.path.join(
+            REPO, "dgl_operator_tpu_torch", "_build") for b in built)
+            and set(build_s) == set(again)
+            and not any(again.values()),
+            f"controlplane: binaries {built}, rebuilt {again}")
+
+        def drive(name: str, status_dir: str):
+            cluster = FakeCluster(status_dir=status_dir)
+            ctl = Controller(cluster)
+            job = simple_job(name, 2)
+            ctl.reconcile(job)
+            cluster.set_pod_phase(f"{name}-partitioner", "Running")
+            phases = [ctl.reconcile_until(job, "Partitioning")]
+            return cluster, ctl, job, phases
+
+        root = os.path.join(work, "controlplane")
+        cluster, ctl, job, phases = drive("smoke", os.path.join(root, "st"))
+        partfile = os.path.join(root, "partfile")
+        with open(partfile, "w") as f:
+            f.write(cluster.config_maps["smoke-config"]["data"]["partfile"])
+        watcher = subprocess.Popen(
+            [C.watcher_binary(), "--watch-file", partfile, "--status-dir",
+             cluster.status_dir, "--mode", "finished", "--timeout-ms",
+             "20000", "--poll-ms", "20"])
+        tw = time.perf_counter()
+        time.sleep(0.2)
+        waiting = watcher.poll() is None
+        cluster.set_pod_phase("smoke-partitioner", "Succeeded")
+        watcher_rc = watcher.wait(timeout=30)
+        watcher_s = time.perf_counter() - tw
+        check(waiting and watcher_rc == 0,
+              f"controlplane: the watcher barrier (waiting {waiting}, "
+              f"exit {watcher_rc})")
+        phases.append(ctl.reconcile_until(job, "Partitioned"))
+        ctl.reconcile(job)
+        for n in ("smoke-worker-0", "smoke-worker-1", "smoke-launcher"):
+            cluster.set_pod_phase(n, "Running")
+        phases.append(ctl.reconcile_until(job, "Training"))
+        cluster.set_pod_phase("smoke-launcher", "Succeeded")
+        phases.append(ctl.reconcile_until(job, "Completed"))
+        ctl.reconcile(job)
+        launcher_cmd = cluster.pods["smoke-launcher"]["spec"][
+            "containers"][0]["command"]
+        check(phases == ["Partitioning", "Partitioned", "Training",
+                         "Completed"]
+              and "smoke-worker-0" not in cluster.pods
+              and launcher_cmd == list(DEFAULT_LAUNCHER_COMMAND),
+              f"controlplane: phases {phases}, pods {cluster.pod_names()}, "
+              f"launcher {launcher_cmd}")
+
+        # the health-triggered restart from the elastic job's view
+        hcluster, hctl, hjob, _ = drive("heal", os.path.join(root, "hst"))
+        hcluster.set_pod_phase("heal-partitioner", "Succeeded")
+        hctl.reconcile_until(hjob, "Partitioned")
+        hctl.reconcile(hjob)
+        for n in ("heal-worker-0", "heal-worker-1", "heal-launcher"):
+            hcluster.set_pod_phase(n, "Running")
+        hctl.reconcile_until(hjob, "Training")
+        feed = C.job_health_feed(elastic_obs)
+        snap = feed()
+        n0 = len([e for e in get_obs().events
+                  if e["kind"] == "job_host_dead"])
+        final = hctl.reconcile_until(hjob, max_iters=5, backoff_limit=1,
+                                     health=feed)
+        named = [e for e in get_obs().events
+                 if e["kind"] == "job_host_dead"][n0:]
+        launcher = hcluster.pods["heal-launcher"]["status"]
+        check(snap.get("dead") and "el-worker-1" in snap.get("dead_hosts",
+                                                             [])
+              and launcher.get("reason") == "HostDead"
+              and named and "el-worker-1" in named[0]["dead_hosts"],
+              f"controlplane: health {snap}, launcher {launcher}, "
+              f"events {named}")
+    emit(phase="controlplane", card=card, build_s=build_s,
+         binaries=[os.path.basename(b) for b in built], phases=phases,
+         watcher_rc=watcher_rc, watcher_s=watcher_s,
+         health_source=snap.get("source"), dead=snap.get("dead"),
+         dead_hosts=snap.get("dead_hosts"), restart_reason=launcher["reason"],
+         final_phase=final, yaml_imported="yaml" in sys.modules,
+         seconds=time.perf_counter() - t0)
+    check("yaml" not in sys.modules, "controlplane: yaml was imported")
 
 
 # ------------------------------------------------------------------ gat
@@ -7422,11 +7924,15 @@ def main(argv=None) -> int:
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     check(sources == sorted(f"{w.__name__}.cu" for w in wrappers),
           f"one source per kernel: {sources}")
+    from dgl_operator_tpu_torch.controlplane import controller as cplane
+    os.environ.pop(cplane.BIN_DIR_ENV, None)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         host_build = pool.submit(_build.build_host, "graphcore.cc")
+        cp_build = pool.submit(cplane.ensure_built)
         builds = list(pool.map(_build.build, sources))
         core = host_build.result()
+        cp_seconds = cp_build.result()
     for src, b in zip(sources, builds):
         emit(phase="build", source=src, seconds=b.seconds,
              wall_s=time.perf_counter() - t0,
@@ -7437,6 +7943,9 @@ def main(argv=None) -> int:
          seconds=core.seconds, wall_s=time.perf_counter() - t0,
          warnings=[ln.strip() for ln in core.log.splitlines()
                    if "warning" in ln])
+    emit(phase="build", source="native/controlplane",
+         compiler=_build.host_cxx(), flags=list(_build.HOST_EXE_CXXFLAGS),
+         seconds=cp_seconds, wall_s=time.perf_counter() - t0)
 
     g, trainer, mb = setup_phase(torch, args, smi)
     graph_phase(args, g, trainer, smi, host)
@@ -7460,6 +7969,10 @@ def main(argv=None) -> int:
                                             smi)
         job = kgejob_phase(torch, work, smi)
         obs = obs_phase(torch, args, wrappers, g, trainer, ctx, work, smi)
+        tune = tune_phase(torch, args, g, ctx, work, smi)
+        elastic, elastic_obs = elastic_phase(torch, args, wrappers, g, ctx,
+                                             work, smi)
+        controlplane_phase(elastic_obs, work, smi, cp_seconds)
         gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
@@ -7507,7 +8020,9 @@ def main(argv=None) -> int:
                      dataplane_launches=dplane.get("fanout_agg", 0),
                      more_launches={"kge_grid": grid["fanout_agg"],
                                     "kgejob": job["fanout_agg"],
-                                    "obs": obs["fanout_agg"]}),
+                                    "obs": obs["fanout_agg"],
+                                    "tune": tune["fanout_agg"],
+                                    "elastic": elastic["fanout_agg"]}),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -7536,7 +8051,9 @@ def main(argv=None) -> int:
                      dataplane_launches=dplane.get("gather_rows", 0),
                      more_launches={"kge_grid": grid["gather_rows"],
                                     "kgejob": job["gather_rows"],
-                                    "obs": obs["gather_rows"]}),
+                                    "obs": obs["gather_rows"],
+                                    "tune": tune["gather_rows"],
+                                    "elastic": elastic["gather_rows"]}),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -7562,7 +8079,9 @@ def main(argv=None) -> int:
                      dataplane_launches=dplane.get("scatter_add_rows", 0),
                      more_launches={"kge_grid": grid["scatter_add_rows"],
                                     "kgejob": job["scatter_add_rows"],
-                                    "obs": obs["scatter_add_rows"]}),
+                                    "obs": obs["scatter_add_rows"],
+                                    "tune": tune["scatter_add_rows"],
+                                    "elastic": elastic["scatter_add_rows"]}),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

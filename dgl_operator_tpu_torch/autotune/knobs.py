@@ -12,7 +12,8 @@ Manifest consumption: ``TPU_OPERATOR_TUNED_MANIFEST`` names a manifest
 (:func:`write_manifest`); the trainers call :func:`apply_tuned` on their
 config, which overrides only fields still at their dataclass default,
 so an explicitly set value always wins over the manifest. The search
-that writes manifests is not ported (``ROADMAP.md`` item 7).
+that writes manifests is ``autotune/search.py`` over the probes of
+``autotune/probe.py``.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ over local, shell-wrapper or object-store transports), the retry layer
 and the chaos plan.
 
 The port's copy of the JAX package's ``launcher/``, torch-free, with its
-names, flags, environment variables, ledger format and exit codes. The
-elastic control plane (``elastic.py``) is ``ROADMAP.md`` Queue 1 item 7c.
+names, flags, environment variables, ledger format and exit codes, and
+the elastic control plane (``elastic.py``: shrink around a dead host,
+regrow when it answers again).
 """
 
 from dgl_operator_tpu_torch.launcher.fabric import (BatchFabricError, Fabric,

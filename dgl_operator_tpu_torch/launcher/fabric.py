@@ -90,9 +90,9 @@ class FabricExecError(FabricError):
 class FabricHostLost(FabricError):
     """A host has been declared permanently gone (chaos ``host:die``,
     or an operator marking a machine dead). Fatal by construction: no
-    retry revives dead hardware. The recovery path, the elastic control
-    plane of the JAX package's launcher/elastic.py, is not ported
-    (ROADMAP.md Queue 1 item 7c)."""
+    retry revives dead hardware. The recovery path is the elastic
+    control plane (launcher/elastic.py), which re-places the dead
+    host's partitions over the survivors."""
 
     transient = False
 

@@ -9,10 +9,15 @@ training framework consumes, at ``<workspace>/hostfile_revised``:
 - ``DGL``   → ``ip port`` (revise_hostfile.py:27-36 parity);
 - ``DGLKE`` → ``ip port num_servers`` (revise_hostfile.py:8-25 parity).
 
-The port's copy of the JAX package's ``launcher/revise.py``. Its
-``--placement`` (a skew-aware partition→host mapping from
-``autotune/placement.py``) is not ported and raises
-(``ROADMAP.md`` Queue 1 item 7c).
+``--placement`` applies a skew-aware partition→host mapping
+(``autotune/placement.py``) before the rewrite: hostfile line *i* is
+the host assigned partition *i* (the launch_train rank / dispatch
+affinity contract), so heaviest partitions land on the fastest
+measured hosts. Idempotent — revising an already-placed hostfile
+reproduces the same order. An elastic plan (``launcher/elastic.py``)
+repeats the surviving hosts, one line a partition.
+
+The port's copy of the JAX package's ``launcher/revise.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from __future__ import annotations
 import argparse
 import os
 
-from dgl_operator_tpu_torch.parallel.bootstrap import revise_hostfile
+from dgl_operator_tpu_torch.parallel.bootstrap import (parse_hostfile,
+                                                       revise_hostfile,
+                                                       write_hostfile)
 
 
 def main(argv=None):
@@ -31,15 +38,30 @@ def main(argv=None):
     ap.add_argument("--framework", required=True,
                     choices=["JAX", "DGL", "DGLKE"])
     ap.add_argument("--placement", default=None,
-                    help="not ported (ROADMAP.md Queue 1 item 7c)")
+                    help="placement.json (autotune/placement.py): "
+                         "reorder hostfile entries so line i is the "
+                         "host assigned partition i before the "
+                         "framework rewrite")
     args, _ = ap.parse_known_args(argv)
     style = {"JAX": "jax", "DGL": "dgl", "DGLKE": "dglke"}[args.framework]
     os.makedirs(args.workspace, exist_ok=True)
+    src = args.ip_config
     if args.placement:
-        raise NotImplementedError(
-            "--placement: the partition placement is not ported "
-            "(ROADMAP.md Queue 1 item 7c)")
-    revise_hostfile(args.ip_config,
+        from dgl_operator_tpu_torch.autotune.placement import (
+            apply_elastic_entries, apply_to_entries, load_placement)
+        placed = load_placement(args.placement)
+        if placed.get("elastic"):
+            # elastic plan (launcher/elastic.py): line i = host of
+            # partition i, survivors repeated — the one-line-per-host
+            # bijection check would reject the shrunk mapping
+            entries = apply_elastic_entries(parse_hostfile(src),
+                                            placed["assignment"])
+        else:
+            entries = apply_to_entries(parse_hostfile(src),
+                                       placed["assignment"])
+        src = os.path.join(args.workspace, "hostfile_placed")
+        write_hostfile(src, entries)
+    revise_hostfile(src,
                     os.path.join(args.workspace, "hostfile_revised"),
                     style=style, num_servers=args.num_servers)
 

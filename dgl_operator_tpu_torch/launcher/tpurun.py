@@ -23,11 +23,14 @@ The port's copy of the JAX package's ``launcher/tpurun.py``, torch-free,
 with its flags, environment variables, ledger format and exit codes, so
 the operator's pods start either package's driver unchanged; its phases
 start the port's entry points (by path, as the JAX driver does), and its
-serve phase the port's ``serve.server``. What waits:
+serve phase the port's ``serve.server``.
 
-- ``--elastic`` and ``--placement`` raise ``NotImplementedError``: the
-  elastic control plane (``launcher/elastic.py``) and the placement it
-  reads (``autotune/placement.py``) are ``ROADMAP.md`` Queue 1 item 7c.
+Placement and elasticity: ``--placement`` (a ``placement.json`` or
+``auto``) reorders the working hostfile by ``autotune/placement.py``
+before the ledger signature is taken, and ``--elastic`` resolves the
+``launcher/elastic.py`` plan after it; a launch that fails because a
+host is dead commits a shrink and relaunches phases 3-5 over the
+survivors, and a later launch regrows once the host answers again.
 
 Telemetry: the driver runs under ``obs_run`` (one ``obs/`` directory a
 run, ``<workspace>/obs`` unless ``TPU_OPERATOR_OBS_DIR`` names one,
@@ -57,7 +60,9 @@ from dgl_operator_tpu_torch.launcher.launch import (launch_train,
                                                     run_exec_batch)
 from dgl_operator_tpu_torch.obs import (OBS_DIR_ENV, get_obs, obs_run,
                                         tracectx)
-from dgl_operator_tpu_torch.parallel.bootstrap import PHASE_ENV, parse_hostfile
+from dgl_operator_tpu_torch.parallel.bootstrap import (PHASE_ENV,
+                                                       parse_hostfile,
+                                                       write_hostfile)
 
 DEFAULT_WORKSPACE = "/tpu_workspace"
 DEFAULT_CONF_DIR = "/etc/tpugraph"   # /etc/dgl equivalent
@@ -102,10 +107,12 @@ class PhaseLedger:
                   "num_epochs", "batch_size", "train_args",
                   "partition_args", "serve_entry_point", "serve_args",
                   # a different tuned manifest or a re-derived
-                  # partition→host placement is a DIFFERENT job; the
-                  # JAX driver's placement and elastic epoch set the
-                  # last two (None here: item 7c), kept so both
-                  # drivers sign a job alike
+                  # partition→host placement is a DIFFERENT job: the
+                  # stalled-restart path relies on the new placement
+                  # busting the ledger so phases 3-5 re-run
+                  # (_resolve_placement sets placement_sig); the
+                  # elastic epoch does the same for shrink/regrow
+                  # edges (launcher/elastic.py sets elastic_sig)
                   "tuned_manifest", "placement_sig", "elastic_sig")}
         ident["mode"] = phase or "Launcher"
         return hashlib.sha1(
@@ -244,6 +251,59 @@ def _load_tuned(args: argparse.Namespace) -> Optional[dict]:
     return man
 
 
+def _resolve_placement(args: argparse.Namespace, ws: str,
+                       part_cfg: str, hostfile: str) -> str:
+    """Apply ``--placement`` (a placement.json, or ``auto`` = derive
+    from the obs job view's measured per-host step rates): writes
+    ``<ws>/placement.json`` + a REORDERED operator hostfile at
+    ``<ws>/hostfile_placed`` (partition *i* trains on line *i* — the
+    dispatch/launch affinity) and returns its path; phases 3-5 then
+    run against it and the phase-4 revise command honors the same
+    mapping. Sets ``args.placement_sig`` so the ledger signature
+    changes with the mapping — the stalled-job restart path relaunches
+    this driver, the job view now carries the straggler's measured
+    rate, and the re-derived placement busts the ledger into a fresh
+    dispatch/launch. Returns the original hostfile when placement is
+    off or underivable (first run: nothing measured yet)."""
+    if not args.placement:
+        return hostfile
+    from dgl_operator_tpu_torch.autotune import placement as PL
+    obs = get_obs()
+    entries = parse_hostfile(hostfile)
+    try:
+        if args.placement == "auto":
+            placed = PL.derive(obs.directory or os.path.join(
+                ws, OBS_SUBDIR), part_cfg, entries)
+            if placed is None:
+                console.log(
+                    "placement auto: no measured host rates in the "
+                    "job view yet; keeping operator hostfile order",
+                    event="autotune_placement_skipped")
+                return hostfile
+        else:
+            placed = PL.load_placement(args.placement)
+        ordered = PL.apply_to_entries(entries, placed["assignment"])
+    except (OSError, ValueError, KeyError) as exc:
+        console.log(f"placement failed ({exc}); keeping operator "
+                    "hostfile order", event="autotune_placement_failed",
+                    error=str(exc)[:300])
+        return hostfile
+    os.makedirs(ws, exist_ok=True)
+    ppath = PL.write_placement(os.path.join(ws, "placement.json"),
+                               placed)
+    placed_hf = os.path.join(ws, "hostfile_placed")
+    write_hostfile(placed_hf, ordered)
+    args.placement_path = ppath
+    args.placement_sig = json.dumps(placed["assignment"],
+                                    sort_keys=True)
+    obs.metrics.counter(
+        "autotune_placements_total",
+        "skew-aware placements applied to the working hostfile").inc()
+    obs.emit("autotune_placement", assignment=placed["assignment"],
+             rates=placed.get("rates"), hostfile=placed_hf)
+    return placed_hf
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="tpurun",
@@ -307,14 +367,28 @@ def build_parser() -> argparse.ArgumentParser:
                          "partition-layer knobs are appended to the "
                          "partition entrypoint")
     ap.add_argument("--placement", default=None,
-                    help="skew-aware partition→host placement: not "
-                         "ported (ROADMAP.md Queue 1 item 7c)")
+                    help="skew-aware partition→host placement: a "
+                         "placement.json path, or 'auto' to derive "
+                         "one from the run's obs job view (measured "
+                         "per-host step rates, greedy LPT) — the "
+                         "working hostfile is regenerated from it, so "
+                         "a stalled-job relaunch re-places around the "
+                         "detected straggler")
+    # elastic fault-domain training (launcher/elastic.py)
     ap.add_argument("--elastic", action="store_true",
-                    help="elastic shrink/regrow: not ported "
-                         "(ROADMAP.md Queue 1 item 7c)")
+                    help="elastic shrink/regrow (launcher/elastic.py): "
+                         "when a launch fails because a host is DEAD "
+                         "(fatal FabricHostLost taxonomy, chaos "
+                         "host:die marker, or a host_died health "
+                         "event), re-place its partitions over the "
+                         "surviving hosts and relaunch from the last "
+                         "fenced checkpoint instead of failing; a "
+                         "relaunch after the host returns regrows to "
+                         "full width")
     ap.add_argument("--elastic-max-shrinks", type=int, default=2,
                     help="bound on shrink edges within one driver run "
-                         "(with --elastic)")
+                         "(a cluster losing hosts faster than this is "
+                         "a real outage, not elasticity)")
     # model-health rollback (docs/observability.md "Model health")
     ap.add_argument("--numerics-retries", type=int, default=1,
                     help="bound on numerics-fault rollback relaunches "
@@ -327,17 +401,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "last-known-good instead of failing (0 "
                          "disables the retry)")
     return ap
-
-
-def check_unported(args: argparse.Namespace) -> None:
-    """Refuse the flags whose machinery is not ported, rather than take
-    and ignore them."""
-    if getattr(args, "elastic", False) or getattr(args, "placement", None):
-        flag = "--elastic" if getattr(args, "elastic", False) \
-            else "--placement"
-        raise NotImplementedError(
-            f"{flag}: the elastic control plane and the partition "
-            "placement are not ported (ROADMAP.md Queue 1 item 7c)")
 
 
 def collect_obs(hostfile: str, fabric,
@@ -381,7 +444,6 @@ def collect_obs(hostfile: str, fabric,
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    check_unported(args)
     ws = args.workspace
     # the run's telemetry next to the workspace (an inherited
     # TPU_OPERATOR_OBS_DIR wins); obs_run exports it to every process
@@ -405,7 +467,7 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
                 or os.path.join(ws, "dataset", f"{args.graph_name}.json"))
     worker_part_cfg = os.path.join(ws, "workload", f"{args.graph_name}.json")
     # the workspace root is cross-process state (chaos dead-host
-    # markers, fault markers): the driver's OWN fabric needs it in
+    # markers, the elastic plan): the driver's OWN fabric needs it in
     # env, not just the trainers launch_train exports it to
     os.environ["TPU_OPERATOR_WORKSPACE"] = os.path.abspath(ws)
     fabric = get_fabric(args.fabric)
@@ -413,6 +475,20 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
     py = sys.executable
     resume = not (args.fresh or os.environ.get(NO_RESUME_ENV))
     manifest = _load_tuned(args)
+    if phase not in ("Launcher_Workload", "Launcher_Serve", "Serve",
+                     "Partitioner"):
+        # skew-aware placement reorders the working hostfile BEFORE
+        # the ledger signature is computed: a changed mapping (e.g.
+        # the stalled-restart relaunch measuring a new straggler)
+        # re-runs dispatch/revise/launch instead of ledger-skipping
+        hostfile = _resolve_placement(args, ws, part_cfg, hostfile)
+        if args.elastic:
+            # elastic resolution AFTER placement, same contract: a
+            # shrunk (or regrown) mapping busts the ledger signature
+            # via args.elastic_sig, and exports the fenced epoch
+            from dgl_operator_tpu_torch.launcher import elastic
+            hostfile = elastic.resolve(args, ws, part_cfg, hostfile,
+                                       fabric)
     ledger = PhaseLedger(ws, PhaseLedger.signature_of(args, phase),
                          enabled=resume)
 
@@ -476,12 +552,29 @@ def _workflow(args: argparse.Namespace, ws: str) -> None:
     else:
         clock = _PhaseClock(5)
         numerics_retries = 0
+        shrinks = 0
         while True:
             try:
                 _launcher_phases(args, ws, clock, ledger, hostfile,
                                  worker_part_cfg, part_cfg, fabric, py)
                 break
             except (Exception, SystemExit) as exc:
+                new_hf = None
+                if args.elastic and shrinks < args.elastic_max_shrinks:
+                    new_hf = _elastic_shrink(args, ws, part_cfg,
+                                             hostfile, exc)
+                if new_hf is not None:
+                    # elastic shrink: the mapping changed, so the
+                    # ledger signature changed with it — phases 3-5
+                    # re-run against the shrunk hostfile and the
+                    # trainers resume from the last fenced checkpoint
+                    shrinks += 1
+                    hostfile = new_hf
+                    ledger = PhaseLedger(
+                        ws, PhaseLedger.signature_of(args, phase),
+                        enabled=resume)
+                    clock = _PhaseClock(5)
+                    continue
                 if numerics_retries < getattr(args, "numerics_retries",
                                               0) \
                         and _numerics_rollback(ws):
@@ -530,6 +623,41 @@ def _numerics_rollback(ws: str) -> bool:
     return True
 
 
+def _elastic_shrink(args: argparse.Namespace, ws: str, part_cfg: str,
+                    hostfile: str,
+                    exc: BaseException) -> Optional[str]:
+    """Classify a launcher-phase failure for elasticity: when it names
+    DEAD hosts (not merely flaky ones), commit a shrink and return the
+    new working hostfile; None means the failure is not elastically
+    recoverable and must surface. Never raises — a broken re-plan must
+    not mask the original failure."""
+    from dgl_operator_tpu_torch.launcher import elastic
+    obs = get_obs()
+    try:
+        entries = parse_hostfile(hostfile)
+        dead = elastic.detect_dead(ws, entries, exc=exc,
+                                   obs_dir=obs.directory)
+        if not dead or len(dead) >= len({e.name for e in entries}):
+            return None
+        plan = elastic.plan_shrink(part_cfg, entries, dead,
+                                   obs_dir=obs.directory)
+        hf = elastic.apply_shrink(ws, entries, plan)
+    except Exception as planexc:  # noqa: BLE001 — surface the original
+        console.log(f"elastic shrink failed ({planexc}); surfacing the "
+                    "original launch failure",
+                    event="elastic_shrink_failed", error=str(planexc)[:300])
+        return None
+    args.elastic_sig = f"epoch-{plan['epoch']}"
+    args.placement_path = elastic.plan_path(ws)
+    console.log(
+        f"elastic shrink: host(s) {', '.join(dead)} dead — re-placed "
+        f"{plan['full_width']} partition(s) over {plan['width']} "
+        f"surviving host(s) (epoch {plan['epoch']}); relaunching from "
+        "the last fenced checkpoint", event="elastic_shrink_applied",
+        dead=dead, epoch=plan["epoch"])
+    return hf
+
+
 def _launcher_phases(args: argparse.Namespace, ws: str,
                      clock: _PhaseClock, ledger: Optional[PhaseLedger],
                      hostfile: str, worker_part_cfg: str, part_cfg: str,
@@ -546,6 +674,11 @@ def _launcher_phases(args: argparse.Namespace, ws: str,
         f"{shlex.quote(py)} -m dgl_operator_tpu_torch.launcher.revise "
         f"--workspace {shlex.quote(ws)} "
         f"--ip_config {shlex.quote(hostfile)} --framework JAX")
+    if getattr(args, "placement_path", None):
+        # every worker's revised hostfile honors the same
+        # partition→host mapping (launcher/revise.py --placement)
+        revise_cmd += (" --placement "
+                       f"{shlex.quote(args.placement_path)}")
     _phase(clock, ledger, 4, "batch revise hostfile",
            lambda: run_exec_batch(hostfile, revise_cmd, fabric))
 

@@ -12,7 +12,10 @@ sources include no PyTorch header, so a build takes seconds.
 partitioner, is compiled the same way by the host C++ compiler
 (``$CXX``, else ``g++``) with ``HOST_CXXFLAGS``: no ``-march=native``
 and no ``-ffast-math``, so that no float sum of the partitioner is
-contracted or reordered.
+contracted or reordered. The control plane's executables
+(``native/controlplane/``: ``tpu-operator``, ``tpu-watcher``) are
+linked the same way by :func:`build_host_exe`, hash-named like the
+libraries.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 HOST_CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
+# an executable: the same flags without -shared
+HOST_EXE_CXXFLAGS = tuple(f for f in HOST_CXXFLAGS if f != "-shared")
 HOST_CXX_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -73,16 +78,24 @@ def host_cxx() -> str:
 
 
 def _compile(path: str, compiler: Callable[[], str],
-             flags: Sequence[str], key: str, timeout: int) -> BuildResult:
-    """Compile ``path`` with ``compiler() *flags`` into a library under
-    ``BUILD_DIR`` named by a hash of the source, ``key`` and the flags,
-    unless that library is already there; raises with the compiler's
-    output when it fails. The library appears by an atomic rename, so
+             flags: Sequence[str], key: str, timeout: int,
+             extra: Sequence[str] = (), stem: Optional[str] = None,
+             suffix: str = ".so") -> BuildResult:
+    """Compile ``path`` (and the ``extra`` sources after it) with
+    ``compiler() *flags`` into ``<stem>-<hash><suffix>`` under
+    ``BUILD_DIR``, the hash over the sources, ``key`` and the flags,
+    unless that output is already there; raises with the compiler's
+    output when it fails. The output appears by an atomic rename, so
     processes that build at once each see all of it or none."""
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join((key, *flags)).encode())
-    stem = os.path.splitext(os.path.basename(path))[0]
-    lib = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    sources = (path, *extra)
+    blob = b""
+    for src in sources:
+        with open(src, "rb") as f:
+            blob += f.read()
+    digest = hashlib.sha256(blob + " ".join((key, *flags)).encode())
+    stem = stem or os.path.splitext(os.path.basename(path))[0]
+    lib = os.path.join(BUILD_DIR,
+                       f"{stem}-{digest.hexdigest()[:16]}{suffix}")
     log_path = lib + ".log"
     if os.path.exists(lib):
         log = ""
@@ -92,7 +105,7 @@ def _compile(path: str, compiler: Callable[[], str],
         return BuildResult(lib, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [compiler(), *flags, "-o", tmp, path]
+    cmd = [compiler(), *flags, "-o", tmp, *sources]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -140,6 +153,25 @@ def build_host(source: str) -> BuildResult:
     cxx = host_cxx()
     return _compile(os.path.join(NATIVE, source), lambda: cxx,
                     HOST_CXXFLAGS, cxx, HOST_CXX_TIMEOUT_S)
+
+
+def build_host_exe(name: str, sources: Sequence[str],
+                   headers: Sequence[str] = ()) -> BuildResult:
+    """Link the executable ``name`` from ``native/<sources>`` with the
+    host C++ compiler and ``HOST_EXE_CXXFLAGS`` into
+    ``_build/<name>-<hash>``, the hash over the sources, the
+    ``native/<headers>`` they include, the compiler and the flags,
+    unless that executable is already there; raises with the compiler's
+    output when it fails."""
+    cxx = host_cxx()
+    key = cxx
+    for h in headers:
+        with open(os.path.join(NATIVE, h), "rb") as f:
+            key += hashlib.sha256(f.read()).hexdigest()
+    paths = [os.path.join(NATIVE, s) for s in sources]
+    return _compile(paths[0], lambda: cxx, HOST_EXE_CXXFLAGS, key,
+                    HOST_CXX_TIMEOUT_S, extra=paths[1:], stem=name,
+                    suffix="")
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -34,7 +34,7 @@ HOSTFILE_ENV = "TPU_OPERATOR_HOSTFILE_PATH"
 RANK_ENV = "TPU_OPERATOR_RANK"
 PHASE_ENV = "TPU_OPERATOR_PHASE_ENV"
 # the elastic incarnation epoch the launcher exports on every shrink and
-# regrow; the checkpoint plane's fences read it (not ported yet)
+# regrow (launcher/elastic.py); the checkpoint fences read it
 FENCE_EPOCH_ENV = "TPU_OPERATOR_ELASTIC_EPOCH"
 DEFAULT_PORT = 30050  # the operator's DGL_PORT
 

@@ -3,8 +3,8 @@ dispatch, launch and the ``tpurun`` phases, the JAX package's
 ``tests/test_launcher.py`` cases run on the port's copy, then parity
 with the JAX launcher on identical inputs (the dispatch rewrite of one
 book, ``launch_train``'s environment per host, the ``PhaseLedger``
-signature, the revised hostfile), ``--elastic`` and ``--placement``
-refused, and the KGE job end to end: ``tpukerun`` phases 3-5 over
+signature, the revised hostfile), what ``--placement auto`` and
+``--elastic`` do in a driver run, and the KGE job end to end: ``tpukerun`` phases 3-5 over
 ``LocalFabric`` starting the port's ``partition_kg.py`` book and
 ``train_kge.py`` by path (``--num_dp 2 --num_mp 2 --neg_sampler device``
 on the CPU), and a driver relaunch of the port's ``train_dist.py``
@@ -577,14 +577,81 @@ def test_revised_hostfile_matches_jax(tmp_path, framework):
 
 
 @pytest.mark.parametrize("flag", [["--elastic"], ["--placement", "auto"]])
-def test_tpurun_refuses_elastic_and_placement(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="7c"):
-        tpurun.main(["--workspace", str(tmp_path)] + flag)
-    if flag[0] == "--placement":
-        with pytest.raises(NotImplementedError, match="7c"):
-            port_revise.main(["--workspace", str(tmp_path), "--ip_config",
-                              _hostfile(tmp_path / "h", 1), "--framework",
-                              "JAX", "--placement", "p.json"])
+def test_tpurun_runs_elastic_and_placement(tmp_path, monkeypatch, flag):
+    """A driver run of phases 3-5 with each flag: ``--placement auto``
+    derives the mapping from the run's measured heartbeats (w0 slow:
+    the heavier partition goes to w1), regenerates ``hostfile_placed``
+    in that order and revises every worker's hostfile from it;
+    ``--elastic`` signs the job ``epoch-0`` and exports the fence epoch
+    to the trainers. Both drivers sign the job alike."""
+    from dgl_operator_tpu.launcher import tpurun as jax_tpurun
+    from dgl_operator_tpu_torch.autotune import placement as PL
+    from dgl_operator_tpu_torch.parallel.bootstrap import (FENCE_EPOCH_ENV,
+                                                           parse_hostfile)
+
+    g = datasets.karate_club().graph
+    ws = tmp_path / "ws"
+    (ws / "obs").mkdir(parents=True)
+    book = partition_graph(g, "karate", 2, str(ws / "dataset"))
+    conf = tmp_path / "conf"
+    conf.mkdir()
+    hf = _hostfile(conf / "hostfile", 2)
+    with open(ws / "obs" / "events.jsonl", "w") as f:
+        for host, dt in (("w0-worker", 1.0), ("w1-worker", 0.1)):
+            for i in range(8):
+                f.write(json.dumps({"event": "heartbeat", "ts": 1000 + i * dt,
+                                    "host": host, "pid": 7,
+                                    "role": "trainer-0", "step": i}) + "\n")
+    out = tmp_path / "out"
+    out.mkdir()
+    entry = tmp_path / "train.py"
+    entry.write_text(textwrap.dedent(f"""
+        import os, sys
+        rank = os.environ["{RANK_ENV}"]
+        ip_config = sys.argv[sys.argv.index("--ip_config") + 1]
+        with open(r"{out}/rank" + rank, "w") as f:
+            f.write(os.environ.get("{FENCE_EPOCH_ENV}", "-") + "\\n")
+            f.write(open(ip_config).read())
+    """))
+    for name in (PHASE_ENV, FENCE_EPOCH_ENV, "TPU_OPERATOR_OBS_DIR",
+                 "TPU_OPERATOR_CHAOS"):
+        monkeypatch.delenv(name, raising=False)
+    # unset, and unset again after the test (the driver exports it)
+    monkeypatch.setenv(FENCE_EPOCH_ENV, "")
+    monkeypatch.delenv(FENCE_EPOCH_ENV)
+    argv = ["--graph-name", "karate", "--num-partitions", "2",
+            "--train-entry-point", str(entry), "--workspace", str(ws),
+            "--conf-dir", str(conf), "--fabric", "local"] + flag
+    tpurun.main(argv)
+    with open(ws / tpurun.LEDGER_NAME) as f:
+        ledger = json.load(f)
+    assert sorted(ledger["phases"]) == ["3", "4", "5"]
+    args, jargs = (mod.build_parser().parse_args(argv)
+                   for mod in (tpurun, jax_tpurun))
+    epochs = [(out / f"rank{r}").read_text().splitlines()[0]
+              for r in range(2)]
+    if flag[0] == "--elastic":
+        assert epochs == ["0", "0"]
+        assert os.environ[FENCE_EPOCH_ENV] == "0"
+        args.elastic_sig = jargs.elastic_sig = "epoch-0"
+        assert not (ws / "hostfile_placed").exists()
+    else:
+        assert epochs == ["-", "-"]
+        want = PL.derive(str(ws / "obs"), book, parse_hostfile(hf))
+        weights = PL.part_weights(book)
+        heavier = str(int(weights[1] > weights[0]))
+        assert want["assignment"][heavier] == "w1-worker"
+        placed = [e.name for e in parse_hostfile(str(ws / "hostfile_placed"))]
+        assert placed == [want["assignment"][str(p)] for p in range(2)]
+        with open(ws / "placement.json") as f:
+            assert json.load(f) == want
+        args.placement_sig = jargs.placement_sig = json.dumps(
+            want["assignment"], sort_keys=True)
+        ip = {e.name: f"{e.ip}:{e.port}" for e in parse_hostfile(hf)}
+        revised = (out / "rank0").read_text().splitlines()[1:]
+        assert revised == [ip[n] for n in placed]
+    assert ledger["signature"] == tpurun.PhaseLedger.signature_of(
+        args, None) == jax_tpurun.PhaseLedger.signature_of(jargs, None)
 
 
 def test_tpukerun_flags_match_jax():
