@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, KGE (its grid and
-its launcher included), GAT,
+its launcher included), state sharding, ring, GAT,
 full-graph, RGCN and GIN paths, the numerics sentry, the serving
 fleet, the chaos, preemption and live planes, and the data plane
 (quantized and out-of-core books, bfloat16 compute, remat).
@@ -225,6 +225,35 @@ Each phase prints JSON lines:
    watcher barrier once over the rendered partfile, and a job whose
    health feed is the ``elastic`` phase's job view: the controller
    fails its launcher with reason ``HostDead`` and names the dead host.
+13g. ``shard`` — state sharding (``parallel/dp.py::ShardPlan``) through
+   ``DistTrainer`` SAGE at full width over the products graph split in
+   4 parts (the serving phase's 2-part assignment halved by node id
+   parity), each part's train split cut to 8 steps, replicated layout,
+   host sampler: ``shard_update``, ``shard_rules`` on stage 1,
+   ``zero_stage=3`` with ``gather_depth`` 1 and 4, each bit-equal to
+   the replicated run (losses, weights, the logical Adam state;
+   ``max_abs_diff`` 0), and ``zero_stage=3, tp_axis_size=2`` with the
+   kernels in blocks over ``mp`` on a 2 x 2 mesh bit-equal to the
+   replicated run on its 2 dp slots; each run's launches, the byte
+   model's ``sharding_summary`` beside the measured MiB of each slot's
+   state tensors; the stage-3 checkpoint written at 4 slots restored
+   bit for bit into the 2 x 2 trainer and into a replicated one at 2
+   slots; two gloo ranks on the card with ``shard_update`` (each rank's
+   optimizer-state bytes on the card against the replicated trainer's);
+   and the KGE grid (2 x 2, the KGE job's width) with relation
+   ``shard_rules`` bit-equal to the unsharded grid.
+13h. ``ring`` — ``ring_lookup`` and ``ring_push_adagrad`` on 4 shards at
+   the KGE job's batch and width against ``sharded_lookup`` (bit for
+   bit) and ``sharded_push_adagrad`` (within 1e-6), with each form's
+   peak device memory; ``ring_dot_attention`` and ``ring_gat_attention``
+   on 4 shards against their dense forms (within 1e-5), with the dense
+   and ring milliseconds at three lengths and the measured crossover
+   written for ``use_ring`` (``parallel/ring_attention.py``);
+   ``gat_hub_attention`` on the products graph's highest-degree nodes,
+   bucketed by ``bucket_by_degree``, at the GAT phase's first-layer
+   width, against the full-graph ``GATConv`` layer over their in-edges
+   (within 1e-4), with the ring's and the one-shard dense form's peak
+   bytes.
 
 14. ``gat`` — ``DistGAT`` and ``DistGATv2`` at the entry point's width
    (2 heads of 256 concatenated, then one head of 47; fanouts 10 and 25,
@@ -399,7 +428,8 @@ Then a ``{"kernels": [...]}`` line (one entry per hand-written kernel:
 launches during the serving, training, dist, dist_mp, device_sampler,
 kge, kge_grid, kgejob (the child's own count), obs (the obsjob
 child's and the overhead runs'), tune (the probes' own counts),
-elastic (the children's own counts), gat, message_passing,
+elastic (the children's own counts), shard (the gloo ranks' own
+counts included), ring, gat, message_passing,
 rgcn_gin, sentry, fleet, chaos and dataplane phases
 (both ranks of each
 two-rank run and every graph replay included), split by path, worst
@@ -1743,10 +1773,10 @@ def dist_run_record(torch, tr, out, launches, probe, wall_s: float):
         device_busy_share=dev["device_ms"] / float(step_ms.mean()))
 
 
-def cut_book(g, node_map, ids_per_part: int, path: str):
-    """The graph split by ``node_map`` into a 2-part book at ``path``,
-    each part's train split cut to its first ``ids_per_part`` ids.
-    Returns the book and the cut graph."""
+def cut_book(g, node_map, ids_per_part: int, path: str, num_parts: int = 2):
+    """The graph split by ``node_map`` into a ``num_parts``-part book at
+    ``path``, each part's train split cut to its first ``ids_per_part``
+    ids. Returns the book and the cut graph."""
     import numpy as np
 
     from dgl_operator_tpu_torch.graph.graph import Graph
@@ -1754,11 +1784,11 @@ def cut_book(g, node_map, ids_per_part: int, path: str):
 
     train = np.asarray(g.ndata["train_mask"], bool)
     mask = np.zeros(g.num_nodes, bool)
-    for p in range(2):
+    for p in range(num_parts):
         mask[np.nonzero(train & (node_map == p))[0][:ids_per_part]] = 1
     cut = Graph(g.src, g.dst, g.num_nodes)
     cut.ndata = {**g.ndata, "train_mask": mask}
-    return partition_graph(cut, "ogbn-products", 2, path,
+    return partition_graph(cut, "ogbn-products", num_parts, path,
                            parts=node_map), cut
 
 
@@ -4588,6 +4618,505 @@ def controlplane_phase(elastic_obs: str, work: str, card: str,
          seconds=time.perf_counter() - t0)
     check("yaml" not in sys.modules, "controlplane: yaml was imported")
 
+
+# ------------------------------------------------------------------ shard
+# the shard phase's book: the serving phase's 2-part assignment halved
+# by node id parity into 4 parts, each part's train split cut to 8
+# steps (a depth cut)
+SHARD_IDS_PER_PART = 8 * BATCH_TRAIN
+SHARD_RULES = (("neigh", "dp"), (".*", None))
+SHARD_TP_RULES = (("kernel", (None, "mp")), (".*", "dp"))
+KGE_REL_RULES = (("relation", "dp"), (".*", None))
+KGE_SHARD_STEPS = 10   # the KGE grid with and without relation rules
+# one rank of the shard phase's gloo pair on the card: DistTrainer with
+# shard_update over its 2 of the 4 parts, its optimizer state's bytes on
+# the card, its kernel counts and its weights written for the parent
+SHARD_CHILD = """
+import datetime, json, sys
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["repo"])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dgl_operator_tpu_torch.models.sage import DistSAGE
+from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+from dgl_operator_tpu_torch.runtime.loop import TrainConfig
+torch.distributed.init_process_group(
+    "gloo", init_method=f"tcp://127.0.0.1:{spec['port']}", world_size=2,
+    rank=spec["rank"], timeout=datetime.timedelta(seconds=120))
+wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows)
+model = DistSAGE(*spec["widths"], device="cuda")
+with np.load(spec["w0"]) as z:
+    model.load_state_dict({k: torch.from_numpy(z[k]) for k in z.files})
+tr = DistTrainer(model, spec["book"], TrainConfig(**spec["cfg"]),
+                 device="cuda")
+for w in wrappers:
+    w.launches = 0
+out = tr.train()
+torch.cuda.synchronize()
+opt = sum(v.numel() * v.element_size()
+          for st in tr.optimizer.state.values() for v in st.values()
+          if isinstance(v, torch.Tensor) and v.is_cuda)
+np.savez(spec["out"] + ".npz",
+         **{k: v.cpu().numpy() for k, v in out["params"].items()})
+with open(spec["out"] + ".json", "w") as f:
+    json.dump({"losses": out["history"][0]["losses"],
+               "opt_state_bytes_on_card": opt,
+               "memory_allocated": torch.cuda.memory_allocated(),
+               "slots": tr._plan.slots,
+               "launches": {w.__name__: w.launches for w in wrappers}}, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def state_bytes(tr) -> dict:
+    """The measured bytes a slot of a trainer's state tensors: its
+    plan's (a shard, a block or the full parameter, and the optimizer's
+    tensors of those), or every parameter and Adam tensor when
+    replicated."""
+    if tr._plan is not None:
+        return tr._plan.slot_bytes()
+    params = sum(p.numel() * p.element_size()
+                 for p in tr.model.parameters())
+    opt = sum(v.numel() * v.element_size()
+              for st in tr.optimizer.state.values() for v in st.values()
+              if hasattr(v, "numel"))
+    return {s: {"params": params, "opt_state": opt}
+            for s in range(tr.num_parts)}
+
+
+def moment_bytes(tr, slot: int = 0) -> int:
+    """Adam's moments (its step counters aside) of ``slot``'s state."""
+    if tr._plan is None:
+        return sum(v.numel() * v.element_size()
+                   for st in tr.optimizer.state.values()
+                   for k, v in st.items() if k != "step")
+    plan = tr._plan
+    m = plan.mesh.size // plan.n
+    total = 0
+    for lf in plan.leaves:
+        t = (lf.parts[lf.coords.index(slot // m)] if lf.kind == "flat"
+             else lf.parts[0])
+        total += sum(v.numel() * v.element_size() for k, v in
+                     plan.optimizer.state[t].items() if k != "step")
+    return total
+
+
+def state_diff(torch, a: dict, b: dict) -> float:
+    """Largest absolute difference of two runs' weights and logical Adam
+    states (0.0: bit for bit)."""
+    d = max(float((a["params"][k] - b["params"][k]).abs().max())
+            for k in a["params"])
+    sa, sb = a["opt_state"]["state"], b["opt_state"]["state"]
+    check(sorted(sa) == sorted(sb), "the Adam states name other tensors")
+    for i in sa:
+        for k in sa[i]:
+            x, y = (torch.as_tensor(s[i][k]).float().cpu() for s in (sa, sb))
+            d = max(d, float((x - y).abs().max()))
+    return d
+
+
+def shard_phase(torch, args, wrappers, g, ctx, kg, work: str,
+                card: str) -> dict:
+    """State sharding through ``DistTrainer`` on the card (see the
+    module docstring, 13g). Returns the launches of its runs, the gloo
+    ranks' included."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.kge_sampler import TrainDataset
+    from dgl_operator_tpu_torch.models.sage import (DistSAGE,
+                                                    state_dict_from_flax)
+    from dgl_operator_tpu_torch.parallel.mesh import (make_mesh,
+                                                      make_train_mesh)
+    from dgl_operator_tpu_torch.runtime.dist import DistTrainer
+    from dgl_operator_tpu_torch.runtime.loop import (TrainConfig,
+                                                     open_checkpoints)
+
+    t_phase = time.perf_counter()
+    total = {w.__name__: 0 for w in wrappers}
+    node_map4 = (np.asarray(ctx["node_map"], np.int64) * 2
+                 + np.arange(g.num_nodes) % 2)
+    t0 = time.perf_counter()
+    book, _ = cut_book(g, node_map4, SHARD_IDS_PER_PART,
+                       os.path.join(work, "shard_book"), num_parts=4)
+    book_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "shard_ckpt")
+    base = dict(num_epochs=1, batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
+                eval_every=0, seed=args.seed)
+    runs = {}
+
+    def run(name, mesh=None, **fields):
+        t0 = time.perf_counter()
+        tr = DistTrainer(DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda"),
+                         book, TrainConfig(**base, **fields), device="cuda",
+                         mesh=mesh)
+        make_s = time.perf_counter() - t0
+        P = tr.num_parts
+        # the main path: every kernel count starts at 0 here
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        out = tr.train(init_params=ctx["w0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        steps = out["step"]
+        check(steps == tr.steps_per_epoch == SHARD_IDS_PER_PART // BATCH_TRAIN,
+              f"shard {name}: {steps} steps")
+        check(launches == {"fanout_agg": 2 * P * steps,
+                           "gather_rows": P * steps,
+                           "scatter_add_rows": P * steps},
+              f"shard {name}: {launches} launches in {steps} steps")
+        losses = out["history"][0]["losses"]
+        check(bool(np.isfinite(losses).all()), f"shard {name}: losses")
+        for k, v in launches.items():
+            total[k] += v
+        runs[name] = (tr, out)
+        return dict(run=name, mesh=tr.mesh.shape, slots=tr.mesh.size,
+                    dp=P, steps=steps, launches=launches, trainer_s=make_s,
+                    train_s=wall, ms_per_step=wall / steps * 1e3,
+                    losses=losses)
+
+    mib = 1.0 / 2**20
+
+    def measured(tr) -> dict:
+        return {str(s): {k: round(v * mib, 3) for k, v in b.items()}
+                for s, b in state_bytes(tr).items()}
+
+    rec = run("replicated")
+    emit(phase="shard", card=card, book_s=book_s, **rec,
+         summary=runs["replicated"][0].state_summary,
+         measured_mib_per_slot=measured(runs["replicated"][0]))
+    ref_tr, ref = runs["replicated"]
+    repl_moments = moment_bytes(ref_tr)
+    repl_params = sum(p.numel() * 4 for p in ref_tr.model.parameters())
+    for name, mesh, fields, against in (
+            ("shard_update", None, dict(shard_update=True), "replicated"),
+            ("shard_rules", None, dict(shard_rules=SHARD_RULES),
+             "replicated"),
+            ("zero3_gd1", None, dict(zero_stage=3, gather_depth=1,
+                                     ckpt_dir=ckpt), "replicated"),
+            ("zero3_gd4", None, dict(zero_stage=3, gather_depth=4),
+             "replicated"),
+            ("replicated_dp2", make_mesh(2), {}, None),
+            ("zero3_tp2", make_train_mesh(2, 2),
+             dict(zero_stage=3, tp_axis_size=2, shard_rules=SHARD_TP_RULES),
+             "replicated_dp2")):
+        rec = run(name, mesh, **fields)
+        tr, out = runs[name]
+        extra = {}
+        if against is not None:
+            want = runs[against][1]
+            same_losses = (out["history"][0]["losses"]
+                           == want["history"][0]["losses"])
+            d = state_diff(torch, out, want)
+            check(same_losses and d == 0.0,
+                  f"shard {name}: losses equal {same_losses}, weights and "
+                  f"Adam state {d} apart from {against}")
+            plan = tr._plan
+            extra = dict(bit_equal_to=against, losses_equal=True,
+                         max_abs_diff=d, zero_stage=plan.zero_stage,
+                         kinds=sorted({lf.kind for lf in plan.leaves}))
+            if plan.zero_stage == 1 and name == "shard_update":
+                ratio = moment_bytes(tr) / repl_moments
+                check(ratio <= 0.30, f"shard {name}: a slot's moments "
+                      f"{ratio} of the replicated")
+                extra["opt_moments_ratio_to_replicated"] = ratio
+            if plan.zero_stage == 3 and mesh is None:
+                ratio = state_bytes(tr)[0]["params"] / repl_params
+                check(ratio <= 0.30, f"shard {name}: a slot's params "
+                      f"{ratio} of the replicated")
+                extra["params_ratio_to_replicated"] = ratio
+        emit(phase="shard", card=card, **rec, **extra,
+             summary=tr.state_summary, measured_mib_per_slot=measured(tr))
+
+    # the stage-3 checkpoint written at 4 slots, restored at 2
+    want = runs["zero3_gd1"][1]
+    restored = {}
+    for name in ("zero3_tp2", "replicated_dp2"):
+        tr = runs[name][0]
+        cfg = dataclasses.replace(tr.cfg, ckpt_dir=ckpt, resume="auto")
+        _, step = open_checkpoints(cfg, tr.model, tr.optimizer,
+                                   plan=tr._plan)
+        if tr._plan is not None:
+            st = tr._plan.train_state()
+            got = {"params": st["params"], "opt_state": {"state": {
+                int(i): v for i, v in st["opt"].items()}}}
+        else:
+            got = {"params": tr.model.state_dict(),
+                   "opt_state": tr.optimizer.state_dict()}
+        d = state_diff(torch, got, want)
+        check(step == want["step"] and d == 0.0,
+              f"shard checkpoint into {name}: step {step}, {d} apart")
+        restored[name] = dict(step=step, max_abs_diff=d,
+                              mesh=tr.mesh.shape)
+    emit(phase="shard", card=card, part="checkpoint", written_by="zero3_gd1",
+         written_mesh=runs["zero3_gd1"][0].mesh.shape, restored=restored)
+
+    # two gloo ranks on the card with shard_update
+    tmp = os.path.join(work, "shard_mp")
+    os.makedirs(tmp, exist_ok=True)
+    w0_path = os.path.join(tmp, "w0.npz")
+    np.savez(w0_path, **{k: v.numpy() for k, v in
+                         state_dict_from_flax(ctx["w0"]).items()})
+    port = free_port()
+    t0 = time.perf_counter()
+    run_two_ranks(SHARD_CHILD, lambda r: {
+        "repo": REPO, "rank": r, "port": port, "book": book, "w0": w0_path,
+        "widths": [FEAT, HIDDEN, CLASSES],
+        "cfg": {**base, "fanouts": list(FANOUTS), "shard_update": True},
+        "out": os.path.join(tmp, f"rank{r}")}, tmp, "shard two ranks")
+    wall = time.perf_counter() - t0
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+        for k, v in res[r]["launches"].items():
+            total[k] += v
+    one = runs["shard_update"][1]
+    repl_opt = sum(v.numel() * v.element_size()
+                   for st in ref_tr.optimizer.state.values()
+                   for v in st.values() if getattr(v, "is_cuda", False))
+    with np.load(os.path.join(tmp, "rank0.npz")) as z:
+        pdiff = max(float(np.abs(z[k] - v.cpu().numpy()).max())
+                    for k, v in one["params"].items())
+    ratios = [x["opt_state_bytes_on_card"] / repl_opt for x in res]
+    check(res[0]["losses"] == res[1]["losses"]
+          and max(ratios) <= 0.55 and pdiff <= 1e-5,
+          f"shard two ranks: losses {[x['losses'] for x in res]}, optimizer "
+          f"bytes {ratios} of replicated, weights {pdiff} from one process")
+    emit(phase="shard", card=card, part="two_ranks", backend="gloo",
+         device="cuda:0", world_size=2, wall_s=wall,
+         slots_per_rank=[x["slots"] for x in res],
+         opt_state_bytes_on_card=[x["opt_state_bytes_on_card"] for x in res],
+         replicated_opt_state_bytes_on_card=repl_opt,
+         opt_state_ratio_to_replicated=ratios,
+         memory_allocated=[x["memory_allocated"] for x in res],
+         losses_equal_across_ranks=True,
+         param_max_abs_diff_to_one_process=pdiff,
+         launches_per_rank=[x["launches"] for x in res])
+
+    # the KGE grid with relation shard_rules against the unsharded grid
+    td4 = TrainDataset(kg.train, kg.n_entities, kg.n_relations, ranks=4)
+    outs = {}
+    for name, fields in (("unsharded", {}),
+                         ("relation_rules",
+                          dict(shard_rules=KGE_REL_RULES))):
+        tr = kge_grid_trainer(kg, args.seed, (2, 2), "cuda",
+                              max_step=KGE_SHARD_STEPS, **fields)
+        out, launches, rec = grid_run(torch, wrappers, tr, td4,
+                                      f"kge {name}", KGE_SHARD_STEPS)
+        for k, v in launches.items():
+            total[k] += v
+        outs[name] = (tr, out, rec)
+    (p_tr, p_out, _), (s_tr, s_out, s_rec) = outs.values()
+    sd_p, sd_s = p_tr.state_dict(), s_tr.state_dict()
+    same = (p_out["losses"] == s_out["losses"]
+            and all(np.array_equal(sd_p[k], sd_s[k]) for k in sd_p))
+    check(same and s_tr._rel_sharded, "kge relation rules: not bit-equal "
+          "to the unsharded grid")
+    emit(phase="shard", card=card, part="kge_relation_rules", grid=[2, 2],
+         bit_equal_to_unsharded=True,
+         relation_rows_padded=s_tr._rel_pad,
+         summary=s_tr.state_sharding_summary(),
+         unsharded_summary=p_tr.state_sharding_summary(), **s_rec)
+    emit(phase="shard", card=card, part="done",
+         seconds=time.perf_counter() - t_phase)
+    return total
+
+
+# ------------------------------------------------------------------- ring
+RING_SHARDS = 4
+RING_ATTN = dict(N=64, H=4, D=64)          # queries, heads, width
+RING_LENGTHS = (2048, 8192, 32768)          # the key axis timed
+RING_HUBS = 256        # the highest-degree nodes of the hub attention
+RING_HUB_BATCH = 64    # bucket_by_degree's max_batch
+
+
+def peak_call(torch, fn):
+    """``fn()``'s result and the device bytes it held at its peak above
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def event_ms(torch, fn, iters: int = 3) -> float:
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ring_phase(torch, args, wrappers, g, kg, card: str) -> dict:
+    """The ring forms on the card (see the module docstring, 13h).
+    Returns the launches of the ring forms and the hub attention."""
+    import numpy as np
+
+    from dgl_operator_tpu_torch.graph.graph import Graph
+    from dgl_operator_tpu_torch.models.gat import (bucket_by_degree,
+                                                   gat_hub_attention)
+    from dgl_operator_tpu_torch.nn.conv import GATConv
+    from dgl_operator_tpu_torch.parallel import ring_attention as ra
+    from dgl_operator_tpu_torch.parallel.embedding import (
+        ShardedTableSpec, pad_rows, route, sharded_lookup,
+        sharded_push_adagrad)
+    from dgl_operator_tpu_torch.parallel.ring import (ring_lookup,
+                                                      ring_push_adagrad)
+
+    t_phase = time.perf_counter()
+    total = {w.__name__: 0 for w in wrappers}
+    rng = np.random.default_rng(args.seed)
+
+    # (a) the embedding ring at the KGE job's batch and width: every
+    # slot's h || t || neg (one chunk of negatives)
+    M = 2 * KGE_BATCH + KGE_NEG
+    spec = ShardedTableSpec(kg.n_entities, KGE_DIM, RING_SHARDS)
+    table = torch.from_numpy(pad_rows(rng.normal(
+        size=(kg.n_entities, KGE_DIM)), spec.padded_rows)).cuda()
+    state = torch.zeros(spec.padded_rows, device="cuda")
+    ids = rng.integers(0, kg.n_entities, size=(RING_SHARDS, M))
+    grads = torch.from_numpy(rng.normal(size=(RING_SHARDS, M, KGE_DIM))
+                             .astype(np.float32)).cuda()
+    rt = route([ids.reshape(-1)], spec, 0).to("cuda")
+    want, dense_peak = peak_call(torch, lambda: sharded_lookup(table, rt))
+    reset_counts(wrappers)
+    got, ring_peak = peak_call(torch, lambda: ring_lookup(table, ids, spec))
+    look = read_counts(wrappers)
+    check(torch.equal(got.view(-1, KGE_DIM), want), "ring_lookup is not "
+          "sharded_lookup bit for bit")
+    t_s, s_s = table.clone(), state.clone()
+    _, dense_push_peak = peak_call(torch, lambda: sharded_push_adagrad(
+        t_s, s_s, grads.view(-1, KGE_DIM), rt, KGE_LR))
+    t_r, s_r = table.clone(), state.clone()
+    reset_counts(wrappers)
+    _, ring_push_peak = peak_call(torch, lambda: ring_push_adagrad(
+        t_r, s_r, ids, grads, spec, KGE_LR))
+    push = read_counts(wrappers)
+    terr = float((t_r - t_s).abs().max())
+    serr = float((s_r - s_s).abs().max())
+    check(terr <= 1e-6 and serr <= 1e-6 * max(1.0, float(s_s.abs().max())),
+          f"ring_push_adagrad {terr}, {serr} from sharded_push_adagrad")
+    check(look["gather_rows"] > 0 and push["scatter_add_rows"] > 0,
+          f"ring launches: lookup {look}, push {push}")
+    for d in (look, push):
+        for k, v in d.items():
+            total[k] += v
+    emit(phase="ring", card=card, part="embedding", shards=RING_SHARDS,
+         ids_per_slot=M, dim=KGE_DIM, rows=kg.n_entities,
+         lookup_bit_equal=True, push_table_max_abs_err=terr,
+         push_state_max_abs_err=serr,
+         peak_bytes={"sharded_lookup": dense_peak, "ring_lookup": ring_peak,
+                     "sharded_push": dense_push_peak,
+                     "ring_push": ring_push_peak},
+         ms={"sharded_lookup": event_ms(torch, lambda: sharded_lookup(
+             table, rt)), "ring_lookup": event_ms(
+                 torch, lambda: ring_lookup(table, ids, spec))},
+         launches={"lookup": look, "push": push})
+
+    # (b) ring attention against dense, and the crossover
+    N, H, D = RING_ATTN["N"], RING_ATTN["H"], RING_ATTN["D"]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    timings, crossover = [], None
+    for S in RING_LENGTHS:
+        q, k, v = randn(N, H, D), randn(N, S, H, D), randn(N, S, H, D)
+        mask = (torch.rand(N, S, device="cuda", generator=gen)
+                < 0.8).float()
+        mask[:, :8] = 1.0
+        el, er = randn(N, S, H), randn(N, H)
+        ring_dot = lambda: ra.ring_dot_attention(q, k, v, mask, RING_SHARDS)
+        dense_dot = lambda: ra.dense_dot_attention(q, k, v, mask)
+        ring_gat = lambda: ra.ring_gat_attention(el, er, v, mask,
+                                                 RING_SHARDS)
+        dense_gat = lambda: ra.dense_gat_attention(el, er, v, mask)
+        rd, rd_peak = peak_call(torch, ring_dot)
+        dd, dd_peak = peak_call(torch, dense_dot)
+        rg, dg = ring_gat(), dense_gat()
+        errs = [float((rd - dd).abs().max()), float((rg - dg).abs().max())]
+        check(max(errs) <= 1e-5, f"ring attention at S={S}: {errs} from "
+              "dense")
+        row = dict(S=S, dot_max_abs_err=errs[0], gat_max_abs_err=errs[1],
+                   ring_dot_ms=event_ms(torch, ring_dot),
+                   dense_dot_ms=event_ms(torch, dense_dot),
+                   ring_gat_ms=event_ms(torch, ring_gat),
+                   dense_gat_ms=event_ms(torch, dense_gat),
+                   ring_dot_peak_bytes=rd_peak,
+                   dense_dot_peak_bytes=dd_peak,
+                   dense_attention_bytes=ra.dense_attention_bytes(
+                       N, S, H, D, D))
+        timings.append(row)
+        if crossover is None and row["ring_dot_ms"] < row["dense_dot_ms"]:
+            crossover = S
+        del q, k, v, el, er, mask, rd, dd, rg, dg
+    shape = {"N": N, "H": H, "shards": RING_SHARDS, "D": D}
+    record = ra.write_crossover("cuda", crossover, shape)
+    check(ra.recorded_crossover("cuda") == (
+        None if crossover is None else {"crossover_s": crossover,
+                                        "shape": shape}),
+          "the crossover record does not read back")
+    emit(phase="ring", card=card, part="attention", shards=RING_SHARDS,
+         shape=shape, timings=timings, crossover_s=crossover,
+         record=os.path.relpath(record, REPO))
+
+    # (c) hub attention on the highest-degree nodes
+    indptr, indices, _ = g.csc()
+    deg = np.diff(indptr)
+    hubs = np.argsort(deg, kind="stable")[-RING_HUBS:]
+    buckets = bucket_by_degree(g, hubs, growth=4.0,
+                               max_batch=RING_HUB_BATCH)
+    conv = GATConv(FEAT, HIDDEN, num_heads=GAT_HEADS, device="cuda",
+                   generator=torch.Generator().manual_seed(args.seed))
+    x = torch.from_numpy(np.asarray(g.ndata["feat"], np.float32)).cuda()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    outs = [gat_hub_attention(conv, g, x, b, RING_SHARDS) for b in buckets]
+    torch.cuda.synchronize()
+    hub_s = time.perf_counter() - t0
+    hub_launches = read_counts(wrappers)
+    check(hub_launches["gather_rows"] == 2 * RING_SHARDS * len(buckets),
+          f"hub attention: {hub_launches} launches over {len(buckets)} "
+          "buckets")
+    for k, v in hub_launches.items():
+        total[k] += v
+    errs = []
+    for b, out in zip(buckets, outs):
+        # the full-graph layer over the bucket's in-edges: exact on them
+        src = np.concatenate([indices[indptr[d]:indptr[d + 1]] for d in b])
+        dst = np.repeat(b, deg[b])
+        sub = Graph(src.astype(np.int32), dst.astype(np.int32), g.num_nodes)
+        with torch.no_grad():
+            ref = conv(sub.to_device("cuda"), x)[torch.from_numpy(b).cuda()]
+        errs.append(float((out - ref).abs().max())
+                    / max(1.0, float(ref.abs().max())))
+    check(max(errs) <= 1e-4, f"hub attention {errs} from the full-graph "
+          "GATConv")
+    big = max(buckets, key=lambda b: len(b) * int(deg[b].max()))
+    _, ring_peak = peak_call(torch, lambda: gat_hub_attention(
+        conv, g, x, big, RING_SHARDS))
+    _, dense_peak = peak_call(torch, lambda: gat_hub_attention(
+        conv, g, x, big, 1))
+    emit(phase="ring", card=card, part="hub_attention", hubs=RING_HUBS,
+         buckets=[[len(b), int(deg[b].min()), int(deg[b].max())]
+                  for b in buckets], heads=GAT_HEADS, width=HIDDEN,
+         shards=RING_SHARDS, rel_err=errs, hub_s=hub_s,
+         launches=hub_launches,
+         peak_bytes_largest_bucket={"ring": ring_peak, "dense": dense_peak},
+         largest_bucket=[len(big), int(deg[big].max())])
+    emit(phase="ring", card=card, part="done",
+         seconds=time.perf_counter() - t_phase)
+    return total
 
 # ------------------------------------------------------------------ gat
 # DistGAT and DistGATv2 at the width examples/train_dist.py builds with
@@ -7973,6 +8502,8 @@ def main(argv=None) -> int:
         elastic, elastic_obs = elastic_phase(torch, args, wrappers, g, ctx,
                                              work, smi)
         controlplane_phase(elastic_obs, work, smi, cp_seconds)
+        shard = shard_phase(torch, args, wrappers, g, ctx, kg, work, smi)
+        ring = ring_phase(torch, args, wrappers, g, kg, smi)
         gat, full, gat_records = gat_phase(torch, args, ops, wrappers, g,
                                            trainer, ctx, work, smi)
         mpass, mpass_records = message_passing_phase(
@@ -8022,7 +8553,9 @@ def main(argv=None) -> int:
                                     "kgejob": job["fanout_agg"],
                                     "obs": obs["fanout_agg"],
                                     "tune": tune["fanout_agg"],
-                                    "elastic": elastic["fanout_agg"]}),
+                                    "elastic": elastic["fanout_agg"],
+                                    "shard": shard["fanout_agg"],
+                                    "ring": ring["fanout_agg"]}),
         kernel_entry(records, "gather_rows", f32("train_feats"),
                      launches("gather_rows"), f"{pg}:120",
                      f32("kge_entity", "kge_relation"), kge["gather_rows"],
@@ -8053,7 +8586,9 @@ def main(argv=None) -> int:
                                     "kgejob": job["gather_rows"],
                                     "obs": obs["gather_rows"],
                                     "tune": tune["gather_rows"],
-                                    "elastic": elastic["gather_rows"]}),
+                                    "elastic": elastic["gather_rows"],
+                                    "shard": shard["gather_rows"],
+                                    "ring": ring["gather_rows"]}),
         kernel_entry(records, "scatter_add_rows", f32("train_block1_bwd"),
                      launches("scatter_add_rows"), f"{pg}:234",
                      f32("kge_entity_push", "kge_relation_push"),
@@ -8081,7 +8616,9 @@ def main(argv=None) -> int:
                                     "kgejob": job["scatter_add_rows"],
                                     "obs": obs["scatter_add_rows"],
                                     "tune": tune["scatter_add_rows"],
-                                    "elastic": elastic["scatter_add_rows"]}),
+                                    "elastic": elastic["scatter_add_rows"],
+                                    "shard": shard["scatter_add_rows"],
+                                    "ring": ring["scatter_add_rows"]}),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

@@ -25,8 +25,13 @@ point does. It trains on the card unless ``--device cpu`` is given.
 the backward, and ``--feat_dtype`` sets the feature store's dtype
 (``TrainConfig.feat_dtype``; a book of int8 or uint8 codes written by
 ``partition_graph(feat_dtype=...)`` is read as it is under that dtype).
-``--shard_update`` and ``--shard_rules`` raise (``ROADMAP.md`` item
-6.6). The backend is ``--backend``, else NCCL on a card and gloo on the CPU. The
+``--shard_update`` shards the optimizer state over the slots
+(weight-update sharding) and ``--shard_rules`` selects the parameters
+by a JSON list of ``[regex, axes]`` pairs (``parallel/dp.py``);
+``zero_stage``, ``tp_axis_size`` and ``gather_depth`` come through the
+tuned manifest (``TPU_OPERATOR_TUNED_MANIFEST``, its ``shard`` layer),
+as in the JAX entry point. The backend is ``--backend``, else NCCL on a
+card and gloo on the CPU. The
 ``--ckpt_dir`` checkpoints there at every epoch's end and resumes
 from the newest good checkpoint
 (``TrainConfig.ckpt_dir``); a run preempted by SIGTERM flushes one and
@@ -88,8 +93,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="recompute each layer in the backward")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches sampled ahead of the step (0 = inline)")
-    ap.add_argument("--shard_update", action="store_true")
-    ap.add_argument("--shard_rules", type=str, default=None)
+    ap.add_argument("--shard_update", action="store_true",
+                    help="weight-update sharding: the optimizer state "
+                         "1/n a dp slot (arXiv:2004.13336)")
+    ap.add_argument("--shard_rules", type=str, default=None,
+                    help="the rule-driven per-parameter form of "
+                         "--shard_update: a JSON list of [regex, axes] "
+                         "pairs, e.g. '[[\"kernel\", \"dp\"], "
+                         "[\".*\", null]]'")
     ap.add_argument("--sampler", choices=["host", "device"], default="host")
     ap.add_argument("--feats_layout", choices=["replicated", "owner"],
                     default="replicated")

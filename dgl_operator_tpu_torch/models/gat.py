@@ -13,14 +13,17 @@ table. Weights cross in the flax layout (``FanoutGATConv_<i>``:
 ``fc_src/kernel``, ``fc_dst/kernel``, ``attn``), through
 ``models/flax_layout.py``.
 
-Not ported: ``bucket_by_degree`` and ``gat_hub_attention``, which wait
-for ring attention (``ROADMAP.md`` Queue 1).
+:func:`gat_hub_attention` computes one attention layer's output for hub
+nodes over their whole in-neighborhoods with the neighbor axis cut into
+shards (``parallel/ring_attention.py::gathered_gat_attention``), and
+:func:`bucket_by_degree` batches nodes by degree band for it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -188,3 +191,85 @@ def gat_inference(model: DistGAT, g: Graph, x: torch.Tensor
 
 # the layers carry their form, so one function serves both stacks
 gatv2_inference = gat_inference
+
+
+def bucket_by_degree(g: Graph, dst_ids, growth: float = 4.0,
+                     max_batch: int = 4096) -> List[np.ndarray]:
+    """Split ``dst_ids`` into degree-homogeneous buckets for
+    :func:`gat_hub_attention`, whose rows pad to the batch's largest
+    degree: each bucket holds nodes whose in-degree lies within one
+    ``growth``-factor band (low to high), at most ``max_batch`` of them,
+    so a bucket's padded work is within ``growth`` times its own."""
+    if growth < 1.0:
+        raise ValueError(f"growth must be >= 1, got {growth}")
+    indptr = g.csc()[0]
+    dst_ids = np.asarray(dst_ids, dtype=np.int64)
+    degs = np.maximum(
+        (indptr[dst_ids + 1] - indptr[dst_ids]).astype(np.int64), 1)
+    order = np.argsort(degs, kind="stable")
+    sdegs = degs[order]
+    buckets, start = [], 0
+    while start < len(order):
+        end = int(np.searchsorted(sdegs, sdegs[start] * growth,
+                                  side="right"))
+        for lo in range(start, end, max_batch):
+            buckets.append(dst_ids[order[lo: min(lo + max_batch, end)]])
+        start = end
+    return buckets
+
+
+def _hub_projection(layer, x: torch.Tensor):
+    """``(feat [N, H, D], el [N, H], er [N, H])`` of a ``GATConv`` or
+    ``FanoutGATConv``, or of its flax-layout params (``fc/kernel``,
+    ``attn_l``, ``attn_r``)."""
+    if isinstance(layer, nn.Module):
+        return gat_projection_raw(layer, x)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=x.device)
+
+    al, ar = t(layer["attn_l"]), t(layer["attn_r"])
+    H, D = al.shape[-2], al.shape[-1]
+    feat = (x @ t(layer["fc"]["kernel"])).view(-1, H, D)
+    return feat, (feat * al).sum(-1), (feat * ar).sum(-1)
+
+
+@torch.no_grad()
+def gat_hub_attention(layer, g: Graph, x: torch.Tensor, dst_ids,
+                      num_shards: int, negative_slope: float = 0.2,
+                      concat_heads: bool = True, rank: int = 0,
+                      world: int = 1) -> torch.Tensor:
+    """One GAT layer's output for ``dst_ids`` over their whole
+    in-neighborhoods in ``g``, with the neighbor axis cut into
+    ``num_shards`` shards: the index lists are padded to a multiple of
+    ``num_shards`` and each shard gathers only its ``[B, S/n]`` slice of
+    the node table (``gathered_gat_attention``), so no ``[B, S, H, D]``
+    tensor and no ``[B, S]`` score matrix exists in one piece. The same
+    attention as ``GATConv``'s edge softmax. ``layer`` is a
+    ``GATConv``/``FanoutGATConv`` or its flax-layout params; ``x`` ``[N,
+    in]`` on the device. In a group, this process's shards' columns.
+    Batch nodes of similar degree (:func:`bucket_by_degree`): every row
+    pads to the batch's largest degree."""
+    from dgl_operator_tpu_torch.parallel.ring_attention import \
+        gathered_gat_attention
+    indptr, indices, _ = g.csc()
+    dst_ids = np.asarray(dst_ids, dtype=np.int64)
+    degs = indptr[dst_ids + 1] - indptr[dst_ids]
+    S = max(int(degs.max()) if len(degs) else 1, 1)
+    S = -(-S // num_shards) * num_shards
+    B = len(dst_ids)
+    nbr = np.zeros((B, S), np.int32)
+    mask = np.zeros((B, S), np.float32)
+    for i, d in enumerate(dst_ids):
+        lo, hi = int(indptr[d]), int(indptr[d + 1])
+        nbr[i, :hi - lo] = indices[lo:hi]
+        mask[i, :hi - lo] = 1.0
+    cols = slice(rank * S // world, (rank + 1) * S // world)
+    feat, el, er = _hub_projection(layer, x.float())
+    dev = x.device
+    out = gathered_gat_attention(
+        el, er[torch.from_numpy(dst_ids).to(dev)], feat,
+        torch.from_numpy(nbr[:, cols]).to(dev),
+        torch.from_numpy(mask[:, cols]).to(dev), num_shards,
+        negative_slope, rank, world)
+    return out.reshape(B, -1) if concat_heads else out.mean(1)

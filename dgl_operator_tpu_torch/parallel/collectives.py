@@ -10,7 +10,12 @@ identity.
 
 Under NCCL a collective's tensor must be on the rank's CUDA card; under
 gloo the host values stay on the CPU. :func:`comm_device` is the one
-place that choice is made.
+place that choice is made. The sharded step's flat collectives
+(:func:`reduce_scatter_sum`, :func:`all_gather_flat`) and the ring's
+point-to-point hop (:func:`send_recv`) take CUDA tensors under NCCL and
+copy them through the host under gloo, whose support of these calls on
+CUDA tensors varies by version (its ``all_reduce``, ``all_gather`` and
+``all_to_all_single`` take them, ``examples/gloo_cuda_probe.py``).
 """
 
 from __future__ import annotations
@@ -90,3 +95,55 @@ def barrier() -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def _host_staged(t: torch.Tensor) -> bool:
+    """A CUDA tensor under gloo: the call goes through a host copy."""
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+def _op(new: str, old: str):
+    """The collective ``new`` where this torch has it, else ``old`` (the
+    same signature under its older name)."""
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def reduce_scatter_sum(out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``out`` = this rank's ``1 / world`` block of the sum over the
+    ranks of ``inp`` (``reduce_scatter_tensor``)."""
+    fn = _op("reduce_scatter_single", "reduce_scatter_tensor")
+    if _host_staged(inp):
+        host = out.new_empty(out.shape, device="cpu")
+        fn(host, inp.cpu())
+        out.copy_(host)
+        return
+    fn(out, inp)
+
+
+def all_gather_flat(out: torch.Tensor, inp: torch.Tensor,
+                    async_op: bool = False):
+    """``out`` = every rank's ``inp`` in rank order
+    (``all_gather_into_tensor``); with ``async_op`` the work's handle,
+    None where nothing is left to wait for."""
+    fn = _op("all_gather_single", "all_gather_into_tensor")
+    if _host_staged(inp):
+        host = out.new_empty(out.shape, device="cpu")
+        fn(host, inp.cpu())
+        out.copy_(host)
+        return None
+    return fn(out, inp, async_op=async_op)
+
+
+def send_recv(x: torch.Tensor, rank: int, world: int, d: int = 1
+              ) -> torch.Tensor:
+    """``x`` sent to rank ``rank + d`` while rank ``rank - d``'s arrives
+    (one ``batch_isend_irecv``); returns what arrived."""
+    x = x.contiguous()
+    staged = _host_staged(x)
+    send = x.cpu() if staged else x
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, (rank + d) % world),
+           dist.P2POp(dist.irecv, recv, (rank - d) % world)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(x.device) if staged else recv

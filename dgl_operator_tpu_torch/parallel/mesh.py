@@ -10,7 +10,9 @@ axes, as the JAX batch ``PartitionSpec((dp, mp))`` flattens them: slot
 - ``dp`` is data parallelism: every slot trains its own batch.
 - ``mp`` is the entity table's sharding: on a 2-D grid the table is cut
   into ``mp`` blocks and replicated over ``dp`` (the KVStore's machine
-  sharding); on a 1-D mesh every slot holds a block.
+  sharding); on a 1-D mesh every slot holds a block. In the training
+  plane (:func:`make_train_mesh`) ``mp`` is the tensor-parallel axis the
+  rule-selected parameters are stored in blocks over.
 
 The slots live in one process, or are split evenly over the ranks of a
 ``torch.distributed`` group in slot order (:func:`my_slots`).
@@ -78,14 +80,15 @@ def make_mesh_2d(num_dp: int, num_mp: int) -> SlotMesh:
 
 
 def make_train_mesh(num_dp: int, tp_axis_size: int = 1) -> SlotMesh:
-    """The training plane's mesh: 1-D ``(dp,)``. Tensor parallelism
-    (``tp_axis_size > 1``) is not ported (``ROADMAP.md`` Queue 1 item
-    6.6)."""
-    if int(tp_axis_size) > 1:
-        raise NotImplementedError(
-            f"tp_axis_size={tp_axis_size}: tensor parallelism is not "
-            "ported (ROADMAP.md Queue 1 item 6.6)")
-    return make_mesh(num_dp)
+    """The training plane's mesh for a ``(zero_stage, tp_axis_size)``
+    config: the 1-D ``(dp,)`` mesh when tensor parallelism is off, the
+    dp-outermost ``dp x mp`` grid when ``tp_axis_size > 1`` (the shape
+    ``TrainConfig.tp_axis_size`` is checked against; the rule-selected
+    parameters are then stored in blocks over ``mp``,
+    ``parallel/dp.py``)."""
+    if int(tp_axis_size) <= 1:
+        return make_mesh(num_dp)
+    return make_mesh_2d(num_dp, int(tp_axis_size))
 
 
 def axis_size(mesh: SlotMesh, axis: str = DP_AXIS) -> int:

@@ -33,7 +33,11 @@ sidecar written after the publish.
   whole state tree by path.
 
 Leaves are stored under their names, so a restore never depends on the
-order of the archive's members.
+order of the archive's members. A trainer with sharded state
+(``parallel/dp.py::ShardPlan``) writes the logical tree of
+:func:`train_state`: each weight and moment reassembled from its shards
+and de-padded by ``parallel/shardrules.py::unpad_leaf``, the bits a
+replicated run writes, so any mesh shape restores it.
 """
 
 from __future__ import annotations

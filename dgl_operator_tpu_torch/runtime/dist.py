@@ -104,10 +104,24 @@ every slot (``flops_scale`` 1).
 ``donate=True`` (the default) updates the parameters and Adam's state
 in place; ``donate=False`` rebinds each to a fresh copy before every
 call, so a tensor a caller took keeps its values, and runs the calls
-eagerly (no CUDA graph), with the same trajectory. ``gather_depth`` is
-validated and kept; its reader, ``zero_stage=3``, is not ported
-(``ROADMAP.md`` item 6.6). A tuned manifest overlays the ``train``,
-``quality`` and ``shard`` knobs (``autotune/knobs.py::apply_tuned``).
+eagerly (no CUDA graph), with the same trajectory. A tuned manifest
+overlays the ``train``, ``quality`` and ``shard`` knobs
+(``autotune/knobs.py::apply_tuned``).
+
+State sharding (``shard_update``, ``shard_rules``, ``zero_stage``,
+``tp_axis_size``, ``gather_depth``; the JAX trainer's sharding plane):
+the step is :class:`~dgl_operator_tpu_torch.parallel.dp.ShardPlan`'s over
+the trainer's mesh (``make_train_mesh(num_parts, tp_axis_size)``, or the
+``mesh`` given, whose dp width is then the number of parts trained):
+weight-update sharding, ZeRO-3's resident shards gathered at use, and
+dim blocks over ``mp``. Every trajectory is the replicated one bit for
+bit. Checkpoints hold the logical form (the replicated run's tree), so
+they restore under any mesh shape; evaluation, prediction and the
+returned weights gather the full parameters first
+(``runtime/forward.py::ensure_full_params``). The byte model's
+``sharding_summary`` is emitted as the ``train_state_*`` gauges and
+bills the memory watermark, with ZeRO-3's ``gather_depth`` term. A
+sharded step runs eagerly (no CUDA graph), K = 1 a call, as in JAX.
 """
 
 from __future__ import annotations
@@ -141,7 +155,12 @@ from dgl_operator_tpu_torch.ops.device_sample import TreeSampler, draw_key
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import attach_plans
 from dgl_operator_tpu_torch.parallel import collectives
-from dgl_operator_tpu_torch.parallel.dp import slot_mean_step
+from dgl_operator_tpu_torch.parallel.dp import (ShardPlan,
+                                                replicated_summary,
+                                                slot_mean_step)
+from dgl_operator_tpu_torch.parallel.mesh import (MP_AXIS, SlotMesh,
+                                                  make_train_mesh)
+from dgl_operator_tpu_torch.parallel.shardrules import emit_state_gauges
 from dgl_operator_tpu_torch.parallel.halo import (alltoall_bytes_per_step,
                                                   alltoall_request_rows,
                                                   alltoall_serve_rows,
@@ -170,11 +189,15 @@ class DistTrainer:
     """Partition-parallel trainer over the ``num_parts`` slots of the
     book ``part_cfg``: all of them on ``device``, or, in a process
     group, this process's ``my_parts``. The model must already be on
-    ``device``; it trains without dropout."""
+    ``device``; it trains without dropout. ``mesh`` (a
+    :class:`~dgl_operator_tpu_torch.parallel.mesh.SlotMesh`) trains the
+    first ``dp`` parts of the book, as the JAX trainer does with its
+    mesh; by default ``make_train_mesh(num_parts, cfg.tp_axis_size)``."""
 
     def __init__(self, model, part_cfg: str, cfg: TrainConfig,
                  device: DeviceLike = None, feat_key: str = "feat",
-                 label_key: str = "label"):
+                 label_key: str = "label",
+                 mesh: Optional[SlotMesh] = None):
         self.device = resolve_device(device)
         param_devices = {p.device for p in model.parameters()}
         if param_devices != {self.device}:
@@ -194,17 +217,44 @@ class DistTrainer:
         # the exchange pipeline: the owner layout's host-sampled batches
         self._pipelined = self._owner_layout and not self._device_mode
         self._gather_depth = cfg.gather_depth
+        # the sharding plane: the step is a ShardPlan's
+        self._sharded = bool(cfg.shard_update or cfg.shard_rules is not None
+                             or cfg.zero_stage == 3)
+        self._plan: Optional[ShardPlan] = None
         if int(cfg.steps_per_call) > 1 and not self._device_mode:
             raise ValueError(
                 "DistTrainer steps_per_call > 1 requires sampler='device' "
                 "(host mode would stack K padded minibatches per slot, "
                 "multiplying the staging payload the knob amortizes); use "
                 "SampledTrainer for host-sampler calls of K steps")
+        if int(cfg.steps_per_call) > 1 and self._sharded:
+            raise ValueError("steps_per_call > 1 does not compose with "
+                             "shard_update/shard_rules/zero_stage=3 "
+                             "(the sharded-update reduce-scatter path "
+                             "is per-dispatch)")
         with open(part_cfg) as f:
             meta = json.load(f)
-        P = self.num_parts = int(meta["num_parts"])
+        if mesh is None:
+            mesh = make_train_mesh(int(meta["num_parts"]), cfg.tp_axis_size)
+        tp = int(cfg.tp_axis_size)
+        if tp > 1 and int(mesh.shape.get(MP_AXIS, 1)) != tp:
+            raise ValueError(
+                f"tp_axis_size={tp} needs a mesh with a {MP_AXIS!r} axis "
+                f"of that size (got axes {mesh.shape}); build one with "
+                f"make_mesh_2d(num_dp, {tp})")
+        self.mesh = mesh
+        P = self.num_parts = int(mesh.shape["dp"])
+        if P > int(meta["num_parts"]):
+            raise ValueError(f"a mesh of {P} dp slots over a book of "
+                             f"{meta['num_parts']} parts")
         self._group = collectives.group_active()
         self.rank, self.world_size = collectives.world()
+        if self._sharded and cfg.ckpt_dir and self._group:
+            # the JAX trainer's guard, kept for parity
+            raise ValueError(
+                "shard_update checkpointing is single-controller-only:"
+                " unset ckpt_dir or shard_update/shard_rules for"
+                " multi-process runs")
         if P % self.world_size:
             raise ValueError(f"num_parts={P} is not divisible by the world "
                              f"size {self.world_size}")
@@ -680,7 +730,7 @@ class DistTrainer:
                                      sb["seeds"], self.labels[i])
 
         return slot_mean_step(self.optimizer, loss_of, len(self.parts),
-                              self.num_parts, self._delta)
+                              self.num_parts, self._delta, self._plan)
 
     # -- the exchange pipeline ------------------------------------------
     def _watch(self, t0: float, **kw) -> None:
@@ -810,7 +860,7 @@ class DistTrainer:
                                      self.labels[i])
 
         loss, stats = slot_mean_step(self.optimizer, loss_of, L,
-                                     self.num_parts, self._delta)
+                                     self.num_parts, self._delta, self._plan)
         return (loss,) if stats is None else (loss, Q.stat_vector(stats))
 
     def owner_rows(self, ids: torch.Tensor) -> torch.Tensor:
@@ -881,7 +931,12 @@ class DistTrainer:
     def _rebind_state(self) -> None:
         """``donate=False``: every parameter and Adam state tensor to a
         fresh copy, so the tensors a caller took before this call keep
-        their values."""
+        their values (under a :class:`ShardPlan`, its storage)."""
+        if self._plan is not None:
+            self._plan.rebind()
+            if self._delta is not None:
+                self._delta.rebind()
+            return
         with torch.no_grad():
             for p in self.model.parameters():
                 p.data = p.data.clone()
@@ -896,8 +951,9 @@ class DistTrainer:
         """The device sampler's run; its calls of K > 1 steps on the card
         are one graph replay each (captured at the first), except under
         a gloo group, which cannot be captured."""
-        capture = self.device.type == "cuda" and self.cfg.donate and (
-            not self._group or dist.get_backend() == "nccl")
+        capture = (self.device.type == "cuda" and self.cfg.donate
+                   and self._plan is None and (
+                       not self._group or dist.get_backend() == "nccl"))
         # the loss, then the sentry's rows: the scalars and each of the
         # num_parts slots' loss and non-finite count
         n_out = 1 + (len(Q.STAT_KEYS) + 2 * self.num_parts
@@ -944,14 +1000,24 @@ class DistTrainer:
         peaks for the model's compute, the analytic cost fallback and
         the per-slot memory bill the watermark is reconciled against
         (:func:`~dgl_operator_tpu_torch.obs.prof.dist_hbm_bill_mib`, the
-        JAX trainer's bill with the replicated state: sharding is not
-        ported)."""
+        JAX trainer's bill): the state's per-slot MiB under the active
+        placement (``self.state_summary``), and under ZeRO-3 the
+        ``gather_depth`` largest full parameters in flight."""
         cfg = self.cfg
         L = len(self.parts)
-        params = list(self.model.parameters())
-        param_count = sum(p.numel() for p in params)
-        param_mib = sum(p.numel() * p.element_size()
-                        for p in params) / 2**20
+        # a ZeRO-3 plan's parameters are freed between steps: count them
+        # by its leaves
+        leaves = self._plan.leaves if self._plan is not None else []
+        param_count = (sum(lf.numel for lf in leaves) if leaves else
+                       sum(p.numel() for p in self.model.parameters()))
+        summary = self.state_summary
+        param_mib = summary["params_mib_per_slot_sharded"]
+        if cfg.zero_stage == 3:
+            # the fused gather window keeps up to gather_depth full
+            # leaves in flight on top of the resident shards
+            param_mib += prof.gather_staging_mib(
+                [lf.numel * lf.param.element_size() for lf in leaves],
+                self._gather_depth)
         edges = sum(int(c) * int(f) for c, f in zip(self.caps[:-1],
                                                     cfg.fanouts))
         feat_dim = int(self.feats.shape[-1])
@@ -968,8 +1034,8 @@ class DistTrainer:
             feat_bytes=self.feats.numel() * self.feats.element_size(),
             label_bytes=self.labels.numel() * self.labels.element_size(),
             num_slots=L, params_mib=param_mib,
-            # Adam's two moments beside the weights
-            opt_state_mib=2 * param_mib, csr_bytes=csr,
+            opt_state_mib=summary["opt_state_mib_per_slot_sharded"],
+            csr_bytes=csr,
             staging_bytes=staging, edges=edges, rows=int(self.caps[-1]),
             feat_dim=feat_dim, prefetch=cfg.prefetch)
         compute = prof.compute_kind(getattr(self.model, "compute_dtype",
@@ -990,11 +1056,27 @@ class DistTrainer:
         ``SampledTrainer.train`` does; each record's ``loss`` is its
         last step's mean slot loss."""
         cfg = self.cfg
+        if self._plan is not None:
+            # a second train() starts from the full weights
+            self._plan.materialize()
         if init_params is not None:
             self.model.load_state_dict(state_dict_from_flax(init_params))
-        self.optimizer = make_adam(self.model.parameters(), cfg,
-                                   self.device)
-        ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer)
+        if self._sharded:
+            self._plan = ShardPlan(
+                self.model, self.mesh,
+                lambda ts: make_adam(ts, cfg, self.device),
+                shard_update=cfg.shard_update, shard_rules=cfg.shard_rules,
+                zero_stage=cfg.zero_stage, gather_depth=self._gather_depth,
+                rank=self.rank, world_size=self.world_size)
+            self.optimizer = self._plan.optimizer
+            self.state_summary = self._plan.summary()
+        else:
+            self.optimizer = make_adam(self.model.parameters(), cfg,
+                                       self.device)
+            self.state_summary = replicated_summary(self.model, self.mesh)
+        emit_state_gauges(self.state_summary, role="dist")
+        ckpt, start_step = open_checkpoints(cfg, self.model, self.optimizer,
+                                            plan=self._plan)
         if self._group:
             hi, neg_lo = collectives.allreduce_host(
                 [start_step, -start_step], np.max)
@@ -1055,7 +1137,8 @@ class DistTrainer:
             # splits each batch by slot
             history, gstep = run_epochs(
                 cfg, self.timer, self.steps_per_epoch, start_step, ckpt,
-                lambda: train_state(self.model, self.optimizer),
+                (self._plan.train_state if self._plan is not None
+                 else lambda: train_state(self.model, self.optimizer)),
                 self._permute, sample, step,
                 self.evaluate, self._epoch_stats, sample_workers=1,
                 step_stats=lambda: self.last_stats,
@@ -1070,8 +1153,11 @@ class DistTrainer:
             self._exch_stream = None
             # the graph's memory pool goes with it
             self._run = None
+        forward.ensure_full_params(self._plan)
         return {"params": self.model.state_dict(),
-                "opt_state": self.optimizer.state_dict(),
+                "opt_state": (self._plan.logical_optimizer_state_dict()
+                              if self._plan is not None
+                              else self.optimizer.state_dict()),
                 "history": history, "step": gstep}
 
     # -- evaluation -----------------------------------------------------
@@ -1122,6 +1208,7 @@ class DistTrainer:
         the input and after each layer: exact, since each row has one
         non-zero contributor. Every rank computes the same accuracies.
         Every SAGE aggregator is ported."""
+        forward.ensure_full_params(self._plan)
         orig, labels, masks = self._eval_context()
         n_inner = [int(n) for n in self._n_inner]
 
@@ -1163,6 +1250,7 @@ class DistTrainer:
         local_of = {p: i for i, p in enumerate(self.my_parts)}
         if self._predict_fn is None:
             self._predict_fn = forward.build_predict_fn(self.model)
+        forward.ensure_full_params(self._plan)
         weights = dict(self.model.state_dict())
         out = None
         for part, ci, pos in forward.route_by_owner(

@@ -142,6 +142,18 @@ def build_predict_fn(model: torch.nn.Module):
     return predict
 
 
+def ensure_full_params(plan) -> None:
+    """The prediction plane's adapter for ZeRO-3 (``parallel/dp.py``): a
+    ``zero_stage=3`` plan keeps its selected parameters as resident
+    shards between steps, while every prediction program
+    (:func:`seed_logits`, layer-wise inference, ``export_for_serving``
+    of the state dict) reads full ones. Gather them back into the model
+    (they stay full until the next step frees them). A plan of
+    ``zero_stage=1``, or None, holds full parameters already."""
+    if plan is not None:
+        plan.materialize()
+
+
 def route_by_owner(node_ids: np.ndarray, node_map: np.ndarray,
                    batch_size: int):
     """Group request positions by owner partition (ascending part

@@ -62,8 +62,18 @@ starts the live sidecar when ``TPU_OPERATOR_LIVE_PORT`` is set, and a
 tuned manifest overlays the ``kge`` and ``quality`` knobs
 (``autotune/knobs.py::apply_tuned``).
 
-Not ported (``ROADMAP.md`` Queue 1 item 8.4): relation
-``shard_rules``, which needs the ZeRO sharding of item 6.6.
+Relation ``shard_rules`` (``KGETrainConfig.shard_rules``, item 8.4):
+rules over ``{"entity", "relation"}`` (``parallel/shardrules.py``) may
+restate the entity table's sharding or replicate it, and may shard the
+relation table and its Adagrad sums over the dp axis, their rows padded
+to a multiple of its size. In one process the blocks are one padded
+table; in a group each process keeps the blocks of its dp rows, the
+step gathers the whole table before its lookups (ZeRO-3's gather at
+use) and each process updates the union rows of its own blocks from the
+all-reduced accumulator, so the trajectory is the unsharded one bit for
+bit. :meth:`DistKGETrainer.state_sharding_summary` is the byte model's
+summary of the placement, emitted as the ``train_state_*`` gauges
+(``role="kge"``) when training starts.
 """
 
 from __future__ import annotations
@@ -95,6 +105,8 @@ from dgl_operator_tpu_torch.ops.scatter import (ScatterPlan, pack_int32,
                                                 scatter_add_rows, scatter_plan,
                                                 ship_int32, unpack)
 from dgl_operator_tpu_torch.parallel import collectives
+from dgl_operator_tpu_torch.parallel import shardrules as sr
+from dgl_operator_tpu_torch.parallel.shardrules import emit_state_gauges
 from dgl_operator_tpu_torch.parallel.embedding import (
     ShardedTableSpec, all_gather_rows, device_lookup, device_push_adagrad,
     gather_blocks, my_block, pad_rows, route, sharded_lookup,
@@ -113,8 +125,8 @@ PREFETCH = 2
 @dataclasses.dataclass
 class KGETrainConfig:
     """The JAX ``KGETrainConfig``'s fields and defaults. ``shard_rules``
-    takes only its default (another value raises
-    ``NotImplementedError``). ``neg_sampler``, ``num_client``,
+    shards the relation table over dp (``DistKGETrainer``; item 8.4).
+    ``neg_sampler``, ``num_client``,
     ``sentry`` and the ``quality_*`` fields are validated against the
     knob registry (``autotune/knobs.py``). ``neg_sampler``,
     ``num_client``, ``ckpt_dir``, ``ckpt_every`` and ``resume`` are read
@@ -149,11 +161,8 @@ class KGETrainConfig:
                      "quality_grad_ratio_max", "quality_plateau_window",
                      "quality_plateau_rel"):
             setattr(self, name, validate(name, getattr(self, name)))
-        if self.shard_rules is not None:
-            raise NotImplementedError(
-                f"shard_rules={self.shard_rules!r}: only the default is "
-                "ported (ROADMAP.md Queue 1 item 8.4 (relation "
-                "shard_rules))")
+        for _, spec in self.shard_rules or ():
+            sr.to_pspec(spec)      # a spec that is no spec raises
         if self.resume not in ("auto", "never"):
             raise ValueError(f"unknown resume policy {self.resume!r}")
         if self.ckpt_every < 0 or self.log_interval < 1:
@@ -237,6 +246,7 @@ class DistKGETrainer:
                     collectives.allreduce_host(mine, np.max):
                 raise ValueError("the processes of the group disagree on "
                                  "the KGE configuration")
+        self._parse_shard_rules()
         if self.device_negs:
             self._counters = draw_counters(
                 tcfg.batch_size // tcfg.chunk, tcfg.neg_sample_size,
@@ -250,6 +260,83 @@ class DistKGETrainer:
         self.timer = PhaseTimer()
 
     # -- state -----------------------------------------------------------
+    def _parse_shard_rules(self) -> None:
+        """Check ``tcfg.shard_rules`` against this mesh and derive the
+        relation placement (the JAX trainer's): ``_rel_sharded``,
+        ``_rel_axis`` (the dp axis), ``_rel_pad`` (rows padded to a
+        multiple of its size) and this process's block of rows
+        ``[_rel_lo, _rel_hi)`` (all of them in one process)."""
+        self._rel_sharded = False
+        self._rel_axis = self.mesh.axis_names[0]
+        self._rel_pad = self.cfg.n_relations
+        self._rel_lo, self._rel_hi = 0, self.cfg.n_relations
+        self._rel_split = False
+        rules = self.tcfg.shard_rules
+        if not rules:
+            return
+        shard_axis = self.mesh.table_axis
+        like = {"entity": sr.ShapeLeaf((self.cfg.n_entities,
+                                        self.cfg.hidden_dim)),
+                "relation": sr.ShapeLeaf((self.cfg.n_relations,
+                                          relation_dim(self.cfg)))}
+        specs = sr.match_partition_rules(rules, like)
+        ent_axes = list(sr.spec_axes(specs["entity"]))
+        if ent_axes and ent_axes != [shard_axis]:
+            raise ValueError(
+                f"shard_rules maps 'entity' to {ent_axes}; the entity "
+                f"table is owned by ShardedTableSpec on axis "
+                f"{shard_axis!r} — a rule may only restate that "
+                "or replicate")
+        rel_axes = list(sr.spec_axes(specs["relation"]))
+        if not rel_axes:
+            return
+        if rel_axes != [self._rel_axis]:
+            raise ValueError(
+                f"shard_rules maps 'relation' to {rel_axes}; the "
+                "relation table shards over the dp axis "
+                f"({self._rel_axis!r} on this mesh)")
+        nrel = int(self.mesh.shape[self._rel_axis])
+        self._rel_sharded = True
+        self._rel_pad = -(-self.cfg.n_relations // nrel) * nrel
+        # a process holds whole dp rows of slots, so its blocks are
+        # rank-contiguous
+        self._rel_split = self._group and self.world_size > 1
+        block = self._rel_pad // self.world_size
+        self._rel_lo, self._rel_hi = ((self.rank * block,
+                                       (self.rank + 1) * block)
+                                      if self._rel_split
+                                      else (0, self._rel_pad))
+
+    def _relation_table(self) -> torch.Tensor:
+        """The whole (padded) relation table for a lookup: this
+        process's rows, or, where the blocks are split over the group,
+        every process's gathered in rank order (the gather at use)."""
+        if not self._rel_split:
+            return self.relation
+        register_collective("rel_allgather", self._rel_axis,
+                            self._rel_pad * self.relation.shape[1]
+                            * self.relation.element_size())
+        return all_gather_rows(self.relation, True)
+
+    def state_sharding_summary(self) -> Dict[str, float]:
+        """The byte model's per-slot state bytes under the active
+        placement (``parallel/shardrules.py::sharding_summary``), the
+        JAX trainer's numbers for the same tables and mesh."""
+        rel_rows = self._rel_pad if self._rel_sharded else \
+            self.cfg.n_relations
+        params = {"entity": sr.ShapeLeaf((self.spec.padded_rows,
+                                          self.cfg.hidden_dim)),
+                  "relation": sr.ShapeLeaf((rel_rows,
+                                            relation_dim(self.cfg)))}
+        opt = {"entity": sr.ShapeLeaf((self.spec.padded_rows,)),
+               "relation": sr.ShapeLeaf((rel_rows,))}
+        rel_spec = sr.to_pspec(self._rel_axis if self._rel_sharded
+                               else None)
+        specs = {"entity": sr.to_pspec(self.mesh.table_axis),
+                 "relation": rel_spec}
+        return sr.sharding_summary(params, opt, specs, specs,
+                                   dict(self.mesh.shape))
+
     def _host_table(self, block: torch.Tensor) -> np.ndarray:
         """The whole padded table on the host from this process's block
         (a collective where the blocks are split over processes)."""
@@ -262,11 +349,17 @@ class DistKGETrainer:
         ``entity``, ``entity_state``, ``relation``, ``relation_state``,
         the same on every mesh shape. Where the blocks are split over a
         group every process gathers every block (a collective)."""
-        ne = self.cfg.n_entities
+        ne, nr = self.cfg.n_entities, self.cfg.n_relations
+
+        def rel(t):
+            if self._rel_split:
+                return gather_blocks(t)[:nr]
+            return t.cpu().numpy()[:nr].copy()
+
         return {"entity": self._host_table(self.entity)[:ne],
                 "entity_state": self._host_table(self.ent_state)[:ne],
-                "relation": self.relation.cpu().numpy().copy(),
-                "relation_state": self.rel_state.cpu().numpy().copy()}
+                "relation": rel(self.relation),
+                "relation_state": rel(self.rel_state)}
 
     def load_state_dict(self, sd) -> None:
         """Take a :meth:`state_dict` of any mesh shape (numpy arrays or
@@ -293,11 +386,18 @@ class DistKGETrainer:
             return torch.from_numpy(np.ascontiguousarray(my_block(
                 full, self.block_rank, self.block_world))).to(self.device)
 
+        def rel(a):
+            # the relation rows padded to the dp axis and this process's
+            # block of them, when the rules shard them
+            if self._rel_sharded:
+                a = pad_rows(a, self._rel_pad)[self._rel_lo:self._rel_hi]
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device)
+
         self.entity = block(host["entity"])
         self.ent_state = block(host["entity_state"])
-        self.relation = torch.from_numpy(host["relation"]).to(self.device)
-        self.rel_state = torch.from_numpy(host["relation_state"]).to(
-            self.device)
+        self.relation = rel(host["relation"])
+        self.rel_state = rel(host["relation_state"])
 
     def gathered_params(self) -> Dict[str, torch.Tensor]:
         """``{"entity": [Ne, D], "relation": [Nr, Dr]}`` on the trainer's
@@ -305,7 +405,8 @@ class DistKGETrainer:
         where the blocks are split over a group)."""
         ent = self._host_table(self.entity)[:self.cfg.n_entities]
         return {"entity": torch.from_numpy(np.ascontiguousarray(ent)).to(
-            self.device), "relation": self.relation.clone()}
+            self.device), "relation": self._relation_table()[
+                :self.cfg.n_relations].clone()}
 
     # -- one update ------------------------------------------------------
     def host_step(self, batches: Sequence[KGEBatch],
@@ -347,6 +448,12 @@ class DistKGETrainer:
         union = np.unique(np.concatenate([b.r for b in batches]))
         arrays += [np.concatenate([batches[s].r for s in self.my_slots]),
                    union]
+        if self._rel_split:
+            # the union rows of this process's relation block: their
+            # places in the union and their rows in the block
+            own = np.nonzero((union >= self._rel_lo)
+                             & (union < self._rel_hi))[0]
+            arrays += [own, union[own] - self._rel_lo]
         for s in self.my_slots:
             inv = np.searchsorted(union, batches[s].r).astype(
                 np.int32)[:, None]
@@ -437,10 +544,14 @@ class DistKGETrainer:
         cfg, t = self.cfg, self.tcfg
         ent_rows, how = self._lookup(hs, arrs, negs)
         rel_ids, union = arrs[hs.n_ent:hs.n_ent + 2]
-        rel_plans = arrs[hs.n_ent + 2:]
+        k0 = hs.n_ent + 2
+        if self._rel_split:
+            own, own_rows = arrs[k0:k0 + 2]
+            k0 += 2
+        rel_plans = arrs[k0:]
         B, C = t.batch_size, t.batch_size // t.chunk
         M = 2 * B + C * t.neg_sample_size
-        rel_rows = gather_rows(self.relation, rel_ids)
+        rel_rows = gather_rows(self._relation_table(), rel_ids)
         g_ent, losses, rel_acc = [], [], None
         sq, nonfinite = [], []
         k = 1 + len(ScatterPlan.FIELDS)
@@ -476,8 +587,13 @@ class DistKGETrainer:
             loss_vec = flat[rel_acc.numel():]
         g = g_ent[0] if len(g_ent) == 1 else torch.cat(g_ent)
         self._push(g.contiguous(), how)
-        adagrad_rows_(self.relation, self.rel_state, union,
-                      rel_acc / self.rel_divisor, t.lr)
+        if self._rel_split:
+            adagrad_rows_(self.relation, self.rel_state, own_rows,
+                          rel_acc.index_select(0, own.long())
+                          / self.rel_divisor, t.lr)
+        else:
+            adagrad_rows_(self.relation, self.rel_state, union,
+                          rel_acc / self.rel_divisor, t.lr)
         if t.sentry:
             self.last_stats = self._slot_stats(loss_vec, sq, nonfinite)
         return loss_vec.mean()
@@ -633,7 +749,10 @@ class DistKGETrainer:
         num_slots * K``. Returns ``{"steps", "updates" (K a step),
         "loss" (mean of the last 50 updates), "losses" (every update's),
         "start_step", "train_time_s", "step_s", "stall_s", "dispatch_s",
-        "h2d_bytes_per_step" (an update's)}``."""
+        "h2d_bytes_per_step" (an update's)}``. The state's byte model
+        (:meth:`state_sharding_summary`) goes to the ``train_state_*``
+        gauges first."""
+        emit_state_gauges(self.state_sharding_summary(), role="kge")
         return self._run(self.iterators(dataset))
 
     def iterators(self, dataset: TrainDataset) -> List:
@@ -681,7 +800,7 @@ class DistKGETrainer:
                 fixed = sharded_lookup(self.entity,
                                        rt.rebuilt(shipped[:-3]))
                 scores = self.model.neg_score(
-                    fixed, gather_rows(self.relation, r_d),
+                    fixed, gather_rows(self._relation_table(), r_d),
                     self.entity[None], len(h), mode)       # [B, rows]
                 local = tgt.long() - base
                 own = (local >= 0) & (local < rows)

@@ -107,7 +107,6 @@ from dgl_operator_tpu_torch.runtime.forward import masked_loss
 from dgl_operator_tpu_torch.runtime.graphs import DeviceRun, graph_stats
 from dgl_operator_tpu_torch.runtime.timers import PhaseTimer
 
-_ROADMAP = "ROADMAP.md Queue 1"
 FEATS_LAYOUTS = ("replicated", "owner")
 SAMPLERS = ("host", "device")
 RESUME_POLICIES = ("auto", "never")
@@ -121,15 +120,15 @@ class TrainConfig:
     ``"host"`` or ``"device"``; ``steps_per_call`` is any K >= 1
     (``DistTrainer`` takes K > 1 with the device sampler only, as the
     JAX trainer does). ``shard_update``, ``shard_rules``,
-    ``zero_stage`` and ``tp_axis_size`` take only their defaults
-    (another value raises ``NotImplementedError``, ``ROADMAP.md`` item
-    6.6). ``feats_layout``, ``halo_cache_frac``, ``feat_dtype``,
-    ``donate``, ``pipeline_mode``, ``pipeline_depth`` and
-    ``gather_depth`` are read by ``DistTrainer`` only (``SampledTrainer``
-    ignores them, as in JAX); ``gather_depth``'s reader is
-    ``zero_stage=3``. ``sentry``, the ``quality_*`` fields,
-    ``feat_dtype`` and the pipeline's knobs are validated against the
-    knob registry (``autotune/knobs.py``)."""
+    ``zero_stage``, ``tp_axis_size``, ``gather_depth`` (the sharding
+    plane, ``parallel/dp.py::ShardPlan``; ``gather_depth``'s reader is
+    ``zero_stage=3``), ``feats_layout``, ``halo_cache_frac``,
+    ``feat_dtype``, ``donate``, ``pipeline_mode`` and
+    ``pipeline_depth`` are read by ``DistTrainer`` only
+    (``SampledTrainer`` ignores them, as in JAX). ``sentry``, the
+    ``quality_*`` fields, ``feat_dtype``, the pipeline's knobs,
+    ``zero_stage``, ``tp_axis_size`` and ``gather_depth`` are validated
+    against the knob registry (``autotune/knobs.py``)."""
 
     num_epochs: int = 10
     batch_size: int = 1000             # reference default (dglrun:35)
@@ -184,7 +183,8 @@ class TrainConfig:
     # after step t is dispatched
     pipeline_mode: str = "fused"
     pipeline_depth: int = 1
-    # the ZeRO-3 gather window (read by zero_stage=3, not ported)
+    # the ZeRO-3 gather window: at most this many parameter gathers in
+    # flight (read by zero_stage=3)
     gather_depth: int = 2
     # the numerics sentry (obs/quality.py): in-step stats and the
     # rolling model-health detectors over them; the trajectory is
@@ -208,7 +208,8 @@ class TrainConfig:
                      "quality_z_max", "quality_grad_ratio_max",
                      "quality_plateau_window", "quality_plateau_rel",
                      "donate", "pipeline_mode", "pipeline_depth",
-                     "gather_depth", "feat_dtype"):
+                     "gather_depth", "feat_dtype", "zero_stage",
+                     "tp_axis_size"):
             setattr(self, name, validate(name, getattr(self, name)))
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r} (expected "
@@ -216,15 +217,6 @@ class TrainConfig:
         if int(self.steps_per_call) < 1:
             raise ValueError(f"steps_per_call must be >= 1, got "
                              f"{self.steps_per_call}")
-        unported = {"shard_update": (bool(self.shard_update), "6.6"),
-                    "shard_rules": (self.shard_rules is not None, "6.6"),
-                    "zero_stage": (self.zero_stage != 1, "6.6"),
-                    "tp_axis_size": (self.tp_axis_size != 1, "6.6")}
-        for name, (set_, item) in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: only the default is "
-                    f"ported ({_ROADMAP} item {item})")
         if self.feats_layout not in FEATS_LAYOUTS:
             raise ValueError(f"unknown feats_layout {self.feats_layout!r} "
                              f"(expected {FEATS_LAYOUTS})")
@@ -556,11 +548,13 @@ def resume_seed(seed: int, start_step: int) -> int:
 
 
 def open_checkpoints(cfg: TrainConfig, model: torch.nn.Module,
-                     optimizer: torch.optim.Optimizer
+                     optimizer: torch.optim.Optimizer, plan=None
                      ) -> Tuple[Optional[CheckpointManager], int]:
     """The run's checkpoint manager (None without ``cfg.ckpt_dir``) and
     the global step it starts from. With ``resume="auto"`` the newest
-    good checkpoint is loaded into ``model`` and ``optimizer``."""
+    good checkpoint is loaded into ``model`` and ``optimizer``, or,
+    given a ``parallel/dp.py::ShardPlan``, into the plan (the logical
+    tree, cut into this mesh's shards)."""
     if cfg.ckpt_dir is None:
         return None, 0
     # fenced under the elastic launcher's incarnation epoch, when exported
@@ -568,9 +562,14 @@ def open_checkpoints(cfg: TrainConfig, model: torch.nn.Module,
                              fence_epoch=resolve_fence_epoch())
     if cfg.resume != "auto":
         return ckpt, 0
-    start_step, state = ckpt.restore(None, train_state(model, optimizer))
+    like = (plan.train_state() if plan is not None
+            else train_state(model, optimizer))
+    start_step, state = ckpt.restore(None, like)
     if start_step:
-        load_train_state(model, optimizer, state)
+        if plan is not None:
+            plan.load_train_state(state)
+        else:
+            load_train_state(model, optimizer, state)
         obs = get_obs()
         obs.metrics.counter("train_resumes_total",
                             "trainings resumed from a checkpoint").inc()

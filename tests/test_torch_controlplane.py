@@ -787,6 +787,14 @@ def _stamped(status: dict) -> dict:
     return out
 
 
+def _result_stamped(result):
+    """A reconcile result (``{actions, status, requeue}``) with its
+    status stamped; any other result as it is."""
+    if isinstance(result, dict) and isinstance(result.get("status"), dict):
+        return {**result, "status": _stamped(result["status"])}
+    return result
+
+
 class Pair:
     """One job on each package's controller and fake cluster, driven in
     lockstep; :meth:`same` holds the clusters' objects, their action
@@ -808,11 +816,14 @@ class Pair:
 
     def both(self, fn):
         """``fn(cluster, controller, job)`` on each side (the JAX side
-        with its binaries); returns both results."""
+        with its binaries); returns both results, the status of a raw
+        reconcile result stamped as :meth:`same` stamps the jobs'. The
+        two sides read the clock apart, so a second can turn between
+        them (most often under load)."""
         got = fn(self.port, self.pctl, self.pjob)
         with jax_bin_dir(self.jax_bins):
             want = fn(self.jax, self.jctl, self.jjob)
-        return got, want
+        return _result_stamped(got), _result_stamped(want)
 
     def same(self, what: str) -> None:
         for bucket in ("pods", "config_maps", "services",

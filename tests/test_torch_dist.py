@@ -245,8 +245,9 @@ def test_unported_dist_knobs_raise(book, field, value):
     ``feat_dtype="bfloat16"`` are ported: they are accepted and train
     (the store then holds bfloat16). ``steps_per_call > 1`` is ported
     for the device sampler only: with the host sampler it is the JAX
-    trainer's ``ValueError``. The others still raise
-    ``NotImplementedError``."""
+    trainer's ``ValueError``. The sharding knobs are ported: each trains
+    (``tp_axis_size=2`` on its ``dp x mp`` mesh) with the replicated
+    run's weights, bit for bit."""
     if field == "feat_dtype":
         tr = _port(book, "replicated", **{field: value})
         assert tr.feats.dtype == torch.bfloat16
@@ -266,8 +267,14 @@ def test_unported_dist_knobs_raise(book, field, value):
         with pytest.raises(ValueError, match="requires sampler='device'"):
             _port(book, "replicated", **{field: value})
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(book, "replicated", **{field: value})
+    tr = _port(book, "replicated", num_epochs=1, **{field: value})
+    out = tr.train()
+    assert (tr._plan is not None) == (field != "tp_axis_size")
+    if field == "tp_axis_size":
+        assert tr.mesh.shape == {"dp": 4, "mp": 2}
+    want = _port(book, "replicated", num_epochs=1).train()
+    for k, v in want["params"].items():
+        assert torch.equal(out["params"][k], v), k
 
 
 def test_unknown_layout_and_pipeline_knobs_raise(book):

@@ -448,7 +448,10 @@ def test_full_ranking_eval_matches_jax(filtered):
                  id="neg_sampler-device-NotImplementedError"),
     pytest.param("num_client", 0, ValueError,
                  id="num_client-2-NotImplementedError"),
-    ("shard_rules", (("relation", "dp"),), NotImplementedError),
+    # relation shard_rules are ported: a rule whose spec is no spec is
+    # refused (the case keeps its earlier id)
+    pytest.param("shard_rules", (("relation", 7),), TypeError,
+                 id="shard_rules-value2-NotImplementedError"),
     # the sentry fields are ported: an invalid value is refused by the
     # knob registry (the cases keep their earlier ids)
     pytest.param("sentry", "on", ValueError, id="sentry-True-TypeError"),

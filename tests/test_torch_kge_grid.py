@@ -167,8 +167,8 @@ def test_mesh_layout_and_slots():
     assert my_slots(line, 1, 2) == [2, 3]
     with pytest.raises(ValueError, match="whole dp rows"):
         my_slots(g, 0, 3)
-    with pytest.raises(NotImplementedError, match="6.6"):
-        make_train_mesh(2, tp_axis_size=2)
+    tp = make_train_mesh(2, tp_axis_size=2)
+    assert (tp.axis_names, tp.size, tp.num_shards) == (("dp", "mp"), 4, 2)
     assert make_train_mesh(3).shape == {"dp": 3}
 
 
@@ -281,8 +281,9 @@ def test_validate_rejects_unknown_sampler():
         KGETrainConfig(neg_sampler="Device")
     with pytest.raises(ValueError):
         KGETrainConfig(num_client=0)
-    with pytest.raises(NotImplementedError, match="8.4"):
-        KGETrainConfig(shard_rules=(("relation", "dp"),))
+    with pytest.raises(TypeError, match="cannot coerce"):
+        KGETrainConfig(shard_rules=(("relation", 7),))
+    assert KGETrainConfig(shard_rules=(("relation", "dp"),)).shard_rules
 
 
 # ---------------------------------------------------------------- resume

@@ -341,21 +341,20 @@ def test_entry_point_flags_not_ported_raise(books, tmp_path, monkeypatch,
                                             flags):
     """The entry point's flags whose features the port lacked:
     ``--sampler device``, ``--model gat|gatv2``, ``--bf16``, ``--remat``
-    and ``--feat_dtype bfloat16`` are ported, so one process trains both
-    parts with each; ``--shard_update`` and ``--shard_rules`` still
-    raise."""
+    ``--feat_dtype bfloat16``, ``--shard_update`` and ``--shard_rules``
+    are ported, so one process trains both parts with each; the sharded
+    runs' weights are the replicated run's bit for bit."""
     monkeypatch.delenv("TPU_OPERATOR_DIST", raising=False)
     monkeypatch.delenv(RANK_ENV, raising=False)
     argv = _entry_argv(books[2], str(tmp_path)) + flags
-    if flags[0] in ("--sampler", "--model", "--bf16", "--remat",
-                    "--feat_dtype"):
-        out = train_dist.main(argv)
-        assert out["step"] > 0 and out["history"][-1]["val_acc"] >= 0
-        assert np.isfinite([x for r in out["history"]
-                            for x in r["losses"]]).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_dist.main(argv)
+    out = train_dist.main(argv)
+    assert out["step"] > 0 and out["history"][-1]["val_acc"] >= 0
+    assert np.isfinite([x for r in out["history"]
+                        for x in r["losses"]]).all()
+    if flags[0].startswith("--shard"):
+        want = train_dist.main(_entry_argv(books[2], str(tmp_path)))
+        for k, v in want["params"].items():
+            assert torch.equal(out["params"][k], v), k
 
 
 def test_entry_point_other_rank_checks_its_partition(books, tmp_path,
