@@ -625,10 +625,7 @@ def partition_graph(g: Graph, graph_name: str, num_parts: int,
                       balance_edges=balance_edges,
                       communities=communities)
         if refine_iters is not None:
-            if int(refine_iters) < 0:
-                raise ValueError(f"refine_iters must be >= 0, got "
-                                 f"{int(refine_iters)}")
-            kwargs["refine_iters"] = int(refine_iters)
+            kwargs["refine_iters"] = validate("refine_iters", refine_iters)
         if part_method == "multilevel":
             parts = multilevel_partition(g, num_parts, seed,
                                          spill_dir=spill_dir, **kwargs)

@@ -30,6 +30,7 @@ the calls of K steps, replayed or eager.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -81,15 +82,26 @@ class GraphedCall:
         side.wait_stream(current)
         with torch.cuda.stream(side):
             out = self.fn().clone()
+        # a dead trainer waits for the cycle collector (its device run
+        # holds its bound step), owning events, pinned buffers and a
+        # graph's pool; collected mid-capture, their CUDA calls would
+        # invalidate the capture. Collect now, and nothing inside it.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         before = _counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        # a cost count open around this call took the eager warm-up's
-        # steps; the capture is counted by nothing
-        with prof.suspended(), torch.cuda.graph(graph, stream=side):
-            self._out = self.fn()
+        try:
+            # a cost count open around this call took the eager
+            # warm-up's steps; the capture is counted by nothing
+            with prof.suspended(), torch.cuda.graph(graph, stream=side):
+                self._out = self.fn()
+        finally:
+            if gc_on:
+                gc.enable()
         prof.note_capture(time.perf_counter() - t0)
         after = _counts()
         for w in KERNEL_WRAPPERS:

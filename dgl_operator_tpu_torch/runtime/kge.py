@@ -163,8 +163,7 @@ class KGETrainConfig:
             setattr(self, name, validate(name, getattr(self, name)))
         for _, spec in self.shard_rules or ():
             sr.to_pspec(spec)      # a spec that is no spec raises
-        if self.resume not in ("auto", "never"):
-            raise ValueError(f"unknown resume policy {self.resume!r}")
+        validate("resume", self.resume)
         if self.ckpt_every < 0 or self.log_interval < 1:
             raise ValueError("ckpt_every must be >= 0 and log_interval "
                              ">= 1")

@@ -226,12 +226,8 @@ class TrainConfig:
         if self.ckpt_every < 0:
             raise ValueError(f"ckpt_every must be >= 0, got "
                              f"{self.ckpt_every}")
-        if not 0.0 <= self.halo_cache_frac <= 1.0:
-            raise ValueError(f"halo_cache_frac must be in [0, 1], got "
-                             f"{self.halo_cache_frac}")
-        if self.cap_policy not in ("auto", "worst"):
-            raise ValueError(f"cap_policy must be 'auto' or 'worst', got "
-                             f"{self.cap_policy!r}")
+        validate("halo_cache_frac", self.halo_cache_frac)
+        validate("cap_policy", self.cap_policy)
         if self.num_samplers < 0 or self.prefetch < 0:
             raise ValueError("num_samplers and prefetch must be >= 0")
         if not 0.0 <= self.dropout < 1.0:
