@@ -34,6 +34,8 @@ import time
 import uuid
 from typing import Dict, Iterator, Optional
 
+from dgl_operator_tpu_torch.obs.trace import hot_span
+
 TRACE_ID_ENV = "TPU_OPERATOR_TRACE_ID"
 TRACE_PARENT_ENV = "TPU_OPERATOR_TRACE_PARENT"
 # HTTP carrier: "trace_id-span_id"
@@ -141,7 +143,9 @@ def span(name: str, cat: str = "trace", export_env: bool = False,
          **args) -> Iterator[TraceContext]:
     """A child span of the active (or given) context, or a new trace
     root when there is none, recorded on ``get_obs().spans`` on exit and
-    active for the block so nested spans attach under it. With
+    active for the block so nested spans attach under it; while a
+    ``torch.profiler`` is active it is also a profiler range
+    (``obs/trace.py::hot_span``). With
     ``export_env`` the span is also the process environment's context
     for the block, so the processes started inside it root their spans
     under it."""
@@ -156,7 +160,8 @@ def span(name: str, cat: str = "trace", export_env: bool = False,
         os.environ.update(me.env())
     t0 = time.perf_counter()
     try:
-        yield me
+        with hot_span(name, aggregate=False):
+            yield me
     finally:
         t1 = time.perf_counter()
         st.pop()

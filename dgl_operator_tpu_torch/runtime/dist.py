@@ -146,7 +146,7 @@ from dgl_operator_tpu_torch.graph.featstore import emit_dataplane_gauges
 from dgl_operator_tpu_torch.graph.partition import GraphPartition
 from dgl_operator_tpu_torch.models import (inference_layer,
                                            state_dict_from_flax)
-from dgl_operator_tpu_torch.obs import get_obs, prof
+from dgl_operator_tpu_torch.obs import get_obs, prof, trace
 from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.obs.comm import (CommWatcher, call_scope,
                                              register_collective,
@@ -208,6 +208,8 @@ class DistTrainer:
         # keeps the default
         cfg = apply_tuned(apply_tuned(apply_tuned(cfg), layer="quality"),
                           layer="shard")
+        # the trace switch: the loop's span aggregates
+        trace.configure()
         self.model = model
         self.cfg = cfg
         self.feat_key = feat_key

@@ -25,7 +25,18 @@ capture (``prof.suspended``).
 
 :class:`DeviceRun` is the device sampler's run state that both trainers
 share: the epoch's seed bank, the device counters its steps read, and
-the calls of K steps, replayed or eager.
+the calls of K steps, replayed or eager. Its staging, replays, eager
+calls and the capture are hot-path spans (``devrun.stage``,
+``devrun.replay``, ``devrun.eager``, ``devrun.capture``;
+``obs/trace.py::hot_span``).
+
+With the trace switch on when it is built, a :class:`DeviceRun` given
+``phases`` keeps a :class:`PhaseClock`: the step marks the boundaries
+of its phases (``sample``, ``model``, ``sentry``, ``update``) with
+timing events that the capture puts into the graph, and
+:meth:`DeviceRun.read_phases`, called after a sync the loop makes
+anyway, adds the last completed replay's interval µs per phase to the
+process's counters (``obs/trace.py::add_phases``). It never syncs.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from dgl_operator_tpu_torch.obs import prof
+from dgl_operator_tpu_torch.obs import trace
 from dgl_operator_tpu_torch.ops.fanout import fanout_agg
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
@@ -70,7 +82,8 @@ class GraphedCall:
     def __call__(self) -> torch.Tensor:
         if self.graph is None:
             return self._warm_up_and_capture()
-        self.graph.replay()
+        with trace.hot_span("devrun.replay"):
+            self.graph.replay()
         self.replays += 1
         for w in KERNEL_WRAPPERS:
             w.launches += self.launches_per_replay[w.__name__]
@@ -97,7 +110,8 @@ class GraphedCall:
         try:
             # a cost count open around this call took the eager
             # warm-up's steps; the capture is counted by nothing
-            with prof.suspended(), torch.cuda.graph(graph, stream=side):
+            with trace.hot_span("devrun.capture"), prof.suspended(), \
+                    torch.cuda.graph(graph, stream=side):
                 self._out = self.fn()
         finally:
             if gc_on:
@@ -111,6 +125,44 @@ class GraphedCall:
         current.wait_stream(side)
         self.graph = graph
         return out
+
+
+class PhaseClock:
+    """Timing events at the phase boundaries of a captured call's
+    steps. While :attr:`armed` (the capture of a K-step call),
+    :meth:`mark` records an event, captured as an event-record node;
+    ``mark(None)`` opens the call and ``mark(phase)`` closes the span
+    of ``phase`` that began at the previous mark. Every replay records
+    the same events again, so after a replay has completed, the time
+    between consecutive marks is the interval of each phase of each of
+    its steps on the card: its kernels' time and the gaps between
+    them. The wait between a replay's launch and its first mark is in
+    no phase."""
+
+    def __init__(self, steps: int):
+        self.steps = int(steps)
+        self.armed = False
+        self.marks: List[Tuple[Optional[str], torch.cuda.Event]] = []
+        self.read_at = 0            # the replays counted so far
+
+    def mark(self, phase: Optional[str]) -> None:
+        if self.armed:
+            ev = torch.cuda.Event(enable_timing=True, external=True)
+            ev.record()
+            self.marks.append((phase, ev))
+
+    def read(self, replays: int) -> None:
+        """Add the last replay's interval µs per phase to the process's
+        counters, when ``replays`` counts one that was not read and its
+        last event has completed; waits for nothing."""
+        if replays <= self.read_at or len(self.marks) < 2 \
+                or not self.marks[-1][1].query():
+            return
+        us = dict.fromkeys(trace.PHASES, 0.0)
+        for (_, a), (phase, b) in zip(self.marks, self.marks[1:]):
+            us[phase] += a.elapsed_time(b) * 1e3
+        trace.add_phases(us, self.steps)
+        self.read_at = replays
 
 
 class DeviceRun:
@@ -127,14 +179,17 @@ class DeviceRun:
     a :class:`GraphedCall` when ``capture`` (on the card, outside a gloo
     group), else K eager steps; a single step (the epoch's tail, or K =
     1) always runs eagerly. ``generators`` are the steps' own random
-    generators, registered with the graph."""
+    generators, registered with the graph. With ``phases`` and the trace
+    switch on, a graphed run keeps a :class:`PhaseClock` in
+    :attr:`clock`, on which ``step`` marks its phases."""
 
     def __init__(self, step: Callable[[torch.Tensor, torch.Tensor],
                                       Sequence[torch.Tensor]],
                  n_out: int, bank_shape: Tuple[int, int, int],
                  dtype: torch.dtype, steps_per_call: int,
                  device: torch.device, capture: bool,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 phases: bool = False):
         self.step = step
         self.bank = torch.full(bank_shape, -1, dtype=dtype, device=device)
         self.idx = torch.zeros(1, dtype=torch.int64, device=device)
@@ -142,19 +197,31 @@ class DeviceRun:
         self.out = torch.zeros(n_out, int(steps_per_call), device=device)
         self.graphed = (GraphedCall(self._steps, device, generators)
                         if capture and steps_per_call > 1 else None)
+        self.clock = (PhaseClock(steps_per_call)
+                      if phases and self.graphed is not None
+                      and trace.tracing() else None)
         self._staged = None
+
+    def read_phases(self) -> None:
+        """Count the last completed replay's phases (after a sync the
+        loop makes; never syncs)."""
+        if self.clock is not None:
+            with trace.hot_span("devrun.phases"):
+                self.clock.read(self.graphed.replays)
 
     def stage(self, id_lists: List) -> None:
         """Each local slot's permuted train ids into the bank: one
         copy."""
-        steps, _, B = self.bank.shape
-        bank = torch.full(tuple(self.bank.shape), -1, dtype=self.bank.dtype)
-        for i, ids in enumerate(id_lists):
-            for b in range(steps):
-                seeds = ids[b * B:(b + 1) * B]
-                bank[b, i, :len(seeds)] = torch.from_numpy(seeds)
-        self.bank.copy_(bank)
-        self._staged = id_lists
+        with trace.hot_span("devrun.stage"):
+            steps, _, B = self.bank.shape
+            bank = torch.full(tuple(self.bank.shape), -1,
+                              dtype=self.bank.dtype)
+            for i, ids in enumerate(id_lists):
+                for b in range(steps):
+                    seeds = ids[b * B:(b + 1) * B]
+                    bank[b, i, :len(seeds)] = torch.from_numpy(seeds)
+            self.bank.copy_(bank)
+            self._staged = id_lists
 
     def prepare(self, id_lists: List, call: List[Tuple[int, int]]
                 ) -> Tuple[Tuple[int, int, int], int]:
@@ -176,8 +243,19 @@ class DeviceRun:
         return torch.cat([v.reshape(-1) for v in out])
 
     def _steps(self) -> torch.Tensor:
-        for j in range(self.out.shape[1]):
-            self.out[:, j] = self._one()
+        clock = self.clock
+        if clock is not None:
+            # only the capture marks: its events are the graph's nodes
+            clock.armed = torch.cuda.is_current_stream_capturing()
+            clock.mark(None)
+        try:
+            for j in range(self.out.shape[1]):
+                self.out[:, j] = self._one()
+                if clock is not None:
+                    clock.mark("update")
+        finally:
+            if clock is not None:
+                clock.armed = False
         return self.out
 
     def __call__(self, b: int, step: int, k: int) -> torch.Tensor:
@@ -185,10 +263,12 @@ class DeviceRun:
         their results ``[n_out, k]`` on the device (no sync)."""
         self.idx.fill_(b)
         self.gstep.fill_(step)
-        if k > 1:
-            return (self.graphed() if self.graphed is not None
-                    else self._steps().clone())
-        return self._one().view(-1, 1)
+        if k > 1 and self.graphed is not None:
+            return self.graphed()
+        with trace.hot_span("devrun.eager"):
+            if k > 1:
+                return self._steps().clone()
+            return self._one().view(-1, 1)
 
 
 def graph_stats(run: Optional[DeviceRun]) -> Dict:

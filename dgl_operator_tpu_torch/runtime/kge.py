@@ -93,6 +93,7 @@ from dgl_operator_tpu_torch.graph.kge_sampler import (
 from dgl_operator_tpu_torch.models.kge import (KGEConfig, KGEModel,
                                                init_kge_params, relation_dim)
 from dgl_operator_tpu_torch.obs import quality as Q
+from dgl_operator_tpu_torch.obs import trace
 from dgl_operator_tpu_torch.obs.comm import register_collective
 from dgl_operator_tpu_torch.obs.live import maybe_start_sidecar
 from dgl_operator_tpu_torch.ops.adagrad import adagrad_rows_, sparse_adagrad_
@@ -207,6 +208,8 @@ class DistKGETrainer:
         # the tuned manifest's kge and quality knobs, where tcfg keeps
         # the default
         tcfg = apply_tuned(apply_tuned(tcfg, layer="kge"), layer="quality")
+        # the trace switch: the timer's span aggregates
+        trace.configure()
         self.cfg, self.tcfg = cfg, tcfg
         self.model = KGEModel(cfg)
         # the last update's stats (device tensors), with the sentry

@@ -90,11 +90,12 @@ from dgl_operator_tpu_torch.graph.graph import Graph
 from dgl_operator_tpu_torch.models import (flax_params, full_graph_inference,
                                            state_dict_from_flax)
 from dgl_operator_tpu_torch.launcher import chaos
-from dgl_operator_tpu_torch.obs import get_obs, prof, tracectx
+from dgl_operator_tpu_torch.obs import get_obs, prof, trace, tracectx
 from dgl_operator_tpu_torch.obs import quality as Q
 from dgl_operator_tpu_torch.obs.comm import axis_bytes_total
 from dgl_operator_tpu_torch.obs.flight import get_flight
 from dgl_operator_tpu_torch.obs.live import get_feed, maybe_start_sidecar
+from dgl_operator_tpu_torch.obs.trace import hot_span
 from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                       device_csr, draw_key)
 from dgl_operator_tpu_torch.ops.gather import gather_rows
@@ -452,15 +453,15 @@ def train_teardown_live(gstep: int) -> None:
     get_feed().mark_done()
 
 
-def _record_epoch(timer: PhaseTimer, rec: Dict, t0_wall: float,
+def _record_epoch(timer: PhaseTimer, rec: Dict, t0: float,
                   steps: int) -> None:
     """The per-epoch telemetry epilogue of both trainers: fold the
     PhaseTimer's buckets (time and bytes) into the phase histograms and
     counters, count the steps and the epoch, set the headline gauges,
     emit the ``epoch`` event (the record's scalar fields), record the
-    epoch as a trace span, refresh the utilization gauges and flush the
-    run's files, so a killed trainer still leaves its last completed
-    epoch on disk."""
+    epoch as a trace span from ``t0`` (the epoch's ``perf_counter``
+    start), refresh the utilization gauges and flush the run's files, so
+    a killed trainer still leaves its last completed epoch on disk."""
     obs = get_obs()
     timer.fold_into(obs.metrics)
     m = obs.metrics
@@ -477,10 +478,8 @@ def _record_epoch(timer: PhaseTimer, rec: Dict, t0_wall: float,
                 "accuracy").set(rec["val_acc"])
     obs.emit("epoch", **{k: v for k, v in rec.items()
                          if v is None or isinstance(v, (int, float, str))})
-    pc_now = time.perf_counter()
-    obs.complete(f"epoch {rec.get('epoch')}",
-                 pc_now - (time.time() - t0_wall), pc_now, cat="train",
-                 epoch=rec.get("epoch"), steps=steps)
+    obs.complete(f"epoch {rec.get('epoch')}", t0, time.perf_counter(),
+                 cat="train", epoch=rec.get("epoch"), steps=steps)
     # the epoch's losses were fetched: the card has run every call, so
     # the utilization window reaches the last one
     prof.get_profiler().refresh()
@@ -611,7 +610,8 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
                parts: Sequence[int] = (0,),
                model: Optional[torch.nn.Module] = None,
                overlap_ratio: Callable[[], Optional[float]] = lambda: None,
-               stage: Optional[Callable[[Iterator], Iterator]] = None
+               stage: Optional[Callable[[Iterator], Iterator]] = None,
+               on_sync: Callable[[], None] = lambda: None
                ) -> Tuple[List[Dict], int]:
     """The epoch loop both trainers run, from global step
     ``start_step`` to ``cfg.num_epochs`` epochs; returns the per-epoch
@@ -649,8 +649,22 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
     and last the chaos ``numerics:nan`` injector, which poisons
     ``model``. ``stage``, when given, wraps the stream of prepared
     calls (``DistTrainer``'s exchange pipeline enqueues device work for
-    batches ahead of their step there). The run is a ``train`` trace span; the live sidecar
-    starts when ``TPU_OPERATOR_LIVE_PORT`` is set."""
+    batches ahead of their step there). The run is a ``train`` trace
+    span; the live sidecar starts when ``TPU_OPERATOR_LIVE_PORT`` is
+    set.
+
+    The loop's host work is hot-path spans (``obs/trace.py::hot_span``):
+    per call ``loop.wait`` and ``loop.call`` (the timer's wait bucket
+    and ``dispatch``: profiler ranges, the timer keeps their times),
+    ``loop.loss_fetch`` (the ``train_step`` event and its fetch, every
+    ``cfg.log_every`` steps), ``loop.ckpt``, ``loop.sentry`` (the tap)
+    and ``loop.heartbeat``; per epoch
+    ``epoch.permute`` (with the calls' set-up), ``epoch.drain``,
+    ``epoch.losses``, ``epoch.eval``, ``epoch.record`` and
+    ``epoch.ckpt``, inside an ``epoch N`` profiler range.
+    ``on_sync()`` runs after each sync the loop makes anyway (the loss
+    fetch and the epoch's losses): the device run reads its phase
+    counters there."""
     rng = np.random.default_rng(cfg.seed)
     start_epoch = start_step // steps_per_epoch
     for _ in range(start_epoch):
@@ -687,82 +701,98 @@ def run_epochs(cfg: TrainConfig, timer: PhaseTimer, steps_per_epoch: int,
         guard.install()
         try:
             for epoch in range(start_epoch, cfg.num_epochs):
-                perm = permute(rng)
-                skip = (start_step % steps_per_epoch
-                        if epoch == start_epoch else 0)
-                calls = chunk_calls([(b, gstep + b - skip)
-                                     for b in range(skip, steps_per_epoch)],
-                                    cfg.steps_per_call)
-                t_epoch = time.time()
-                losses, step_s = [], []
-                seen = 0
-                pipeline = prefetch_map(lambda c: sample(perm, c),
-                                        [(c,) for c in calls], depth,
-                                        sample_workers)
-                if stage is not None:
-                    pipeline = stage(pipeline)
-                try:
-                    for call in calls:
-                        slow.maybe_drag(timer, gstep)
-                        t_step = time.perf_counter()
-                        with timer.phase(wait_bucket):
-                            batch, n_seeds = next(pipeline)
-                        with timer.phase("dispatch"):
-                            loss, acc = step(batch)
-                        k = len(call)
-                        step_s += [(time.perf_counter() - t_step) / k] * k
-                        losses.append(loss)
-                        seen += n_seeds
-                        prev_gstep, gstep = gstep, gstep + k
-                        sps = seen / max(time.time() - t_epoch, 1e-9)
-                        if (gstep // cfg.log_every
-                                != prev_gstep // cfg.log_every):
-                            obs.emit("train_step", epoch=epoch, step=gstep,
-                                     loss=float(loss[-1]),
-                                     train_acc=None if acc is None
-                                     else float(acc[-1]),
-                                     seeds_per_sec=sps)
-                        if ckpt is not None and cfg.ckpt_every and (
-                                gstep // cfg.ckpt_every
-                                != prev_gstep // cfg.ckpt_every):
-                            ckpt.save(gstep, state(), wait=False)
-                        if tap is not None:
-                            tap.push(gstep, loss[-1], step_stats())
-                            observe(tap.poll_all())
-                        heartbeat(gstep, epoch, timer, sps=sps,
-                                  overlap_ratio=overlap_ratio(),
-                                  loss=seen_vals["loss"],
-                                  grad_norm=seen_vals["grad_norm"])
-                        if guard.poll(gstep):
+                with hot_span("epoch.permute"):
+                    perm = permute(rng)
+                    skip = (start_step % steps_per_epoch
+                            if epoch == start_epoch else 0)
+                    calls = chunk_calls(
+                        [(b, gstep + b - skip)
+                         for b in range(skip, steps_per_epoch)],
+                        cfg.steps_per_call)
+                    pipeline = prefetch_map(lambda c: sample(perm, c),
+                                            [(c,) for c in calls], depth,
+                                            sample_workers)
+                    if stage is not None:
+                        pipeline = stage(pipeline)
+                t_epoch = time.perf_counter()
+                with hot_span(f"epoch {epoch}", aggregate=False):
+                    losses, step_s = [], []
+                    seen = 0
+                    try:
+                        for call in calls:
+                            slow.maybe_drag(timer, gstep)
+                            t_step = time.perf_counter()
+                            with timer.phase(wait_bucket, span="loop.wait"):
+                                batch, n_seeds = next(pipeline)
+                            with timer.phase("dispatch", span="loop.call"):
+                                loss, acc = step(batch)
+                            k = len(call)
+                            step_s += [(time.perf_counter() - t_step) / k] * k
+                            losses.append(loss)
+                            seen += n_seeds
+                            prev_gstep, gstep = gstep, gstep + k
+                            sps = seen / max(time.perf_counter() - t_epoch,
+                                             1e-9)
+                            if (gstep // cfg.log_every
+                                    != prev_gstep // cfg.log_every):
+                                with hot_span("loop.loss_fetch"):
+                                    obs.emit("train_step", epoch=epoch,
+                                             step=gstep, loss=float(loss[-1]),
+                                             train_acc=None if acc is None
+                                             else float(acc[-1]),
+                                             seeds_per_sec=sps)
+                                on_sync()
+                            if ckpt is not None and cfg.ckpt_every and (
+                                    gstep // cfg.ckpt_every
+                                    != prev_gstep // cfg.ckpt_every):
+                                with hot_span("loop.ckpt"):
+                                    ckpt.save(gstep, state(), wait=False)
                             if tap is not None:
-                                # the calls in flight, before the flush
-                                observe(tap.drain_all())
-                            flush_and_preempt(guard, ckpt, gstep, state())
-                        if inj is not None:
-                            inj.maybe_poison(gstep, model)
-                finally:
-                    pipeline.close()
-                if tap is not None:
-                    # the epoch's last calls must not escape the sentry
-                    observe(tap.drain_all())
-                loss_values = torch.cat(losses).tolist()  # waits for the card
-                dt = time.time() - t_epoch
-                rec = {"epoch": epoch, "loss": loss_values[-1],
-                       "losses": loss_values, "step_s": step_s,
-                       "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
-                       "calls": len(calls), **timer.as_dict(),
-                       **epoch_stats(len(loss_values))}
-                if _eval_due(cfg, epoch):
-                    t_eval = time.perf_counter()
-                    accs = evaluate()
-                    rec["val_acc"] = accs.get("val_mask")
-                    rec["test_acc"] = accs.get("test_mask")
-                    rec["eval_s"] = time.perf_counter() - t_eval
-                history.append(rec)
-                _record_epoch(timer, rec, t_epoch, len(loss_values))
-                timer.reset()
-                if ckpt is not None:
-                    ckpt.save(gstep, state(), wait=False)
+                                with hot_span("loop.sentry"):
+                                    tap.push(gstep, loss[-1], step_stats())
+                                    observe(tap.poll_all())
+                            with hot_span("loop.heartbeat"):
+                                heartbeat(gstep, epoch, timer, sps=sps,
+                                          overlap_ratio=overlap_ratio(),
+                                          loss=seen_vals["loss"],
+                                          grad_norm=seen_vals["grad_norm"])
+                            if guard.poll(gstep):
+                                if tap is not None:
+                                    # the calls in flight, before the flush
+                                    observe(tap.drain_all())
+                                flush_and_preempt(guard, ckpt, gstep, state())
+                            if inj is not None:
+                                inj.maybe_poison(gstep, model)
+                    finally:
+                        pipeline.close()
+                    if tap is not None:
+                        # the epoch's last calls must not escape the sentry
+                        with hot_span("epoch.drain"):
+                            observe(tap.drain_all())
+                    with hot_span("epoch.losses"):
+                        # waits for the card
+                        loss_values = torch.cat(losses).tolist()
+                    on_sync()
+                    dt = time.perf_counter() - t_epoch
+                    rec = {"epoch": epoch, "loss": loss_values[-1],
+                           "losses": loss_values, "step_s": step_s,
+                           "seeds_per_sec": seen / max(dt, 1e-9), "time": dt,
+                           "calls": len(calls), **timer.as_dict(),
+                           **epoch_stats(len(loss_values))}
+                    if _eval_due(cfg, epoch):
+                        with hot_span("epoch.eval"):
+                            t_eval = time.perf_counter()
+                            accs = evaluate()
+                            rec["val_acc"] = accs.get("val_mask")
+                            rec["test_acc"] = accs.get("test_mask")
+                            rec["eval_s"] = time.perf_counter() - t_eval
+                    history.append(rec)
+                    with hot_span("epoch.record"):
+                        _record_epoch(timer, rec, t_epoch, len(loss_values))
+                    timer.reset()
+                    if ckpt is not None:
+                        with hot_span("epoch.ckpt"):
+                            ckpt.save(gstep, state(), wait=False)
             train_teardown_live(gstep)
         finally:
             guard.uninstall()
@@ -794,6 +824,8 @@ class SampledTrainer:
         # the tuned manifest's train and quality knobs, where cfg keeps
         # the default
         cfg = apply_tuned(apply_tuned(cfg), layer="quality")
+        # the trace switch: span aggregates and the device run's phases
+        trace.configure()
         model.dropout = float(cfg.dropout)
         self.model = model
         self.g = g
@@ -889,14 +921,20 @@ class SampledTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self.loss(batch)
         loss.backward()
+        self._mark("model")
         if self._delta is None:
             self.optimizer.step()
+            self._mark("update")
             return loss.detach(), acc.detach()
         stats = Q.grad_part([p.grad for p in self._delta.params], loss)
         self._delta.before()
+        self._mark("sentry")
         self.optimizer.step()
+        self._mark("update")
         stats.update(self._delta.stats())
-        return loss.detach(), acc.detach(), Q.stat_vector(stats)
+        out = loss.detach(), acc.detach(), Q.stat_vector(stats)
+        self._mark("sentry")
+        return out
 
     def train_step(self, mb: MiniBatch) -> Tuple[torch.Tensor, ...]:
         """One optimizer step on a padded host minibatch
@@ -912,7 +950,19 @@ class SampledTrainer:
         blocks, inputs = self._tree.sample(
             self._indptr, self._indices, seeds,
             draw_key(self.cfg.seed, gstep))
+        self._mark("sample")
         return self.step_shipped((blocks, inputs, seeds))
+
+    def _mark(self, phase: str) -> None:
+        """The end of a step's ``phase`` on the device run's clock
+        (``runtime/graphs.py::PhaseClock``; marks only in a capture with
+        the trace switch on)."""
+        if self._run is not None and self._run.clock is not None:
+            self._run.clock.mark(phase)
+
+    def _read_phases(self) -> None:
+        if self._run is not None:
+            self._run.read_phases()
 
     def train_call(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """The steps of one call; returns their losses and accuracies
@@ -941,7 +991,7 @@ class SampledTrainer:
             self.device_sampler_step, n_out,
             (steps_per_epoch, 1, self.cfg.batch_size), self._indptr.dtype,
             self.cfg.steps_per_call, self.device,
-            self.device.type == "cuda", [self.generator])
+            self.device.type == "cuda", [self.generator], phases=True)
         return self._run
 
     # -- evaluation -----------------------------------------------------
@@ -1060,7 +1110,8 @@ class SampledTrainer:
                 lambda steps: graph_stats(self._run),
                 sample_workers=resolve_num_samplers(cfg),
                 step_stats=lambda: self.last_stats,
-                parts=[Q.my_partition()], model=self.model)
+                parts=[Q.my_partition()], model=self.model,
+                on_sync=self._read_phases)
         finally:
             # the graph's memory pool goes with it
             self._run = None

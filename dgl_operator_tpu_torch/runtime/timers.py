@@ -10,7 +10,10 @@ sampler pipeline for a batch that was not ready, and the chaos
 ``step:slow`` drag) and ``dispatch`` (the step: host-to-device copies,
 then the enqueue of forward, backward and the optimizer update). Kernels
 run asynchronously, so device time shows up in whichever host call next
-waits for the card; the epoch wall clock is the throughput number.
+waits for the card; the epoch wall clock is the throughput number. Each
+bucket is also a profiler range (``obs/trace.py::hot_span``, with no
+aggregate: the timer is the one accumulator of its buckets), which
+``run_epochs`` names ``loop.wait`` and ``loop.call``.
 
 The owner layout's exchange pipeline (``runtime/dist.py``) bills the
 bytes of each exchange to ``exchange`` and records the exchange's and
@@ -26,6 +29,8 @@ import time
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from dgl_operator_tpu_torch.obs.trace import hot_span
+
 
 class PhaseTimer:
     """Accumulating named wall-clock buckets, with byte counters per
@@ -37,13 +42,17 @@ class PhaseTimer:
         self.bytes: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.total[name] += time.perf_counter() - t0
-            self.count[name] += 1
+    def phase(self, name: str, span: Optional[str] = None):
+        """Time a block into bucket ``name``; while a profiler is active
+        it is also the range ``span`` (default ``name``,
+        ``obs/trace.py::hot_span``)."""
+        with hot_span(span or name, aggregate=False):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.total[name] += time.perf_counter() - t0
+                self.count[name] += 1
 
     def add_bytes(self, name: str, nbytes: int) -> None:
         """Attribute moved bytes to a bucket."""
