@@ -448,7 +448,11 @@ step of that stack, under ``full_graph``, in one edge gather or
 segment sum of the Cora loop, under ``rgcn_gin``, in one call at
 each RGCN and pool shape, under ``dataplane``, in one call at the
 int8 slot-input and exchange shapes and, under ``kge_grid`` and
-``kge_device``, in one grid update's entity lookup and push), a ``total`` line with the run's seconds, the
+``kge_device``, in one grid update's entity lookup and push;
+``tree_sample``'s entry: its launches on every path that samples on the
+card, with the device-sampled step's one call at the trainer's shapes;
+the kgejob, obsjob, KGE and shard children and the knob search's probes
+count the other three kernels only), a ``total`` line with the run's seconds, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero
 before that last line is printed; without a CUDA card the script exits
 1 at once.
@@ -1290,7 +1294,7 @@ def serve_phase(torch, args, wrappers, g, work: str, card: str):
     check(forwards >= len(requests) > 0,
           "at least one forward per request")
     check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
-                       "scatter_add_rows": 0},
+                       "scatter_add_rows": 0, "tree_sample": 0},
           f"2 fanout_agg launches per forward and no other: "
           f"{launches} launches, {forwards} forwards")
     check(eng.nonfinite_logits == 0, "finite logits")
@@ -1348,6 +1352,13 @@ def reset_counts(wrappers) -> None:
 def read_counts(wrappers) -> dict:
     """Launches per kernel, by the wrapper's (and kernel's) name."""
     return {w.__name__: w.launches for w in wrappers}
+
+
+def tree_launches(samples: int, slot_plans: bool = False) -> int:
+    """The tree-sampling kernel's launches for ``samples`` device-sampled
+    trees at ``FANOUTS``: one a layer, and one more for the last block's
+    plan when the model asks for slot plans (GAT, pool)."""
+    return samples * (len(FANOUTS) + int(slot_plans))
 
 
 def setup_phase(torch, args, card: str):
@@ -1482,7 +1493,7 @@ def train_phase(torch, args, wrappers, trainer, card: str):
     # backward of block 1's aggregation (block 0's input needs none)
     check(launches == {"fanout_agg": 2 * steps + 2,
                        "gather_rows": steps + 1,
-                       "scatter_add_rows": steps},
+                       "scatter_add_rows": steps, "tree_sample": 0},
           f"per step 1 gather_rows, 2 fanout_agg, 1 scatter_add_rows: "
           f"{launches} launches in {steps} steps")
     check(bool(np.isfinite(losses).all()), "finite losses")
@@ -1872,7 +1883,8 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
           f"{steps} steps, {len(losses)} losses")
     check(launches_rep == {"fanout_agg": 2 * P * steps,
                            "gather_rows": P * steps,
-                           "scatter_add_rows": P * steps},
+                           "scatter_add_rows": P * steps,
+                           "tree_sample": 0},
           f"per step and slot 1 gather_rows, 2 fanout_agg, 1 "
           f"scatter_add_rows: {launches_rep} launches in {steps} steps")
     check(bool(np.isfinite(losses).all()), "finite dist losses")
@@ -1921,7 +1933,8 @@ def dist_phase(torch, args, ops, wrappers, g, node_map, work: str,
     check(out_own["step"] == steps, f"owner layout: {out_own['step']} steps")
     check(launches_own == {"fanout_agg": 2 * P * steps,
                            "gather_rows": (P + 1) * steps,
-                           "scatter_add_rows": P * steps},
+                           "scatter_add_rows": P * steps,
+                           "tree_sample": 0},
           f"per step 1 exchange gather_rows, and per slot 1 gather_rows, 2 "
           f"fanout_agg, 1 scatter_add_rows: {launches_own} launches in "
           f"{steps} steps")
@@ -1970,7 +1983,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from dgl_operator_tpu_torch.examples.train_dist import main
 from dgl_operator_tpu_torch.ops import fanout, gather, scatter
-wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows)
+from dgl_operator_tpu_torch.ops.device_sample import tree_sample
+wrappers = (fanout.fanout_agg, gather.gather_rows, scatter.scatter_add_rows,
+            tree_sample)
 for w in wrappers:
     w.launches = 0
 out = main(spec["argv"])
@@ -2152,7 +2167,8 @@ def nccl_world_one(torch, wrappers, ctx, card: str) -> dict:
             gathers = 3 if layout == "owner" else 2
             check(launches == {"fanout_agg": 4 * steps,
                                "gather_rows": gathers * steps,
-                               "scatter_add_rows": 2 * steps},
+                               "scatter_add_rows": 2 * steps,
+                               "tree_sample": 0},
                   f"NCCL {layout}: {launches} launches in {steps} steps")
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
@@ -2267,7 +2283,7 @@ def two_ranks(torch, ctx, work: str, card: str) -> dict:
         gathers = 2 if layout == "owner" else 1
         for r in (0, 1):
             want = {"fanout_agg": 2 * steps, "gather_rows": gathers * steps,
-                    "scatter_add_rows": steps}
+                    "scatter_add_rows": steps, "tree_sample": 0}
             check(res[r]["launches"] == want, f"{layout} rank {r}: "
                   f"{res[r]['launches']} launches in {steps} steps")
             for k, v in res[r]["launches"].items():
@@ -2332,6 +2348,7 @@ DEV_RESUME_K = 2       # the device-mode resume: calls of 2 steps
 DEV_CPU_STEPS = 5      # device-sampler steps of the card-against-CPU check
 PROFILE_CALLS = 5      # calls traced by torch.profiler in each mode
 PROFILE_TRACES = 3     # traces of a mode until its kernel counts match
+PROFILE_RANGE = "gnn_profile.calls"  # the counted calls' host range
 
 
 def gnn_kernel_kind(name: str) -> str:
@@ -2340,7 +2357,8 @@ def gnn_kernel_kind(name: str) -> str:
     for kernel, key in (("fanout_agg", "fanout_agg"),
                         ("gather_rows", "gather_rows"),
                         ("scatter_add_rows", "segment_sum_kernel"),
-                        ("scatter_add_rows", "add_partials_kernel")):
+                        ("scatter_add_rows", "add_partials_kernel"),
+                        ("tree_sample", "tree_sample_layer")):
         if key in name:
             return kernel
     low = name.lower()
@@ -2353,8 +2371,8 @@ def gnn_kernel_kind(name: str) -> str:
 
 def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
                 card: str, phase: str = "device_sampler",
-                kernels=("fanout_agg", "gather_rows", "scatter_add_rows")
-                ) -> dict:
+                kernels=("fanout_agg", "gather_rows", "scatter_add_rows",
+                         "tree_sample")) -> dict:
     """``PROFILE_CALLS`` calls of ``run_call()`` (``steps_per_call``
     steps each, warmed up by one call before) under ``torch.profiler``
     with CPU and CUDA activities: wall ms, device µs and launches per
@@ -2365,8 +2383,12 @@ def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
     graph replay, the counts ``GraphedCall`` adds. The tracer has
     dropped a step's kernels from a trace (one of 20 steps, once), so a
     mode is traced again, up to ``PROFILE_TRACES`` times, until the two
-    agree; the record keeps the disagreements. Each of ``kernels`` must
-    have device time in the trace."""
+    agree; the record keeps the disagreements. It has also missed the
+    first kernels of a trace's first graph replay (GAT at K = 4, late in
+    a smoke run, every time), so each trace starts with one more call
+    and a marker kernel, and counts only the device events after the
+    marker and the host events inside ``PROFILE_RANGE``. Each of
+    ``kernels`` must have device time in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2375,23 +2397,33 @@ def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
     steps = PROFILE_CALLS * steps_per_call
     misses = []
     for _ in range(PROFILE_TRACES):
-        before = read_counts(wrappers)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            run_call()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)        # the marker: spin_kernel
+            torch.cuda.synchronize()
+            before = read_counts(wrappers)
             # idle margins inside the trace's window on both sides
             time.sleep(0.005)
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_CALLS):
-                run_call()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            with torch.profiler.record_function(PROFILE_RANGE):
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_CALLS):
+                    run_call()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(0.005)
         counted = {k: v - before[k]
                    for k, v in read_counts(wrappers).items()}
+        marks = [e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" in e.name]
+        check(marks, f"profile {mode}: no marker kernel in the trace")
         # the device-side copies of host annotations (Adam's step range)
         # span kernels counted on their own
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
+                  and e.time_range.start > marks[-1]
                   and not getattr(e, "is_user_annotation", False)
                   and not e.name.startswith("Optimizer.")]
         check(events,
@@ -2401,10 +2433,14 @@ def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
         traced = {w: sum(key in e.name for e in events)
                   for w, key in (("fanout_agg", "fanout_agg"),
                                  ("gather_rows", "gather_rows"),
-                                 ("scatter_add_rows", "segment_sum_kernel"))}
+                                 ("scatter_add_rows", "segment_sum_kernel"),
+                                 ("tree_sample", "tree_sample_layer"))}
         if traced == counted:
             break
-        misses.append({"traced": traced, "counted": counted})
+        first = sorted(events, key=lambda e: e.time_range.start)[:12]
+        misses.append({"traced": traced, "counted": counted,
+                       "first_kernels": [short_kernel_name(e.name)[:60]
+                                         for e in first]})
     check(traced == counted, f"profile {mode}: in {PROFILE_TRACES} traces "
           f"the kernel launches differ from the wrappers' counts: {misses}")
     by_name, count, by_kind = {}, {}, {}
@@ -2418,9 +2454,17 @@ def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
     for kernel in kernels:
         check(by_kind.get(kernel, 0.0) > 0,
               f"profile {mode}: no {kernel} device time")
-    cpu = sorted((a for a in prof.key_averages()
-                  if a.device_type == DeviceType.CPU),
-                 key=lambda a: a.self_cpu_time_total, reverse=True)
+    window = next(e.time_range for e in prof.events()
+                  if e.name == PROFILE_RANGE)
+    host = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CPU and e.name != PROFILE_RANGE
+                and window.start <= e.time_range.start
+                and e.time_range.end <= window.end):
+            agg = host.setdefault(e.key, [0.0, 0])
+            agg[0] += e.self_cpu_time_total
+            agg[1] += 1
+    cpu = sorted(host.items(), key=lambda kv: kv[1][0], reverse=True)
     device_us = sum(by_kind.values()) / steps
     rec = dict(phase=phase, part="profile", card=card, mode=mode,
                steps_per_call=steps_per_call, calls=PROFILE_CALLS,
@@ -2438,13 +2482,11 @@ def gnn_profile(torch, wrappers, mode: str, steps_per_call: int, run_call,
                                   "launches_per_step": count[k] / steps}
                                  for k, v in by_name.items()),
                                 key=lambda r: -r["us_per_step"])[:25],
-               host_top10=[{"op": a.key,
-                            "self_cpu_us_per_step":
-                                a.self_cpu_time_total / steps,
-                            "calls_per_step": a.count / steps}
-                           for a in cpu[:10]],
-               host_self_cpu_us_per_step=sum(a.self_cpu_time_total
-                                             for a in cpu) / steps)
+               host_top10=[{"op": op, "self_cpu_us_per_step": us_ / steps,
+                            "calls_per_step": n / steps}
+                           for op, (us_, n) in cpu[:10]],
+               host_self_cpu_us_per_step=sum(us_ for _, (us_, _) in cpu)
+               / steps)
     emit(**rec)
 
 
@@ -2458,6 +2500,7 @@ def tree_check_phase(torch, args, ops, tr, card: str):
 
     from dgl_operator_tpu_torch.ops.device_sample import (TreeSampler,
                                                           device_csr,
+                                                          draw_counters,
                                                           draw_key,
                                                           tree_draws)
     from dgl_operator_tpu_torch.ops.scatter import ScatterPlan
@@ -2467,10 +2510,12 @@ def tree_check_phase(torch, args, ops, tr, card: str):
     seeds = torch.from_numpy(seeds_np).to("cuda")
     key = draw_key(args.seed, 7)
     counter = torch.full((1,), 7, dtype=torch.int64, device="cuda")
-    card_draws = tree_draws(draw_key(args.seed, counter),
-                            tr._tree.counters, FANOUTS)
+    card_counters = draw_counters(BATCH_TRAIN, FANOUTS, "cuda")
+    card_draws = tree_draws(draw_key(args.seed, counter), card_counters,
+                            FANOUTS)
     cpu_tree = TreeSampler(BATCH_TRAIN, FANOUTS, "cpu")
-    cpu_draws = tree_draws(key, cpu_tree.counters, FANOUTS)
+    cpu_draws = tree_draws(key, draw_counters(BATCH_TRAIN, FANOUTS, "cpu"),
+                           FANOUTS)
     check(all(torch.equal(a.cpu(), b) for a, b in zip(card_draws,
                                                       cpu_draws)),
           "the card's draws differ from the CPU's")
@@ -2504,9 +2549,11 @@ def tree_check_phase(torch, args, ops, tr, card: str):
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 9)
     b0, b1 = blocks
-    records = gather_records(torch, gather, [("tree_feats", tr.feats,
-                                               inputs)],
-                             flush, args.iters, card)
+    records = [tree_sample_record(torch, tr, seeds, counter, flush,
+                                  args.iters, card)]
+    records += gather_records(torch, gather, [("tree_feats", tr.feats,
+                                                inputs)],
+                              flush, args.iters, card)
     h1 = torch.randn(b1.num_src, HIDDEN, device="cuda", generator=gen)
     records += fanout_records(torch, fanout, [
         ("tree_block0", gather.gather_rows(tr.feats, inputs), b0.nbr,
@@ -2517,6 +2564,67 @@ def tree_check_phase(torch, args, ops, tr, card: str):
         ("tree_block1_bwd", g1, b1.nbr, b1.mask, b1.num_src, True,
          b1.plan)], flush, args.iters, card)
     return records
+
+
+def tree_sample_record(torch, tr, seeds, counter, flush, iters: int,
+                       card: str) -> dict:
+    """The tree-sampling kernel (``csrc/tree_sample.cu``, one launch a
+    layer) at the trainer's shapes, keyed on a device step counter,
+    against the plain torch path it replaced (the draws' hash, the
+    tree's index ops and ``tree_scatter_plan``): bit for bit, launches a
+    call, µs cold and warm, the plain path's µs cold, and the bound of
+    its least bytes: each row's ``indptr`` pair and each slot's
+    ``indices`` entry read, the seeds read, the input ids, the masks
+    and the plans written."""
+    from dgl_operator_tpu_torch.ops import device_sample as ds
+    from dgl_operator_tpu_torch.ops.scatter import ScatterPlan
+
+    ip, ix, sampler = tr._indptr, tr._indices, tr._tree
+    counters = ds.draw_counters(BATCH_TRAIN, FANOUTS, "cuda")
+
+    def kernel():
+        return sampler.sample(ip, ix, seeds, ds.draw_key(7, counter))
+
+    def plain():
+        return ds.sample_fanout_tree_from_draws(
+            ip, ix, seeds, FANOUTS,
+            ds.tree_draws(ds.draw_key(7, counter), counters, FANOUTS),
+            positions=sampler.positions, plans=True,
+            slot_plans=sampler.slot_plans)
+
+    before = ds.tree_sample.launches
+    (gb, gi), (wb, wi) = kernel(), plain()
+    torch.cuda.synchronize()
+    launches = ds.tree_sample.launches - before
+    check(launches == len(FANOUTS) + sampler.slot_plans,
+          f"tree_sample: {launches} launches a call")
+    check(torch.equal(gi, wi), "tree_sample: input ids differ")
+    for g_, w_ in zip(gb, wb):
+        check(torch.equal(g_.mask, w_.mask) and torch.equal(g_.nbr, w_.nbr)
+              and (g_.plan is None) == (w_.plan is None),
+              "tree_sample: blocks differ")
+        if w_.plan is not None:
+            check(all(torch.equal(getattr(g_.plan, k), getattr(w_.plan, k))
+                      for k in ScatterPlan.FIELDS),
+                  "tree_sample: plans differ")
+    isz = ip.element_size()
+    nbytes = seeds.numel() * seeds.element_size() + gi.numel() * isz
+    for blk in gb:
+        n, f = blk.mask.shape
+        nbytes += n * 2 * isz + n * f * (isz + 1)
+        if blk.plan is not None:
+            nbytes += blk.plan.nbytes()
+    b_ms, b_by = bound_ms(nbytes, 0)
+    rec = dict(phase="kernel", kernel="tree_sample", shape="tree_sample",
+               dtype=str(ip.dtype).replace("torch.", ""),
+               batch=BATCH_TRAIN, fanouts=list(FANOUTS), card=card,
+               launches_per_call=launches, bit_equal=True, max_abs_err=0.0,
+               ms=time_cold_ms(torch, kernel, flush, iters),
+               warm_ms=time_warm_ms(torch, kernel, iters),
+               plain_ms=time_cold_ms(torch, plain, flush, iters),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    emit(**rec)
+    return rec
 
 
 def device_run_record(rec: dict, steps: int, k: int) -> dict:
@@ -2580,12 +2688,12 @@ def device_sampled_phase(torch, args, wrappers, g, trainer, card: str):
         rec = out["history"][0]
         check(steps == len(trainer.train_ids) // BATCH_TRAIN
               == len(rec["losses"]), f"device K={K}: {steps} steps")
-        # the warm-up forward adds 1 gather and 2 aggregations
-        check(launches == {"fanout_agg": 2 * steps + 2,
-                           "gather_rows": steps + 1,
-                           "scatter_add_rows": steps},
+        # the warm-up forward adds 1 gather, 2 aggregations and its
+        # tree's samples
+        check(launches == sage_launches(steps, device=True),
               f"device K={K}: per step 1 gather_rows, 2 fanout_agg, 1 "
-              f"scatter_add_rows: {launches} in {steps} steps")
+              f"scatter_add_rows, 2 tree_sample: {launches} in {steps} "
+              f"steps")
         check(bool(np.isfinite(rec["losses"]).all()), "finite losses")
         check(rec["graph"] is (K > 1), f"device K={K}: graph {rec['graph']}")
         if K > 1:
@@ -2597,9 +2705,8 @@ def device_sampled_phase(torch, args, wrappers, g, trainer, card: str):
         emit(phase="device_sampler", part="sampled", card=card,
              steps_per_call=K, steps=steps, seeds=steps * BATCH_TRAIN,
              caps=tr.caps, launches=launches,
-             launches_per_step={k: (v - {"fanout_agg": 2, "gather_rows": 1}
-                                    .get(k, 0)) / steps
-                                for k, v in launches.items()},
+             launches_per_step={k: (v - sage_launches(0, device=True)[k])
+                                / steps for k, v in launches.items()},
              loss_first5=float(np.mean(rec["losses"][:5])),
              loss_last5=float(np.mean(rec["losses"][-5:])),
              losses=rec["losses"], train_call_s=wall,
@@ -2633,11 +2740,13 @@ def device_sampled_phase(torch, args, wrappers, g, trainer, card: str):
     # the traces: host K = 1 (the train phase's trainer), device K = 1,
     # device K = 4
     rng = np.random.default_rng(args.seed + 4)
-    mbs = iter([trainer.sample(rng.choice(trainer.train_ids, BATCH_TRAIN,
-                                          replace=False), 20_000 + i)
-                for i in range(PROFILE_CALLS + 1)])
+    # the warm-up's and each trace's calls cycle over one trace's batches
+    mbs = itertools.cycle([trainer.sample(
+        rng.choice(trainer.train_ids, BATCH_TRAIN, replace=False), 20_000 + i)
+        for i in range(PROFILE_CALLS + 1)])
     gnn_profile(torch, wrappers, "host_k1", 1,
-                lambda: trainer.train_step(next(mbs)), card)
+                lambda: trainer.train_step(next(mbs)), card,
+                kernels=("fanout_agg", "gather_rows", "scatter_add_rows"))
     spe = len(ids) // BATCH_TRAIN
     for K, (tr, _) in runs.items():
         tr._start_device_run(spe).stage([ids])
@@ -2684,7 +2793,8 @@ def device_dist_phase(torch, args, wrappers, ctx, work: str, card: str):
         # slot's requests (a process's, in a group)
         gathers = P if layout == "replicated" else 1
         return {"fanout_agg": 2 * P * steps, "gather_rows": gathers * steps,
-                "scatter_add_rows": P * steps}
+                "scatter_add_rows": P * steps,
+                "tree_sample": tree_launches(P * steps)}
 
     want = None
     profiled = {}
@@ -2800,7 +2910,8 @@ def device_dist_phase(torch, args, wrappers, ctx, work: str, card: str):
     for r in (0, 1):
         check(res[r]["launches"] == {"fanout_agg": 2 * steps,
                                      "gather_rows": steps,
-                                     "scatter_add_rows": steps},
+                                     "scatter_add_rows": steps,
+                                     "tree_sample": tree_launches(steps)},
               f"device two ranks rank {r}: {res[r]['launches']}")
         add(res[r]["launches"])
     emit(phase="device_sampler", part="two_ranks", card=card, layout=layout,
@@ -3131,7 +3242,7 @@ def kge_train(torch, args, wrappers, ds, card: str):
     losses = np.asarray(out["losses"])
     # a step gathers h || t || neg and r, and pushes both
     check(launches == {"fanout_agg": 0, "gather_rows": 2 * steps,
-                       "scatter_add_rows": 2 * steps},
+                       "scatter_add_rows": 2 * steps, "tree_sample": 0},
           f"per step 2 gather_rows and 2 scatter_add_rows: {launches} in "
           f"{steps} steps")
     check(len(losses) == steps and bool(np.isfinite(losses).all()),
@@ -3313,7 +3424,7 @@ def kge_dist(torch, args, wrappers, ds, work: str, card: str):
     # their relation rows a step; one entity push and a relation push
     # for each slot
     in_process = {"fanout_agg": 0, "gather_rows": 2 * steps,
-                  "scatter_add_rows": 3 * steps}
+                  "scatter_add_rows": 3 * steps, "tree_sample": 0}
     tr_a = make()
     out_a, launches_a, wall_a = run(tr_a)
     want_losses, want = out_a["losses"], tr_a.state_dict()
@@ -3451,7 +3562,7 @@ def kge_dist(torch, args, wrappers, ds, work: str, card: str):
     emit(phase="kge", part="resume", card=card, trainer="DistKGETrainer",
          killed_at=KGE_RESUME_AT, resumed_steps=len(out_d["losses"]),
          bit_exact=True)
-    total = {k: launches_a[k] + launches_b[k] + launches_c[k]
+    total = {k: launches_a[k] + launches_b[k] + launches_c.get(k, 0)
              for k in launches_a}
     return tr_a, total
 
@@ -3556,7 +3667,7 @@ def grid_run(torch, wrappers, tr, td, what: str, updates: int):
     wall = time.perf_counter() - t0
     launches = read_counts(wrappers)
     check(launches == {"fanout_agg": 0, "gather_rows": 2 * updates,
-                       "scatter_add_rows": 5 * updates},
+                       "scatter_add_rows": 5 * updates, "tree_sample": 0},
           f"{what}: {launches} launches in {updates} updates")
     losses = np.asarray(out["losses"])
     check(len(losses) == updates and bool(np.isfinite(losses).all()),
@@ -4121,7 +4232,7 @@ def obs_overhead(torch, args, wrappers, g, trainer, work: str,
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         steps = out["step"]
-        check(launches == sage_launches(steps),
+        check(launches == sage_launches(steps, device=True),
               f"obs overhead on={on}: {launches} in {steps} steps")
         if ref is None:
             ref = out
@@ -4163,7 +4274,7 @@ def obs_phase(torch, args, wrappers, g, trainer, ctx, work: str,
     t0 = time.perf_counter()
     job = obsjob(torch, ctx, work, card)
     over = obs_overhead(torch, args, wrappers, g, trainer, work, card)
-    total = {k: job[k] + over[k] for k in job}
+    total = {k: job.get(k, 0) + over[k] for k in over}
     emit(phase="obs", part="done", card=card, launches=total,
          seconds=time.perf_counter() - t0)
     return total
@@ -4317,6 +4428,7 @@ a = ap.parse_args()
 from dgl_operator_tpu_torch.graph import datasets
 from dgl_operator_tpu_torch.models.sage import DistSAGE
 from dgl_operator_tpu_torch.ops import fanout, gather, scatter
+from dgl_operator_tpu_torch.ops.device_sample import tree_sample
 from dgl_operator_tpu_torch.runtime.loop import (Preempted, SampledTrainer,
                                                  TrainConfig)
 part = int(os.environ["TPU_OPERATOR_RANK"])
@@ -4348,7 +4460,7 @@ with open(os.path.join(spec["out"], f"results-{part}.jsonl"), "a") as f:
                    else "cpu"),
         "launches": {w.__name__: w.launches for w in (
             fanout.fanout_agg, gather.gather_rows,
-            scatter.scatter_add_rows)}}) + "\\n")
+            scatter.scatter_add_rows, tree_sample)}}) + "\\n")
 """
 
 
@@ -4777,7 +4889,7 @@ def shard_phase(torch, args, wrappers, g, ctx, kg, work: str,
               f"shard {name}: {steps} steps")
         check(launches == {"fanout_agg": 2 * P * steps,
                            "gather_rows": P * steps,
-                           "scatter_add_rows": P * steps},
+                           "scatter_add_rows": P * steps, "tree_sample": 0},
               f"shard {name}: {launches} launches in {steps} steps")
         losses = out["history"][0]["losses"]
         check(bool(np.isfinite(losses).all()), f"shard {name}: losses")
@@ -5155,18 +5267,21 @@ def gat_model(torch, kind: str, device, seed: int, dropout: float = 0.5):
 
 
 def gat_launches(kind: str, steps: int, slots: int = 1, warm: int = 0,
-                 exchange: int = 0) -> dict:
+                 exchange: int = 0, device: bool = False) -> dict:
     """The kernel launches of ``steps`` steps of ``slots`` slots and
     ``warm`` forwards without a gradient: each slot's input rows and the
     neighbour gathers of both layers (GAT: ``el[nbr]`` and ``x[nbr]``;
     GATv2: ``fs[nbr]``), then the backward of every gather whose table
     needs a gradient (GAT: block 0's logits, block 1's logits and rows;
-    GATv2: both blocks' projections); plus ``exchange`` gathers."""
+    GATv2: both blocks' projections); plus ``exchange`` gathers; with
+    the device sampler, each slot's tree with its slot plans."""
     gathers = 3 if kind == "gatv2" else 5
     scatters = 2 if kind == "gatv2" else 3
+    samples = steps * slots + warm
     return {"fanout_agg": 0,
-            "gather_rows": (steps * slots + warm) * gathers + exchange,
-            "scatter_add_rows": steps * slots * scatters}
+            "gather_rows": samples * gathers + exchange,
+            "scatter_add_rows": steps * slots * scatters,
+            "tree_sample": tree_launches(samples, True) if device else 0}
 
 
 class Branches:
@@ -5331,7 +5446,9 @@ def gat_sampled(torch, args, wrappers, g, trainer, card: str):
             check(steps == len(trainer.train_ids) // BATCH_TRAIN
                   == len(losses), f"gat {kind} {sampler} K={K}: {steps}")
             # the warm-up forward before the first step adds its gathers
-            want = gat_launches(kind, steps, warm=1)
+            # (and, with the device sampler, its tree)
+            device = sampler == "device"
+            want = gat_launches(kind, steps, warm=1, device=device)
             check(launches == want, f"gat {kind} {sampler} K={K}: "
                   f"{launches} launches in {steps} steps, expected {want}")
             check(bool(np.isfinite(losses).all()), "finite GAT losses")
@@ -5350,7 +5467,8 @@ def gat_sampled(torch, args, wrappers, g, trainer, card: str):
                  sampler=sampler, steps_per_call=K, steps=steps,
                  caps=tr.caps, launches=launches,
                  launches_per_step={
-                     k: (v - gat_launches(kind, 0, warm=1)[k]) / steps
+                     k: (v - gat_launches(kind, 0, warm=1,
+                                          device=device)[k]) / steps
                      for k, v in launches.items()},
                  loss_first5=float(np.mean(losses[:5])),
                  loss_last5=float(np.mean(losses[-5:])), losses=losses,
@@ -5374,7 +5492,8 @@ def gat_sampled(torch, args, wrappers, g, trainer, card: str):
         tr._start_device_run(spe).stage([ids])
         gnn_profile(torch, wrappers, f"{kind}_device_k{DEV_K}", DEV_K,
                     bank_calls(tr, DEV_K, spe), card, phase="gat",
-                    kernels=("gather_rows", "scatter_add_rows"))
+                    kernels=("gather_rows", "scatter_add_rows",
+                             "tree_sample"))
         tr._run = None
     return total, runs
 
@@ -5581,7 +5700,7 @@ def gat_dist_device(torch, args, wrappers, make, card: str) -> dict:
         steps = out["step"]
         rec = out["history"][0]
         losses = rec["losses"]
-        expect = gat_launches("gatv2", steps, P)
+        expect = gat_launches("gatv2", steps, P, device=True)
         if layout == "owner":
             expect["gather_rows"] -= (P - 1) * steps
         check(launches == expect, f"gat dist gatv2 device {layout} K={K}: "
@@ -5655,7 +5774,7 @@ def gat_serve(torch, args, wrappers, g, ctx, work: str, card: str
     forwards = eng.forward_calls - forwards0
     check(forwards >= len(requests) > 0, "a GAT forward per request")
     want = {"fanout_agg": 0, "gather_rows": 4 * forwards,
-            "scatter_add_rows": 0}
+            "scatter_add_rows": 0, "tree_sample": 0}
     check(launches == want, f"GAT serve: {launches} launches in "
           f"{forwards} forwards, expected {want}")
     check(eng.nonfinite_logits == 0, "finite GAT serve logits")
@@ -5698,7 +5817,8 @@ def full_graph_want(model: str, epochs: int, forwards: int) -> dict:
     evaluation forwards of ``model`` make (:data:`FULL_GRAPH_LAUNCHES`)."""
     (tg, ts), (fg, fs) = FULL_GRAPH_LAUNCHES[model]
     return {"fanout_agg": 0, "gather_rows": epochs * tg + forwards * fg,
-            "scatter_add_rows": epochs * ts + forwards * fs}
+            "scatter_add_rows": epochs * ts + forwards * fs,
+            "tree_sample": 0}
 
 
 def run_example(torch, wrappers, module, argv, **kw):
@@ -6072,7 +6192,7 @@ def message_passing_phase(torch, args, ops, wrappers, g, ctx, card: str):
     losses = np.asarray(rec["losses"])
     check(launches == {"fanout_agg": 2 * steps + 2,
                        "gather_rows": steps + 1,
-                       "scatter_add_rows": steps},
+                       "scatter_add_rows": steps, "tree_sample": 0},
           f"graphsage.py: per step 1 gather_rows, 2 fanout_agg, 1 "
           f"scatter_add_rows: {launches} launches in {steps} steps")
     check(steps == len(losses) > 10 and bool(np.isfinite(losses).all())
@@ -6117,9 +6237,9 @@ POOL_CPU_STEPS = 3      # pool steps of each card-against-CPU check
 JAX_RGCN_TABLE_BYTES = 483_142 * 32 * 32 * 4
 
 
-def counts_of(gathers: int, scatters: int) -> dict:
+def counts_of(gathers: int, scatters: int, trees: int = 0) -> dict:
     return {"fanout_agg": 0, "gather_rows": gathers,
-            "scatter_add_rows": scatters}
+            "scatter_add_rows": scatters, "tree_sample": trees}
 
 
 def rgcn_launches(epochs: int) -> dict:
@@ -6533,14 +6653,19 @@ def pool_runs(torch, args, wrappers, g, trainer, ctx, card: str):
     def warm3(steps):           # the warm-up forward's three gathers
         return counts_of(3 * steps + 3, 2 * steps)
 
+    def warm3_device(steps):    # and each step's tree, slot plans included
+        return counts_of(3 * steps + 3, 2 * steps,
+                         tree_launches(steps + 1, True))
+
     def dist_want(steps):       # per slot: the feature gather, the pool's
         return counts_of(3 * 2 * steps, 2 * 2 * steps)
 
     total, device_tr, graphed = {}, None, None
     for name, make, want_of, runs in (
             ("host", lambda: sampled("host", 1), warm3, 2),
-            (f"device_k{DEV_K}", lambda: sampled("device", DEV_K), warm3, 2),
-            ("device_k1", lambda: sampled("device", 1), warm3, 1),
+            (f"device_k{DEV_K}", lambda: sampled("device", DEV_K),
+             warm3_device, 2),
+            ("device_k1", lambda: sampled("device", 1), warm3_device, 1),
             ("dist_replicated", dist, dist_want, 2)):
         outs = []
         for _ in range(runs):
@@ -6701,12 +6826,14 @@ SENTRY_SAFE_STEPS = 2     # the drill's poisoned rows miss these batches
 SENTRY_CKPT_EPOCH = 1     # the drill's checkpoint fence
 
 
-def sage_launches(steps: int, warm: int = 1) -> dict:
+def sage_launches(steps: int, warm: int = 1, device: bool = False) -> dict:
     """A SAGE run's launches: per step 1 gather, 2 aggregations and the
     backward of block 1's aggregation; ``warm`` warm-up forwards add a
-    gather and two aggregations each."""
+    gather and two aggregations each; with the device sampler, each
+    step and warm-up samples its tree (:func:`tree_launches`)."""
     return {"fanout_agg": 2 * (steps + warm), "gather_rows": steps + warm,
-            "scatter_add_rows": steps}
+            "scatter_add_rows": steps,
+            "tree_sample": tree_launches(steps + warm) if device else 0}
 
 
 def same_run(a, b) -> bool:
@@ -6737,6 +6864,7 @@ def sentry_sampled(torch, args, wrappers, g, trainer, card: str) -> dict:
     total = {}
     for mode, fields in SENTRY_MODES:
         k = fields.get("steps_per_call", 1)
+        device = fields["sampler"] == "device"
         runs = {False: [], True: []}
         for sentry in (False, True, True, False):
             cfg = TrainConfig(batch_size=BATCH_TRAIN, fanouts=FANOUTS, lr=LR,
@@ -6753,7 +6881,7 @@ def sentry_sampled(torch, args, wrappers, g, trainer, card: str) -> dict:
             steps = out["step"]
             check(steps == len(trainer.train_ids) // BATCH_TRAIN,
                   f"sentry {mode}: {steps} steps")
-            check(launches == sage_launches(steps),
+            check(launches == sage_launches(steps, device=device),
                   f"sentry {mode} on={sentry}: {launches} in {steps} steps")
             check((tr.last_stats is not None) == sentry,
                   f"sentry {mode} on={sentry}: last_stats")
@@ -6777,7 +6905,8 @@ def sentry_sampled(torch, args, wrappers, g, trainer, card: str) -> dict:
         last = runs[True][0][2]
         emit(phase="sentry", part="sampled", mode=mode, card=card,
              steps_per_call=k, steps=ref["step"], order="off,on,on,off",
-             bit_equal=True, launches_per_run=sage_launches(ref["step"]),
+             bit_equal=True,
+             launches_per_run=sage_launches(ref["step"], device=device),
              steady_ms_per_step_off=ms[False],
              steady_ms_per_step_on=ms[True], off_ms_mean=off,
              on_ms_mean=on, overhead=(on - off) / off,
@@ -6807,7 +6936,8 @@ def sentry_dist(torch, wrappers, ctx, card: str) -> dict:
             exchange = steps if layout == "owner" else 0
             check(launches == {"fanout_agg": 2 * P * steps,
                                "gather_rows": P * steps + exchange,
-                               "scatter_add_rows": P * steps},
+                               "scatter_add_rows": P * steps,
+                               "tree_sample": 0},
                   f"sentry dist {layout}: {launches} in {steps} steps")
             for key, v in launches.items():
                 total[key] = total.get(key, 0) + v
@@ -7237,7 +7367,7 @@ def fleet_phase(torch, args, wrappers, g, trainer, work: str,
         # engine.predict of the fixed request and the canary probes
         # are forwards too
         check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
-                           "scatter_add_rows": 0},
+                           "scatter_add_rows": 0, "tree_sample": 0},
               f"fleet: 2 fanout_agg launches per forward: {launches}, "
               f"{forwards} forwards")
         emit(phase="fleet", part="failover", card=card,
@@ -7383,9 +7513,10 @@ def chaos_kill(torch, args, wrappers, g, trainer, ctx, w0, work: str,
                   for k, v in resumed["params"].items()),
           f"chaos kill: the resumed run differs from the uninterrupted one "
           f"(steps {resumed['step']} of {steps})")
-    check(launches["full"] == sage_launches(steps)
-          and launches["killed"] == sage_launches(CHAOS_KILL_AT)
-          and launches["resumed"] == sage_launches(steps - CHAOS_KILL_AT),
+    check(launches["full"] == sage_launches(steps, device=True)
+          and launches["killed"] == sage_launches(CHAOS_KILL_AT, device=True)
+          and launches["resumed"] == sage_launches(steps - CHAOS_KILL_AT,
+                                                   device=True),
           f"chaos kill launches: {launches}")
     for v in launches.values():
         add_counts(total, v)
@@ -7417,7 +7548,8 @@ def chaos_kill(torch, args, wrappers, g, trainer, ctx, w0, work: str,
     exchanges = min(kill + 1, tr.steps_per_epoch)
     check(dist_launches == {"fanout_agg": 2 * P * kill,
                             "gather_rows": P * kill + exchanges,
-                            "scatter_add_rows": P * kill},
+                            "scatter_add_rows": P * kill,
+                            "tree_sample": 0},
           f"chaos kill DistTrainer launches {dist_launches}")
     add_counts(total, dist_launches)
     emit(phase="chaos", part="train_kill", card=card, trainer="DistTrainer",
@@ -7491,8 +7623,9 @@ def chaos_numerics(torch, args, wrappers, g, trainer, w0, work: str,
                   for v in out["params"].values()),
           f"chaos numerics relaunch: ended at {out['step']}")
     ran = launches["card"]["scatter_add_rows"]
-    check(launches["card"] == sage_launches(ran)
-          and launches["relaunch"] == sage_launches(total - survivor),
+    check(launches["card"] == sage_launches(ran, device=True)
+          and launches["relaunch"] == sage_launches(total - survivor,
+                                                    device=True),
           f"chaos numerics launches {launches}")
     emit(phase="chaos", part="numerics_nan", card=card, sampler="device",
          steps_per_call=CHAOS_K, nan_at=CHAOS_NAN_AT, fault_step=step,
@@ -7666,7 +7799,7 @@ def chaos_live(torch, wrappers, g, trainer, card: str) -> dict:
           f"heartbeat_hz {rates[-3:]}")
     check(after["done"] and after["step"] == out["step"],
           f"chaos live: after the run {after}")
-    check(launches == sage_launches(out["step"]),
+    check(launches == sage_launches(out["step"], device=True),
           f"chaos live launches {launches}")
     # one heartbeat (gauges, an event, a tick of the feed) with the
     # run's timer, as the loop calls it after every call
@@ -7707,7 +7840,8 @@ def chaos_kge(torch, args, wrappers, ds, card: str) -> dict:
         launches = read_counts(wrappers)
         check(launches == {"fanout_agg": 0,
                            "gather_rows": 2 * CHAOS_KGE_STEPS,
-                           "scatter_add_rows": 2 * CHAOS_KGE_STEPS},
+                           "scatter_add_rows": 2 * CHAOS_KGE_STEPS,
+                           "tree_sample": 0},
               f"chaos kge sentry={sentry}: {launches}")
         add_counts(total, launches)
         runs[sentry].append((out, tr.state_dict(), tr.last_stats))
@@ -7801,7 +7935,7 @@ def chaos_pipeline(torch, wrappers, ctx, card: str) -> dict:
         steps = out["step"]
         check(launches == {"fanout_agg": 2 * P * steps,
                            "gather_rows": (P + 1) * steps,
-                           "scatter_add_rows": P * steps},
+                           "scatter_add_rows": P * steps, "tree_sample": 0},
               f"chaos pipeline {name}: {launches} in {steps} steps")
         add_counts(total, launches)
         runs[name] = (out, wall, launches)
@@ -7991,7 +8125,9 @@ def dataplane_train(torch, args, ops, wrappers, ctx, work: str, card: str):
                    1 if k > 1 else P + 1)
         check(launches == {"fanout_agg": 2 * P * steps,
                            "gather_rows": gathers * steps,
-                           "scatter_add_rows": P * steps},
+                           "scatter_add_rows": P * steps,
+                           "tree_sample": (tree_launches(P * steps) if k > 1
+                                           else 0)},
               f"dataplane {name}: {launches} in {steps} steps")
         check(steps == DIST_IDS_PER_PART // BATCH_TRAIN, f"{name}: {steps}")
         check(bool(np.isfinite(rec["losses"]).all()), f"{name}: losses")
@@ -8144,7 +8280,7 @@ def dataplane_serve(torch, args, wrappers, g, cfg8: str, node_map,
     launches = read_counts(wrappers)
     forwards = eng8.forward_calls - forwards0
     check(launches == {"fanout_agg": 2 * forwards, "gather_rows": 0,
-                       "scatter_add_rows": 0},
+                       "scatter_add_rows": 0, "tree_sample": 0},
           f"dataplane serve: {launches} in {forwards} forwards")
     st8, stf = eng8.stats(), engf.stats()
     lat = np.asarray(lat_ms)
@@ -8174,12 +8310,16 @@ def dp_model(torch, kind: str, seed: int, **kw):
     return DistSAGE(FEAT, HIDDEN, CLASSES, device="cuda", generator=gen, **kw)
 
 
-def dp_launches(kind: str, steps: int, slots: int = 1, warm: int = 1):
+def dp_launches(kind: str, steps: int, slots: int = 1, warm: int = 1,
+                device: bool = False):
     if kind == "gat":
-        return gat_launches(kind, steps, slots=slots, warm=warm)
+        return gat_launches(kind, steps, slots=slots, warm=warm,
+                            device=device)
     return {"fanout_agg": 2 * (steps * slots + warm),
             "gather_rows": steps * slots + warm,
-            "scatter_add_rows": steps * slots}
+            "scatter_add_rows": steps * slots,
+            "tree_sample": (tree_launches(steps * slots + warm) if device
+                            else 0)}
 
 
 def dataplane_bf16(torch, args, wrappers, g, trainer, ctx, work: str,
@@ -8233,7 +8373,8 @@ def dataplane_bf16(torch, args, wrappers, g, trainer, ctx, work: str,
                 steps, rec = out["step"], out["history"][0]
                 losses = rec["losses"]
                 check(steps == DP_STEPS and launches == dp_launches(
-                    kind, steps), f"bf16 {kind} {sampler} {dtype}: "
+                    kind, steps, device=sampler == "device"),
+                    f"bf16 {kind} {sampler} {dtype}: "
                     f"{launches} in {steps} steps")
                 check(bool(np.isfinite(losses).all())
                       and np.mean(losses[-4:]) < np.mean(losses[:4]),
@@ -8263,7 +8404,7 @@ def dataplane_bf16(torch, args, wrappers, g, trainer, ctx, work: str,
         steps, losses = out["step"], out["history"][0]["losses"]
         want = (dp_launches(kind, steps, slots=2, warm=0) if kind == "gat"
                 else {"fanout_agg": 4 * steps, "gather_rows": 2 * steps,
-                      "scatter_add_rows": 2 * steps})
+                      "scatter_add_rows": 2 * steps, "tree_sample": 0})
         check(launches == want, f"train_dist --bf16 {kind}: {launches}")
         check(bool(np.isfinite(losses).all())
               and np.mean(losses[-5:]) < np.mean(losses[:5]),
@@ -8330,7 +8471,7 @@ def dataplane_remat(torch, args, wrappers, g, trainer, card: str) -> dict:
             peak = torch.cuda.max_memory_allocated()
             launches = read_counts(wrappers)
             steps, rec = out["step"], out["history"][0]
-            want = dp_launches("sage", steps)
+            want = dp_launches("sage", steps, device=sampler == "device")
             if remat:
                 # the backward recomputes both layers' aggregations
                 want["fanout_agg"] += 2 * steps
@@ -8420,7 +8561,9 @@ def kernel_entry(records, name, main_shapes, launches, replaces,
     def step_sums(shapes):
         main = [r for r in mine if (r["shape"], r["dtype"]) in shapes]
         check(len(main) == len(shapes), f"{name}: main-path records")
-        out = {k: sum(r[k] for r in main)
+        # library_ms None: no library call does this kernel's work
+        out = {k: (None if any(r[k] is None for r in main)
+                   else sum(r[k] for r in main))
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
                                           for r in main) else "operations")
@@ -8473,7 +8616,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from dgl_operator_tpu_torch.ops import _build, fanout, gather, scatter
+    from dgl_operator_tpu_torch.ops import (_build, device_sample, fanout,
+                                            gather, scatter)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8488,7 +8632,7 @@ def main(argv=None) -> int:
 
     ops = (fanout, gather, scatter)
     wrappers = (fanout.fanout_agg, gather.gather_rows,
-                scatter.scatter_add_rows)
+                scatter.scatter_add_rows, device_sample.tree_sample)
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     check(sources == sorted(f"{w.__name__}.cu" for w in wrappers),
           f"one source per kernel: {sources}")
@@ -8659,6 +8803,23 @@ def main(argv=None) -> int:
                                     "elastic": elastic["scatter_add_rows"],
                                     "shard": shard["scatter_add_rows"],
                                     "ring": ring["scatter_add_rows"]}),
+        # no Pallas twin: the JAX sampler is plain jnp; the knob search's
+        # probes count the three kernels above only
+        kernel_entry(records, "tree_sample",
+                     {(r["shape"], r["dtype"]) for r in records
+                      if r["kernel"] == "tree_sample"},
+                     launches("tree_sample"),
+                     "none: the JAX sampler is plain jnp",
+                     gat_launches=gat["tree_sample"],
+                     mp_launches=mpass["tree_sample"],
+                     rgcn_launches=rgin["tree_sample"],
+                     chaos_launches=chaos.get("tree_sample", 0),
+                     dataplane_launches=dplane.get("tree_sample", 0),
+                     more_launches={"kge_grid": grid["tree_sample"],
+                                    "obs": obs["tree_sample"],
+                                    "elastic": elastic["tree_sample"],
+                                    "shard": shard["tree_sample"],
+                                    "ring": ring["tree_sample"]}),
     ])
     emit(phase="total", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

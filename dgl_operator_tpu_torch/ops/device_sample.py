@@ -2,11 +2,17 @@
 
 The counterpart of ``dgl_operator_tpu/ops/device_sample.py``. The graph's
 CSR (``indptr`` and ``indices``) lives on the device, each step draws
-uniform with-replacement neighbors (the reference's ``replace=True``)
-with plain torch ops, and the only per-step input is the ``[batch]``
-seed ids. Nothing syncs the host and every shape is fixed by the batch
-size and the fanouts, so a step that samples this way can be captured
-in a CUDA graph (``runtime/graphs.py``).
+uniform with-replacement neighbors (the reference's ``replace=True``),
+and the only per-step input is the ``[batch]`` seed ids. Nothing syncs
+the host and every shape is fixed by the batch size and the fanouts, so
+a step that samples this way can be captured in a CUDA graph
+(``runtime/graphs.py``). On a CUDA tensor :func:`sample_fanout_tree`
+launches the hand-written kernel ``csrc/tree_sample.cu`` once a layer
+(:func:`tree_sample`: the draws, the tree's ids and masks and the
+backward plans in one pass, the key hashed in the kernel); on a CPU
+tensor it runs the plain torch path (:func:`tree_draws`, then
+:func:`sample_fanout_tree_from_draws`), which gives the same bits and
+is what the kernel is held against.
 
 Tree-form blocks, no frontier compaction: every dst-node occurrence
 samples its own fanout slots and nothing is deduplicated, so layer
@@ -19,11 +25,10 @@ aggregations. Blocks come outermost-first with the dst-prefix invariant
 
 The draws. JAX draws each layer's ``[n, F]`` slot numbers with
 ``jax.random.randint`` from a split key; this module draws them from a
-counter-based hash in torch integer ops instead (:func:`draw_key`,
-:func:`tree_draws`): a 31-bit value per ``(key, layer, flat index)``,
-where the key hashes the caller's integers (``SampledTrainer``: the
-run's seed and the global step; ``DistTrainer``: the step seed and the
-part). The values are not ``jax.random``'s, but they are the same on
+counter-based hash instead (:func:`draw_key`, :func:`tree_draws`): a
+31-bit value per ``(key, layer, flat index)``, where the key hashes the
+caller's integers (``SampledTrainer``: the run's seed and the global
+step; ``DistTrainer``: the step seed and the part). The values are not ``jax.random``'s, but they are the same on
 the CPU and on the card, the same whether a step runs alone or inside a
 captured K-step call, and a device tensor can carry the step, so no
 generator is reseeded inside a graph. :func:`sample_fanout_tree_from_draws`
@@ -32,15 +37,22 @@ takes the draws from outside, so a test can hand it JAX's.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from dgl_operator_tpu_torch.graph.blocks import FanoutBlock
-from dgl_operator_tpu_torch.ops.scatter import tree_scatter_plan
+from dgl_operator_tpu_torch.obs import prof
+from dgl_operator_tpu_torch.ops import _build
+from dgl_operator_tpu_torch.ops.scatter import ScatterPlan, tree_scatter_plan
 
 IntLike = Union[int, torch.Tensor]
+_SOURCE = "tree_sample.cu"
+_INDEX_DTYPES = (torch.int32, torch.int64)
+# key parts from the first tensor part on (kMaxParts in the .cu)
+_MAX_PARTS = 4
 _M32 = 0xFFFFFFFF
 # murmur3's 32-bit finalizer constants
 _C1, _C2 = 0x85EBCA6B, 0xC2B2AE35
@@ -100,14 +112,74 @@ def _fold(part: IntLike):
     return (part & _M32) ^ ((part >> 32) & _M32)
 
 
-def draw_key(*parts: IntLike) -> IntLike:
-    """The draws' key of a tuple of integers (Python ints, or int64
-    scalar tensors on the sampler's device, such as a device step
-    counter), each in ``[0, 2^63)``: one :func:`mix32` round per part."""
+def _hash_parts(parts) -> IntLike:
     key = _KEY_BASIS
     for part in parts:
         key = mix32(key ^ _fold(part))
     return key
+
+
+class DrawKey:
+    """A key with a tensor among its parts (a device step counter), kept
+    as its parts: the tree-sampling kernel hashes them when it runs, so
+    no tensor op computes the key. :meth:`value` is the key as an int64
+    tensor, computed with :func:`mix32`'s tensor ops (the plain
+    path's)."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: Sequence[IntLike]):
+        self.parts = tuple(parts)
+
+    def value(self) -> torch.Tensor:
+        return _hash_parts(self.parts)
+
+
+Key = Union[int, DrawKey]
+
+
+def draw_key(*parts: IntLike) -> Key:
+    """The draws' key of a tuple of integers (Python ints, or int64
+    scalar tensors on the sampler's device, such as a device step
+    counter), each in ``[0, 2^63)``: one :func:`mix32` round per part. A
+    Python int when every part is one, else a :class:`DrawKey`."""
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        return DrawKey(parts)
+    return _hash_parts(parts)
+
+
+def kernel_key(key: Key, device) -> Tuple[int, List[IntLike]]:
+    """``key`` as the kernel takes it: the hash of its leading Python-int
+    parts, then each later part, a tensor (read on the device) or a
+    Python int folded to 32 bits. Hashing those parts in turn from the
+    first gives :func:`draw_key`'s value. A tensor part must be an int64
+    scalar on ``device``; at most ``_MAX_PARTS`` parts follow the
+    first tensor."""
+    if isinstance(key, int):
+        if not 0 <= key < 2**32:
+            raise ValueError(f"a key is draw_key's, in [0, 2^32); got {key}")
+        return key, []
+    if not isinstance(key, DrawKey):
+        raise TypeError(f"a key is draw_key's (an int or a DrawKey), not "
+                        f"{type(key).__name__}")
+    start, rest = _KEY_BASIS, []
+    for part in key.parts:
+        if isinstance(part, torch.Tensor):
+            if part.dtype != torch.int64 or part.numel() != 1:
+                raise TypeError(f"a tensor part of a key is an int64 scalar; "
+                                f"got {part.dtype} of {part.numel()} elements")
+            if part.device != torch.device(device):
+                raise ValueError(f"a tensor part of a key on {part.device} "
+                                 f"for a sampler on {device}")
+            rest.append(part)
+        elif rest:
+            rest.append(_fold(int(part)))
+        else:
+            start = mix32(start ^ _fold(int(part)))
+    if len(rest) > _MAX_PARTS:
+        raise ValueError(f"at most {_MAX_PARTS} key parts from the first "
+                         f"tensor on; got {len(rest)}")
+    return start, rest
 
 
 def draw_counters(seed_cap: int, fanouts: Sequence[int], device
@@ -124,11 +196,13 @@ def draw_counters(seed_cap: int, fanouts: Sequence[int], device
     return out
 
 
-def tree_draws(key: IntLike, counters: Sequence[torch.Tensor],
+def tree_draws(key: Key, counters: Sequence[torch.Tensor],
                fanouts: Sequence[int]) -> List[torch.Tensor]:
     """Each layer's ``[n, F]`` int32 draws in ``[0, 2^31)``, in sampling
     order: ``mix32(counter ^ mix32(key ^ mix32(layer + 1))) >> 1`` over
     :func:`draw_counters`' ``counters``."""
+    if isinstance(key, DrawKey):
+        key = key.value()
     out = []
     for layer, (cnt, fan) in enumerate(zip(counters,
                                            reversed(list(fanouts)))):
@@ -211,23 +285,162 @@ def sample_fanout_tree_from_draws(
     return blocks, f
 
 
+def _launcher():
+    lib = _build.load(_SOURCE)
+    fn = lib.tree_sample_layer_launch
+    if fn.argtypes is None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = ([ptr] * 2 + [i64] * 3 + [ptr, i64] + [ptr] * 4
+                       + [i64] * 4 + [ctypes.POINTER(ctypes.c_void_p),
+                                      ctypes.POINTER(ctypes.c_uint32), i64]
+                       + [ptr] * 6 + [i64] * 3 + [ptr])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def tree_sample(indptr: torch.Tensor, indices: torch.Tensor,
+                seeds: torch.Tensor, fanouts: Sequence[int], key: Key,
+                plans: bool = False, slot_plans: bool = False,
+                positions: Optional[Sequence[torch.Tensor]] = None
+                ) -> Tuple[List[FanoutBlock], torch.Tensor]:
+    """:func:`sample_fanout_tree` on the card: the hand-written kernel
+    ``csrc/tree_sample.cu``, one launch a layer (the plan of a layer's
+    block built by the next launch, and the last block's, with
+    ``slot_plans``, by one launch more), counted in
+    ``tree_sample.launches``. Gives what the plain path gives from
+    :func:`tree_draws` of ``key``, bit for bit: blocks, input ids and
+    plans (``src`` with its masked tail). CUDA tensors only."""
+    dev = seeds.device
+    if dev.type != "cuda":
+        raise ValueError(f"tree_sample runs on cuda, not {dev}")
+    if indptr.device != dev or indices.device != dev:
+        raise ValueError(f"indptr, indices and seeds must share a device; "
+                         f"got {indptr.device}, {indices.device}, {dev}")
+    if indptr.dtype not in _INDEX_DTYPES or indices.dtype != indptr.dtype \
+            or seeds.dtype not in _INDEX_DTYPES:
+        raise TypeError(f"indptr and indices must be one of int32 and int64 "
+                        f"and seeds either; got {indptr.dtype}, "
+                        f"{indices.dtype}, {seeds.dtype}")
+    if seeds.dim() != 1 or seeds.numel() < 1 or indptr.numel() < 1 \
+            or indices.numel() < 1:
+        raise ValueError("seeds must be [B], B >= 1, and the CSR "
+                         "non-empty (device_csr)")
+    fans = [int(f) for f in reversed(list(fanouts))]   # sampling order
+    if not fans or min(fans) < 1:
+        raise ValueError(f"fanouts must be positive, got {list(fanouts)}")
+    caps = tree_caps(seeds.shape[0], fanouts)
+    if caps[-1] >= 2**31:
+        raise ValueError(f"a tree of {caps[-1]} nodes is past int32")
+    if positions is None:
+        positions = tree_positions(seeds.shape[0], fanouts, dev)
+    start, rest = kernel_key(key, dev)
+    part_ptrs = (ctypes.c_void_p * _MAX_PARTS)(
+        *(p.data_ptr() if isinstance(p, torch.Tensor) else None
+          for p in rest))
+    part_vals = (ctypes.c_uint32 * _MAX_PARTS)(
+        *(0 if isinstance(p, torch.Tensor) else p for p in rest))
+    seeds = seeds.contiguous()
+    isz, i32, u8 = indptr.element_size(), torch.int32, torch.uint8
+    ids = torch.empty(caps[-1], dtype=indptr.dtype, device=dev)
+    valid = torch.empty(caps[-1], dtype=u8, device=dev)
+    nlayers = len(fans)
+    masks, plan_list = [], []
+    pending = None    # (mask, counts, plan) of a layer whose plan is due
+    launch = _launcher()
+    for layer in range(nlayers + 1):
+        n = caps[layer] if layer < nlayers else 0
+        fan = fans[layer] if layer < nlayers else 0
+        mask = counts = plan = None
+        if n:   # a layer to sample
+            mask = torch.empty((n, fan), dtype=u8, device=dev)
+            masks.append(mask)
+            if plans and (slot_plans or layer < nlayers - 1):
+                # each thread block's valid rows, which the plan's scan
+                # reads (fewer thread blocks than rows)
+                counts = torch.empty(n, dtype=i32, device=dev)
+                plan = ScatterPlan(
+                    torch.empty(n * (fan + 1) + 1, dtype=i32, device=dev),
+                    torch.empty(n * fan, dtype=i32, device=dev),
+                    torch.empty(n * fan if slot_plans else n, dtype=i32,
+                                device=dev),
+                    torch.empty((0, 2), dtype=i32, device=dev),
+                    torch.empty(0, dtype=i32, device=dev),
+                    torch.empty(1, dtype=i32, device=dev))
+        if not n and pending is None:
+            break
+        p_mask, p_counts, p_plan = pending or (None, None, None)
+        p_n, p_fan = (0, 0) if p_mask is None else p_mask.shape
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = launch(
+                indptr.data_ptr(), indices.data_ptr(), indptr.numel(),
+                indices.numel(), isz,
+                seeds.data_ptr() if layer == 0 else None,
+                seeds.element_size(), ids.data_ptr(), valid.data_ptr(),
+                _ptr(mask), _ptr(counts), n, fan, layer, start, part_ptrs,
+                part_vals, len(rest), _ptr(p_mask), _ptr(p_counts),
+                *(_ptr(getattr(p_plan, k, None)) for k in
+                  ("offsets", "src", "cnt", "long_part")),
+                p_n, p_fan, int(slot_plans), stream)
+        if err != 0:
+            raise RuntimeError(f"tree_sample kernel launch failed: CUDA "
+                               f"error {err}")
+        tree_sample.launches += 1
+        # the launch's least bytes for a step's cost count: each row's
+        # indptr pair read, each slot's indices entry read and its id
+        # and mask written, the seeds read and written as the first
+        # ids, and a plan's arrays written
+        prof.note_kernel(0, n * 2 * isz + n * fan * (2 * isz + 1)
+                         + (n * (seeds.element_size() + isz)
+                            if layer == 0 else 0)
+                         + (0 if p_plan is None else p_plan.nbytes()))
+        if p_plan is not None:
+            plan_list.append(p_plan)
+        pending = None if plan is None else (mask, counts, plan)
+    blocks = [FanoutBlock(positions[layer], mask, caps[layer + 1])
+              for layer, mask in enumerate(masks)]
+    for blk, plan in zip(blocks, plan_list):
+        blk.plan = plan
+    return blocks[::-1], ids
+
+
+tree_sample.launches = 0
+
+
 def sample_fanout_tree(indptr: torch.Tensor, indices: torch.Tensor,
                        seeds: torch.Tensor, fanouts: Sequence[int],
-                       key: IntLike, plans: bool = False
+                       key: Key, plans: bool = False,
+                       slot_plans: bool = False,
+                       positions: Optional[Sequence[torch.Tensor]] = None
                        ) -> Tuple[List[FanoutBlock], torch.Tensor]:
-    """:func:`sample_fanout_tree_from_draws` with the draws of ``key``
-    (:func:`tree_draws`)."""
+    """The tree blocks and input ids of ``seeds`` under the draws of
+    ``key`` (:func:`draw_key`'s), plans attached as
+    :func:`sample_fanout_tree_from_draws` says: on a CUDA tensor the
+    kernel (:func:`tree_sample`), on a CPU tensor the plain path,
+    :func:`sample_fanout_tree_from_draws` of :func:`tree_draws`; any
+    other device raises. Both give the same blocks, ids and plans bit
+    for bit."""
+    if seeds.device.type == "cuda":
+        return tree_sample(indptr, indices, seeds, fanouts, key, plans,
+                           slot_plans, positions)
+    if seeds.device.type != "cpu":
+        raise ValueError(f"the tree sampler runs on cuda or cpu, not "
+                         f"{seeds.device}")
     counters = draw_counters(seeds.shape[0], fanouts, seeds.device)
     return sample_fanout_tree_from_draws(
         indptr, indices, seeds, fanouts, tree_draws(key, counters, fanouts),
-        plans=plans)
+        positions=positions, plans=plans, slot_plans=slot_plans)
 
 
 class TreeSampler:
     """The device sampler at one batch size and fanouts: the constant
-    positions and draw counters on ``device``, and :meth:`sample` for a
-    CSR, a step's seeds and a key. ``slot_plans`` (the model's) says
-    which plans the blocks carry."""
+    positions on ``device``, and :meth:`sample` for a CSR, a step's
+    seeds and a key. ``slot_plans`` (the model's) says which plans the
+    blocks carry."""
 
     def __init__(self, batch_size: int, fanouts: Sequence[int], device,
                  slot_plans: bool = False):
@@ -235,15 +448,13 @@ class TreeSampler:
         self.fanouts = tuple(int(f) for f in fanouts)
         self.caps = tree_caps(batch_size, self.fanouts)
         self.positions = tree_positions(batch_size, self.fanouts, device)
-        self.counters = draw_counters(batch_size, self.fanouts, device)
 
     def sample(self, indptr: torch.Tensor, indices: torch.Tensor,
-               seeds: torch.Tensor, key: IntLike
+               seeds: torch.Tensor, key: Key
                ) -> Tuple[List[FanoutBlock], torch.Tensor]:
         """The tree blocks (plans attached) and input ids of ``seeds``
-        over the CSR ``(indptr, indices)`` under the draws of ``key``."""
-        return sample_fanout_tree_from_draws(
-            indptr, indices, seeds, self.fanouts,
-            tree_draws(key, self.counters, self.fanouts),
-            positions=self.positions, plans=True,
-            slot_plans=self.slot_plans)
+        over the CSR ``(indptr, indices)`` under the draws of ``key``
+        (:func:`sample_fanout_tree`)."""
+        return sample_fanout_tree(
+            indptr, indices, seeds, self.fanouts, key, plans=True,
+            slot_plans=self.slot_plans, positions=self.positions)

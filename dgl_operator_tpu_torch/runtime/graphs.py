@@ -49,11 +49,12 @@ import torch
 
 from dgl_operator_tpu_torch.obs import prof
 from dgl_operator_tpu_torch.obs import trace
+from dgl_operator_tpu_torch.ops.device_sample import tree_sample
 from dgl_operator_tpu_torch.ops.fanout import fanout_agg
 from dgl_operator_tpu_torch.ops.gather import gather_rows
 from dgl_operator_tpu_torch.ops.scatter import scatter_add_rows
 
-KERNEL_WRAPPERS = (fanout_agg, gather_rows, scatter_add_rows)
+KERNEL_WRAPPERS = (fanout_agg, gather_rows, scatter_add_rows, tree_sample)
 
 
 def _counts() -> Dict[Callable, int]:

@@ -305,3 +305,94 @@ def test_tree_sampler_reuses_its_positions():
         assert torch.equal(g.nbr, w.nbr) and torch.equal(g.mask, w.mask)
     assert sampler.caps == ds.tree_caps(len(seeds), (3, 4))
     assert got_blocks[1].plan is not None
+
+
+def test_sampler_routes_by_device(monkeypatch):
+    """A CPU tensor takes the plain path (the kernel is never called and
+    counts nothing); the kernel itself refuses a CPU tensor; a tensor on
+    another device than cuda or cpu raises."""
+    csc = _graph().csc()
+    ip, ix = ds.device_csr(csc, "cpu")
+    seeds = torch.from_numpy(_seeds())
+    key = ds.draw_key(4, torch.tensor([6]))
+    counters = ds.draw_counters(len(seeds), (3, 4), "cpu")
+    want_blocks, want_ids = ds.sample_fanout_tree_from_draws(
+        ip, ix, seeds, (3, 4), ds.tree_draws(key, counters, (3, 4)),
+        plans=True, slot_plans=True)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel was called on a CPU tensor")
+
+    before = ds.tree_sample.launches
+    with monkeypatch.context() as m:
+        m.setattr(ds, "tree_sample", refuse)
+        sampler = ds.TreeSampler(len(seeds), (3, 4), "cpu", slot_plans=True)
+        got_blocks, got_ids = sampler.sample(ip, ix, seeds, key)
+    assert ds.tree_sample.launches == before
+    assert torch.equal(got_ids, want_ids)
+    for g, w in zip(got_blocks, want_blocks):
+        assert torch.equal(g.mask, w.mask) and g.plan is not None
+        for k in ScatterPlan.FIELDS:
+            assert torch.equal(getattr(g.plan, k), getattr(w.plan, k)), k
+    with pytest.raises(ValueError, match="runs on cuda"):
+        ds.tree_sample(ip, ix, seeds, (3, 4), key)
+    meta = torch.empty(len(seeds), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ds.sample_fanout_tree(ip.to("meta"), ix.to("meta"), meta, (3, 4),
+                              key)
+
+
+def _hash_kernel_parts(start, rest):
+    """What the kernel's prologue computes from ``kernel_key``'s parts:
+    each later part hashed in turn, a tensor read and folded."""
+    key = start
+    for part in rest:
+        if isinstance(part, torch.Tensor):
+            v = int(part.reshape(-1)[0])
+            part = (v & M32) ^ ((v >> 32) & M32)
+        key = ds.mix32(key ^ part)
+    return key
+
+
+@pytest.mark.parametrize("parts,tensors", [
+    ((5, 17), ()), ((5, 17), (1,)), ((5, 17), (0,)), ((5, 17), (0, 1)),
+    ((2**40 + 3, 9), (1,)), ((7, 123_456, 3), (1,)),
+    ((2**62 + 5, 1, 3, 9), (0, 2)), ((0,), (0,)), ((1, 2, 3, 4, 5), (1,))])
+def test_kernel_key_parts_give_draw_key_and_tree_draws(parts, tensors):
+    """``kernel_key``'s host hash and its later parts, hashed as the
+    kernel does, give ``draw_key``'s value, and the draws of the key
+    with tensor parts are the numpy copy's of the integers."""
+    key = ds.draw_key(*(torch.tensor([p]) if i in tensors else p
+                        for i, p in enumerate(parts)))
+    want = ds.draw_key(*parts)
+    assert isinstance(want, int)
+    assert isinstance(key, ds.DrawKey) == bool(tensors)
+    assert int(key.value() if tensors else key) == want
+    start, rest = ds.kernel_key(key, "cpu")
+    assert len(rest) == (len(parts) - min(tensors) if tensors else 0)
+    assert _hash_kernel_parts(start, rest) == want
+    counters = ds.draw_counters(16, (10, 25), "cpu")
+    for got, w in zip(ds.tree_draws(key, counters, (10, 25)),
+                      _draws_np(parts, 16, (10, 25))):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+def test_kernel_key_refuses_what_the_kernel_cannot_read():
+    """A tensor part is an int64 scalar on the sampler's device, at most
+    four parts follow the first tensor, and a finished key is
+    ``draw_key``'s (an int below 2^32, or a ``DrawKey``)."""
+    step = torch.tensor([3])
+    with pytest.raises(TypeError, match="int64 scalar"):
+        ds.kernel_key(ds.draw_key(1, torch.tensor([3], dtype=torch.int32)),
+                      "cpu")
+    with pytest.raises(TypeError, match="int64 scalar"):
+        ds.kernel_key(ds.draw_key(1, torch.tensor([3, 4])), "cpu")
+    with pytest.raises(ValueError, match="for a sampler on meta"):
+        ds.kernel_key(ds.draw_key(1, step), "meta")
+    with pytest.raises(ValueError, match="at most 4"):
+        ds.kernel_key(ds.draw_key(step, 1, 2, 3, 4), "cpu")
+    assert len(ds.kernel_key(ds.draw_key(step, 1, 2, 3), "cpu")[1]) == 4
+    with pytest.raises(ValueError, match="in \\[0, 2\\^32\\)"):
+        ds.kernel_key(2**32, "cpu")
+    with pytest.raises(TypeError, match="draw_key's"):
+        ds.kernel_key(step, "cpu")
